@@ -1,0 +1,111 @@
+"""Banded Smith-Waterman rescue: CUDA kernel wrapper + plain version.
+
+Port of cellranger_tpu/align/sw.py `banded_sw`.  Each read is aligned
+against a window that starts BAND//2 before its candidate diagonal, in a
+16-wide band, with match +1, mismatch -1, linear gap 2 and a floor at 0
+(constants.py:31-34).  Returns the best cell (score, end_i, end_d).
+
+`banded_sw` dispatches on the device of its inputs: CPU tensors go to
+`banded_sw_ref` (plain torch, one [B, 16] band row per read position);
+CUDA tensors go to the hand-written kernel in csrc/sw.cu, with no
+fallback.  `LAUNCHES` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cellranger_tpu.constants import (SW_GAP_EXTEND, SW_MATCH_SCORE,
+                                      SW_MISMATCH_SCORE)
+
+BAND = 16
+GAP = -SW_GAP_EXTEND  # positive penalty
+NEG = -(1 << 20)
+
+LAUNCHES = 0
+
+
+def banded_sw_ref(read_codes, read_mask, win_codes, win_mask):
+    """Plain torch version, same recurrence and masking order as the
+    kernel (see csrc/sw.cu).  Returns (score, end_i, end_d) int32 [B]."""
+    B, L = read_codes.shape
+    dev = read_codes.device
+    d_idx = torch.arange(BAND, dtype=torch.int32, device=dev)
+    gp_d = GAP * d_idx
+    h = torch.zeros((B, BAND), dtype=torch.int32, device=dev)
+    best = torch.zeros(B, dtype=torch.int32, device=dev)
+    bi = torch.zeros(B, dtype=torch.int32, device=dev)
+    bd = torch.zeros(B, dtype=torch.int32, device=dev)
+    neg_col = torch.full((B, 1), NEG, dtype=torch.int32, device=dev)
+    r_all = read_codes.to(torch.int32)
+    w_all = win_codes.to(torch.int32)
+    for i in range(L):
+        r = r_all[:, i:i + 1]
+        w = w_all[:, i:i + BAND]
+        active = read_mask[:, i:i + 1] & win_mask[:, i:i + BAND]
+        s = torch.where(w == r, SW_MATCH_SCORE, SW_MISMATCH_SCORE)
+        s = torch.where(active, s, NEG).to(torch.int32)
+        diag = h + s
+        vert = torch.cat([h[:, 1:], neg_col], dim=1) - GAP
+        pre = torch.clamp_min(torch.maximum(diag, vert), 0)
+        # max-plus prefix scan along the band: t[d] = max(pre[d],
+        # t[d-1] - GAP), as a cummax of pre + GAP*d
+        t = torch.cummax(pre + gp_d, dim=1).values - gp_d
+        h = torch.where(active, t, 0).to(torch.int32)
+        # smaller d wins ties within a row (argmax takes the first max)
+        row_best, row_d = torch.max(h, dim=1)
+        better = row_best > best
+        best = torch.where(better, row_best, best)
+        bi = torch.where(better, i, bi).to(torch.int32)
+        bd = torch.where(better, row_d.to(torch.int32), bd)
+    return best, bi, bd
+
+
+def _check(read_codes, read_mask, win_codes, win_mask):
+    ts = (read_codes, read_mask, win_codes, win_mask)
+    if any(t.dim() != 2 for t in ts):
+        raise ValueError("banded_sw takes 2-D [B, L] / [B, L+16] tensors")
+    B, L = read_codes.shape
+    W = win_codes.shape[1]
+    if W != L + BAND:
+        raise ValueError(f"window width {W} != read length {L} + {BAND}")
+    if tuple(read_mask.shape) != (B, L) or tuple(win_mask.shape) != (B, W) \
+            or win_codes.shape[0] != B:
+        raise ValueError("banded_sw: mismatched shapes "
+                         f"{[tuple(t.shape) for t in ts]}")
+    if read_codes.dtype != torch.uint8 or win_codes.dtype != torch.uint8:
+        raise TypeError("banded_sw: codes must be uint8")
+    if read_mask.dtype != torch.bool or win_mask.dtype != torch.bool:
+        raise TypeError("banded_sw: masks must be bool")
+    if len({t.device for t in ts}) != 1:
+        raise ValueError("banded_sw: inputs on different devices")
+
+
+def banded_sw(read_codes, read_mask, win_codes, win_mask):
+    """Batched banded SW: read_codes uint8 [B, L], read_mask bool [B, L],
+    win_codes uint8 [B, L+16], win_mask bool [B, L+16].  Returns
+    (score, end_i, end_d) int32 [B]."""
+    global LAUNCHES
+    _check(read_codes, read_mask, win_codes, win_mask)
+    dev = read_codes.device
+    if dev.type == "cpu":
+        return banded_sw_ref(read_codes, read_mask, win_codes, win_mask)
+    if dev.type != "cuda":
+        raise ValueError(f"banded_sw: unsupported device {dev}")
+    ts = (read_codes, read_mask, win_codes, win_mask)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("banded_sw: inputs must be contiguous")
+    from .. import kernels
+
+    B, L = read_codes.shape
+    outs = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
+    if B == 0:
+        return tuple(outs)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = kernels.library().crt_banded_sw(
+        *(t.data_ptr() for t in ts), B, L, *(o.data_ptr() for o in outs),
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"banded_sw kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return tuple(outs)

@@ -1,0 +1,81 @@
+"""Host barcode resolution: whitelist membership + posterior Hamming-1
+correction (barcode/src/corrector.rs:111-164, the `Posterior` strategy).
+
+Copied from cellranger_tpu/ops/barcode.py `host_resolve_barcodes` (numpy);
+the device correction of that module is not on the count-only path.
+"""
+
+from __future__ import annotations
+
+from cellranger_tpu.constants import (
+    BARCODE_CONFIDENCE_THRESHOLD,
+    BC_MAX_QV,
+    ILLUMINA_QUAL_OFFSET,
+)
+
+
+def host_resolve_barcodes(bc_packed, bc_qual, slot_valid, wl_sorted,
+                          wl_counts, length: int):
+    """HOST whitelist membership + posterior 1-Hamming correction — the
+    numpy twin of `correct_barcodes` (corrector.rs:111-164 Posterior).
+
+    Barcode resolution moved OFF the device in round 3: membership is one
+    vectorized searchsorted against the sorted whitelist (~1M reads/s on
+    one core), correction touches only the few % invalid reads, and doing
+    both before upload removes the barcode-qual plane (16B/read), the
+    whitelist HBM table, and the in-step correction capacity (plus its
+    overflow retry) from the hot path entirely.  Device batches then carry
+    a final `bc_idx` and the step does only alignment/annotation FLOPs.
+
+    Args: bc_packed uint32 [B]; bc_qual uint8 [B, length] phred+33;
+    slot_valid bool [B]; wl_sorted uint32 [W] ascending; wl_counts int [W]
+    observed-count prior (pass-1 histogram).
+    Returns (bc_idx int32 [B] — whitelist rank or -1, hit bool [B] —
+    exact member, corrected bool [B], corrected_bc uint32 [B]).
+    """
+    import numpy as np
+
+    bc_packed = np.asarray(bc_packed, np.uint32)
+    B = len(bc_packed)
+    W = len(wl_sorted)
+    idx = np.searchsorted(wl_sorted, bc_packed)
+    idxc = np.minimum(idx, W - 1)
+    hit = (wl_sorted[idxc] == bc_packed) & slot_valid
+    bc_idx = np.where(hit, idxc, -1).astype(np.int32)
+    corrected = np.zeros(B, bool)
+    corr_bc = bc_packed.copy()
+    inv = np.flatnonzero(~hit & slot_valid)
+    if len(inv):
+        pos = np.arange(length, dtype=np.uint32)
+        shifts = (2 * (length - 1 - pos)).astype(np.uint32)
+        d = np.arange(1, 4, dtype=np.uint32)
+        xor = (d[None, :] << shifts[:, None]).reshape(-1)       # [3L]
+        cand = bc_packed[inv, None] ^ xor[None, :]              # [I, 3L]
+        ci = np.searchsorted(wl_sorted, cand)
+        cic = np.minimum(ci, W - 1)
+        member = wl_sorted[cic] == cand
+        q = np.minimum(np.asarray(bc_qual)[inv], BC_MAX_QV).astype(np.float32)
+        prob = np.power(np.float32(10.0),
+                        -(q - ILLUMINA_QUAL_OFFSET) / np.float32(10.0))
+        prob3 = np.repeat(prob, 3, axis=1)                      # [I, 3L]
+        cnts = np.where(member, np.asarray(wl_counts, np.float32)[cic], 0.0)
+        like = np.where(member, prob3 * (cnts + np.float32(1.0)),
+                        np.float32(0.0))
+        total = like.sum(axis=1, dtype=np.float32)
+        max_like = like.max(axis=1, keepdims=True)
+        at_max = like >= max_like
+        # ties on likelihood resolve to the larger packed barcode
+        # (corrector.rs:144-148 max((likelihood, bc)))
+        best_cand = np.max(np.where(at_max, cand, np.uint32(0)), axis=1)
+        sel = at_max & (cand == best_cand[:, None])
+        best_col = np.argmax(sel, axis=1)
+        take = lambda a: a[np.arange(len(inv)), best_col]
+        best_like = take(like)
+        accepted = (total > 0) & (
+            best_like / np.maximum(total, np.float32(1e-30))
+            >= BARCODE_CONFIDENCE_THRESHOLD)
+        rows = inv[accepted]
+        corrected[rows] = True
+        corr_bc[rows] = best_cand[accepted]
+        bc_idx[rows] = take(cic)[accepted].astype(np.int32)
+    return bc_idx, hit, corrected, corr_bc

@@ -1,0 +1,150 @@
+"""Bucket-row hash table: ONE aligned row gather per query.
+
+Port of cellranger_tpu/ops/bucket_table.py.  Layout: R = 2^bits rows,
+each row = E entries stored columnar [key*E | val*E | (cnt*E) | pad],
+padded to a power-of-two u32 width.  bucket(key) = (key * 0x9E3779B9) >>
+(32-bits), with the product wrapping mod 2^32.  Entries land in their
+bucket row in input order; an overflowing bucket spills to the NEXT row
+when `probe_rows`=2, or is dropped (counted).  The all-ones key is
+reserved as EMPTY.
+
+The host build (`_place`, `build_rows`) is the numpy code of the JAX
+package, copied; the query half (`_fetch`, `lookup`, `membership`) is
+torch over the rows kept as an int32 bit-view on the device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .tensor_ops import U32_MASK, U32_MAX, u32_table, widen
+
+EMPTY = np.uint32(0xFFFFFFFF)
+MIX = np.uint32(0x9E3779B9)
+
+
+def _pad_width(e: int, f: int) -> int:
+    w = 1
+    while w < e * f:
+        w *= 2
+    return w
+
+
+@dataclass(frozen=True)
+class BucketTable:
+    rows: torch.Tensor  # int32 bit-view of uint32 [R(+1), W]
+    bits: int = 16
+    entries: int = 8
+    fields: int = 2
+    probe_rows: int = 1
+
+    @property
+    def n_rows(self) -> int:
+        return 1 << self.bits
+
+    # ---------- build (host) ----------
+    @staticmethod
+    def _place(keys: np.ndarray, vals: np.ndarray, bits: int, entries: int,
+               fields: int, probe_rows: int, cnts: np.ndarray | None = None):
+        """Vectorized placement; returns (rows, n_dropped)."""
+        R = 1 << bits
+        E = entries
+        W = _pad_width(E, fields)
+        h = ((keys * MIX) >> np.uint32(32 - bits)).astype(np.int64)
+        order = np.argsort(h, kind="stable")
+        hs, ks, vs = h[order], keys[order], vals[order]
+        cs = cnts[order] if cnts is not None else None
+        n = len(ks)
+        newb = np.concatenate([[True], hs[1:] != hs[:-1]]) if n else np.zeros(0, bool)
+        start = np.maximum.accumulate(np.where(newb, np.arange(n), 0)) if n else hs
+        rank = np.arange(n) - start
+
+        row = hs.copy()
+        slot = rank.copy()
+        if probe_rows == 2:
+            # overflow entries spill to the next row, stacked after that
+            # row's native entries (single-step spill; deeper overflow drops)
+            over = rank >= E
+            if over.any():
+                nxt = hs + 1  # no wrap: row R is the dedicated spill pad row
+                native = np.bincount(hs[~over], minlength=R + 1)[: R + 1]
+                native = np.minimum(native, E)
+                # per-next-row running index among spilled entries
+                o_idx = np.flatnonzero(over)
+                o_next = nxt[o_idx]
+                o_order = np.argsort(o_next, kind="stable")
+                o_sorted = o_next[o_order]
+                nb = np.concatenate([[True], o_sorted[1:] != o_sorted[:-1]])
+                st = np.maximum.accumulate(np.where(nb, np.arange(len(o_sorted)), 0))
+                spill_rank = np.arange(len(o_sorted)) - st
+                row_o = o_sorted
+                slot_o = native[o_sorted] + spill_rank
+                row[o_idx[o_order]] = row_o
+                slot[o_idx[o_order]] = slot_o
+        keep = slot < E
+        n_dropped = int((~keep).sum())
+        rows = np.zeros((R + 1, W), np.uint32)
+        rows[:, :E] = EMPTY
+        r_k, s_k = row[keep], slot[keep]
+        rows[r_k, s_k] = ks[keep]
+        rows[r_k, E + s_k] = vs[keep]
+        if fields >= 3:
+            if cs is not None:
+                rows[r_k, 2 * E + s_k] = cs[keep]
+        return rows, n_dropped
+
+    @staticmethod
+    def build_rows(keys: np.ndarray, vals: np.ndarray, entries: int = 8,
+                   fields: int = 2, load: float = 0.5, probe_rows: int = 1,
+                   min_bits: int = 8):
+        """Host placement only: -> (rows numpy uint32, bits)."""
+        keys = np.asarray(keys, np.uint32)
+        vals = np.asarray(vals, np.uint32)
+        keep = keys != EMPTY
+        keys, vals = keys[keep], vals[keep]
+        n = max(len(keys), 1)
+        bits = max(min_bits, int(np.ceil(np.log2(n / (entries * load)))))
+        rows, _ = BucketTable._place(keys, vals, bits, entries, fields,
+                                     probe_rows)
+        return rows, bits
+
+    @staticmethod
+    def from_rows(rows: np.ndarray, bits: int, device, entries: int = 8,
+                  fields: int = 2, probe_rows: int = 1) -> "BucketTable":
+        return BucketTable(rows=u32_table(rows, device), bits=bits,
+                           entries=entries, fields=fields,
+                           probe_rows=probe_rows)
+
+    # ---------- query (device) ----------
+    def _fetch(self, q: torch.Tensor):
+        """q u32 values (int64) [...] -> (keys, vals, cnts) each
+        [..., P*E] as u32 values."""
+        E = self.entries
+        h = ((q * int(MIX)) & U32_MASK) >> (32 - self.bits)
+        rows = widen(self.rows[h])                # [..., W] one gather
+        keys, vals = rows[..., :E], rows[..., E:2 * E]
+        cnts = rows[..., 2 * E:3 * E] if self.fields >= 3 else None
+        if self.probe_rows == 2:
+            rows2 = widen(self.rows[h + 1])       # second gather (spill row)
+            keys = torch.cat([keys, rows2[..., :E]], -1)
+            vals = torch.cat([vals, rows2[..., E:2 * E]], -1)
+            if cnts is not None:
+                cnts = torch.cat([cnts, rows2[..., 2 * E:3 * E]], -1)
+        return keys, vals, cnts
+
+    def lookup(self, q: torch.Tensor):
+        """-> (hit bool [..., P*E], vals u32 [..., P*E])."""
+        keys, vals, _ = self._fetch(q)
+        hit = (keys == q[..., None]) & (q != U32_MAX)[..., None]
+        return hit, vals
+
+    def membership(self, q: torch.Tensor):
+        """Unique-key tables: (is_member bool, val int32 -- -1 on miss)."""
+        hit, vals = self.lookup(q)
+        any_hit = hit.any(-1)
+        vals_i32 = vals.to(torch.int32)           # u32 -> int32 bits
+        val = torch.where(hit, vals_i32, -1).amax(-1)
+        return any_hit, val

@@ -1,0 +1,259 @@
+"""Deterministic synthetic run fixtures — the cellranger_tiny_fastq /
+cellranger_tiny_ref analog (third-party/cellranger_tiny_ref.BUILD).
+
+The reference ships a tiny but complete dataset that `cellranger testrun`
+drives end-to-end (cr_wrap/src/bin/cellranger.rs:579-639); our equivalent
+is generated: a seeded RNG builds a spliced 2-gene reference package,
+whitelist, and gzipped FASTQs with known per-cell ground truth (cells x
+molecules x duplicate reads, barcode errors, N-base junk reads).  The same
+seed always produces byte-identical inputs, so golden snapshots of the
+outputs gate regressions (tests/test_conformance.py).
+
+Copied from cellranger_tpu/testing/fixtures.py (`build_synthetic_run`) and
+bench.py (the 1M-read e2e generator); both build their reference through
+the port's ReferencePackage, so a machine without JAX makes its own data.
+"""
+
+from __future__ import annotations
+
+import gzip
+import os
+
+import numpy as np
+
+READ_LEN = 91
+
+EXONS = {
+    "G1": [(10_000, 12_000), (15_000, 17_000)],   # spliced, + strand
+    "G2": [(60_000, 64_000)],                      # single exon, - strand
+}
+STRANDS = {"G1": "+", "G2": "-"}
+
+
+def build_synthetic_run(tmp: str, seed: int = 11, genome_len: int = 120_000,
+                        n_wl: int = 2000, n_cells: int = 40,
+                        mols_per_cell: int = 25, dup_reads: int = 2,
+                        read_len: int = READ_LEN) -> dict:
+    """Build reference package + whitelist + FASTQs under `tmp`.
+
+    Returns dict(ref, wl, fq1, fq2, truth [2 x n_cells molecule counts],
+    cells [whitelist indices], wl_seqs, n_reads).
+    """
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    genome_codes = rng.integers(0, 4, genome_len).astype(np.uint8)
+    genome = bases[genome_codes].tobytes().decode()
+
+    os.makedirs(tmp, exist_ok=True)
+    fasta = os.path.join(tmp, "genome.fa")
+    with open(fasta, "w") as f:
+        f.write(">chr1\n")
+        for i in range(0, genome_len, 80):
+            f.write(genome[i:i + 80] + "\n")
+    gtf = os.path.join(tmp, "genes.gtf")
+    with open(gtf, "w") as f:
+        for gname, exs in EXONS.items():
+            s = STRANDS[gname]
+            lo, hi = exs[0][0] + 1, exs[-1][1]
+            attr = (f'gene_id "{gname}"; gene_name "{gname}"; '
+                    f'transcript_id "T_{gname}";')
+            f.write(f"chr1\tsyn\tgene\t{lo}\t{hi}\t.\t{s}\t.\t{attr}\n")
+            f.write(f"chr1\tsyn\ttranscript\t{lo}\t{hi}\t.\t{s}\t.\t{attr}\n")
+            for (a, b) in exs:
+                f.write(f"chr1\tsyn\texon\t{a + 1}\t{b}\t.\t{s}\t.\t{attr}\n")
+
+    from ..io.reference import ReferencePackage
+    ref_dir = os.path.join(tmp, "ref")
+    ReferencePackage.build(fasta, gtf, ref_dir, genome_name="synth")
+
+    wl_seqs = sorted({"".join(rng.choice(list("ACGT"), 16))
+                      for _ in range(n_wl + 200)})[:n_wl]
+    wl_path = os.path.join(tmp, "whitelist.txt")
+    with open(wl_path, "w") as f:
+        f.write("\n".join(wl_seqs) + "\n")
+
+    cells = rng.choice(n_wl, n_cells, replace=False)
+    r1s, r2s = [], []
+    truth = np.zeros((2, n_cells), np.int64)  # gene x cell molecules
+
+    def tx_seq(gname):
+        s = "".join(genome[a:b] for (a, b) in EXONS[gname])
+        if STRANDS[gname] == "-":
+            comp = str.maketrans("ACGT", "TGCA")
+            s = s.translate(comp)[::-1]
+        return s
+
+    txs = {g: tx_seq(g) for g in EXONS}
+    seen_umi = set()
+    for ci, c in enumerate(cells):
+        bc = wl_seqs[c]
+        for m in range(mols_per_cell):
+            gname = "G1" if (ci + m) % 2 == 0 else "G2"
+            gi_ = 0 if gname == "G1" else 1
+            while True:
+                umi = "".join(rng.choice(list("ACGT"), 12))
+                if (c, gi_, umi) not in seen_umi:
+                    seen_umi.add((c, gi_, umi))
+                    break
+            t = txs[gname]
+            # 3' assay: cDNA read sense = transcript sense for SC3Pv3 R2
+            start = int(rng.integers(0, len(t) - read_len))
+            cdna = t[start:start + read_len]
+            truth[gi_, ci] += 1
+            for d in range(dup_reads):
+                # sprinkle: a barcode error on some duplicate reads
+                bc_obs = bc
+                if d == 1 and m % 5 == 0:
+                    p = int(rng.integers(16))
+                    alt = "ACGT"[(("ACGT".index(bc[p])) + 1) % 4]
+                    bc_obs = bc[:p] + alt + bc[p + 1:]
+                r1s.append(bc_obs + umi)
+                r2s.append(cdna)
+    # junk reads: N bases, garbage barcodes
+    for _ in range(50):
+        r1s.append("N" * 16 + "A" * 12)
+        r2s.append("".join(rng.choice(list("ACGT"), read_len)))
+
+    order = rng.permutation(len(r1s))
+    fq1 = os.path.join(tmp, "sample_S1_L001_R1_001.fastq.gz")
+    fq2 = os.path.join(tmp, "sample_S1_L001_R2_001.fastq.gz")
+    # fixed mtime so the gzip payload is byte-stable across rebuilds
+    with open(fq1, "wb") as h1, gzip.GzipFile(fileobj=h1, mode="wb",
+                                              mtime=0) as f1, \
+            open(fq2, "wb") as h2, gzip.GzipFile(fileobj=h2, mode="wb",
+                                                 mtime=0) as f2:
+        for i, oi in enumerate(order):
+            f1.write(f"@read{i}\n{r1s[oi]}\n+\n{'I' * len(r1s[oi])}\n"
+                     .encode())
+            f2.write(f"@read{i}\n{r2s[oi]}\n+\n{'I' * len(r2s[oi])}\n"
+                     .encode())
+
+    return dict(ref=ref_dir, wl=wl_path, fq1=fq1, fq2=fq2, truth=truth,
+                cells=cells, wl_seqs=wl_seqs, n_reads=len(r1s))
+
+
+# ---------------------------------------------------------------------------
+# 1M-read e2e fixture (bench.py `_gen_e2e_fixture`)
+# ---------------------------------------------------------------------------
+
+E2E_GENOME_LEN = 8_000_000
+E2E_GENES = 800
+E2E_CELLS = 2000
+E2E_DUP = 2
+
+
+def build_e2e_run(tmp: str, n_reads: int = 1_000_000) -> dict:
+    """Vectorized synthetic run: n_reads reads = molecules emitted
+    E2E_DUP times each, drawn from '+'-strand exons, 2% barcode errors;
+    seed 11, 8 Mb genome, 800 genes, 2000 cells, 20k whitelist.
+    Uncompressed FASTQ so generation stays cheap.  Draw for draw the
+    generator of bench.py `_gen_e2e_fixture`."""
+    from cellranger_tpu.io.gtf import write_fasta
+    from ..io.reference import ReferencePackage
+
+    os.makedirs(tmp, exist_ok=True)
+    rng = np.random.default_rng(11)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    genome_codes = rng.integers(0, 4, E2E_GENOME_LEN).astype(np.uint8)
+    garr = bases[genome_codes]
+    write_fasta(os.path.join(tmp, "g.fa"), {"chr1": garr.tobytes()})
+    spacing = E2E_GENOME_LEN // E2E_GENES
+    with open(os.path.join(tmp, "g.gtf"), "w") as f:
+        for g in range(E2E_GENES):
+            st = g * spacing + 1000
+            s = "+" if g % 2 == 0 else "-"
+            f.write(f'chr1\tx\texon\t{st + 1}\t{st + 600}\t.\t{s}\t.\t'
+                    f'gene_id "G{g}"; transcript_id "T{g}"; '
+                    f'gene_name "G{g}";\n')
+            f.write(f'chr1\tx\texon\t{st + 1201}\t{st + 2400}\t.\t{s}\t.\t'
+                    f'gene_id "G{g}"; transcript_id "T{g}"; '
+                    f'gene_name "G{g}";\n')
+    ref_dir = os.path.join(tmp, "ref")
+    ReferencePackage.build(os.path.join(tmp, "g.fa"),
+                           os.path.join(tmp, "g.gtf"), ref_dir)
+    wl_rng = np.random.default_rng(4)
+    wl = sorted({"".join(wl_rng.choice(list("ACGT"), 16))
+                 for _ in range(24_000)})[:20_000]
+    wl_path = os.path.join(tmp, "wl.txt")
+    with open(wl_path, "w") as f:
+        f.writelines(w + "\n" for w in wl)
+    wl_arr = np.asarray([list(w.encode()) for w in wl], np.uint8)
+
+    n_mol = n_reads // E2E_DUP
+    cell_idx = rng.integers(0, E2E_CELLS, n_mol)
+    bc = wl_arr[cell_idx]
+    umi = bases[rng.integers(0, 4, (n_mol, 12))]
+    gene = rng.integers(0, E2E_GENES // 2, n_mol) * 2   # '+' strand only
+    off = rng.integers(0, 600 - READ_LEN - 8, n_mol)
+    pos = gene * spacing + 1000 + off
+    cdna = garr[pos[:, None] + np.arange(READ_LEN)[None, :]]
+    # duplicate each molecule E2E_DUP times, shuffle read order
+    order = rng.permutation(n_mol * E2E_DUP)
+    rep = lambda a: np.repeat(a, E2E_DUP, axis=0)[order]
+    bc, umi, cdna = rep(bc), rep(umi), rep(cdna)
+    # 2% of reads carry one barcode base error (exercises correction)
+    n_err = len(bc) // 50
+    bc[np.arange(n_err), rng.integers(0, 16, n_err)] = bases[
+        rng.integers(0, 4, n_err)]
+
+    r1p = os.path.join(tmp, "e2e_S1_L001_R1_001.fastq")
+    r2p = os.path.join(tmp, "e2e_S1_L001_R2_001.fastq")
+
+    def block(seqmat):
+        n_, w_ = seqmat.shape
+        name = np.frombuffer(b"@readxxxxxxxxxx\n", np.uint8)
+        rows = np.empty((n_, len(name) + 2 * w_ + 4), np.uint8)
+        rows[:, :len(name)] = name
+        rows[:, len(name):len(name) + w_] = seqmat
+        o = len(name) + w_
+        rows[:, o] = ord("\n")
+        rows[:, o + 1] = ord("+")
+        rows[:, o + 2] = ord("\n")
+        rows[:, o + 3:o + 3 + w_] = ord("F")
+        rows[:, -1] = ord("\n")
+        return rows.tobytes()
+
+    with open(r1p, "wb") as f1, open(r2p, "wb") as f2:
+        C = 1 << 19
+        for i in range(0, len(bc), C):
+            f1.write(block(np.concatenate(
+                [bc[i:i + C], umi[i:i + C]], axis=1)))
+            f2.write(block(cdna[i:i + C]))
+    return dict(ref=ref_dir, wl=wl_path, fq1=r1p, fq2=r2p,
+                n_reads=len(bc), n_molecules=n_mol)
+
+
+def sw_inputs(seed: int, B: int, L: int):
+    """Random reads against windows that hold the read (sometimes with a
+    planted 1-3 bp indel) at a random band offset, random masked cells on
+    both sides, and a few all-masked rows."""
+    from ..align.sw import BAND
+
+    rng = np.random.default_rng(seed)
+    W = L + BAND
+    read = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    win = rng.integers(0, 4, (B, W)).astype(np.uint8)
+    for b in range(B):
+        kind = b % 4
+        off = int(rng.integers(0, BAND - 4))
+        if kind == 0:                      # exact placement
+            win[b, off:off + L] = read[b]
+        elif kind == 1:                    # deletion from the read
+            cut, n = int(rng.integers(5, L - 5)), int(rng.integers(1, 4))
+            src = np.concatenate([read[b, :cut],
+                                  rng.integers(0, 4, n).astype(np.uint8),
+                                  read[b, cut:]])
+            win[b, off:off + min(len(src), W - off)] = src[:W - off]
+        elif kind == 2:                    # insertion in the read
+            cut, n = int(rng.integers(5, L - 5)), int(rng.integers(1, 4))
+            src = np.concatenate([read[b, :cut], read[b, cut + n:]])
+            win[b, off:off + len(src)] = src
+    rmask = np.ones((B, L), bool)
+    wmask = np.ones((B, W), bool)
+    noisy = np.arange(B) % 5 == 4           # random masked cells
+    rmask[noisy] = rng.random((noisy.sum(), L)) > 0.1
+    wmask[noisy] = rng.random((noisy.sum(), W)) > 0.1
+    rmask[3 % B] = False                    # all-masked read
+    wmask[7 % B] = False                    # all-masked window
+    rmask[11 % B, L // 2:] = False          # masked tail
+    return read, rmask, win, wmask

@@ -1,0 +1,159 @@
+"""Port parity for the count-only slice of cellranger_tpu_torch.
+
+  * the accumulate-mode device step against the JAX package's
+    `_make_step(..., accumulate=True)` on the `__graft_entry__` synthetic
+    reference: the accumulators after two batches are equal;
+  * `run_count` of both packages on the same FASTQs (the tiny synthetic
+    run, and the GEX library of the rich run with multimappers, a novel
+    junction, TSO/polyA reads and UMI errors): metrics (except
+    wall_time_s), raw and filtered MEX and h5, molecule_info.h5 and
+    filtered_barcodes.csv are equal, via cellranger_tpu.testing.correctness;
+  * what the slice does not run raises NotImplementedError.
+"""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import __graft_entry__ as graft
+from cellranger_tpu.io.chemistry import get_chemistry
+from cellranger_tpu.pipeline import count as jax_count
+from cellranger_tpu.testing import correctness as cc
+from cellranger_tpu.testing.fixtures import build_rich_run
+from cellranger_tpu_torch.align.aligner import DeviceIndex
+from cellranger_tpu_torch.align.annotate import AnnotationIndex
+from cellranger_tpu_torch.pipeline import count as tcount
+from cellranger_tpu_torch.testing.fixtures import build_synthetic_run
+
+
+def test_accumulate_step_matches_jax():
+    jstep, wl, genome, rng = graft._synthetic_setup()
+    didx, ann = jstep.bound_args
+    chem = get_chemistry("SC3Pv3")
+    jacc_step = jax_count._make_step(didx, ann, chem, 91, accumulate=True)
+    tstep = tcount.make_count_step(DeviceIndex.from_jax(didx, "cpu"),
+                                   AnnotationIndex.from_jax(ann, "cpu"),
+                                   chem, 91)
+    B = 256
+    jacc = jacc_step.init_acc(4 * B, 4 * B)
+    tacc = tstep.init_acc(4 * B, 4 * B)
+    for i in range(2):
+        buf, _host = graft._synthetic_batch(wl, genome, rng, B)
+        plane = np.asarray(buf)
+        assert plane.dtype == np.uint32
+        jacc = jacc_step(jnp.asarray(plane), jacc, lib_tag=i << 24)
+        tstep(tcount.upload_plane(plane, "cpu"), tacc, lib_tag=i << 24)
+    n = int(jacc["mol_n"])
+    assert int(tacc["mol_n"]) == n > 0
+    np.testing.assert_array_equal(tacc["mol"][:n].numpy(),
+                                  np.asarray(jacc["mol"])[:n].astype(np.int64))
+    nsj = int(jacc["sj_n"])
+    assert int(tacc["sj_n"]) == nsj
+    np.testing.assert_array_equal(tacc["sj"][:nsj].numpy(),
+                                  np.asarray(jacc["sj"])[:nsj])
+    for k in ("sjh", "mvec"):
+        np.testing.assert_array_equal(tacc[k].numpy(), np.asarray(jacc[k]))
+
+
+def test_pack_step_input_matches_jax():
+    _step, wl, genome, rng = graft._synthetic_setup()
+    buf, host = graft._synthetic_batch(wl, genome, rng, 64)
+    # same shim the graft entry builds, through the port's packer
+    from types import SimpleNamespace
+    plane = np.asarray(buf)
+    rw = (91 + 15) // 16
+    codes = torch.from_numpy(plane.view(np.int32)).to(torch.int64) \
+        & 0xFFFFFFFF
+    rna, nmask = tcount._unpack_codes(codes, 3, 91)
+    shim = SimpleNamespace(batch_size=64, umi_packed=host["umi"],
+                           slot_valid=np.ones(64, bool),
+                           umi_valid=np.ones(64, bool), rna=rna.numpy(),
+                           rna_nmask=nmask.numpy())
+    np.testing.assert_array_equal(
+        tcount.pack_step_input(91, shim, host["bc_idx"]), plane)
+    assert plane.shape[1] == tcount.packed_width(91) == 3 + rw + 3
+
+
+def _compare_runs(t_out, j_out, t_sum, j_sum):
+    diffs = cc.check_metrics(t_sum, j_sum)
+    assert not diffs, diffs
+    for sub in ("raw_feature_bc_matrix", "filtered_feature_bc_matrix"):
+        for f in ("matrix.mtx.gz", "barcodes.tsv.gz", "features.tsv.gz"):
+            d = cc.check_mtx(os.path.join(t_out, sub, f),
+                             os.path.join(j_out, sub, f))
+            assert not d, (sub, f, d)
+        d = cc.check_h5(os.path.join(t_out, sub + ".h5"),
+                        os.path.join(j_out, sub + ".h5"))
+        assert not d, (sub, d)
+    d = cc.check_molecule_info(os.path.join(t_out, "molecule_info.h5"),
+                               os.path.join(j_out, "molecule_info.h5"))
+    assert not d, d
+    for f in ("filtered_barcodes.csv", "per_barcode_metrics.csv"):
+        with open(os.path.join(t_out, f), "rb") as a, \
+                open(os.path.join(j_out, f), "rb") as b:
+            assert a.read() == b.read(), f
+    tj = os.path.join(t_out, "junctions.tsv")
+    jj = os.path.join(j_out, "junctions.tsv")
+    assert os.path.exists(tj) == os.path.exists(jj)
+    if os.path.exists(jj):
+        with open(tj) as a, open(jj) as b:
+            assert a.read() == b.read()
+
+
+def _run_both(tmp_path, fq1, fq2, ref, wl, batch_size):
+    kw = dict(fastq_pairs=[(fq1, fq2)], reference_path=ref,
+              whitelist_path=wl, chemistry="SC3Pv3", read_len=91,
+              batch_size=batch_size, secondary_analysis=False)
+    t_out, j_out = str(tmp_path / "torch"), str(tmp_path / "jax")
+    t_sum = tcount.run_count(tcount.CountConfig(**kw), t_out, device="cpu")
+    j_sum = jax_count.run_count(jax_count.CountConfig(**kw), j_out)
+    _compare_runs(t_out, j_out, t_sum, j_sum)
+    return t_sum
+
+
+def test_run_count_tiny_matches_jax(tmp_path):
+    fx = build_synthetic_run(str(tmp_path / "fx"))
+    s = _run_both(tmp_path, fx["fq1"], fx["fq2"], fx["ref"], fx["wl"], 256)
+    assert s["total_reads"] == fx["n_reads"]
+    assert s["total_molecules"] == int(fx["truth"].sum())
+
+
+def test_run_count_rich_gex_matches_jax(tmp_path):
+    fx = build_rich_run(str(tmp_path / "fx"), n_cells=40)
+    s = _run_both(tmp_path, fx["fq1"], fx["fq2"], fx["ref"], fx["wl"], 512)
+    assert s["total_reads"] == fx["n_gex_reads"]
+    assert s["mapped_frac"] > 0.9 and s["tso_reads"] > 0
+    assert s["polya_trimmed_reads"] > 0
+    assert os.path.exists(str(tmp_path / "torch" / "junctions.tsv"))
+
+
+def test_run_count_resumes_from_checkpoint(tmp_path):
+    fx = build_synthetic_run(str(tmp_path / "fx"), n_cells=10)
+    cfg = tcount.CountConfig(fastq_pairs=[(fx["fq1"], fx["fq2"])],
+                             reference_path=fx["ref"],
+                             whitelist_path=fx["wl"], batch_size=256,
+                             secondary_analysis=False)
+    out = str(tmp_path / "out")
+    first = tcount.run_count(cfg, out, device="cpu")
+    again = tcount.run_count(cfg, out, device="cpu")
+    assert not cc.check_metrics(again, first)
+    with open(os.path.join(out, "_perf.json")) as f:
+        assert "resume_checkpoint" in f.read()
+
+
+@pytest.mark.parametrize("change", [
+    dict(write_bam=True), dict(secondary_analysis=True),
+    dict(probe_set_csv="probes.csv"), dict(feature_ref_csv="f.csv"),
+    dict(chemistry="SC5P-PE"), dict(chemistry="auto"),
+    dict(shard_index=True),
+    dict(libraries=[tcount.LibraryDef([]), tcount.LibraryDef([])]),
+])
+def test_unsupported_configs_raise(change, tmp_path):
+    base = tcount.CountConfig(fastq_pairs=[], secondary_analysis=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcount.run_count(dataclasses.replace(base, **change),
+                         str(tmp_path / "o"), device="cpu")

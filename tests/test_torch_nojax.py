@@ -1,0 +1,62 @@
+"""The port runs without JAX: in a subprocess whose import system refuses
+jax, jaxlib and h5py (the machine with the card has no h5py), import
+cellranger_tpu_torch, its count pipeline, its CLI and chip_smoke, then
+build the synthetic run and count it on the CPU, and run chip_smoke's
+parity phase with the CPU on both sides."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import os, sys
+
+    BLOCKED = ("jax", "jaxlib", "h5py")
+
+    class Refuse:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"{name} is blocked in this test")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+
+    import cellranger_tpu_torch
+    import cellranger_tpu_torch.pipeline.count as count
+    import cellranger_tpu_torch.cli
+    import chip_smoke
+    from cellranger_tpu_torch.testing.fixtures import build_synthetic_run
+
+    tmp = sys.argv[1]
+    fx = build_synthetic_run(os.path.join(tmp, "fx"), n_cells=12)
+    cfg = count.CountConfig(
+        fastq_pairs=[(fx["fq1"], fx["fq2"])], reference_path=fx["ref"],
+        whitelist_path=fx["wl"], batch_size=256, secondary_analysis=False)
+    out = os.path.join(tmp, "out")
+    s = count.run_count(cfg, out, device="cpu")
+    assert s["total_reads"] == fx["n_reads"], s["total_reads"]
+    assert s["total_molecules"] == int(fx["truth"].sum())
+    for f in count.H5_OUTPUTS:
+        assert not os.path.exists(os.path.join(out, f)), f
+    assert os.path.exists(os.path.join(out, "filtered_feature_bc_matrix",
+                                       "matrix.mtx.gz"))
+    # chip_smoke's cpu/cpu parity phase runs here too (the card has no h5py)
+    chip_smoke.tiny_parity(os.path.join(tmp, "smoke"), devices=("cpu", "cpu"))
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("NOJAX_OK")
+""")
+
+
+def test_port_runs_without_jax(tmp_path):
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "NOJAX_OK" in res.stdout
