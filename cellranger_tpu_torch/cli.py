@@ -1,7 +1,8 @@
 """cellranger-tpu-torch CLI: the `count` subcommand of the port.
 
     python -m cellranger_tpu_torch count --id S --fastqs DIR \
-        --reference REF --whitelist WL --chemistry SC3Pv3 [--device cuda]
+        --reference REF --whitelist WL --chemistry SC3Pv3 [--bam] \
+        [--device cuda]
 
 Mirrors `cellranger_tpu count` for the slice the port runs: the
 chemistry must be named (no auto-detection), secondary analysis is off,
@@ -34,6 +35,7 @@ def _cmd_count(args):
         recovered_cells=args.expect_cells,
         force_cells=args.force_cells,
         sample_id=args.id,
+        write_bam=args.bam,
         secondary_analysis=False,
     )
     print("secondary analysis: off (not in this port yet)")
@@ -63,6 +65,7 @@ def main(argv=None):
     c.add_argument("--force-cells", type=int, dest="force_cells")
     c.add_argument("--read-len", type=int, default=91, dest="read_len")
     c.add_argument("--batch-size", type=int, default=8192, dest="batch_size")
+    c.add_argument("--bam", action="store_true", help="write possorted BAM")
     c.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
     c.add_argument("--autoretry", type=int, default=0,

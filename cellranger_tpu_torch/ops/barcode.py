@@ -1,17 +1,73 @@
-"""Host barcode resolution: whitelist membership + posterior Hamming-1
+"""Barcode resolution: whitelist membership + posterior Hamming-1
 correction (barcode/src/corrector.rs:111-164, the `Posterior` strategy).
 
-Copied from cellranger_tpu/ops/barcode.py `host_resolve_barcodes` (numpy);
-the device correction of that module is not on the count-only path.
+Port of cellranger_tpu/ops/barcode.py: `host_resolve_barcodes` (numpy,
+copied) resolves cell barcodes before upload; `correct_barcodes` (torch)
+corrects feature barcodes on the device against a BucketTable whose count
+column holds the prior (one row gather per candidate, `membership3`).
 """
 
 from __future__ import annotations
+
+import torch
 
 from cellranger_tpu.constants import (
     BARCODE_CONFIDENCE_THRESHOLD,
     BC_MAX_QV,
     ILLUMINA_QUAL_OFFSET,
 )
+from .bucket_table import BucketTable
+
+
+def qual_error_prob(qual: torch.Tensor) -> torch.Tensor:
+    """Phred ASCII qual -> float32 error probability, capped at QV 66
+    (corrector.rs:8,127,169-173)."""
+    q = torch.clamp_max(qual.to(torch.int64), BC_MAX_QV).to(torch.float32)
+    return torch.pow(torch.full_like(q, 10.0),
+                     -(q - ILLUMINA_QUAL_OFFSET) / 10.0)
+
+
+def correct_barcodes(packed: torch.Tensor, quals: torch.Tensor,
+                     wl: BucketTable, length: int):
+    """Posterior 1-Hamming correction of a batch of barcodes.
+
+    packed: u32 values (int64) [B]; quals: uint8 [B, length] phred+33;
+    wl: table with its count column filled (`with_counts`).  Returns
+    (corrected u32 values [B], corrected idx [B] (-1 unaccepted), accepted
+    bool [B]); unaccepted rows keep the input barcode.  Candidates are
+    bc ^ (d << 2*(length-1-pos)) for d in 1..3, scored P(err|qual) *
+    (count + 1) over members; accepted when best / total >= 0.975; ties
+    on likelihood go to the larger packed barcode (corrector.rs:144-148
+    max((likelihood, bc)))."""
+    B = packed.shape[0]
+    dev = packed.device
+    shifts = 2 * (length - 1 - torch.arange(length, device=dev))
+    d = torch.arange(1, 4, device=dev)
+    xor = d[None, :] << shifts[:, None]                   # [L, 3]
+    cands = packed[:, None, None] ^ xor[None]             # [B, L, 3]
+    is_member, idx, counts = wl.membership3(cands)
+    prob_edit = qual_error_prob(quals)                    # [B, L]
+    like = torch.where(is_member,
+                       prob_edit[:, :, None] * (counts.to(torch.float32)
+                                                + 1.0),
+                       torch.zeros((), dtype=torch.float32, device=dev))
+    flat_like = like.reshape(B, -1)
+    flat_cand = cands.reshape(B, -1)
+    flat_idx = idx.reshape(B, -1)
+    total = flat_like.sum(1)
+    at_max = flat_like >= flat_like.amax(1, keepdim=True)
+    best_cand_val = torch.where(at_max, flat_cand, 0).amax(1)
+    # first column holding the best (likelihood, candidate)
+    best_pos = (at_max & (flat_cand == best_cand_val[:, None])) \
+        .to(torch.int32).argmax(1)
+    take = lambda a: a.gather(1, best_pos[:, None])[:, 0]  # noqa: E731
+    best_like = take(flat_like)
+    accepted = (total > 0) & (
+        best_like / torch.clamp_min(total, 1e-30)
+        >= BARCODE_CONFIDENCE_THRESHOLD)
+    out_bc = torch.where(accepted, take(flat_cand), packed)
+    out_idx = torch.where(accepted, take(flat_idx), -1)
+    return out_bc, out_idx, accepted
 
 
 def host_resolve_barcodes(bc_packed, bc_qual, slot_valid, wl_sorted,

@@ -8,9 +8,10 @@ bucket row in input order; an overflowing bucket spills to the NEXT row
 when `probe_rows`=2, or is dropped (counted).  The all-ones key is
 reserved as EMPTY.
 
-The host build (`_place`, `build_rows`) is the numpy code of the JAX
-package, copied; the query half (`_fetch`, `lookup`, `membership`) is
-torch over the rows kept as an int32 bit-view on the device.
+The host build (`_place`, `build_rows`, `build_exact`, `with_counts`) is
+the numpy code of the JAX package, copied; the query half (`_fetch`,
+`lookup`, `membership`, `membership3`) is torch over the rows kept as an
+int32 bit-view on the device.
 """
 
 from __future__ import annotations
@@ -118,6 +119,48 @@ class BucketTable:
                            entries=entries, fields=fields,
                            probe_rows=probe_rows)
 
+    @staticmethod
+    def build_exact(keys: np.ndarray, vals: np.ndarray, device,
+                    entries: int = 8, fields: int = 3, load: float = 0.5,
+                    max_bytes: int = 2 << 30) -> "BucketTable":
+        """Grow (then widen to probe_rows=2) until every key is placed —
+        required for whitelist membership."""
+        keys = np.asarray(keys, np.uint32)
+        vals = np.asarray(vals, np.uint32)
+        keep = keys != EMPTY
+        keys, vals = keys[keep], vals[keep]
+        n = max(len(keys), 1)
+        W = _pad_width(entries, fields)
+        bits = max(8, int(np.ceil(np.log2(n / (entries * load)))))
+        for probe_rows in (1, 2):
+            b = bits
+            while ((1 << b) + 1) * W * 4 <= max_bytes:
+                rows, dropped = BucketTable._place(
+                    keys, vals, b, entries, fields, probe_rows)
+                if dropped == 0:
+                    return BucketTable.from_rows(rows, b, device, entries,
+                                                 fields, probe_rows)
+                b += 1
+        raise ValueError("bucket table could not be made exact within "
+                         f"max_bytes={max_bytes}")
+
+    def with_counts(self, counts: np.ndarray) -> "BucketTable":
+        """Fill the count column from `counts` indexed by the val column
+        (the prior counts of posterior correction).  Host op, once per
+        run."""
+        assert self.fields >= 3
+        E = self.entries
+        rows = self.rows.cpu().numpy().view(np.uint32).copy()
+        valid = rows[:, :E] != EMPTY
+        idx = np.where(valid, rows[:, E:2 * E], 0).astype(np.int64)
+        counts = np.asarray(counts)
+        idx = np.minimum(idx, max(len(counts) - 1, 0))
+        rows[:, 2 * E:3 * E] = np.where(valid, counts[idx], 0) \
+            .astype(np.uint32)
+        return BucketTable.from_rows(rows, self.bits, self.rows.device,
+                                     self.entries, self.fields,
+                                     self.probe_rows)
+
     # ---------- query (device) ----------
     def _fetch(self, q: torch.Tensor):
         """q u32 values (int64) [...] -> (keys, vals, cnts) each
@@ -148,3 +191,13 @@ class BucketTable:
         vals_i32 = vals.to(torch.int32)           # u32 -> int32 bits
         val = torch.where(hit, vals_i32, -1).amax(-1)
         return any_hit, val
+
+    def membership3(self, q: torch.Tensor):
+        """(is_member bool, val int32 -- -1 on miss, count int32) -- the
+        count column from the same row."""
+        keys, vals, cnts = self._fetch(q)
+        hit = (keys == q[..., None]) & (q != U32_MAX)[..., None]
+        any_hit = hit.any(-1)
+        val = torch.where(hit, vals.to(torch.int32), -1).amax(-1)
+        cnt = torch.where(hit, cnts.to(torch.int32), 0).amax(-1)
+        return any_hit, val, cnt

@@ -1,14 +1,19 @@
-"""Device-resident molecule accumulator for count-only runs (one device).
+"""Molecule dedup on one device: the device-resident molecule state of
+count-only runs and the partition dedup of host rows.
 
 Port of cellranger_tpu/parallel/executor.py `_absorb_append`,
-`_dedup_state` and `MoleculeState`.  The accumulate-mode step keeps its
+`_dedup_state`, `MoleculeState` and the single-device branch of
+`Executor.dedup_partitions`.  The accumulate-mode step keeps its
 confidently mapped (bc, gene, umi) rows on the device; `MoleculeState`
 keeps them there through dedup: each drained append buffer is appended
 (not merged) to a persistent [C, 4] state of u32 values (bc, gene, umi,
 reads), `exact_merge` reclaims the space that duplicate triples waste
 only under capacity pressure and once at finalize, and the final dedup
-runs on the state.  The only host traffic is the final fetch of the
-valid molecules.
+runs on the state.  A run whose distinct triples exceed the capacity
+flushes the merged state to the host; its rows, like the spilled rows of
+BAM and Feature Barcode runs, are deduplicated by `dedup_partitions` over
+barcode-disjoint partitions, which also returns the raw-triple views the
+BAM writer joins against.
 
 The state is updated in place (index_copy_ into a preallocated buffer),
 which takes the place of the JAX package's buffer donation.
@@ -63,9 +68,8 @@ def _dedup_state(rows, n, umi_len: int):
 class MoleculeState:
     """Host handle on the device-resident merged molecule table.
 
-    Capacity grows geometrically (pow2 up to max_capacity).  Runs whose
-    distinct triples exceed max_capacity would need the host flush path
-    of the JAX package, which the port does not have yet."""
+    Capacity grows geometrically (pow2 up to max_capacity, then host
+    flush), so tiny runs sort tiny buffers."""
 
     def __init__(self, max_capacity: int, umi_len: int, device,
                  min_capacity: int = 1024):
@@ -77,6 +81,7 @@ class MoleculeState:
                                device=self.device)
         self._n_dev = torch.zeros((), dtype=torch.int64, device=self.device)
         self.n = 0          # host UPPER BOUND on live rows (see absorb)
+        self.flushed: list = []  # host [k, 4] uint32 overflow arrays
 
     def _grow(self, need: int) -> None:
         cap = _pow2(need, minimum=self.cap)
@@ -97,10 +102,7 @@ class MoleculeState:
         if self.n + P > self.max_cap:
             self.merge_now()             # compact + tighten the bound
             if self.n + P > self.max_cap:
-                raise NotImplementedError(
-                    "more than max_capacity distinct (bc, gene, umi) "
-                    "triples: the host flush path of the molecule state "
-                    "is not ported yet (ROADMAP queue 1)")
+                self.flush_to_host()
         self._grow(self.n + P)
         if self.n + P > self.cap:
             raise RuntimeError("molecule state append window out of bounds")
@@ -113,10 +115,30 @@ class MoleculeState:
         self.rows, self._n_dev = exact_merge(self.rows, self._n_dev)
         self.n = int(self._n_dev)
 
+    def flush_to_host(self) -> None:
+        """Overflow path (runs whose distinct triples exceed capacity):
+        merge, fetch the rows, and reset.  The final dedup then runs over
+        host partitions (reads-weighted)."""
+        self.rows, self._n_dev = exact_merge(self.rows, self._n_dev)
+        self.n = int(self._n_dev)   # exact count before the host slice
+        self.flushed.append(
+            self.rows[:self.n].cpu().numpy().astype(np.uint32))
+        self.rows = torch.full((self.cap, 4), U32_MAX, dtype=torch.int64,
+                               device=self.device)
+        self._n_dev = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.n = 0
+
     def finalize(self):
-        """-> (bc, gene, umi, reads) uint32 host arrays of the valid
-        molecules.  Shrinks to the tightest pow2 over the live rows,
-        exact-merges once, shrinks again, then dedups."""
+        """-> (bc, gene, umi, reads) uint32 host arrays.  Without a flush:
+        the valid molecules, deduplicated on the device (shrink to the
+        tightest pow2 over the live rows, exact-merge once, shrink again,
+        dedup).  After a flush: every merged (bc, gene, umi, reads) row,
+        for `dedup_partitions`."""
+        if self.flushed:
+            self.flush_to_host()
+            allr = np.concatenate(self.flushed, axis=0)
+            self.flushed = []
+            return allr[:, 0], allr[:, 1], allr[:, 2], allr[:, 3]
         self.n = int(self._n_dev)
         C2 = _pow2(max(self.n, 1), minimum=1024)
         rows = self.rows[:C2] if C2 < self.cap else self.rows
@@ -130,3 +152,75 @@ class MoleculeState:
         nv = int(n_valid)
         out = plane[:nv].cpu().numpy().astype(np.uint32)
         return out[:, 0], out[:, 1], out[:, 2], out[:, 3]
+
+
+# dedup output columns: u32 values come back as uint32, the rest as int32
+# (the dtypes of the JAX package's unpacked dedup plane)
+DD_U32 = frozenset(("mol_bc", "mol_gene", "mol_umi", "raw_bc", "raw_gene",
+                    "raw_umi", "raw_corr_umi"))
+
+
+def dedup_partitions(parts, umi_len: int, device, chunk_limit: int = 1 << 21,
+                     keep_raw: bool = True):
+    """Dedup barcode-disjoint molecule partitions on one device.
+
+    parts: iterable of (bc, gene, umi[, reads]) numpy uint32 row arrays;
+    each partition holds complete barcodes.  Partitions coalesce into
+    device calls of at most chunk_limit rows, each padded to one common
+    power-of-two length.  Yields one host dict per call: mol_bc/gene/umi/
+    reads of the valid molecules and, with keep_raw, the raw-triple views
+    raw_bc/gene/umi/corr_umi/low/reads of the distinct raw triples."""
+    parts = list(parts)
+    groups: list[list] = []
+    cur: list = []
+    cur_n = 0
+    for p in parts:
+        n = len(p[0])
+        if cur and cur_n + n > chunk_limit:
+            groups.append(cur)
+            cur, cur_n = [], 0
+        cur.append(p)
+        cur_n += n
+    if cur:
+        groups.append(cur)
+    N = _pow2(max((sum(len(p[0]) for p in g) for g in groups), default=1))
+    for g in groups:
+        cols = [np.concatenate([p[c] for p in g]) for c in range(3)]
+        reads = (np.concatenate([p[3] for p in g]) if len(g[0]) >= 4
+                 else None)
+        yield _dedup_host(*cols, umi_len, N, device, keep_raw, reads)
+
+
+def _dedup_host(bc, gene, umi, umi_len: int, N: int, device,
+                keep_raw: bool, reads=None) -> dict:
+    n = len(bc)
+
+    def up(a):
+        a = np.pad(np.asarray(a, np.uint32).astype(np.int64), (0, N - n))
+        return torch.from_numpy(a).to(device)
+
+    valid = torch.arange(N, device=device) < n
+    dd = dedup_molecules(up(bc), up(gene), up(umi), valid, umi_len,
+                         reads=None if reads is None else up(reads))
+    keys = (("mol_bc", "mol_gene", "mol_umi", "mol_reads", "mol_valid")
+            + (("raw_bc", "raw_gene", "raw_umi", "raw_corr_umi", "raw_low",
+                "raw_is_repr", "raw_reads") if keep_raw else ()))
+    host = {}
+    for k in keys:
+        a = dd[k].cpu().numpy()
+        host[k] = a.astype(np.uint32 if k in DD_U32 else np.int32)
+    return _compact(host)
+
+
+def _compact(dd: dict) -> dict:
+    mv = dd["mol_valid"].astype(bool)
+    out = dict(mol_bc=dd["mol_bc"][mv], mol_gene=dd["mol_gene"][mv],
+               mol_umi=dd["mol_umi"][mv], mol_reads=dd["mol_reads"][mv])
+    if "raw_is_repr" in dd:
+        rr = dd["raw_is_repr"].astype(bool)
+        out.update(raw_bc=dd["raw_bc"][rr], raw_gene=dd["raw_gene"][rr],
+                   raw_umi=dd["raw_umi"][rr],
+                   raw_corr_umi=dd["raw_corr_umi"][rr],
+                   raw_low=dd["raw_low"][rr].astype(bool),
+                   raw_reads=dd["raw_reads"][rr])
+    return out

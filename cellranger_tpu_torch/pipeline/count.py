@@ -1,21 +1,26 @@
-"""The `count` pipeline, count-only slice: FASTQ -> filtered matrix.
+"""The `count` pipeline: FASTQ -> filtered feature x barcode matrix, BAM.
 
-Port of the accumulate-mode branch of cellranger_tpu/pipeline/count.py
-`run_count` (single library, single-end gene expression, no BAM, one
-device):
+Port of cellranger_tpu/pipeline/count.py `run_count` for one device and
+single-end chemistries:
 
   pass 1 (== MAKE_SHARD): host barcode histogram over the whitelist (the
       correction prior);
   pass 2 (== BARCODE_CORRECTION + ALIGN_AND_COUNT): a producer thread
-      decodes FASTQs, resolves barcodes on the host and packs each batch
-      into one u32 plane; the device step trims, aligns (SW rescue through
-      the CUDA kernel on the card), annotates, promotes multimappers and
-      appends confidently mapped (bc, gene, umi) rows into device buffers
-      that the host drains in bulk;
-  dedup (== mark_dups.rs): the drained rows live on the device in a
-      MoleculeState and are deduplicated there;
+      decodes FASTQs, resolves barcodes on the host and packs each Gene
+      Expression batch into one u32 plane; the device step trims, aligns
+      (SW rescue through the CUDA kernel on the card), annotates and
+      promotes multimappers.  Count-only runs step in accumulate mode
+      (confidently mapped (bc, gene, umi) rows appended into device
+      buffers that the host drains in bulk); BAM runs step in stream mode
+      (per-read outputs fetched every batch into the BAM band spool).
+      Feature Barcode libraries are extracted and matched on the device;
+  dedup (== mark_dups.rs): count-only rows dedup in the device molecule
+      state; BAM and Feature Barcode rows, and count-only runs past the
+      state's capacity, spill to barcode-hash partitions deduplicated one
+      group at a time, keeping the raw-triple views the BAM joins against;
   outputs: raw/filtered matrices (MEX, and h5 where h5py is installed),
-      cell calls, molecule_info.h5 (h5py), junctions, metrics JSON.
+      aggregate removal and cell calls, possorted BAM, molecule_info.h5
+      (h5py), junctions, feature assignment, metrics JSON.
 
 Everything outside this slice raises NotImplementedError naming its
 ROADMAP item.  The host stages reuse the JAX package's jax-free modules.
@@ -36,17 +41,23 @@ import torch
 from cellranger_tpu.analysis import cell_calling
 from cellranger_tpu.io.chemistry import get_chemistry
 from cellranger_tpu.io.matrix_io import CountMatrix, FeatureReference
+from cellranger_tpu.pipeline.spill import MoleculeSpill
 from ..align.aligner import DeviceIndex, make_aligner
 from ..align.annotate import (GENE_MULTI, GENE_NONE, REGION_EXONIC,
                               REGION_INTERGENIC, REGION_INTRONIC,
                               AnnotationIndex, make_annotator)
 from ..io.fastq import batches_from_fastqs
+from ..io.feature_ref import FeatureBarcodeReference
 from ..io.reference import ReferencePackage
 from ..io.whitelist import Whitelist
 from ..ops import barcode as bcops
 from ..ops import encode
+from ..ops.bucket_table import BucketTable
+from ..ops.features import make_feature_extractor
 from ..ops.tensor_ops import U32_MASK, compact_indices, scatter_drop, widen
 from ..ops.trim import make_trimmer
+from ..parallel.molecule_state import MoleculeState, dedup_partitions
+from .bam_out import BamCollector
 
 
 @dataclass
@@ -133,20 +144,79 @@ class CountMetrics:
         return d
 
 
-# the molecule gene column carries the library index in its high bits
+# the molecule gene column carries the library index in its high bits, so
+# molecules stay distinct per library through dedup (stripped after)
 LIB_SHIFT = 24
 LIB_MASK = np.uint32((1 << LIB_SHIFT) - 1)
 
+# ---- stream-mode step output: three planes, one fetch each per batch ----
+# every [B] integer column rides one [B, NI] int32 plane (u32 columns as
+# their int32 bits), booleans one [B, NB] bool plane, scalar metrics one
+# [NM] int32 vector; the single-end layout of the JAX package
+I32_FIELDS = ("gene", "pos", "mapq", "strand", "aln_len", "aln_start",
+              "region", "sj_donor", "sj_acceptor", "sj_right_len",
+              "gene_unpaired")
+U32_FIELDS = frozenset(("gene", "pos", "sj_donor", "sj_acceptor"))
+BOOL_FIELDS = ("conf_ok", "mapped", "antisense", "novel_sj", "mm",
+               "gene_discordant")
 METRIC_FIELDS = ("n_mapped", "n_conf", "n_exonic", "n_intronic",
                  "n_intergenic", "n_antisense", "n_usable",
                  "n_promote_overflow", "n_tso", "n_polya_trimmed",
                  "n_improper_pair")
+KG_LIST = 4  # gene_list/anti_list columns appended after I32_FIELDS
 
 SECOND_CAP_FRAC = 4    # 2nd-locus / novel-SJ annotation capacity = B // 4
+# distinct (bc, gene, umi) rows the device molecule state holds before it
+# flushes to the host (read at run time, so a caller may lower it)
 MOLECULE_STATE_CAP = 1 << 23
+DEDUP_CHUNK_LIMIT = 1 << 26  # dedup rows per device sort
+SPILL_PARTS = 8              # barcode-hash spill partitions
 # outputs written through h5py; skipped where h5py is not installed
 H5_OUTPUTS = ("raw_feature_bc_matrix.h5", "filtered_feature_bc_matrix.h5",
               "molecule_info.h5")
+
+
+def unpack_step_out(out) -> tuple[dict, dict]:
+    """Host stream-step output (numpy planes, `fetch_step_out`) -> (ho:
+    named host arrays, m: metrics), with the JAX package's dtypes: uint32
+    views for U32_FIELDS and sec_pos, int32 for the other columns, bool
+    flags.
+
+    Plane width decides the layout: [I32_FIELDS, 2 x KG_LIST gene lists,
+    (4 x S secondary-locus columns)]."""
+    i32 = np.asarray(out["i32"])
+    flags = np.asarray(out["flags"])
+    mvec = np.asarray(out["mvec"])
+    ho: dict = {}
+    n = len(I32_FIELDS)
+    n_sec = (i32.shape[1] - n - 2 * KG_LIST) // 4
+    for j, k in enumerate(I32_FIELDS):
+        col = i32[:, j]
+        ho[k] = col.view(np.uint32) if k in U32_FIELDS else col
+    ho["gene_list"] = i32[:, n:n + KG_LIST]
+    ho["anti_list"] = i32[:, n + KG_LIST:n + 2 * KG_LIST]
+    if n_sec > 0:
+        o = n + 2 * KG_LIST
+        ho["sec_pos"] = np.ascontiguousarray(
+            i32[:, o:o + n_sec]).view(np.uint32)
+        ho["sec_len"] = i32[:, o + n_sec:o + 2 * n_sec]
+        ho["sec_start"] = i32[:, o + 2 * n_sec:o + 3 * n_sec]
+        ho["sec_strand"] = i32[:, o + 3 * n_sec:o + 4 * n_sec]
+        ho["sec_ok"] = flags[:, len(BOOL_FIELDS):len(BOOL_FIELDS) + n_sec]
+    for j, k in enumerate(BOOL_FIELDS):
+        ho[k] = flags[:, j]
+    m = {k: int(v) for k, v in zip(METRIC_FIELDS, mvec)}
+    return ho, m
+
+
+def fetch_step_out(out: dict) -> dict:
+    """Stream-step output -> numpy planes.  On the card the planes were
+    copied into pinned host buffers behind the step (`make_stream_step`);
+    this waits for that copy only, not for work queued after it."""
+    ev = out.get("event")
+    if ev is not None:
+        ev.synchronize()
+    return {k: out[k].numpy() for k in ("i32", "flags", "mvec")}
 
 
 # ---- packed step input: ONE u32 plane per batch ----
@@ -215,24 +285,22 @@ def _unpack_codes(buf: torch.Tensor, o: int, L: int):
     return codes, bits
 
 
-def make_count_step(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
-                    read_len: int):
-    """The accumulate-mode device step (port of `_make_step(...,
-    accumulate=True)` without the paired-end branch).
+def _make_body(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
+               read_len: int, emit_secondary: bool = False):
+    """The fused per-batch device work shared by both step modes (port of
+    `_make_step`'s `_body` without the paired-end branch): unpack, trim,
+    align (SW rescue through the CUDA kernel on the card), annotate,
+    novel-junction right segments, multi-locus promotion.  Returns
+    body(plane) -> dict of [B] tensors (u32 values in int64) + metrics.
 
-    Returns step(plane, acc, lib_tag) which runs one packed batch and
-    appends into the device buffers of `acc` IN PLACE (the JAX package
-    donates them instead); step.init_acc(mol_cap, sj_cap) makes them.
-    The caller keeps acc['mol_n'] + B <= mol_cap and acc['sj_n'] +
-    max(B // 4, 64) <= sj_cap."""
+    emit_secondary (BAM runs): also output the other distinct best-score
+    loci of multimapped reads (sec_*) for the BAM's secondary records
+    (tx_annotation/src/read.rs:155,224-226)."""
     align = make_aligner(didx, read_len)
     annotate = make_annotator(ann_idx, didx.genome_len, didx.sj_overhang,
                               chem.strandedness)
     trim = make_trimmer(read_len)
     dev = didx.text_rows.device
-    n_sj = int(didx.sj_rows.shape[0])
-    glen = didx.genome_len
-    contig2 = 2 * didx.sj_overhang
 
     def body(plane):
         B = plane.shape[0]
@@ -314,6 +382,7 @@ def make_count_step(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
         conf_ok = conf_eff & bc_ok & umi_valid & slot_valid
         mapped = aln["mapped"] & slot_valid
         region = ann["region"]
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
         m = dict(
             n_mapped=mapped.sum(),
             n_conf=(conf_eff & slot_valid).sum(),
@@ -325,15 +394,54 @@ def make_count_step(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
             n_promote_overflow=(need2 & ~fits).sum(),
             n_tso=(tr["matched_tso"] & slot_valid).sum(),
             n_polya_trimmed=((tr["polya_trimmed"] > 0) & slot_valid).sum(),
-            n_improper_pair=torch.zeros((), dtype=torch.int64, device=dev),
+            n_improper_pair=zero,
         )
-        return dict(
+        out = dict(
             bc=bc_idx & U32_MASK, umi=umi_packed,
             gene=torch.clamp_min(gene_eff, 0), conf_ok=conf_ok,
             pos=aln["pos"], mapq=mapq_eff, strand=aln["strand"],
-            mapped=mapped, novel_sj=aln["novel_sj"],
+            mapped=mapped, aln_len=aln["aln_len"],
+            aln_start=aln["aln_start"], region=region,
+            antisense=ann["antisense"], novel_sj=aln["novel_sj"],
             sj_donor=aln["sj_donor"], sj_acceptor=aln["sj_acceptor"],
+            sj_right_len=aln["sj_right_len"],
+            # BAM tag payloads: mm (rescued multimapper), TX/AN gene lists,
+            # and the paired-end gX/gN columns (single-end values)
+            mm=promoted, gene_list=ann["gene_list"],
+            anti_list=ann["anti_list"],
+            gene_discordant=torch.zeros(B, dtype=torch.bool, device=dev),
+            gene_unpaired=gene_eff,
             metrics=m)
+        if emit_secondary and ND > 1:
+            # other distinct best-score loci of multimapped reads, one
+            # secondary BAM record each; promoted reads keep theirs
+            # (demoted to MAPQ 0 by the writer, read.rs:152-156)
+            out.update(
+                sec_pos=aln["loci_pos"][:, 1:], sec_len=aln["loci_len"][:, 1:],
+                sec_start=aln["loci_start"][:, 1:],
+                sec_strand=aln["loci_strand"][:, 1:],
+                sec_ok=(aln["loci_ok"][:, 1:] & mapped[:, None]
+                        & (aln["n_best"] >= 2)[:, None]))
+        return out
+
+    return body
+
+
+def make_count_step(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
+                    read_len: int):
+    """The accumulate-mode device step (port of `_make_step(...,
+    accumulate=True)` without the paired-end branch).
+
+    Returns step(plane, acc, lib_tag) which runs one packed batch and
+    appends into the device buffers of `acc` IN PLACE (the JAX package
+    donates them instead); step.init_acc(mol_cap, sj_cap) makes them.
+    The caller keeps acc['mol_n'] + B <= mol_cap and acc['sj_n'] +
+    max(B // 4, 64) <= sj_cap."""
+    body = _make_body(didx, ann_idx, chem, read_len)
+    dev = didx.text_rows.device
+    n_sj = int(didx.sj_rows.shape[0])
+    glen = didx.genome_len
+    contig2 = 2 * didx.sj_overhang
 
     def step(plane, acc, lib_tag: int = 0):
         out = body(plane)
@@ -376,22 +484,56 @@ def make_count_step(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
     return step
 
 
+def _pack_stream(out: dict) -> dict:
+    """Step outputs -> the three stream planes (int32 bits of u32 values;
+    int64 -> int32 keeps the low 32 bits)."""
+    i32 = lambda a: a.to(torch.int32)  # noqa: E731
+    cols = [i32(out[k])[:, None] for k in I32_FIELDS]
+    cols += [i32(out["gene_list"]), i32(out["anti_list"])]
+    if "sec_pos" in out:
+        cols += [i32(out[k]) for k in ("sec_pos", "sec_len", "sec_start",
+                                       "sec_strand")]
+    flags = torch.stack([out[k] for k in BOOL_FIELDS], 1)
+    if "sec_ok" in out:
+        flags = torch.cat([flags, out["sec_ok"]], 1)
+    m = out["metrics"]
+    mvec = torch.stack([m[k] for k in METRIC_FIELDS]).to(torch.int32)
+    return dict(i32=torch.cat(cols, 1), flags=flags, mvec=mvec)
+
+
+def make_stream_step(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
+                     read_len: int, emit_secondary: bool = False):
+    """The stream-mode device step (port of `_make_step(...,
+    accumulate=False, emit_secondary=...)` for single-end chemistries):
+    step(plane) -> dict(i32, flags, mvec) planes, read back per batch with
+    `fetch_step_out` and named by `unpack_step_out`.  On the card the
+    planes are copied into pinned host buffers on the device stream and an
+    event marks the copy, so the host can read batch i while batch i+1
+    runs."""
+    body = _make_body(didx, ann_idx, chem, read_len, emit_secondary)
+
+    def step(plane):
+        planes = _pack_stream(body(plane))
+        if plane.device.type != "cuda":
+            return planes
+        host = {}
+        for k, v in planes.items():
+            host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            host[k].copy_(v, non_blocking=True)
+        host["event"] = torch.cuda.Event()
+        host["event"].record()
+        return host
+
+    return step
+
+
 def _check_supported(cfg: CountConfig, chem) -> None:
-    """Raise NotImplementedError for what this slice does not run yet."""
+    """Raise NotImplementedError for what the port does not run yet."""
     todo = [
         (cfg.probe_set_csv, "probe_set_csv: RTL probe alignment "
          "(ROADMAP queue 1, RTL probes)"),
         (chem.probe_bc is not None or cfg.probe_barcode_csv,
          "probe-barcode multiplexing (ROADMAP queue 1, RTL probes)"),
-        (cfg.feature_ref_csv, "feature_ref_csv: Feature Barcode libraries "
-         "(ROADMAP queue 1, Feature Barcode)"),
-        (cfg.libraries and (len(cfg.libraries) > 1
-                            or cfg.libraries[0].library_type
-                            != "Gene Expression"),
-         "more than one library / non-GEX libraries "
-         "(ROADMAP queue 1, Feature Barcode)"),
-        (cfg.write_bam, "write_bam: BAM output in stream mode "
-         "(ROADMAP queue 1, stream mode and BAM)"),
         (cfg.shard_index, "shard_index: multi-GPU (ROADMAP queue 1, "
          "multi-GPU)"),
         (chem.rna2 is not None, f"paired chemistry {chem.name} "
@@ -412,9 +554,78 @@ def _h5py_available() -> bool:
     return True
 
 
+def _fb_tag_lists(pat, src, fo, fb_ref, features, n_genes: int, n: int):
+    """Per-read fr/fq/fb/fx BAM tag payloads for one feature pattern
+    (read.rs:1335-1360): fr/fq = raw extracted barcode seq/qual, fb = the
+    matched whitelist sequence, fx = the feature id.  b'' = omit."""
+    fr = [b""] * n
+    fq = [b""] * n
+    fb = [b""] * n
+    fx = [b""] * n
+    src_codes, src_nmask, _, src_qual = src
+    off = fo["offset"]
+    sidx = fo["seq_idx"]
+    feat = fo["feature"]
+    seqs_packed = fb_ref.pattern_groups[pat][0]
+    bl = pat.bc_len
+    for i in np.flatnonzero(fo["extracted"][:n]):
+        o = int(off[i])
+        fr[i] = encode.decode_codes(src_codes[i][o:o + bl],
+                                    src_nmask[i][o:o + bl])
+        fq[i] = bytes(src_qual[i][o:o + bl])
+        if sidx[i] >= 0:
+            fb[i] = encode.decode_codes(
+                encode.unpack_np(np.uint32(seqs_packed[sidx[i]]), bl))
+            fid = features.feature_defs[n_genes + int(feat[i])].id
+            fx[i] = fid.encode() if isinstance(fid, str) else fid
+    return fr, fq, fb, fx
+
+
+def _tally_sj(sj_counts: dict, ho: dict, n: int, gi) -> None:
+    """Splice-junction read tallies (SJ.out.tab analog) of one stream
+    batch: novel junctions from split alignments, annotated ones from
+    junction-contig placements; unique mappers only."""
+    m255 = ho["mapped"][:n] & (ho["mapq"][:n] == 255)
+    nsj = ho["novel_sj"][:n] & m255
+    if nsj.any():
+        dn = ho["sj_donor"][:n][nsj].astype(np.int64)
+        an = ho["sj_acceptor"][:n][nsj].astype(np.int64)
+        st = ho["strand"][:n][nsj].astype(np.int64)
+        uniq, cnt = np.unique(np.stack([dn, an, st], 1), axis=0,
+                              return_counts=True)
+        for (d, a, s), c in zip(uniq.tolist(), cnt.tolist()):
+            key = (d, a, s, 0)
+            sj_counts[key] = sj_counts.get(key, 0) + c
+    pos = ho["pos"][:n].astype(np.int64)
+    on_contig = m255 & (pos >= gi.genome_len) & ~nsj
+    if on_contig.any():
+        ji = (pos[on_contig] - gi.genome_len) // (2 * gi.sj_overhang)
+        st = ho["strand"][:n][on_contig].astype(np.int64)
+        uniq, cnt = np.unique(np.stack([ji, st], 1), axis=0,
+                              return_counts=True)
+        for (j, s), c in zip(uniq.tolist(), cnt.tolist()):
+            key = (int(gi.sj_donor_end[j]), int(gi.sj_acceptor_start[j]),
+                   int(s), 1)
+            sj_counts[key] = sj_counts.get(key, 0) + c
+
+
+def _add_step_metrics(metrics: CountMetrics, m: dict) -> None:
+    metrics.mapped_reads += m["n_mapped"]
+    metrics.conf_mapped_reads += m["n_conf"]
+    metrics.exonic_reads += m["n_exonic"]
+    metrics.intronic_reads += m["n_intronic"]
+    metrics.intergenic_reads += m["n_intergenic"]
+    metrics.antisense_reads += m["n_antisense"]
+    metrics.usable_reads += m["n_usable"]
+    metrics.promote_overflow += m["n_promote_overflow"]
+    metrics.tso_reads += m["n_tso"]
+    metrics.polya_trimmed_reads += m["n_polya_trimmed"]
+    metrics.improper_pair_reads += m["n_improper_pair"]
+
+
 def run_count(cfg: CountConfig, out_dir: str,
               whitelist: Whitelist | None = None, *, device) -> dict:
-    """Run the count-only pipeline on `device` ("cuda" or "cpu"); writes
+    """Run the count pipeline on `device` ("cuda" or "cpu"); writes
     outputs into out_dir and returns the metrics dict.  Where h5py is not
     installed the h5 outputs (H5_OUTPUTS) are not written."""
     if cfg.chemistry == "auto":
@@ -449,20 +660,42 @@ def run_count(cfg: CountConfig, out_dir: str,
         features = FeatureReference.from_transcriptome(
             ref.transcriptome.gene_ids, ref.transcriptome.gene_names,
             ref.genome_name)
+
+    fb_ref = None
+    fb_extractors = {}
+    if cfg.feature_ref_csv:
+        fb_ref = FeatureBarcodeReference.from_csv(cfg.feature_ref_csv)
+        features = FeatureReference(features.feature_defs
+                                    + list(fb_ref.feature_defs))
+        for pat, (seqs, fidx) in fb_ref.pattern_groups.items():
+            ft = BucketTable.build_exact(
+                seqs, np.arange(len(seqs), dtype=np.uint32), device,
+                entries=8, fields=3).with_counts(np.ones(len(seqs), np.int64))
+            fb_extractors[pat] = make_feature_extractor(pat, ft, fidx,
+                                                        cfg.read_len)
+
     libraries = cfg.libraries or [LibraryDef(cfg.fastq_pairs)]
-    if len(features.feature_defs) >= (1 << LIB_SHIFT):
-        raise ValueError("feature reference exceeds the 24-bit gene packing")
+    if len(features.feature_defs) >= (1 << LIB_SHIFT) or len(libraries) > 255:
+        raise ValueError("feature reference / library count exceeds the "
+                         "24-bit gene + 8-bit library packing")
     metrics = CountMetrics()
     perf.lap("load_reference_index")
 
     # ---- checkpoint/resume (pipeline/checkpoint.py, host code) ----
     ckpt = None
     resume = None
+    spool_dir = os.path.join(out_dir, "_bam_spool")
     if cfg.checkpoint:
         from cellranger_tpu.pipeline.checkpoint import (CountCheckpoint,
                                                         count_fingerprint)
         ckpt = CountCheckpoint(out_dir, count_fingerprint(cfg))
         resume = ckpt.load("molecules")
+        if resume is not None and cfg.write_bam:
+            # a BAM run resumes only when its sealed band spool (the
+            # journal) AND the raw-triple views survive with the table
+            if not (resume["__meta__"].get("bam_spool_sealed")
+                    and os.path.isdir(spool_dir) and "rv_raw_bc" in resume):
+                resume = None
     if resume is not None:
         mbc, mgene = resume["mbc"], resume["mgene"]
         mumi, mreads = resume["mumi"], resume["mreads"]
@@ -470,42 +703,91 @@ def run_count(cfg: CountConfig, out_dir: str,
         sj_counts = {tuple(int(x) for x in k): int(v)
                      for k, v in zip(resume["sj_keys"], resume["sj_vals"])}
         metrics = CountMetrics(**resume["__meta__"]["metrics"])
+        bam_collector = None
+        raw_views = None
+        if cfg.write_bam:
+            # reopen the sealed band spool read-only; the FASTQ passes
+            # are skipped and the run goes straight to band merge
+            bam_collector = BamCollector(gi, ref.transcriptome, spool_dir,
+                                         read_group=cfg.sample_id,
+                                         fresh=False)
+            bam_collector.n_reads = int(
+                resume["__meta__"].get("bam_n_reads", 0))
+            raw_views = {k[3:]: resume[k] for k in resume
+                         if k.startswith("rv_")}
         perf.lap("resume_checkpoint")
     else:
-        mbc, mgene, mumi, mreads, mlib, sj_counts = _count_pass(
+        bam_collector = None
+        if cfg.write_bam:
+            bam_collector = BamCollector(gi, ref.transcriptome, spool_dir,
+                                         read_group=cfg.sample_id)
+        (mbc, mgene, mumi, mreads, mlib, sj_counts,
+         raw_views) = _count_pass(
             cfg, chem, whitelist, libraries, gi, didx, ann_idx, batch_size,
-            metrics, perf)
+            metrics, perf, out_dir, fb_ref, fb_extractors, features,
+            n_genes, bam_collector, int(_param("spill_partitions")
+                                        or SPILL_PARTS))
         if ckpt is not None:
             sj_items = sorted(sj_counts.items())
-            ckpt.save("molecules", dict(
-                mbc=mbc, mgene=mgene, mumi=mumi, mreads=mreads, mlib=mlib,
-                sj_keys=np.asarray([k for k, _ in sj_items],
-                                   np.int64).reshape(-1, 4),
-                sj_vals=np.asarray([v for _, v in sj_items], np.int64)),
-                meta=dict(metrics=dict(metrics.__dict__)))
+            save = dict(mbc=mbc, mgene=mgene, mumi=mumi, mreads=mreads,
+                        mlib=mlib,
+                        sj_keys=np.asarray([k for k, _ in sj_items],
+                                           np.int64).reshape(-1, 4),
+                        sj_vals=np.asarray([v for _, v in sj_items],
+                                           np.int64))
+            meta = dict(metrics=dict(metrics.__dict__))
+            if bam_collector is not None:
+                # the band spool becomes the journal: seal it and persist
+                # the raw-triple views so a killed BAM run resumes
+                # straight to band merge
+                bam_collector.spool.seal()
+                for k_, v_ in (raw_views or {}).items():
+                    save[f"rv_{k_}"] = v_
+                meta.update(bam_spool_sealed=True,
+                            bam_n_reads=bam_collector.n_reads)
+            ckpt.save("molecules", save, meta=meta)
     return _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi,
                      features, n_genes, metrics, mbc, mgene, mumi, mreads,
-                     mlib, sj_counts, perf, t0)
+                     mlib, sj_counts, perf, t0, fb_ref, bam_collector,
+                     raw_views)
 
 
 def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
-                batch_size, metrics, perf):
-    """Passes 1 and 2 and the device dedup.  Returns the molecule table
-    (bc, gene, umi, reads, library) sorted by (bc, gene, umi) and the
-    splice-junction tallies."""
-    from ..parallel.molecule_state import MoleculeState
+                batch_size, metrics, perf, out_dir, fb_ref, fb_extractors,
+                features, n_genes, bam_collector, n_parts):
+    """Passes 1 and 2 and the dedup.  Returns the molecule table (bc, gene,
+    umi, reads, library) sorted by (bc, gene, umi), the splice-junction
+    tallies and, for BAM and Feature Barcode runs, the raw-triple views.
 
+    Count-only runs step in accumulate mode and dedup in the device
+    molecule state (host flush + partition dedup past MOLECULE_STATE_CAP
+    distinct triples).  BAM runs step in stream mode: every batch's
+    per-read outputs come back to the host for the BAM spool, and the
+    molecule rows spill to barcode-hash partition files.  Feature Barcode
+    runs without BAM keep accumulate mode but spill too; their FB
+    libraries are extracted batch by batch on the device."""
     device = didx.text_rows.device
-    step = make_count_step(didx, ann_idx, chem, cfg.read_len)
+    accumulate = not cfg.write_bam
+    if accumulate:
+        step = make_count_step(didx, ann_idx, chem, cfg.read_len)
+    else:
+        step = make_stream_step(didx, ann_idx, chem, cfg.read_len,
+                                emit_secondary=True)
     work = [(li, pair) for li, lib in enumerate(libraries)
             for pair in lib.fastq_pairs]
+    # feature patterns declared on R1 need the R1-remainder view
+    need_r1_rest = any(pat.read == "R1" for pat in fb_extractors)
 
     def my_batches(barcode_only: bool = False):
         for li, pair in work:
             i1 = pair[2] if len(pair) > 2 else None
+            is_fb = libraries[li].library_type != "Gene Expression"
             for batch in batches_from_fastqs(
                     chem, pair[0], pair[1], batch_size, cfg.read_len,
-                    i1_path=i1, barcode_only=barcode_only):
+                    keep_names=cfg.write_bam and not barcode_only,
+                    i1_path=i1,
+                    keep_r1_rest=need_r1_rest and is_fb and not barcode_only,
+                    barcode_only=barcode_only):
                 yield li, batch
 
     # ---- pass 1: host barcode histogram (the correction prior) ----
@@ -515,16 +797,24 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
         np.add.at(wl_counts, idx[idx >= 0], 1)
     perf.lap("pass1_extract_whitelist")
 
-    # ---- pass 2: producer thread (decode, host barcode resolve, pack,
-    # upload) feeding the device step on this thread ----
-    def prep(item):
-        li, batch = item
-        bc_idx, hit, corrected, _corr_bc = bcops.host_resolve_barcodes(
+    def resolve_bc(batch):
+        """Host membership + posterior correction with the pass-1 prior;
+        returns (bc_idx, hit, corrected, corrected_bc)."""
+        return bcops.host_resolve_barcodes(
             batch.bc_packed, batch.bc_qual, batch.slot_valid,
             whitelist.sorted_seqs, wl_counts, chem.barcode_length)
+
+    # ---- pass 2: producer thread (decode, host barcode resolve, pack,
+    # upload) feeding the device on this thread ----
+    def prep(item):
+        li, batch = item
+        if libraries[li].library_type != "Gene Expression":
+            return li, batch, None, None
+        bc_idx, hit, corrected, corr_bc = resolve_bc(batch)
         plane = upload_plane(pack_step_input(cfg.read_len, batch, bc_idx),
                              device)
-        hi = dict(n_valid_bc=int(hit.sum()),
+        hi = dict(bc_idx=bc_idx, corr_bc=corr_bc,
+                  n_valid_bc=int(hit.sum()),
                   n_corrected=int(corrected.sum()),
                   n_valid_umi=int((batch.umi_valid & batch.slot_valid).sum()))
         return li, batch, hi, plane
@@ -545,22 +835,33 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
     producer = threading.Thread(target=_producer, daemon=True)
     producer.start()
 
+    spill = MoleculeSpill(os.path.join(out_dir, "_spill"), n_parts)
+    sj_counts: dict = {}
     mol_cap = max(4 * batch_size, 1 << 20)
     sj_cap = max(4 * batch_size, 1 << 18)
     sjb_per_batch = max(batch_size // 4, 64)
-    acc = step.init_acc(mol_cap, sj_cap)
+    acc = step.init_acc(mol_cap, sj_cap) if accumulate else None
     acc_rows = 0
     acc_sj_rows = 0
     sjh_total = None
     sj_capacity_overflow = 0
-    sj_counts: dict = {}
-    mol_state = MoleculeState(MOLECULE_STATE_CAP, chem.umi_length, device)
+    # device-resident dedup for count-only runs; BAM and Feature Barcode
+    # runs need the raw-triple views and spill their rows instead
+    keep_raw = cfg.write_bam or fb_ref is not None
+    mol_state = None
+    if accumulate and not keep_raw:
+        mol_state = MoleculeState(MOLECULE_STATE_CAP, chem.umi_length,
+                                  device)
 
     def drain_acc():
-        """Absorb the molecule rows into the device state, fetch the SJ
-        rows/histogram and metrics, and reset the buffers."""
+        """Absorb or spill the molecule rows, fetch the SJ rows/histogram
+        and metrics, and reset the buffers."""
         nonlocal acc, acc_rows, acc_sj_rows, sjh_total, sj_capacity_overflow
-        mol_state.absorb(acc["mol"], acc["mol_n"], acc_rows)
+        if mol_state is not None:
+            mol_state.absorb(acc["mol"], acc["mol_n"], acc_rows)
+        else:
+            rows = acc["mol"][:int(acc["mol_n"])].cpu().numpy()
+            spill.append(rows[:, 0], rows[:, 1], rows[:, 2])
         nsj = int(acc["sj_n"])
         if nsj:
             sj = acc["sj"][:nsj].cpu().numpy()
@@ -571,23 +872,105 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
         sjh = acc["sjh"].cpu().numpy()
         sjh_total = sjh if sjh_total is None else sjh_total + sjh
         mv = acc["mvec"].cpu().numpy()
-        m = {k: int(v) for k, v in zip(METRIC_FIELDS, mv)}
         sj_capacity_overflow += int(mv[-1])
-        metrics.mapped_reads += m["n_mapped"]
-        metrics.conf_mapped_reads += m["n_conf"]
-        metrics.exonic_reads += m["n_exonic"]
-        metrics.intronic_reads += m["n_intronic"]
-        metrics.intergenic_reads += m["n_intergenic"]
-        metrics.antisense_reads += m["n_antisense"]
-        metrics.usable_reads += m["n_usable"]
-        metrics.promote_overflow += m["n_promote_overflow"]
-        metrics.tso_reads += m["n_tso"]
-        metrics.polya_trimmed_reads += m["n_polya_trimmed"]
-        metrics.improper_pair_reads += m["n_improper_pair"]
+        _add_step_metrics(metrics, {k: int(v)
+                                    for k, v in zip(METRIC_FIELDS, mv)})
         acc = step.init_acc(mol_cap, sj_cap)
         acc_rows = 0
         acc_sj_rows = 0
 
+    def process_gex(li, batch, hi, out):
+        """Host consumer of one stream batch: metrics, molecule spill,
+        junction tallies, BAM spool."""
+        ho, m = unpack_step_out(fetch_step_out(out))
+        lib_bits = np.uint32(li << LIB_SHIFT)
+        metrics.total_reads += batch.n_reads
+        metrics.valid_barcode_reads += hi["n_valid_bc"] + hi["n_corrected"]
+        metrics.corrected_barcode_reads += hi["n_corrected"]
+        metrics.valid_umi_reads += hi["n_valid_umi"]
+        _add_step_metrics(metrics, m)
+        conf = ho["conf_ok"]
+        spill.append(hi["bc_idx"].view(np.uint32)[conf],
+                     ho["gene"][conf] | lib_bits, batch.umi_packed[conf])
+        _tally_sj(sj_counts, ho, batch.n_reads, gi)
+        if bam_collector is not None:
+            # merge the host-resolved barcode view into the step output
+            ho["bc_idx"] = hi["bc_idx"]
+            ho["bc_ok"] = hi["bc_idx"] >= 0
+            ho["corrected_bc"] = hi["corr_bc"]
+            ho["umi"] = batch.umi_packed
+            # library-tagged gene: the dedup raw-triple join key
+            ho["gene_lib"] = ho["gene"] | lib_bits
+            bam_collector.add_batch(batch, ho)
+
+    def process_fb(li, batch):
+        """Feature-barcode library batch: cell barcode resolve + feature
+        extraction over every declared pattern (R1 patterns read the R1
+        remainder, R2 patterns the cDNA read), one feature per read."""
+        bc_idx, hit, corrected, corr_bc = resolve_bc(batch)
+        bc_ok = bc_idx >= 0
+        metrics.total_reads += batch.n_reads
+        metrics.valid_barcode_reads += int(bc_ok.sum())
+        metrics.corrected_barcode_reads += int(corrected.sum())
+        metrics.valid_umi_reads += int(
+            (batch.umi_valid & batch.slot_valid).sum())
+        n = batch.n_reads
+        lib_bits = np.uint32(li << LIB_SHIFT)
+        fb_rows = None  # per-read best extraction across patterns
+        for pat, extract in fb_extractors.items():
+            if pat.read == "R1":
+                if batch.r1_rest is None:
+                    continue
+                src = (batch.r1_rest, batch.r1_rest_nmask,
+                       batch.r1_rest_len, batch.r1_rest_qual)
+            else:
+                src = (batch.rna, batch.rna_nmask, batch.rna_len,
+                       batch.rna_qual)
+            fo = extract(*(torch.from_numpy(np.ascontiguousarray(a))
+                           .to(device) for a in src[:3]))
+            fo = {k: v.cpu().numpy() for k, v in fo.items()}
+            found_n = fo["found"][:n]
+            ext = fo["extracted"][:n]
+            gene_n = (fo["feature"][:n] + n_genes).astype(np.uint32)
+            if bam_collector is not None:
+                fr, fq, fbs, fx = _fb_tag_lists(pat, src, fo, fb_ref,
+                                                features, n_genes, n)
+            else:
+                fr = fq = fbs = fx = [b""] * n
+            if fb_rows is None:
+                fb_rows = dict(fr=fr, fq=fq, fb=fbs, fx=fx,
+                               found=found_n.copy(), extracted=ext.copy(),
+                               gene=gene_n.copy())
+            else:
+                # a pattern that FOUND a whitelist match beats one that
+                # merely extracted bases; otherwise first extraction wins
+                use = (found_n & ~fb_rows["found"]) \
+                    | (ext & ~fb_rows["extracted"])
+                for i in np.flatnonzero(use):
+                    fb_rows["fr"][i] = fr[i]
+                    fb_rows["fq"][i] = fq[i]
+                    fb_rows["fb"][i] = fbs[i]
+                    fb_rows["fx"][i] = fx[i]
+                fb_rows["gene"] = np.where(use, gene_n, fb_rows["gene"])
+                fb_rows["found"] |= found_n
+                fb_rows["extracted"] |= ext
+        if fb_rows is None:
+            return
+        conf = fb_rows["found"] & bc_ok[:n] & batch.umi_valid[:n]
+        metrics.usable_reads += int(conf.sum())
+        metrics.conf_mapped_reads += int(conf.sum())
+        spill.append(bc_idx.astype(np.uint32)[:n][conf],
+                     fb_rows["gene"][conf] | lib_bits,
+                     np.asarray(batch.umi_packed)[:n][conf])
+        if bam_collector is not None:
+            bam_collector.add_feature_batch(
+                batch, conf, bc_ok, bc_idx, corr_bc, fb_rows["gene"],
+                fb_rows["fr"], fb_rows["fq"], fb_rows["fb"], fb_rows["fx"],
+                gene_lib=fb_rows["gene"] | lib_bits)
+
+    # stream mode: a 1-deep pending slot reads batch i back while batch
+    # i+1 runs on the device
+    pending: tuple | None = None
     try:
         while True:
             item = bq.get()
@@ -604,17 +987,32 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
             in_len = batch.rna_qual[:n0][batch.rna_nmask[:n0]]
             metrics.q30_rna_bases += int((in_len >= 63).sum())
             metrics.rna_bases += int(in_len.size)
-            if (acc_rows + batch.batch_size > mol_cap
-                    or acc_sj_rows + sjb_per_batch > sj_cap):
-                drain_acc()
-            step(plane, acc, lib_tag=li << LIB_SHIFT)
-            acc_rows += batch.batch_size
-            acc_sj_rows += sjb_per_batch
-            metrics.total_reads += batch.n_reads
-            metrics.valid_barcode_reads += hi["n_valid_bc"] + hi["n_corrected"]
-            metrics.corrected_barcode_reads += hi["n_corrected"]
-            metrics.valid_umi_reads += hi["n_valid_umi"]
+            if libraries[li].library_type != "Gene Expression":
+                if pending is not None:       # keep batch order
+                    process_gex(*pending)
+                    pending = None
+                process_fb(li, batch)
+            elif accumulate:
+                if (acc_rows + batch.batch_size > mol_cap
+                        or acc_sj_rows + sjb_per_batch > sj_cap):
+                    drain_acc()
+                step(plane, acc, lib_tag=li << LIB_SHIFT)
+                acc_rows += batch.batch_size
+                acc_sj_rows += sjb_per_batch
+                metrics.total_reads += batch.n_reads
+                metrics.valid_barcode_reads += (hi["n_valid_bc"]
+                                                + hi["n_corrected"])
+                metrics.corrected_barcode_reads += hi["n_corrected"]
+                metrics.valid_umi_reads += hi["n_valid_umi"]
+            else:
+                out = step(plane)
+                if pending is not None:
+                    process_gex(*pending)
+                pending = (li, batch, hi, out)
             perf.lap("pass2_correct_align_annotate")
+        if pending is not None:
+            process_gex(*pending)
+            pending = None
     finally:
         stop.set()
         while producer.is_alive():   # unblock a producer waiting on put()
@@ -623,17 +1021,61 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
             except _queue.Empty:
                 pass
         producer.join()
-    drain_acc()
-    # annotated-junction contig hits -> (donor, acceptor, strand, 1) keys
-    for h in np.flatnonzero(sjh_total):
-        ji, s = int(h) // 2, int(h) % 2
-        key = (int(gi.sj_donor_end[ji]), int(gi.sj_acceptor_start[ji]), s, 1)
-        sj_counts[key] = sj_counts.get(key, 0) + int(sjh_total[h])
-    metrics.sj_capacity_overflow += sj_capacity_overflow
+    if accumulate:
+        drain_acc()
+        # annotated-junction contig hits -> (donor, acceptor, strand, 1)
+        for h in np.flatnonzero(sjh_total):
+            ji, s = int(h) // 2, int(h) % 2
+            key = (int(gi.sj_donor_end[ji]), int(gi.sj_acceptor_start[ji]),
+                   s, 1)
+            sj_counts[key] = sj_counts.get(key, 0) + int(sjh_total[h])
+        metrics.sj_capacity_overflow += sj_capacity_overflow
     perf.lap("pass2_correct_align_annotate")
 
-    # ---- dedup on the device (everything already resident) ----
-    mbc, mgene, mumi, mreads = mol_state.finalize()
+    # ---- dedup ----
+    spill.flush()
+    raw_parts = []
+    if mol_state is not None and not mol_state.flushed:
+        # device-resident path: one dedup + one valid-molecule fetch
+        mbc, mgene, mumi, mreads = mol_state.finalize()
+    else:
+        # barcode-hash partitions (bounded memory): each spill partition
+        # holds complete barcodes; oversized ones sub-split by a second
+        # barcode hash, so a device sort stays <= DEDUP_CHUNK_LIMIT rows
+        parts = []
+        if mol_state is not None:
+            # overflow path: the merged state flushed to the host; dedup
+            # its reads-weighted rows over bc-hash partitions
+            fb_, fg_, fu_, fr_ = mol_state.finalize()
+            k = max(1, -(-len(fb_) // DEDUP_CHUNK_LIMIT))
+            sub = (fb_ * np.uint32(0x9E3779B9)) % np.uint32(k)
+            for j in range(k):
+                msk = sub == j
+                parts.append((fb_[msk], fg_[msk], fu_[msk], fr_[msk]))
+        for p in range(n_parts):
+            b, g, u = spill.load_part(p)
+            k = max(1, -(-len(b) // DEDUP_CHUNK_LIMIT))
+            if k == 1:
+                if len(b):
+                    parts.append((b, g, u))
+            else:
+                sub = (b // np.uint32(n_parts)) % np.uint32(k)
+                for j in range(k):
+                    msk = sub == j
+                    parts.append((b[msk], g[msk], u[msk]))
+        parts_out = []
+        for dd in dedup_partitions(parts, chem.umi_length, device,
+                                   keep_raw=keep_raw):
+            parts_out.append((dd["mol_bc"], dd["mol_gene"], dd["mol_umi"],
+                              dd["mol_reads"]))
+            if keep_raw:
+                raw_parts.append(dd)
+        empty = (np.zeros(0, np.uint32),) * 3 + (np.zeros(0, np.int32),)
+        mbc, mgene, mumi, mreads = (
+            np.concatenate([x[c] for x in parts_out]) if parts_out
+            else empty[c] for c in range(4))
+    # strip the library tag out of the gene column (set at spill time so
+    # dedup ran per library)
     mlib = (mgene >> np.uint32(LIB_SHIFT)).astype(np.uint16)
     mgene = mgene & LIB_MASK
     order = np.lexsort((mumi, mgene, mbc))
@@ -641,14 +1083,22 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
                                       mumi[order], mreads[order],
                                       mlib[order])
     metrics.total_molecules = int(len(mbc))
+    raw_views = None
+    if keep_raw:
+        raw_views = {k: (np.concatenate([rp[k] for rp in raw_parts])
+                         if raw_parts else np.zeros(0, np.uint32))
+                     for k in ("raw_bc", "raw_gene", "raw_umi",
+                               "raw_corr_umi", "raw_low", "raw_reads")}
+    spill.close(remove=True)
     perf.lap("dedup")
-    return mbc, mgene, mumi, mreads, mlib, sj_counts
+    return mbc, mgene, mumi, mreads, mlib, sj_counts, raw_views
 
 
 def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
               n_genes, metrics, mbc, mgene, mumi, mreads, mlib, sj_counts,
-              perf, t0):
-    """Matrices, cell calls, junctions, molecule info, metrics (host)."""
+              perf, t0, fb_ref, bam_collector, raw_views):
+    """Matrices, aggregate removal, cell calls, BAM, junctions, molecule
+    info, feature assignment, metrics (host)."""
     have_h5 = _h5py_available()
     out_seqs = (whitelist.translation if whitelist.translation is not None
                 else whitelist.sorted_seqs)
@@ -664,23 +1114,47 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
     raw.save_mex(os.path.join(out_dir, "raw_feature_bc_matrix"))
     perf.lap("matrix_assembly")
 
-    # ---- cell calling ----
-    umis_per_bc = raw.counts_per_bc()
+    # ---- antibody/antigen aggregate-GEM removal (FILTER_BARCODES step 1,
+    # cell_calling_helpers.py:188-272) ----
+    agg_metrics: dict = {}
+    agg_bcs = np.zeros(0, np.int64)
+    if fb_ref is not None:
+        agg_bcs = _aggregate_barcodes(raw, features, n_genes, whitelist,
+                                      raw_views, agg_metrics, out_dir)
+
+    # ---- cell calling (on Gene Expression counts only when FB is
+    # present, filter_barcodes semantics) ----
+    if fb_ref is not None and n_genes > 0:
+        gex_m = raw.m[:n_genes]
+        umis_per_bc = np.asarray(gex_m.sum(axis=0)).ravel()
+        call_matrix = gex_m
+    else:
+        umis_per_bc = raw.counts_per_bc()
+        call_matrix = raw.m
+    if len(agg_bcs):
+        # aggregates never become cells: their calling weight is zeroed so
+        # raw-matrix barcode indexing stays stable
+        umis_per_bc = umis_per_bc.copy()
+        umis_per_bc[agg_bcs] = 0
     if cfg.cell_calling_mode == "gradient" and cfg.force_cells is None:
         cells_idx, call_metrics = cell_calling.call_cells_gradient(
             umis_per_bc, recovered_cells=cfg.recovered_cells)
     else:
         cells_idx, call_metrics = cell_calling.call_cells(
-            raw.m, umis_per_bc, cfg.chemistry,
+            call_matrix, umis_per_bc, cfg.chemistry,
             recovered_cells=cfg.recovered_cells, force_cells=cfg.force_cells,
             num_probe_bcs=None)
+    if len(agg_bcs):
+        cells_idx = np.setdiff1d(np.asarray(cells_idx), agg_bcs)
+        call_metrics.update(agg_metrics)
     cells_idx = cell_calling.apply_min_umi_filter(
         umis_per_bc, cells_idx, cfg.global_minimum_umis)
     if cfg.max_mito_percent < 100.0 and n_genes > 0:
         mt_rows = cell_calling.mito_gene_rows(
             [d.id for d in features.feature_defs[:n_genes]])
         cells_idx, mito_removed, _pct = cell_calling.apply_mito_filter(
-            raw.m, cells_idx, mt_rows, cfg.max_mito_percent)
+            raw.m[:n_genes] if fb_ref is not None else raw.m, cells_idx,
+            mt_rows, cfg.max_mito_percent)
         call_metrics["cells_removed_mito_filter"] = int(len(mito_removed))
     filtered = raw.select_barcodes(cells_idx)
     if have_h5:
@@ -689,6 +1163,15 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
             chemistry_description=chem.description)
     filtered.save_mex(os.path.join(out_dir, "filtered_feature_bc_matrix"))
     perf.lap("cell_calling")
+
+    # ---- BAM: UB tags and low-support flags join against the raw-triple
+    # views of every dedup partition ----
+    if bam_collector is not None:
+        bam_collector.write(
+            os.path.join(out_dir, "possorted_genome_bam.bam"),
+            raw_views or {}, chem.barcode_length, chem.umi_length,
+            gem_group=cfg.gem_group)
+        perf.lap("bam_write")
 
     # ---- splice junction table (STAR SJ.out.tab analog) ----
     if sj_counts:
@@ -732,6 +1215,16 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
                     f",{calls[i]}\n")
         call_metrics.update({f"multigenome_{k}": v
                              for k, v in mg_summary.items()})
+
+    # ---- CRISPR / antigen feature assignment on called cells ----
+    if fb_ref is not None and len(cells_idx):
+        from cellranger_tpu.analysis.feature_assigner import \
+            run_feature_assignment
+        for ftype, sub, prefix in (
+                ("CRISPR Guide Capture", "crispr_analysis", "protospacer"),
+                ("Antigen Capture", "antigen_analysis", "antigen")):
+            call_metrics.update(run_feature_assignment(
+                filtered, ftype, os.path.join(out_dir, sub), prefix))
     perf.lap("analysis_reporting")
 
     # ---- summary metrics ----
@@ -803,6 +1296,53 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
     perf.lap("reporting")
     perf.write(os.path.join(out_dir, "_perf.json"))
     return summary
+
+
+def _aggregate_barcodes(raw, features, n_genes, whitelist, raw_views,
+                        agg_metrics: dict, out_dir: str) -> np.ndarray:
+    """Antibody aggregates, antigen UMI outliers and highly corrected
+    barcodes (antibody/analysis.py:91-99); writes aggregate_barcodes.csv
+    and fills agg_metrics when any is found."""
+    from cellranger_tpu.analysis.aggregates import (
+        detect_antibody_aggregates, detect_highly_corrected_bcs,
+        detect_outlier_umi_bcs)
+    agg_bcs = np.zeros(0, np.int64)
+    fdefs = features.feature_defs
+    ab_rows = [i for i, d in enumerate(fdefs)
+               if d.feature_type == "Antibody Capture"]
+    ag_rows = [i for i, d in enumerate(fdefs)
+               if d.feature_type == "Antigen Capture"]
+    if ab_rows:
+        agg_bcs = detect_antibody_aggregates(
+            np.asarray(raw.m[ab_rows, :].todense()), num_probe_barcodes=None)
+    if ag_rows:
+        agg_bcs = np.union1d(agg_bcs, detect_outlier_umi_bcs(
+            np.asarray(raw.m[ag_rows, :].todense())))
+    # highly-corrected-reads signal: a barcode whose FB reads are mostly
+    # UMI corrections is an aggregate
+    if raw_views is not None and len(raw_views["raw_bc"]):
+        fb_mask = (raw_views["raw_gene"] & LIB_MASK) >= np.uint32(n_genes)
+        rb = raw_views["raw_bc"][fb_mask].astype(np.int64)
+        rreads = raw_views["raw_reads"][fb_mask].astype(np.int64)
+        rcorr = (raw_views["raw_corr_umi"] != raw_views["raw_umi"])[fb_mask]
+        space = whitelist.size
+        reads_per = np.bincount(rb, weights=rreads, minlength=space)
+        corr_per = np.bincount(rb[rcorr], weights=rreads[rcorr],
+                               minlength=space)
+        agg_bcs = np.union1d(agg_bcs, detect_highly_corrected_bcs(
+            reads_per, corr_per))
+    if len(agg_bcs):
+        per_bc_all = raw.counts_per_bc()
+        agg_metrics["number_aggregate_GEMs"] = int(len(agg_bcs))
+        agg_metrics["reads_lost_to_aggregate_GEMs"] = float(
+            per_bc_all[agg_bcs].sum() / max(per_bc_all.sum(), 1))
+        with open(os.path.join(out_dir, "aggregate_barcodes.csv"), "w") as f:
+            f.write("barcode,umis\n")
+            for b in agg_bcs:
+                bc = raw.barcodes[b]
+                f.write(f"{bc.decode() if isinstance(bc, bytes) else bc},"
+                        f"{int(per_bc_all[b])}\n")
+    return agg_bcs
 
 
 def _write_junctions(path: str, sj_counts: dict, gi) -> None:

@@ -9,9 +9,10 @@ molecules x duplicate reads, barcode errors, N-base junk reads).  The same
 seed always produces byte-identical inputs, so golden snapshots of the
 outputs gate regressions (tests/test_conformance.py).
 
-Copied from cellranger_tpu/testing/fixtures.py (`build_synthetic_run`) and
-bench.py (the 1M-read e2e generator); both build their reference through
-the port's ReferencePackage, so a machine without JAX makes its own data.
+Copied from cellranger_tpu/testing/fixtures.py (`build_synthetic_run`,
+`build_rich_run`) and bench.py (the 1M-read e2e generator); all build
+their reference through the port's ReferencePackage, so a machine without
+JAX makes its own data, byte for byte the JAX package's.
 """
 
 from __future__ import annotations
@@ -130,6 +131,203 @@ def build_synthetic_run(tmp: str, seed: int = 11, genome_len: int = 120_000,
 
     return dict(ref=ref_dir, wl=wl_path, fq1=fq1, fq2=fq2, truth=truth,
                 cells=cells, wl_seqs=wl_seqs, n_reads=len(r1s))
+
+
+# ---------------------------------------------------------------------------
+# Rich golden fixture (VERDICT r4 item 10): engineered multimapper
+# families, an unannotated splice junction, TSO/polyA adapter edges, UMI
+# 1-off correction pairs, and a second (Antibody Capture) library — the
+# regression classes the tiny fixture cannot reach.  Deterministic
+# (seeded RNG + mtime-0 gzip) so golden snapshots stay byte-stable.
+# ---------------------------------------------------------------------------
+
+RICH_AB_SEQS = ["ACGTACGTACGTACG", "TTTTGGGGCCCCAAA",
+                "GACGACGACGACGAC", "CTCTCTCTCTCTCTC"]
+
+
+def build_rich_run(tmp: str, seed: int = 23, genome_len: int = 300_000,
+                   n_wl: int = 4000, n_cells: int = 100,
+                   read_len: int = READ_LEN) -> dict:
+    """Reference package + whitelist + dual-library FASTQs under `tmp`.
+
+    Engineered content (each case present hundreds of times):
+      * a 700bp segment repeated at 3 loci; gene GR sits on copy 0 —
+        multimapped reads exercise MAPQ buckets, gene promotion, and
+        secondary BAM records;
+      * gene GN reads half exonic, half spliced over an UNANNOTATED
+        junction (900bp gap inside the annotated exon) — novel SJ
+        discovery rows in junctions.tsv;
+      * TSO prefixes on part of GA's reads and polyA tails on part of
+        GB's (ops/trim paths visible in the BAM ts/pa behavior);
+      * per-molecule UMI 1-off shadow reads (correction + dup marking);
+      * 1-base barcode errors on duplicate reads; N-base junk reads;
+      * an Antibody Capture library (4 features, 5PNNNNNNNNNN(BC)
+        pattern, including 1-mismatch corrected feature barcodes).
+    """
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    genome_codes = rng.integers(0, 4, genome_len).astype(np.uint8)
+    rep = rng.integers(0, 4, 700).astype(np.uint8)
+    REP_AT = (40_000, 80_000, 120_000)
+    for p in REP_AT:
+        genome_codes[p:p + 700] = rep
+    genome = bases[genome_codes].tobytes().decode()
+
+    exons = {
+        "GA": [(10_000, 10_600), (12_000, 12_600)],
+        "GB": [(30_000, 31_500)],
+        "GR": [(40_050, 40_650)],            # on repeat copy 0
+        "GN": [(150_000, 151_200)],          # novel junction inside
+    }
+    strands = {"GA": "+", "GB": "-", "GR": "+", "GN": "+"}
+    gene_ids = list(exons)
+
+    os.makedirs(tmp, exist_ok=True)
+    fasta = os.path.join(tmp, "genome.fa")
+    with open(fasta, "w") as f:
+        f.write(">chr1\n")
+        for i in range(0, genome_len, 80):
+            f.write(genome[i:i + 80] + "\n")
+    gtf = os.path.join(tmp, "genes.gtf")
+    with open(gtf, "w") as f:
+        for gname, exs in exons.items():
+            s = strands[gname]
+            lo, hi = exs[0][0] + 1, exs[-1][1]
+            attr = (f'gene_id "{gname}"; gene_name "{gname}"; '
+                    f'transcript_id "T_{gname}";')
+            f.write(f"chr1\tsyn\tgene\t{lo}\t{hi}\t.\t{s}\t.\t{attr}\n")
+            f.write(f"chr1\tsyn\ttranscript\t{lo}\t{hi}\t.\t{s}\t.\t{attr}\n")
+            for (a, b) in exs:
+                f.write(f"chr1\tsyn\texon\t{a + 1}\t{b}\t.\t{s}\t.\t{attr}\n")
+
+    from ..io.reference import ReferencePackage
+    ref_dir = os.path.join(tmp, "ref")
+    ReferencePackage.build(fasta, gtf, ref_dir, genome_name="synthrich")
+
+    wl_seqs = sorted({"".join(rng.choice(list("ACGT"), 16))
+                      for _ in range(n_wl + 300)})[:n_wl]
+    wl_path = os.path.join(tmp, "whitelist.txt")
+    with open(wl_path, "w") as f:
+        f.write("\n".join(wl_seqs) + "\n")
+
+    def tx_seq(gname):
+        s = "".join(genome[a:b] for (a, b) in exons[gname])
+        if strands[gname] == "-":
+            comp = str.maketrans("ACGT", "TGCA")
+            s = s.translate(comp)[::-1]
+        return s
+
+    txs = {g: tx_seq(g) for g in exons}
+    TSO = "AAGCAGTGGTATCAACGCAGAGTACATGGG"   # ops/trim.TSO_SEQ
+    # novel-junction read template: 50bp left of 150_050..150_100 spliced
+    # to 41bp starting at 151_000 (900bp unannotated intron inside GN)
+    novel_cdna = genome[150_050:150_100] + genome[151_000:151_041]
+
+    cells = rng.choice(n_wl, n_cells, replace=False)
+    r1s, r2s = [], []
+    truth = np.zeros((len(gene_ids), n_cells), np.int64)
+    seen_umi = set()
+
+    def emit(bc_obs, umi, cdna):
+        r1s.append(bc_obs + umi)
+        r2s.append(cdna)
+
+    for ci, c in enumerate(cells):
+        bc = wl_seqs[c]
+        for m in range(36):
+            gi_ = (ci + m) % 4
+            gname = gene_ids[gi_]
+            while True:
+                umi = "".join(rng.choice(list("ACGT"), 12))
+                if (c, gi_, umi) not in seen_umi:
+                    seen_umi.add((c, gi_, umi))
+                    break
+            t = txs[gname]
+            kind = m % 6
+            if gname == "GN" and m % 2 == 0:
+                cdna = novel_cdna
+            elif gname == "GR":
+                start = int(rng.integers(0, len(t) - (read_len - 30)))
+                cdna = t[start:start + read_len]
+                if len(cdna) < read_len:   # repeat gene is short: pad with
+                    cdna = cdna + "A" * (read_len - len(cdna))  # polyA tail
+            elif kind == 1 and gname == "GA":
+                cdna = TSO + t[:read_len - len(TSO)]
+            elif kind == 2 and gname == "GB":
+                start = int(rng.integers(0, len(t) - (read_len - 30)))
+                cdna = t[start:start + read_len - 30] + "A" * 30
+            else:
+                start = int(rng.integers(0, max(len(t) - read_len, 1)))
+                cdna = t[start:start + read_len]
+                if len(cdna) < read_len:
+                    cdna = cdna + "A" * (read_len - len(cdna))
+            truth[gi_, ci] += 1
+            for d in range(3):
+                bc_obs = bc
+                if d == 1 and m % 5 == 0:  # correctable barcode error
+                    p = int(rng.integers(16))
+                    alt = "ACGT"[(("ACGT".index(bc[p])) + 1) % 4]
+                    bc_obs = bc[:p] + alt + bc[p + 1:]
+                emit(bc_obs, umi, cdna)
+            if m % 7 == 0:
+                # UMI 1-off shadow read (corrected + duplicate-marked)
+                p = int(rng.integers(12))
+                alt = "ACGT"[(("ACGT".index(umi[p])) + 1) % 4]
+                emit(bc, umi[:p] + alt + umi[p + 1:], cdna)
+    for _ in range(300):   # junk: bad barcodes / N bases
+        r1s.append("N" * 16 + "A" * 12)
+        r2s.append("".join(rng.choice(list("ACGT"), read_len)))
+
+    order = rng.permutation(len(r1s))
+    fq1 = os.path.join(tmp, "rich_S1_L001_R1_001.fastq.gz")
+    fq2 = os.path.join(tmp, "rich_S1_L001_R2_001.fastq.gz")
+    with open(fq1, "wb") as h1, gzip.GzipFile(fileobj=h1, mode="wb",
+                                              mtime=0) as f1, \
+            open(fq2, "wb") as h2, gzip.GzipFile(fileobj=h2, mode="wb",
+                                                 mtime=0) as f2:
+        for i, oi in enumerate(order):
+            f1.write(f"@rich{i}\n{r1s[oi]}\n+\n{'I' * len(r1s[oi])}\n"
+                     .encode())
+            f2.write(f"@rich{i}\n{r2s[oi]}\n+\n{'I' * len(r2s[oi])}\n"
+                     .encode())
+
+    # ---- antibody library ----
+    fcsv = os.path.join(tmp, "features.csv")
+    with open(fcsv, "w") as f:
+        f.write("id,name,read,pattern,sequence,feature_type\n")
+        for i, s in enumerate(RICH_AB_SEQS):
+            f.write(f"AB{i},Ab{i},R2,5PNNNNNNNNNN(BC),{s},"
+                    "Antibody Capture\n")
+    a1s, a2s = [], []
+    ab_truth = np.zeros((4, n_cells), np.int64)
+    for ci, c in enumerate(cells[:60]):
+        bc = wl_seqs[c]
+        ab = ci % 4
+        k = 4 + ci % 7
+        ab_truth[ab, ci] = k
+        for u in range(k):
+            umi = "".join(rng.choice(list("ACGT"), 12))
+            seq = RICH_AB_SEQS[ab]
+            if u == 0:  # 1-mismatch feature barcode (corrected)
+                seq = ("T" if seq[7] != "T" else "G").join(
+                    [seq[:7], seq[8:]])
+            a1s.append(bc + umi)
+            a2s.append("T" * 10 + seq + "A" * (read_len - 10 - len(seq)))
+    af1 = os.path.join(tmp, "ab_S1_L001_R1_001.fastq.gz")
+    af2 = os.path.join(tmp, "ab_S1_L001_R2_001.fastq.gz")
+    with open(af1, "wb") as h1, gzip.GzipFile(fileobj=h1, mode="wb",
+                                              mtime=0) as f1, \
+            open(af2, "wb") as h2, gzip.GzipFile(fileobj=h2, mode="wb",
+                                                 mtime=0) as f2:
+        for i in range(len(a1s)):
+            f1.write(f"@ab{i}\n{a1s[i]}\n+\n{'I' * len(a1s[i])}\n".encode())
+            f2.write(f"@ab{i}\n{a2s[i]}\n+\n{'I' * len(a2s[i])}\n".encode())
+
+    return dict(ref=ref_dir, wl=wl_path, fq1=fq1, fq2=fq2,
+                ab_fq1=af1, ab_fq2=af2, feature_ref=fcsv,
+                truth=truth, ab_truth=ab_truth, cells=cells,
+                wl_seqs=wl_seqs, n_reads=len(r1s) + len(a1s),
+                n_gex_reads=len(r1s))
 
 
 # ---------------------------------------------------------------------------

@@ -11,12 +11,25 @@ Phases, each printing one line; any failure raises and exits non-zero:
                L = 91): all outputs equal; CUDA-event times of both
   tiny_parity  the synthetic run through run_count on cuda and on cpu:
                identical metrics (except wall_time_s) and MEX matrices
+  golden_tiny  the synthetic run with BAM on cuda against the checked-in
+               snapshot tests/golden/e2e (metrics, MEX, BAM, barcode CSV,
+               junctions; the h5 files only where h5py imports)
+  golden_rich  the rich run (GEX + Antibody Capture, BAM) on cuda and on
+               cpu against tests/golden/e2e_rich; identical BAM bytes
   e2e          the 1M-read fixture through run_count on cuda at batch
                32768: read and molecule counts against the JAX package's
                values for this fixture, wall time, phase split, memory
+  e2e_bam      the same fixture with BAM (stream mode, spill + partition
+               dedup, BAM write): the same counts, the BAM write phase on
+               its own, BAM size and record count
+  overflow     the count-only e2e run with the device molecule state
+               capped at 1 << 19 rows, which forces the host flush and the
+               partition dedup: the same molecules and MEX bytes as e2e
 
-The line before the last is the kernel report (JSON); the last line is
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+Every path resets the SW kernel's launch count before it runs and reads
+it after; the kernel report counts the e2e path's launches and lists
+every path's.  The line before the last is the kernel report (JSON); the
+last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,6 +46,13 @@ import time
 
 E2E_READS = 1_000_000
 E2E_BATCH = 32768
+GOLDEN_BATCH = 4096
+OVERFLOW_STATE_CAP = 1 << 19
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden")
+MEX_FILES = [os.path.join(sub, f)
+             for sub in ("raw_feature_bc_matrix", "filtered_feature_bc_matrix")
+             for f in ("matrix.mtx.gz", "barcodes.tsv.gz", "features.tsv.gz")]
 # the JAX package's outputs for this fixture (BENCH_r05.json, e2e)
 E2E_TOTAL_MOLECULES = 499_995
 E2E_CONF_MAPPED_FRAC = 1.0
@@ -100,12 +120,23 @@ def check_sw_kernel() -> dict:
     return report
 
 
-def _count_cfg(fx: dict, batch_size: int):
+def _count_cfg(fx: dict, batch_size: int, **kw):
     from cellranger_tpu_torch.pipeline.count import CountConfig
+    kw = dict(dict(checkpoint=False), **kw)
     return CountConfig(
         fastq_pairs=[(fx["fq1"], fx["fq2"])], reference_path=fx["ref"],
         whitelist_path=fx["wl"], chemistry="SC3Pv3", read_len=91,
-        batch_size=batch_size, secondary_analysis=False, checkpoint=False)
+        batch_size=batch_size, secondary_analysis=False, **kw)
+
+
+def _mex_diffs(out_a: str, out_b: str) -> list[str]:
+    diffs = []
+    for f in MEX_FILES:
+        with gzip.open(os.path.join(out_a, f)) as fa, \
+                gzip.open(os.path.join(out_b, f)) as fb:
+            if fa.read() != fb.read():
+                diffs.append(f)
+    return diffs
 
 
 def tiny_parity(tmp: str, devices=("cuda", "cpu"), batch_size: int = 256):
@@ -133,12 +164,7 @@ def tiny_parity(tmp: str, devices=("cuda", "cpu"), batch_size: int = 256):
     diffs = [k for k in sorted(set(sums[a]) | set(sums[b]))
              if k != "wall_time_s"
              and json.dumps(sums[a].get(k)) != json.dumps(sums[b].get(k))]
-    for sub in ("raw_feature_bc_matrix", "filtered_feature_bc_matrix"):
-        for f in ("matrix.mtx.gz", "barcodes.tsv.gz", "features.tsv.gz"):
-            with gzip.open(os.path.join(outs[a], sub, f)) as fa, \
-                    gzip.open(os.path.join(outs[b], sub, f)) as fb:
-                if fa.read() != fb.read():
-                    diffs.append(f"{sub}/{f}")
+    diffs += _mex_diffs(outs[a], outs[b])
     if diffs:
         raise AssertionError(f"{a} and {b} runs differ: {diffs[:10]}")
     if sums[a]["total_molecules"] != int(fx["truth"].sum()):
@@ -146,23 +172,110 @@ def tiny_parity(tmp: str, devices=("cuda", "cpu"), batch_size: int = 256):
     return sums[a], n_steps
 
 
-def e2e(tmp: str, device: str = "cuda", n_reads: int = E2E_READS,
-        batch_size: int = E2E_BATCH) -> dict:
-    """The e2e fixture through run_count; returns a result dict."""
+def _golden_diffs(out: str, golden: str) -> tuple[list[str], list[str]]:
+    """Differences of a run's outputs from a golden snapshot, through the
+    repo's comparators; returns (diffs, h5 files skipped)."""
+    from cellranger_tpu.testing import correctness as cc
+    from cellranger_tpu_torch.pipeline.count import _h5py_available
+
+    j = lambda d, f: os.path.join(d, f)  # noqa: E731
+    diffs = cc.check_metrics(j(out, "metrics_summary.json"),
+                             j(golden, "metrics_summary.json"))
+    for f in ("matrix.mtx.gz", "barcodes.tsv.gz", "features.tsv.gz"):
+        f = os.path.join("raw_feature_bc_matrix", f)
+        diffs += cc.check_mtx(j(out, f), j(golden, f))
+    diffs += cc.check_bam(j(out, "possorted_genome_bam.bam"),
+                          j(golden, "possorted_genome_bam.bam"))
+    for f in ("filtered_barcodes.csv", "junctions.tsv"):
+        with open(j(out, f), "rb") as fa, open(j(golden, f), "rb") as fe:
+            if fa.read() != fe.read():
+                diffs.append(f"{f} differs from golden")
+    skipped = ["filtered_feature_bc_matrix.h5", "molecule_info.h5"]
+    if _h5py_available():
+        diffs += cc.check_h5(j(out, skipped[0]), j(golden, skipped[0]))
+        diffs += cc.check_molecule_info(j(out, skipped[1]),
+                                        j(golden, skipped[1]))
+        skipped = []
+    return diffs, skipped
+
+
+def golden(tmp: str, which: str, devices=("cuda",)) -> dict:
+    """The tiny ("e2e") or rich ("e2e_rich") fixture with BAM on each
+    device, each against its golden snapshot; with two devices the BAM
+    bytes must be identical too."""
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.pipeline.count import LibraryDef, run_count
+    from cellranger_tpu_torch.testing import fixtures
+
+    if which == "e2e":
+        fx = fixtures.build_synthetic_run(os.path.join(tmp, which))
+        cfg = _count_cfg(fx, GOLDEN_BATCH, write_bam=True, checkpoint=True)
+    else:
+        fx = fixtures.build_rich_run(os.path.join(tmp, which))
+        cfg = _count_cfg(fx, GOLDEN_BATCH, write_bam=True,
+                         feature_ref_csv=fx["feature_ref"], libraries=[
+                             LibraryDef([(fx["fq1"], fx["fq2"])]),
+                             LibraryDef([(fx["ab_fq1"], fx["ab_fq2"])],
+                                        "Antibody Capture")])
+    # Gene Expression steps (feature libraries do not align)
+    n_steps = -(-fx.get("n_gex_reads", fx["n_reads"]) // GOLDEN_BATCH)
+    res, bams = {}, []
+    for dev in devices:
+        out = os.path.join(tmp, f"{which}_{dev}")
+        sw.LAUNCHES = 0
+        t = time.time()
+        summary = run_count(cfg, out, device=dev)
+        res[f"wall_s_{dev}"] = time.time() - t
+        launches = sw.LAUNCHES
+        diffs, skipped = _golden_diffs(out, os.path.join(GOLDEN_DIR, which))
+        if diffs:
+            raise AssertionError(f"{which} on {dev} differs from the golden "
+                                 f"snapshot: {diffs[:10]}")
+        if dev == "cuda" and launches < n_steps:
+            raise AssertionError(f"{which} on cuda launched the SW kernel "
+                                 f"{launches} times in {n_steps} steps")
+        with open(os.path.join(out, "possorted_genome_bam.bam"), "rb") as f:
+            bams.append(f.read())
+        res.update(reads=summary["total_reads"],
+                   molecules=summary["total_molecules"],
+                   h5_skipped=skipped, bam_bytes=len(bams[-1]))
+        res[f"sw_launches_{dev}"] = launches
+    if len(bams) == 2 and bams[0] != bams[1]:
+        raise AssertionError(f"{which}: {devices[0]} and {devices[1]} BAMs "
+                             "differ")
+    return res
+
+
+def bam_records(path: str) -> int:
+    """Number of alignment records in a BAM."""
+    import struct
+    with gzip.open(path, "rb") as f:
+        data = f.read()
+    off = 8 + struct.unpack_from("<i", data, 4)[0]
+    n_ref = struct.unpack_from("<i", data, off)[0]
+    off += 4
+    for _ in range(n_ref):
+        off += 8 + struct.unpack_from("<i", data, off)[0]
+    n = 0
+    while off < len(data):
+        off += 4 + struct.unpack_from("<i", data, off)[0]
+        n += 1
+    return n
+
+
+def count_run(fx: dict, out: str, device: str = "cuda",
+              batch_size: int = E2E_BATCH, **kw) -> dict:
+    """One run_count of a fixture; returns counts, wall, phase split, SW
+    launches (reset before the run) and peak device memory."""
     import torch
     from cellranger_tpu_torch.align import sw
     from cellranger_tpu_torch.pipeline.count import H5_OUTPUTS, run_count
-    from cellranger_tpu_torch.testing.fixtures import build_e2e_run
 
-    t0 = time.time()
-    fx = build_e2e_run(os.path.join(tmp, "e2e"), n_reads=n_reads)
-    t_fix = time.time() - t0
-    out = os.path.join(tmp, "e2e_out")
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    sw.LAUNCHES = 0                 # count the main path's launches only
+    sw.LAUNCHES = 0                 # count this path's launches only
     t1 = time.time()
-    summary = run_count(_count_cfg(fx, batch_size), out, device=device)
+    summary = run_count(_count_cfg(fx, batch_size, **kw), out, device=device)
     wall = time.time() - t1
     launches = sw.LAUNCHES
     with open(os.path.join(out, "_perf.json")) as f:
@@ -171,7 +284,7 @@ def e2e(tmp: str, device: str = "cuda", n_reads: int = E2E_READS,
             phases[ph["name"]] = phases.get(ph["name"], 0.0) + ph["wall_s"]
     return dict(
         reads=summary["total_reads"], wall_s=wall,
-        reads_per_s=summary["total_reads"] / wall, fixture_s=t_fix,
+        reads_per_s=summary["total_reads"] / wall,
         total_molecules=summary["total_molecules"],
         conf_mapped_frac=summary["conf_mapped_frac"],
         estimated_cells=summary["estimated_cells"],
@@ -184,6 +297,58 @@ def e2e(tmp: str, device: str = "cuda", n_reads: int = E2E_READS,
                     if not os.path.exists(os.path.join(out, f))])
 
 
+def check_e2e_counts(name: str, r: dict) -> None:
+    """The JAX package's values for the e2e fixture, and one SW launch at
+    least per step."""
+    if r["reads"] != E2E_READS:
+        raise AssertionError(f"{name} total_reads {r['reads']}")
+    if r["total_molecules"] != E2E_TOTAL_MOLECULES:
+        raise AssertionError(f"{name} total_molecules "
+                             f"{r['total_molecules']} != "
+                             f"{E2E_TOTAL_MOLECULES}")
+    if r["conf_mapped_frac"] != E2E_CONF_MAPPED_FRAC:
+        raise AssertionError(f"{name} conf_mapped_frac "
+                             f"{r['conf_mapped_frac']}")
+    if r["sw_launches"] < r["n_steps"]:
+        raise AssertionError(f"{name} launched the SW kernel "
+                             f"{r['sw_launches']} times in {r['n_steps']} "
+                             "steps")
+
+
+def overflow_run(fx: dict, out: str, ref_out: str, device: str = "cuda",
+                 batch_size: int = E2E_BATCH,
+                 cap: int = OVERFLOW_STATE_CAP) -> dict:
+    """A count-only run with the device molecule state capped at `cap`
+    rows: the host flush and the partition dedup must run, and the MEX
+    bytes must equal those of the uncapped run in ref_out."""
+    from cellranger_tpu_torch.parallel import molecule_state
+    from cellranger_tpu_torch.pipeline import count
+
+    flushes = []
+    real_flush = molecule_state.MoleculeState.flush_to_host
+    real_cap = count.MOLECULE_STATE_CAP
+
+    def flush(self):
+        flushes.append(self.n)
+        real_flush(self)
+
+    count.MOLECULE_STATE_CAP = cap
+    molecule_state.MoleculeState.flush_to_host = flush
+    try:
+        r = count_run(fx, out, device, batch_size)
+    finally:
+        count.MOLECULE_STATE_CAP = real_cap
+        molecule_state.MoleculeState.flush_to_host = real_flush
+    if not flushes:
+        raise AssertionError("the capped run never flushed its molecule "
+                             "state")
+    diffs = _mex_diffs(out, ref_out)
+    if diffs:
+        raise AssertionError(f"capped run MEX differs: {diffs}")
+    r["flushes"] = len(flushes)
+    return r
+
+
 def main() -> None:
     import torch
 
@@ -191,6 +356,7 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                  "is false)")
     from cellranger_tpu_torch import kernels   # the port must be here
+    from cellranger_tpu_torch.testing.fixtures import build_e2e_run
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     smi = nvidia_smi_line()
@@ -205,26 +371,47 @@ def main() -> None:
     sw_report = check_sw_kernel()
 
     tmp = tempfile.mkdtemp(prefix="crt_smoke_")
+    launches = {}
     try:
         s, n_steps = tiny_parity(tmp)
         phase("tiny_parity", f"cuda == cpu over {n_steps} steps: "
               f"{s['total_reads']} reads, {s['total_molecules']} molecules")
 
-        r = e2e(tmp)
-        if r["reads"] != E2E_READS:
-            raise AssertionError(f"e2e total_reads {r['reads']}")
-        if r["total_molecules"] != E2E_TOTAL_MOLECULES:
-            raise AssertionError(f"e2e total_molecules "
-                                 f"{r['total_molecules']} != "
-                                 f"{E2E_TOTAL_MOLECULES}")
-        if r["conf_mapped_frac"] != E2E_CONF_MAPPED_FRAC:
-            raise AssertionError(f"e2e conf_mapped_frac "
-                                 f"{r['conf_mapped_frac']}")
-        if r["sw_launches"] < r["n_steps"]:
-            raise AssertionError(f"e2e launched the SW kernel "
-                                 f"{r['sw_launches']} times in "
-                                 f"{r['n_steps']} steps")
+        g = golden(tmp, "e2e")
+        launches["golden_tiny"] = g["sw_launches_cuda"]
+        phase("golden_tiny", "equal to tests/golden/e2e: " + json.dumps(g))
+        g = golden(tmp, "e2e_rich", devices=("cuda", "cpu"))
+        launches["golden_rich"] = g["sw_launches_cuda"]
+        phase("golden_rich", "equal to tests/golden/e2e_rich, cuda BAM == "
+              "cpu BAM: " + json.dumps(g))
+
+        t0 = time.time()
+        fx = build_e2e_run(os.path.join(tmp, "e2e"), n_reads=E2E_READS)
+        t_fix = time.time() - t0
+        e2e_out = os.path.join(tmp, "e2e_out")
+        r = count_run(fx, e2e_out)
+        check_e2e_counts("e2e", r)
+        r["fixture_s"] = t_fix
+        launches["e2e"] = r["sw_launches"]
         phase("e2e", json.dumps(r))
+
+        bam_out = os.path.join(tmp, "e2e_bam_out")
+        rb = count_run(fx, bam_out, write_bam=True)
+        check_e2e_counts("e2e_bam", rb)
+        bam = os.path.join(bam_out, "possorted_genome_bam.bam")
+        rb["bam_bytes"] = os.path.getsize(bam)
+        rb["bam_records"] = bam_records(bam)
+        if rb["bam_records"] < E2E_READS:
+            raise AssertionError(f"e2e_bam wrote {rb['bam_records']} "
+                                 f"records for {E2E_READS} reads")
+        launches["e2e_bam"] = rb["sw_launches"]
+        phase("e2e_bam", json.dumps(rb))
+
+        ro = overflow_run(fx, os.path.join(tmp, "overflow_out"), e2e_out)
+        check_e2e_counts("overflow", ro)
+        launches["overflow"] = ro["sw_launches"]
+        phase("overflow", f"state cap {OVERFLOW_STATE_CAP}: same molecules "
+              "and MEX bytes as e2e: " + json.dumps(ro))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -232,7 +419,8 @@ def main() -> None:
         "name": "banded_sw", "route": "cuda",
         "source": "cellranger_tpu_torch/csrc/sw.cu",
         "replaces": "cellranger_tpu/align/sw.py:131",
-        "launches": r["sw_launches"], "max_abs_err": sw_report["max_abs_err"],
+        "launches": launches["e2e"], "launches_by_path": launches,
+        "max_abs_err": sw_report["max_abs_err"],
         "ms": sw_report["ms"], "plain_ms": sw_report["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,7 +8,8 @@
     junction, TSO/polyA reads and UMI errors): metrics (except
     wall_time_s), raw and filtered MEX and h5, molecule_info.h5 and
     filtered_barcodes.csv are equal, via cellranger_tpu.testing.correctness;
-  * what the slice does not run raises NotImplementedError.
+  * what the port does not run raises NotImplementedError; BAM, Feature
+    Barcode and multi-library configs pass the check.
 """
 
 import dataclasses
@@ -146,14 +147,27 @@ def test_run_count_resumes_from_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    dict(write_bam=True), dict(secondary_analysis=True),
-    dict(probe_set_csv="probes.csv"), dict(feature_ref_csv="f.csv"),
-    dict(chemistry="SC5P-PE"), dict(chemistry="auto"),
-    dict(shard_index=True),
-    dict(libraries=[tcount.LibraryDef([]), tcount.LibraryDef([])]),
+    dict(secondary_analysis=True), dict(probe_set_csv="probes.csv"),
+    dict(probe_barcode_csv="pbc.csv"), dict(chemistry="SC5P-PE"),
+    dict(chemistry="auto"), dict(shard_index=True),
 ])
 def test_unsupported_configs_raise(change, tmp_path):
     base = tcount.CountConfig(fastq_pairs=[], secondary_analysis=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcount.run_count(dataclasses.replace(base, **change),
                          str(tmp_path / "o"), device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(write_bam=True), dict(feature_ref_csv="f.csv"),
+    dict(libraries=[tcount.LibraryDef([]),
+                    tcount.LibraryDef([], "Antibody Capture")]),
+    dict(write_bam=True, feature_ref_csv="f.csv",
+         libraries=[tcount.LibraryDef([]),
+                    tcount.LibraryDef([], "Antibody Capture")]),
+])
+def test_supported_configs_pass_the_check(change):
+    cfg = dataclasses.replace(
+        tcount.CountConfig(fastq_pairs=[], secondary_analysis=False),
+        **change)
+    tcount._check_supported(cfg, get_chemistry(cfg.chemistry))

@@ -1,7 +1,8 @@
 """Port parity: UMI dedup and the device molecule state of
 cellranger_tpu_torch against the JAX package (ops/dedup.py,
-parallel/executor.py MoleculeState) and against the plain-python
-mark_dups.rs oracle in tests/ref_dedup.py.  Tolerance 0.
+parallel/executor.py MoleculeState with its host flush, and
+Executor(None).dedup_partitions) and against the plain-python mark_dups.rs
+oracle in tests/ref_dedup.py.  Tolerance 0.
 """
 
 import numpy as np
@@ -12,10 +13,12 @@ import jax.numpy as jnp
 from cellranger_tpu.ops.dedup import dedup_molecules as jax_dedup
 from cellranger_tpu.ops.dedup import exact_merge as jax_exact_merge
 from cellranger_tpu.ops.dedup import lex3_search as jax_lex3_search
+from cellranger_tpu.parallel.executor import Executor as JaxExecutor
 from cellranger_tpu.parallel.executor import MoleculeState as JaxMoleculeState
 from cellranger_tpu_torch.ops.dedup import (dedup_molecules, exact_merge,
                                             lex3_search)
-from cellranger_tpu_torch.parallel.molecule_state import MoleculeState
+from cellranger_tpu_torch.parallel.molecule_state import (MoleculeState,
+                                                          dedup_partitions)
 
 from ref_dedup import dedup_spec
 
@@ -135,10 +138,107 @@ def test_molecule_state_matches_jax(max_cap):
         np.testing.assert_array_equal(g[o_g], w[o_w])
 
 
-def test_molecule_state_overflow_is_not_ported():
-    rng = np.random.default_rng(7)
-    st = MoleculeState(1 << 11, UMI_LEN, "cpu", min_capacity=1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        for _ in range(6):
-            mol, n = _drain(rng, 1000, 1024, umi_space=1 << 20)
+def _flushing_states(max_cap, seed=7, drains=6):
+    """JAX and port states fed the same drains; max_cap small enough that
+    the distinct triples overflow it and flush to the host."""
+    rng = np.random.default_rng(seed)
+    jst = JaxMoleculeState(max_cap, UMI_LEN, min_capacity=1024)
+    tst = MoleculeState(max_cap, UMI_LEN, "cpu", min_capacity=1024)
+    big = MoleculeState(1 << 16, UMI_LEN, "cpu", min_capacity=1024)
+    for _ in range(drains):
+        mol, n = _drain(rng, 1000, 1024, umi_space=1 << 20)
+        jst.absorb(jnp.asarray(mol), jnp.int32(n), upper=1024)
+        for st in (tst, big):
             st.absorb(_t(mol), torch.tensor(n), upper=1024)
+    return jst, tst, big
+
+
+def test_molecule_state_overflow_is_not_ported():
+    """The overflow past max_capacity (formerly NotImplementedError) now
+    flushes the merged state to the host, as the JAX package does: the
+    flushed rows are the JAX state's, reads-weighted."""
+    jst, tst, _big = _flushing_states(1 << 11)
+    assert jst.flushed and tst.flushed
+    assert len(tst.flushed) == len(jst.flushed)
+    for g, w in zip(tst.flushed, jst.flushed):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    want = jst.finalize()
+    got = tst.finalize()
+    for g, w in zip(got, want):
+        assert g.dtype == np.uint32
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+def test_flushed_state_dedups_to_the_unflushed_molecules():
+    """Flushed rows through dedup_partitions give the molecules of a
+    state that never flushed, and the JAX package's."""
+    jst, tst, big = _flushing_states(1 << 11, seed=8)
+    rows = tst.finalize()
+    jrows = [np.asarray(a) for a in jst.finalize()]
+    got = list(dedup_partitions([rows], UMI_LEN, "cpu", keep_raw=False))
+    want = list(JaxExecutor(None).dedup_partitions([tuple(jrows)], UMI_LEN,
+                                                   keep_raw=False))
+    assert not big.flushed
+    ref = big.finalize()
+    g = {k: np.concatenate([d[k] for d in got]) for k in got[0]}
+    w = {k: np.concatenate([d[k] for d in want]) for k in want[0]}
+    for k in w:
+        assert g[k].dtype == w[k].dtype, k
+        np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    o = np.lexsort((ref[2], ref[1], ref[0]))
+    for k, r in zip(("mol_bc", "mol_gene", "mol_umi", "mol_reads"), ref):
+        np.testing.assert_array_equal(g[k], r[o], err_msg=k)
+
+
+@pytest.mark.parametrize("keep_raw,weighted", [(True, False), (False, False),
+                                               (True, True)])
+def test_dedup_partitions_matches_jax(keep_raw, weighted):
+    """Barcode-disjoint partitions, coalesced into several device calls
+    (small chunk_limit), against Executor(None).dedup_partitions."""
+    rng = np.random.default_rng(11 + weighted)
+    bc, gene, umi = _rows(rng, 3000, n_bc=9, n_gene=4)
+    parts = []
+    for p in range(4):
+        m = bc % 4 == p
+        part = (bc[m], gene[m], umi[m])
+        if weighted:
+            part += (rng.integers(1, 5, m.sum()).astype(np.uint32),)
+        parts.append(part)
+    want = list(JaxExecutor(None).dedup_partitions(
+        parts, UMI_LEN, chunk_limit=1000, keep_raw=keep_raw))
+    got = list(dedup_partitions(parts, UMI_LEN, "cpu", chunk_limit=1000,
+                                keep_raw=keep_raw))
+    assert len(got) == len(want) > 1
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in w:
+            assert g[k].dtype == w[k].dtype, k
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+    if keep_raw:
+        assert any((g["raw_corr_umi"] != g["raw_umi"]).any() for g in got)
+        assert any(g["raw_low"].any() for g in got)
+
+
+def test_run_count_overflow_matches_jax(tmp_path, monkeypatch):
+    """A count-only run whose molecule state overflows (cap lowered to
+    1024 rows) takes the host flush + partition dedup and still equals
+    the JAX package's run, which never overflows here."""
+    from cellranger_tpu_torch.pipeline import count as tcount
+    from cellranger_tpu_torch.parallel import molecule_state
+    from cellranger_tpu_torch.testing.fixtures import build_synthetic_run
+    from test_torch_count import _run_both
+
+    calls = []
+    real = molecule_state.MoleculeState.flush_to_host
+
+    def counted(self):
+        calls.append(self.n)
+        return real(self)
+
+    monkeypatch.setattr(tcount, "MOLECULE_STATE_CAP", 1024)
+    monkeypatch.setattr(molecule_state.MoleculeState, "flush_to_host",
+                        counted)
+    fx = build_synthetic_run(str(tmp_path / "fx"), n_cells=20)
+    s = _run_both(tmp_path, fx["fq1"], fx["fq2"], fx["ref"], fx["wl"], 256)
+    assert calls, "the overflow path did not run"
+    assert s["total_molecules"] == int(fx["truth"].sum())

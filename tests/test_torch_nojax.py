@@ -1,8 +1,9 @@
 """The port runs without JAX: in a subprocess whose import system refuses
 jax, jaxlib and h5py (the machine with the card has no h5py), import
-cellranger_tpu_torch, its count pipeline, its CLI and chip_smoke, then
-build the synthetic run and count it on the CPU, and run chip_smoke's
-parity phase with the CPU on both sides."""
+cellranger_tpu_torch, its count pipeline and the modules of its BAM and
+Feature Barcode paths, its CLI and chip_smoke, then build the synthetic
+run and count it on the CPU, and run chip_smoke's parity, golden and
+overflow phases with the CPU as the device."""
 
 import os
 import subprocess
@@ -26,6 +27,10 @@ SCRIPT = textwrap.dedent("""
 
     import cellranger_tpu_torch
     import cellranger_tpu_torch.pipeline.count as count
+    import cellranger_tpu_torch.pipeline.bam_out
+    import cellranger_tpu_torch.io.feature_ref
+    import cellranger_tpu_torch.ops.features
+    import cellranger_tpu_torch.parallel.molecule_state
     import cellranger_tpu_torch.cli
     import chip_smoke
     from cellranger_tpu_torch.testing.fixtures import build_synthetic_run
@@ -45,6 +50,18 @@ SCRIPT = textwrap.dedent("""
                                        "matrix.mtx.gz"))
     # chip_smoke's cpu/cpu parity phase runs here too (the card has no h5py)
     chip_smoke.tiny_parity(os.path.join(tmp, "smoke"), devices=("cpu", "cpu"))
+    # the golden phases (h5 comparisons skipped without h5py), the BAM
+    # record counter and the overflow phase, on the CPU
+    for which in ("e2e", "e2e_rich"):
+        g = chip_smoke.golden(os.path.join(tmp, "g"), which,
+                              devices=("cpu",))
+        assert g["h5_skipped"] and g["sw_launches_cpu"] == 0, g
+    from cellranger_tpu.io.bam_read import read_bam
+    bam = os.path.join(tmp, "g", "e2e_rich_cpu", "possorted_genome_bam.bam")
+    assert chip_smoke.bam_records(bam) == len(read_bam(bam)[1])
+    r = chip_smoke.overflow_run(fx, os.path.join(tmp, "ovf"), out,
+                                device="cpu", batch_size=256, cap=512)
+    assert r["flushes"] and r["total_molecules"] == s["total_molecules"]
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
