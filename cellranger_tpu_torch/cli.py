@@ -1,12 +1,16 @@
-"""cellranger-tpu-torch CLI: the `count` subcommand of the port.
+"""cellranger-tpu-torch CLI: the `count` and `reanalyze` subcommands of
+the port.
 
     python -m cellranger_tpu_torch count --id S --fastqs DIR \
         --reference REF --whitelist WL --chemistry SC3Pv3 [--bam] \
         [--device cuda]
+    python -m cellranger_tpu_torch reanalyze --id S \
+        --matrix filtered_feature_bc_matrix.h5 [--device cuda]
 
 Mirrors `cellranger_tpu count` for the slice the port runs: the
-chemistry must be named (no auto-detection), secondary analysis is off,
-and preflight checks are not run.
+chemistry must be named (no auto-detection) and preflight checks are not
+run; secondary analysis runs on the same device, as in the JAX package.
+`reanalyze` reads its matrix with h5py.
 """
 
 from __future__ import annotations
@@ -36,9 +40,7 @@ def _cmd_count(args):
         force_cells=args.force_cells,
         sample_id=args.id,
         write_bam=args.bam,
-        secondary_analysis=False,
     )
-    print("secondary analysis: off (not in this port yet)")
     out_dir = os.path.join(args.output_dir or ".", args.id, "outs")
     from cellranger_tpu.pipeline.runtime import run_with_retry
     summary = run_with_retry(run_count, cfg, out_dir, device=args.device,
@@ -48,6 +50,18 @@ def _cmd_count(args):
                        "conf_mapped_frac", "estimated_cells",
                        "total_molecules", "median_umis_per_cell"]}, indent=2))
     print(f"outputs: {out_dir}")
+
+
+def _cmd_reanalyze(args):
+    from cellranger_tpu.io.matrix_io import CountMatrix
+    from .analysis.run import run_secondary_analysis
+
+    out_dir = os.path.join(args.output_dir or ".", args.id, "outs")
+    matrix = CountMatrix.load_h5(args.matrix)
+    os.makedirs(out_dir, exist_ok=True)
+    run_secondary_analysis(matrix, os.path.join(out_dir, "analysis"),
+                           device=args.device)
+    print(f"outputs: {out_dir}/analysis")
 
 
 def main(argv=None):
@@ -71,9 +85,17 @@ def main(argv=None):
     c.add_argument("--autoretry", type=int, default=0,
                    help="retry transient failures N times")
     c.add_argument("--output-dir", dest="output_dir")
+    c.set_defaults(fn=_cmd_count)
+    r = sub.add_parser("reanalyze",
+                       help="re-run secondary analysis on a matrix")
+    r.add_argument("--id", required=True)
+    r.add_argument("--matrix", required=True, help="filtered matrix .h5")
+    r.add_argument("--device", default="cuda",
+                   help="torch device to run on (default cuda)")
+    r.add_argument("--output-dir", dest="output_dir")
+    r.set_defaults(fn=_cmd_reanalyze)
     args = ap.parse_args(argv)
-    if args.cmd == "count":
-        _cmd_count(args)
+    args.fn(args)
 
 
 if __name__ == "__main__":

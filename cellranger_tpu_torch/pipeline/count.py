@@ -20,7 +20,8 @@ single-end chemistries:
       group at a time, keeping the raw-triple views the BAM joins against;
   outputs: raw/filtered matrices (MEX, and h5 where h5py is installed),
       aggregate removal and cell calls, possorted BAM, molecule_info.h5
-      (h5py), junctions, feature assignment, metrics JSON.
+      (h5py), junctions, feature assignment, secondary analysis
+      (analysis/, on the run's device), metrics JSON.
 
 Everything outside this slice raises NotImplementedError naming its
 ROADMAP item.  The host stages reuse the JAX package's jax-free modules.
@@ -538,8 +539,6 @@ def _check_supported(cfg: CountConfig, chem) -> None:
          "multi-GPU)"),
         (chem.rna2 is not None, f"paired chemistry {chem.name} "
          "(ROADMAP queue 1, paired-end)"),
-        (cfg.secondary_analysis, "secondary_analysis=True (ROADMAP "
-         "queue 1, secondary analysis); pass secondary_analysis=False"),
     ]
     for bad, what in todo:
         if bad:
@@ -749,7 +748,7 @@ def run_count(cfg: CountConfig, out_dir: str,
     return _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi,
                      features, n_genes, metrics, mbc, mgene, mumi, mreads,
                      mlib, sj_counts, perf, t0, fb_ref, bam_collector,
-                     raw_views)
+                     raw_views, device)
 
 
 def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
@@ -1096,9 +1095,9 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
 
 def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
               n_genes, metrics, mbc, mgene, mumi, mreads, mlib, sj_counts,
-              perf, t0, fb_ref, bam_collector, raw_views):
+              perf, t0, fb_ref, bam_collector, raw_views, device):
     """Matrices, aggregate removal, cell calls, BAM, junctions, molecule
-    info, feature assignment, metrics (host)."""
+    info, feature assignment, secondary analysis (on `device`), metrics."""
     have_h5 = _h5py_available()
     out_seqs = (whitelist.translation if whitelist.translation is not None
                 else whitelist.sorted_seqs)
@@ -1225,6 +1224,12 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
                 ("Antigen Capture", "antigen_analysis", "antigen")):
             call_metrics.update(run_feature_assignment(
                 filtered, ftype, os.path.join(out_dir, sub), prefix))
+
+    # ---- secondary analysis (SC_RNA_ANALYZER analog) ----
+    if cfg.secondary_analysis and len(cells_idx) >= 2:
+        from ..analysis.run import run_secondary_analysis
+        run_secondary_analysis(filtered, os.path.join(out_dir, "analysis"),
+                               device=device)
     perf.lap("analysis_reporting")
 
     # ---- summary metrics ----

@@ -455,3 +455,51 @@ def sw_inputs(seed: int, B: int, L: int):
     wmask[7 % B] = False                    # all-masked window
     rmask[11 % B, L // 2:] = False          # masked tail
     return read, rmask, win, wmask
+
+
+ANALYSIS_BACKGROUND_MEAN = 0.1   # ~10% of genes detected per cell, as PBMC
+ANALYSIS_MARKERS = 50            # marker genes per population
+ANALYSIS_MARKER_MEAN = 5.0
+
+
+def build_analysis_matrix(n_cells: int, n_genes: int, n_pops: int,
+                          seed: int = 0):
+    """Planted-population count matrix for secondary analysis.
+
+    Every gene of every cell draws Poisson(0.1) background counts; the
+    cells of population q add Poisson(5) counts to their own 50 marker
+    genes (genes 50q .. 50q + 49).  Populations are balanced and shuffled.
+    The background is drawn as one Poisson total per cell spread
+    uniformly over the genes, which is the same distribution and costs
+    draws in proportion to the counts rather than to the matrix size.
+    Returns (CountMatrix with a csc genes x cells matrix, truth [n_cells]).
+    """
+    import scipy.sparse as sp
+    from cellranger_tpu.io.matrix_io import (CountMatrix, FeatureDef,
+                                             FeatureReference)
+
+    if n_genes < ANALYSIS_MARKERS * n_pops:
+        raise ValueError(f"{n_pops} populations need at least "
+                         f"{ANALYSIS_MARKERS * n_pops} genes")
+    rng = np.random.default_rng(seed)
+    truth = rng.permutation(np.arange(n_cells) % n_pops)
+    per_cell = rng.poisson(ANALYSIS_BACKGROUND_MEAN * n_genes, n_cells)
+    bg_cells = np.repeat(np.arange(n_cells), per_cell)
+    bg_genes = rng.integers(0, n_genes, len(bg_cells))
+    mk_cells = np.repeat(np.arange(n_cells), ANALYSIS_MARKERS)
+    mk_genes = (truth[mk_cells] * ANALYSIS_MARKERS
+                + np.tile(np.arange(ANALYSIS_MARKERS), n_cells))
+    mk_counts = rng.poisson(ANALYSIS_MARKER_MEAN, len(mk_cells))
+    rows = np.concatenate([bg_genes, mk_genes])
+    cols = np.concatenate([bg_cells, mk_cells])
+    vals = np.concatenate([np.ones(len(bg_cells), np.int32),
+                           mk_counts.astype(np.int32)])
+    m = sp.csc_matrix((vals, (rows, cols)), shape=(n_genes, n_cells),
+                      dtype=np.int32)
+    m.eliminate_zeros()
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    bc_codes = rng.integers(0, 4, (n_cells, 16))
+    barcodes = [bases[c].tobytes() + b"-1" for c in bc_codes]
+    features = FeatureReference([FeatureDef(f"GENE{g:05d}", f"G{g}")
+                                 for g in range(n_genes)])
+    return CountMatrix(m, barcodes, features), truth

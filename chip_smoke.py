@@ -9,22 +9,33 @@ Phases, each printing one line; any failure raises and exits non-zero:
   sw_kernel    the banded Smith-Waterman kernel against its plain torch
                version at the main path's shapes (B = 8192, 8191, 1;
                L = 91): all outputs equal; CUDA-event times of both
-  tiny_parity  the synthetic run through run_count on cuda and on cpu:
-               identical metrics (except wall_time_s) and MEX matrices
+  tiny_parity  the synthetic run through the default run_count (secondary
+               analysis on) on cuda and on cpu: identical metrics (except
+               wall_time_s) and MEX matrices; analysis/ under the
+               tolerances of testing/analysis_check.py
   golden_tiny  the synthetic run with BAM on cuda against the checked-in
                snapshot tests/golden/e2e (metrics, MEX, BAM, barcode CSV,
                junctions; the h5 files only where h5py imports)
   golden_rich  the rich run (GEX + Antibody Capture, BAM) on cuda and on
                cpu against tests/golden/e2e_rich; identical BAM bytes
   e2e          the 1M-read fixture through run_count on cuda at batch
-               32768: read and molecule counts against the JAX package's
-               values for this fixture, wall time, phase split, memory
+               32768, secondary analysis on: read and molecule counts
+               against the JAX package's values for this fixture, wall
+               time, phase split (analysis_reporting apart), memory
   e2e_bam      the same fixture with BAM (stream mode, spill + partition
                dedup, BAM write): the same counts, the BAM write phase on
                its own, BAM size and record count
   overflow     the count-only e2e run with the device molecule state
                capped at 1 << 19 rows, which forces the host flush and the
                partition dedup: the same molecules and MEX bytes as e2e
+  analysis     secondary analysis of a planted 8-population matrix
+               (10,000 cells x 20,000 genes) on cuda, twice: identical
+               analysis/ bytes, finite embeddings that separate the
+               populations, stage times and peak memory; TF32 must be off
+  analysis_parity  cuda against cpu at 2,000 cells x 1,000 genes (the
+               files, the clusterings of one projection, and the t-SNE/UMAP
+               steps over a short horizon) under testing/analysis_check.py's
+               tolerances
 
 Every path resets the SW kernel's launch count before it runs and reads
 it after; the kernel report counts the e2e path's launches and lists
@@ -58,6 +69,13 @@ E2E_TOTAL_MOLECULES = 499_995
 E2E_CONF_MAPPED_FRAC = 1.0
 SW_SHAPES = (8192, 8191, 1)      # 8192 = batch 32768 // RESCUE_CAP_FRAC
 SW_READ_LEN = 91
+# secondary analysis: 10x's public "10k PBMC" scale, under max_cells_tsne
+ANALYSIS_CELLS = 10_000
+ANALYSIS_GENES = 20_000
+ANALYSIS_POPS = 8
+# cuda against cpu on the 8-population matrix of tests/test_torch_analysis.py
+ANALYSIS_PARITY_CELLS = 2_000
+ANALYSIS_PARITY_GENES = 1_000
 
 
 def phase(name: str, msg: str) -> None:
@@ -121,12 +139,13 @@ def check_sw_kernel() -> dict:
 
 
 def _count_cfg(fx: dict, batch_size: int, **kw):
+    """The fixture's CountConfig; secondary analysis off unless asked."""
     from cellranger_tpu_torch.pipeline.count import CountConfig
-    kw = dict(dict(checkpoint=False), **kw)
+    kw = dict(dict(checkpoint=False, secondary_analysis=False), **kw)
     return CountConfig(
         fastq_pairs=[(fx["fq1"], fx["fq2"])], reference_path=fx["ref"],
         whitelist_path=fx["wl"], chemistry="SC3Pv3", read_len=91,
-        batch_size=batch_size, secondary_analysis=False, **kw)
+        batch_size=batch_size, **kw)
 
 
 def _mex_diffs(out_a: str, out_b: str) -> list[str]:
@@ -140,10 +159,13 @@ def _mex_diffs(out_a: str, out_b: str) -> list[str]:
 
 
 def tiny_parity(tmp: str, devices=("cuda", "cpu"), batch_size: int = 256):
-    """The synthetic run on each device: identical outputs; SW launches
-    grow on cuda by at least the number of steps and not on cpu."""
+    """The synthetic run, default count (secondary analysis on), on each
+    device: identical metrics and MEX, analysis/ held by
+    `analysis_check.compare_analysis`; SW launches grow on cuda by at
+    least the number of steps and not on cpu."""
     from cellranger_tpu_torch.align import sw
     from cellranger_tpu_torch.pipeline.count import run_count
+    from cellranger_tpu_torch.testing import analysis_check as check
     from cellranger_tpu_torch.testing.fixtures import build_synthetic_run
 
     fx = build_synthetic_run(os.path.join(tmp, "tiny"))
@@ -152,8 +174,9 @@ def tiny_parity(tmp: str, devices=("cuda", "cpu"), batch_size: int = 256):
     for dev in devices:
         before = sw.LAUNCHES
         outs[dev] = os.path.join(tmp, f"tiny_{dev}")
-        sums[dev] = run_count(_count_cfg(fx, batch_size), outs[dev],
-                              device=dev)
+        sums[dev] = run_count(
+            _count_cfg(fx, batch_size, secondary_analysis=True), outs[dev],
+            device=dev)
         grew = sw.LAUNCHES - before
         if dev == "cuda" and grew < n_steps:
             raise AssertionError(f"cuda run launched the SW kernel {grew} "
@@ -165,6 +188,11 @@ def tiny_parity(tmp: str, devices=("cuda", "cpu"), batch_size: int = 256):
              if k != "wall_time_s"
              and json.dumps(sums[a].get(k)) != json.dumps(sums[b].get(k))]
     diffs += _mex_diffs(outs[a], outs[b])
+    an = [os.path.join(outs[d], "analysis") for d in (b, a)]
+    if len(check.analysis_files(an[0])) != 16:
+        raise AssertionError(f"tiny {b} run wrote "
+                             f"{check.analysis_files(an[0])} in analysis/")
+    diffs += check.compare_analysis(*an)[0]
     if diffs:
         raise AssertionError(f"{a} and {b} runs differ: {diffs[:10]}")
     if sums[a]["total_molecules"] != int(fx["truth"].sum()):
@@ -349,6 +377,102 @@ def overflow_run(fx: dict, out: str, ref_out: str, device: str = "cuda",
     return r
 
 
+def analysis_run(mat, out: str, device: str) -> tuple[dict, dict]:
+    """run_secondary_analysis of `mat` on `device` -> (its results; wall
+    seconds, stage seconds and peak device memory)."""
+    import torch
+    from cellranger_tpu_torch.analysis.run import run_secondary_analysis
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    res = run_secondary_analysis(mat, out, device=device)
+    return res, dict(
+        wall_s=time.time() - t, stage_s=res["stage_s"],
+        peak_mem_bytes=(torch.cuda.max_memory_allocated()
+                        if device == "cuda" else None))
+
+
+def _require_fp32_matmuls() -> None:
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("TF32 matmuls are on; the analysis is float32")
+
+
+def analysis(tmp: str, n_cells: int = ANALYSIS_CELLS,
+             n_genes: int = ANALYSIS_GENES, dev: str = "cuda") -> dict:
+    """Secondary analysis of a planted-population matrix on `dev`, twice:
+    identical analysis/ bytes, embeddings finite and separating the
+    populations; stage times and peak memory of both runs."""
+    import numpy as np
+    from cellranger_tpu_torch.testing import analysis_check as check
+    from cellranger_tpu_torch.testing.fixtures import build_analysis_matrix
+
+    _require_fp32_matmuls()
+    t = time.time()
+    mat, truth = build_analysis_matrix(n_cells, n_genes, ANALYSIS_POPS,
+                                       seed=0)
+    rep = dict(cells=n_cells, genes=n_genes, populations=ANALYSIS_POPS,
+               fixture_s=time.time() - t)
+    outs = [os.path.join(tmp, f"analysis_{i}") for i in (0, 1)]
+    res, rep["run"] = analysis_run(mat, outs[0], dev)
+    _, rep["rerun"] = analysis_run(mat, outs[1], dev)
+    files = check.analysis_files(outs[0])
+    if len(files) != 16 or check.analysis_files(outs[1]) != files:
+        raise AssertionError(f"analysis wrote {files}")
+    differ = [f for f in files if not check.same_bytes(
+        os.path.join(outs[0], f), os.path.join(outs[1], f))]
+    if differ:
+        raise AssertionError(f"two {dev} analysis runs differ: {differ}")
+    proj = res["pca"]["transformed_pca_matrix"]
+    for k in ("tsne", "umap"):
+        y = res[k]
+        if y.shape != (n_cells, 2) or not np.isfinite(y).all():
+            raise AssertionError(f"{k}: shape {y.shape} or not finite")
+        rep[f"{k}_centroid_acc"] = check.centroid_accuracy(y, truth)
+        rep[f"{k}_knn_preservation"] = check.knn_preservation(proj, y,
+                                                              device=dev)
+        if rep[f"{k}_centroid_acc"] < check.MIN_CENTROID_ACC:
+            raise AssertionError(f"{k} centroid accuracy "
+                                 f"{rep[f'{k}_centroid_acc']}")
+    cl = res["clusterings"]
+    rep["graph_clusters"] = int(len(np.unique(cl["graphclust"])))
+    rep["kmeans_8_truth_agreement"] = check.label_agreement(
+        cl["kmeans_8_clusters"], truth)
+    return rep
+
+
+def analysis_parity(tmp: str, n_cells: int = ANALYSIS_PARITY_CELLS,
+                    n_genes: int = ANALYSIS_PARITY_GENES,
+                    devices=("cuda", "cpu")) -> dict:
+    """Secondary analysis on devices[0] against devices[1] under
+    testing.analysis_check's tolerances: the analysis/ files, the
+    clusterings of one projection on both devices, and the t-SNE and
+    UMAP steps over a short horizon."""
+    from cellranger_tpu_torch.testing import analysis_check as check
+    from cellranger_tpu_torch.testing.fixtures import build_analysis_matrix
+
+    _require_fp32_matmuls()
+    dev, ref = devices
+    mat, truth = build_analysis_matrix(n_cells, n_genes, ANALYSIS_POPS,
+                                       seed=0)
+    rep = dict(cells=n_cells, genes=n_genes, populations=ANALYSIS_POPS)
+    outs = [os.path.join(tmp, f"analysis_parity_{i}") for i in (0, 1)]
+    res, rep[f"run_{ref}"] = analysis_run(mat, outs[0], ref)
+    _, rep[f"run_{dev}"] = analysis_run(mat, outs[1], dev)
+    diffs, rep["files"] = check.compare_analysis(
+        outs[0], outs[1], truth, device=dev,
+        min_label_agreement=check.DEVICE_AGREEMENT)
+    proj = res["pca"]["transformed_pca_matrix"]
+    d2, rep["same_projection"] = check.same_projection_labels(proj, ref, dev)
+    d3, rep["short_horizon"] = check.short_horizon(proj, ref, dev)
+    if diffs + d2 + d3:
+        raise AssertionError(f"{dev} against {ref} at {n_cells} cells: "
+                             f"{diffs + d2 + d3}; measured {json.dumps(rep)}")
+    return rep
+
+
 def main() -> None:
     import torch
 
@@ -356,6 +480,7 @@ def main() -> None:
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                  "is false)")
     from cellranger_tpu_torch import kernels   # the port must be here
+    from cellranger_tpu_torch.testing.analysis_check import analysis_files
     from cellranger_tpu_torch.testing.fixtures import build_e2e_run
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -389,9 +514,17 @@ def main() -> None:
         fx = build_e2e_run(os.path.join(tmp, "e2e"), n_reads=E2E_READS)
         t_fix = time.time() - t0
         e2e_out = os.path.join(tmp, "e2e_out")
-        r = count_run(fx, e2e_out)
+        r = count_run(fx, e2e_out, secondary_analysis=True)
         check_e2e_counts("e2e", r)
         r["fixture_s"] = t_fix
+        # analysis apart, so the count-only figures stay comparable
+        r["analysis_reporting_s"] = r["phase_s"]["analysis_reporting"]
+        r["count_wall_s"] = r["wall_s"] - r["analysis_reporting_s"]
+        r["analysis_files"] = len(analysis_files(
+            os.path.join(e2e_out, "analysis")))
+        if r["analysis_files"] != 16:
+            raise AssertionError(f"e2e analysis/ has {r['analysis_files']}"
+                                 " files")
         launches["e2e"] = r["sw_launches"]
         phase("e2e", json.dumps(r))
 
@@ -412,6 +545,11 @@ def main() -> None:
         launches["overflow"] = ro["sw_launches"]
         phase("overflow", f"state cap {OVERFLOW_STATE_CAP}: same molecules "
               "and MEX bytes as e2e: " + json.dumps(ro))
+
+        phase("analysis", "two cuda runs identical: "
+              + json.dumps(analysis(tmp)))
+        phase("analysis_parity", "cuda against cpu: "
+              + json.dumps(analysis_parity(tmp)))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

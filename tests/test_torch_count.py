@@ -3,13 +3,20 @@
   * the accumulate-mode device step against the JAX package's
     `_make_step(..., accumulate=True)` on the `__graft_entry__` synthetic
     reference: the accumulators after two batches are equal;
-  * `run_count` of both packages on the same FASTQs (the tiny synthetic
-    run, and the GEX library of the rich run with multimappers, a novel
-    junction, TSO/polyA reads and UMI errors): metrics (except
-    wall_time_s), raw and filtered MEX and h5, molecule_info.h5 and
-    filtered_barcodes.csv are equal, via cellranger_tpu.testing.correctness;
-  * what the port does not run raises NotImplementedError; BAM, Feature
-    Barcode and multi-library configs pass the check.
+  * the default `run_count` (secondary analysis on) of both packages on
+    the same FASTQs (the tiny synthetic run, and the GEX library of the
+    rich run with multimappers, a novel junction, TSO/polyA reads and UMI
+    errors): metrics (except wall_time_s), raw and filtered MEX and h5,
+    molecule_info.h5 and filtered_barcodes.csv are equal, via
+    cellranger_tpu.testing.correctness; analysis/ holds the same 16 files,
+    held by `testing.analysis_check.compare_analysis` (labels, hierarchy
+    and diff-exp equal byte for byte, PCA within 1e-3, t-SNE/UMAP by
+    10-NN preservation).  The tiny run's 2 genes make many cells
+    identical, but no label there hangs on a tie: every clusters.csv is
+    equal;
+  * what the port does not run raises NotImplementedError; secondary
+    analysis, BAM, Feature Barcode and multi-library configs pass the
+    check.
 """
 
 import dataclasses
@@ -28,7 +35,19 @@ from cellranger_tpu.testing.fixtures import build_rich_run
 from cellranger_tpu_torch.align.aligner import DeviceIndex
 from cellranger_tpu_torch.align.annotate import AnnotationIndex
 from cellranger_tpu_torch.pipeline import count as tcount
+from cellranger_tpu_torch.testing.analysis_check import (analysis_files,
+                                                         compare_analysis)
 from cellranger_tpu_torch.testing.fixtures import build_synthetic_run
+
+
+@pytest.fixture(autouse=True)
+def _two_torch_threads():
+    """The suite runs in several worker processes on one machine's cores;
+    torch's default of one thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_accumulate_step_matches_jax():
@@ -103,15 +122,22 @@ def _compare_runs(t_out, j_out, t_sum, j_sum):
     if os.path.exists(jj):
         with open(tj) as a, open(jj) as b:
             assert a.read() == b.read()
+    ja, ta = os.path.join(j_out, "analysis"), os.path.join(t_out, "analysis")
+    assert os.path.exists(ta) == os.path.exists(ja)
+    if os.path.exists(ja):
+        diffs, _ = compare_analysis(ja, ta)
+        assert not diffs, diffs
 
 
 def _run_both(tmp_path, fq1, fq2, ref, wl, batch_size):
     kw = dict(fastq_pairs=[(fq1, fq2)], reference_path=ref,
               whitelist_path=wl, chemistry="SC3Pv3", read_len=91,
-              batch_size=batch_size, secondary_analysis=False)
+              batch_size=batch_size)
     t_out, j_out = str(tmp_path / "torch"), str(tmp_path / "jax")
     t_sum = tcount.run_count(tcount.CountConfig(**kw), t_out, device="cpu")
     j_sum = jax_count.run_count(jax_count.CountConfig(**kw), j_out)
+    # the default count writes the 16 analysis/ files
+    assert len(analysis_files(os.path.join(j_out, "analysis"))) == 16
     _compare_runs(t_out, j_out, t_sum, j_sum)
     return t_sum
 
@@ -147,7 +173,7 @@ def test_run_count_resumes_from_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    dict(secondary_analysis=True), dict(probe_set_csv="probes.csv"),
+    dict(chemistry="MFRP-RNA"), dict(probe_set_csv="probes.csv"),
     dict(probe_barcode_csv="pbc.csv"), dict(chemistry="SC5P-PE"),
     dict(chemistry="auto"), dict(shard_index=True),
 ])
@@ -159,6 +185,7 @@ def test_unsupported_configs_raise(change, tmp_path):
 
 
 @pytest.mark.parametrize("change", [
+    dict(secondary_analysis=True),
     dict(write_bam=True), dict(feature_ref_csv="f.csv"),
     dict(libraries=[tcount.LibraryDef([]),
                     tcount.LibraryDef([], "Antibody Capture")]),

@@ -1,9 +1,11 @@
 """The port runs without JAX: in a subprocess whose import system refuses
 jax, jaxlib and h5py (the machine with the card has no h5py), import
-cellranger_tpu_torch, its count pipeline and the modules of its BAM and
-Feature Barcode paths, its CLI and chip_smoke, then build the synthetic
-run and count it on the CPU, and run chip_smoke's parity, golden and
-overflow phases with the CPU as the device."""
+cellranger_tpu_torch, its count pipeline and the modules of its BAM,
+Feature Barcode and secondary-analysis paths, its CLI and chip_smoke,
+then build the synthetic run and count it on the CPU (secondary analysis
+on, as by default), run secondary analysis on a planted-population
+matrix, and run chip_smoke's parity, golden, overflow and analysis
+phases with the CPU as the device."""
 
 import os
 import subprocess
@@ -25,6 +27,9 @@ SCRIPT = textwrap.dedent("""
 
     sys.meta_path.insert(0, Refuse())
 
+    import torch
+    torch.set_num_threads(2)   # the suite's other workers share the cores
+
     import cellranger_tpu_torch
     import cellranger_tpu_torch.pipeline.count as count
     import cellranger_tpu_torch.pipeline.bam_out
@@ -32,14 +37,18 @@ SCRIPT = textwrap.dedent("""
     import cellranger_tpu_torch.ops.features
     import cellranger_tpu_torch.parallel.molecule_state
     import cellranger_tpu_torch.cli
+    import cellranger_tpu_torch.analysis.batch_correction
+    import cellranger_tpu_torch.analysis.run as analysis_run
+    import cellranger_tpu_torch.testing.analysis_check as check
     import chip_smoke
-    from cellranger_tpu_torch.testing.fixtures import build_synthetic_run
+    from cellranger_tpu_torch.testing.fixtures import (build_analysis_matrix,
+                                                       build_synthetic_run)
 
     tmp = sys.argv[1]
     fx = build_synthetic_run(os.path.join(tmp, "fx"), n_cells=12)
     cfg = count.CountConfig(
         fastq_pairs=[(fx["fq1"], fx["fq2"])], reference_path=fx["ref"],
-        whitelist_path=fx["wl"], batch_size=256, secondary_analysis=False)
+        whitelist_path=fx["wl"], batch_size=256)
     out = os.path.join(tmp, "out")
     s = count.run_count(cfg, out, device="cpu")
     assert s["total_reads"] == fx["n_reads"], s["total_reads"]
@@ -48,6 +57,20 @@ SCRIPT = textwrap.dedent("""
         assert not os.path.exists(os.path.join(out, f)), f
     assert os.path.exists(os.path.join(out, "filtered_feature_bc_matrix",
                                        "matrix.mtx.gz"))
+    assert len(check.analysis_files(os.path.join(out, "analysis"))) == 16
+    mat, truth = build_analysis_matrix(150, 400, 3, seed=2)
+    a_out = os.path.join(tmp, "analysis")
+    r = analysis_run.run_secondary_analysis(mat, a_out, device="cpu")
+    assert len(check.analysis_files(a_out)) == 16
+    for k in ("tsne", "umap"):
+        assert check.centroid_accuracy(r[k], truth) >= 0.9, k
+    # chip_smoke's analysis phase, small and cpu against cpu
+    ra = chip_smoke.analysis(os.path.join(tmp, "an"), n_cells=240,
+                             n_genes=400, dev="cpu")
+    assert ra["tsne_centroid_acc"] >= 0.9, ra
+    rp = chip_smoke.analysis_parity(os.path.join(tmp, "an"), n_cells=160,
+                                    n_genes=400, devices=("cpu", "cpu"))
+    assert rp["short_horizon"]["tsne_10"] == 0.0, rp
     # chip_smoke's cpu/cpu parity phase runs here too (the card has no h5py)
     chip_smoke.tiny_parity(os.path.join(tmp, "smoke"), devices=("cpu", "cpu"))
     # the golden phases (h5 comparisons skipped without h5py), the BAM
