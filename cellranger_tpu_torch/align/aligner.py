@@ -33,7 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cellranger_tpu.constants import DEFAULT_ALIGN_SCORE_MIN
+from ..constants import DEFAULT_ALIGN_SCORE_MIN
 from ..ops.bucket_table import BucketTable
 from ..ops.encode import revcomp_packed
 from ..ops.tensor_ops import (U32_MASK, U32_MAX, compact_indices,
@@ -115,7 +115,7 @@ class DeviceIndex:
         sj = np.stack([gi.sj_donor_end.astype(np.uint32),
                        gi.sj_acceptor_start.astype(np.uint32)], axis=1) \
             if gi.n_junctions else np.zeros((0, 2), np.uint32)
-        from cellranger_tpu.params import get as _param
+        from ..params import get as _param
         ov_max = int(_param("overlap_rows_max_text")
                      or OVERLAP_ROWS_MAX_TEXT)
         rows, bits = DeviceIndex._kmer_rows_cached(gi)
@@ -300,7 +300,7 @@ def make_aligner(idx: DeviceIndex, read_len: int,
     # diagonal to a multiple of 4: the true window offset is in [0, 4]
     N_OFF = 5 if PARITY else 1
     if MINI:
-        from cellranger_tpu.params import get as _param
+        from ..params import get as _param
         headroom = float(_param("minimizer_seed_headroom"))
         S = max(8, int(np.ceil(headroom * 2 * (L - k + 1)
                                / (idx.minimizer_w + 1))))

@@ -19,8 +19,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cellranger_tpu.constants import REGION_MIN_OVERLAP
-from cellranger_tpu.io.gtf import Transcriptome
+from ..constants import REGION_MIN_OVERLAP
+from ..io.gtf import Transcriptome
 from ..ops.tensor_ops import U32_MASK, u32_table, widen
 from .index import GenomeIndex
 

@@ -33,7 +33,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from cellranger_tpu.io.gtf import Transcriptome
+from ..io.gtf import Transcriptome
 from ..ops import encode
 
 DEFAULT_K = 16

@@ -7,20 +7,22 @@ against a window that starts BAND//2 before its candidate diagonal, in a
 
 `banded_sw` dispatches on the device of its inputs: CPU tensors go to
 `banded_sw_ref` (plain torch, one [B, 16] band row per read position);
-CUDA tensors go to the hand-written kernel in csrc/sw.cu, with no
-fallback.  `LAUNCHES` counts kernel launches.
+CUDA tensors go to the hand-written kernel in csrc/sw.cu (a group of
+lanes per read, rows staged through shared memory; its header has the
+design), with no fallback.  `LAUNCHES` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import torch
 
-from cellranger_tpu.constants import (SW_GAP_EXTEND, SW_MATCH_SCORE,
-                                      SW_MISMATCH_SCORE)
+from ..constants import (SW_GAP_EXTEND, SW_MATCH_SCORE,
+                         SW_MISMATCH_SCORE)
 
 BAND = 16
 GAP = -SW_GAP_EXTEND  # positive penalty
 NEG = -(1 << 20)
+MAX_KERNEL_READ_LEN = 2047  # the kernel's packed best-cell key (csrc/sw.cu)
 
 LAUNCHES = 0
 
@@ -82,9 +84,9 @@ def _check(read_codes, read_mask, win_codes, win_mask):
 
 
 def banded_sw(read_codes, read_mask, win_codes, win_mask):
-    """Batched banded SW: read_codes uint8 [B, L], read_mask bool [B, L],
-    win_codes uint8 [B, L+16], win_mask bool [B, L+16].  Returns
-    (score, end_i, end_d) int32 [B]."""
+    """Batched banded SW: read_codes uint8 [B, L] (base codes, below 128),
+    read_mask bool [B, L], win_codes uint8 [B, L+16], win_mask bool
+    [B, L+16].  Returns (score, end_i, end_d) int32 [B]."""
     global LAUNCHES
     _check(read_codes, read_mask, win_codes, win_mask)
     dev = read_codes.device
@@ -98,11 +100,15 @@ def banded_sw(read_codes, read_mask, win_codes, win_mask):
     from .. import kernels
 
     B, L = read_codes.shape
-    outs = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
+    if not 1 <= L <= MAX_KERNEL_READ_LEN:
+        raise ValueError(f"banded_sw kernel: read length {L} outside "
+                         f"[1, {MAX_KERNEL_READ_LEN}]")
+    outs = torch.empty((3, B), dtype=torch.int32, device=dev).unbind(0)
+    lib = kernels.library()         # a failed build raises, also for B = 0
     if B == 0:
         return tuple(outs)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = kernels.library().crt_banded_sw(
+    rc = lib.crt_banded_sw(
         *(t.data_ptr() for t in ts), B, L, *(o.data_ptr() for o in outs),
         stream)
     if rc != 0:

@@ -7,8 +7,8 @@ formatting.
 The standardized dense matrix is uploaded once; the PCA projection stays
 on the device through k-means, the kNN graphs, t-SNE and UMAP, and comes
 to the host only for the CSVs and for Louvain.  Preprocessing, hierarchical
-clustering and differential expression are the JAX package's jax-free
-host modules.  `results["stage_s"]` holds each stage's wall seconds, the
+clustering and differential expression are verbatim copies of the JAX
+package's jax-free host modules.  `results["stage_s"]` holds each stage's wall seconds, the
 device synchronized at each stage's end.
 """
 
@@ -21,14 +21,13 @@ import time
 import numpy as np
 import torch
 
-from cellranger_tpu.analysis import diffexp as de
-from cellranger_tpu.analysis.hclust import run_hierarchical_clustering
-from cellranger_tpu.analysis.preprocess import (log_normalize_dense,
-                                                select_features)
-from cellranger_tpu.io.matrix_io import CountMatrix
+from ..io.matrix_io import CountMatrix
+from . import diffexp as de
 from .graphclust import run_graph_clustering
+from .hclust import run_hierarchical_clustering
 from .kmeans import run_kmeans
 from .pca import N_COMPONENTS_DEFAULT, run_pca
+from .preprocess import log_normalize_dense, select_features
 from .tsne import run_tsne
 from .umap_tpu import run_umap
 

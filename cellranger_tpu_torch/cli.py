@@ -42,7 +42,7 @@ def _cmd_count(args):
         write_bam=args.bam,
     )
     out_dir = os.path.join(args.output_dir or ".", args.id, "outs")
-    from cellranger_tpu.pipeline.runtime import run_with_retry
+    from .pipeline.runtime import run_with_retry
     summary = run_with_retry(run_count, cfg, out_dir, device=args.device,
                              retries=args.autoretry)
     print(json.dumps({k: summary[k] for k in
@@ -53,7 +53,7 @@ def _cmd_count(args):
 
 
 def _cmd_reanalyze(args):
-    from cellranger_tpu.io.matrix_io import CountMatrix
+    from .io.matrix_io import CountMatrix
     from .analysis.run import run_secondary_analysis
 
     out_dir = os.path.join(args.output_dir or ".", args.id, "outs")

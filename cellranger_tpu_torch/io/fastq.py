@@ -10,7 +10,8 @@ per-read object model: everything is columnar numpy, ready for
 the device upload.
 
 Copied from cellranger_tpu/io/fastq.py (which reaches jax through its
-encode import); the native zlib reader is cellranger_tpu.native, shared.
+encode import); the native zlib reader is the port's copy
+(native/), built under build/native/.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Iterator
 import numpy as np
 
 from ..ops import encode
-from cellranger_tpu.io.chemistry import Chemistry, Span
+from ..io.chemistry import Chemistry, Span
 
 
 def _open(path: str):
@@ -418,7 +419,7 @@ def _batches_native(chem: Chemistry, r1_path: str, r2_path: str | None,
                     i1_path: str | None = None,
                     keep_r1_rest: bool = False,
                     barcode_only: bool = False) -> Iterator[ReadBatch]:
-    from cellranger_tpu.native import NativeFastqReader
+    from ..native import NativeFastqReader
 
     w = required_widths(chem, read_len, keep_r1_rest, barcode_only)
     if barcode_only and w["R2"] == 0:

@@ -22,7 +22,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from cellranger_tpu.io.matrix_io import FeatureDef
+from ..io.matrix_io import FeatureDef
 from ..ops import encode
 
 

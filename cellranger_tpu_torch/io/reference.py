@@ -17,7 +17,7 @@ import shutil
 from dataclasses import dataclass
 
 from ..align.index import GenomeIndex
-from cellranger_tpu.io.gtf import Transcriptome, read_fasta
+from ..io.gtf import Transcriptome, read_fasta
 
 REFERENCE_JSON = "reference.json"
 
@@ -63,7 +63,7 @@ class ReferencePackage:
         os.makedirs(os.path.join(out_dir, "genes"), exist_ok=True)
         fa_dst = os.path.join(out_dir, "fasta", "genome.fa")
         gtf_dst = os.path.join(out_dir, "genes", "genes.gtf")
-        from cellranger_tpu.io.gtf import write_fasta
+        from ..io.gtf import write_fasta
 
         merged = {}
         with open(gtf_dst, "w") as g_out:

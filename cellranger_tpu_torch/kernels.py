@@ -22,7 +22,10 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 LIB_NAME = "libcrt_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# nvcc's output of the build this process made (ptxas -v: registers, shared
+# memory and spills of every kernel); empty when the library was up to date
+BUILD_LOG = ""
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -55,6 +58,7 @@ def _nvcc() -> str:
 def build() -> str:
     """Compile the kernels unless an up-to-date library exists; returns
     the library path.  Raises with nvcc's output if the build fails."""
+    global BUILD_LOG
     srcs = _sources()
     digest = _digest(srcs)
     lib_path = os.path.join(BUILD_DIR, LIB_NAME)
@@ -72,6 +76,7 @@ def build() -> str:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
                            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    BUILD_LOG = res.stdout + res.stderr
     os.replace(tmp, lib_path)
     with open(stamp, "w") as f:
         f.write(digest)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from cellranger_tpu.constants import (
+from ..constants import (
     BARCODE_CONFIDENCE_THRESHOLD,
     BC_MAX_QV,
     ILLUMINA_QUAL_OFFSET,

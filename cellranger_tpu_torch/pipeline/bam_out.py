@@ -14,23 +14,23 @@ mark conf-mapped / UMI-count / dup reads.
 
 Copied from cellranger_tpu/pipeline/bam_out.py, which reaches jax through
 its encode and GenomeIndex imports; this copy imports the port's.  The
-BGZF writer, the spool and the raw-triple join are the JAX package's
-jax-free modules, so the bytes written are the same.
+BGZF writer, the spool and the raw-triple join are verbatim copies of the
+JAX package's jax-free modules, so the bytes written are the same.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from cellranger_tpu.io.bam import (
+from ..io.bam import (
     BAM_CMATCH, BAM_CREF_SKIP, BAM_CSOFT_CLIP, FLAG_FIRST_MATE,
     FLAG_MATE_REVERSE, FLAG_MATE_UNMAPPED, FLAG_PAIRED, FLAG_PROPER_PAIR,
     FLAG_REVERSE, FLAG_SECOND_MATE, FLAG_SECONDARY, FLAG_UNMAPPED,
     XF_CONF_FEATURE, XF_CONF_MAPPED, XF_GENE_DISCORDANT, XF_LOW_SUPPORT_UMI,
     XF_UMI_COUNT)
-from cellranger_tpu.io.bam_index import IndexingBamWriter as BamWriter
-from cellranger_tpu.io.gtf import Transcriptome
-from cellranger_tpu.pipeline.spill import BamSpool, lex3_join_np
+from ..io.bam_index import IndexingBamWriter as BamWriter
+from ..io.gtf import Transcriptome
+from .spill import BamSpool, lex3_join_np
 from ..align.index import GenomeIndex
 from ..ops import encode
 

@@ -24,7 +24,8 @@ single-end chemistries:
       (analysis/, on the run's device), metrics JSON.
 
 Everything outside this slice raises NotImplementedError naming its
-ROADMAP item.  The host stages reuse the JAX package's jax-free modules.
+ROADMAP item.  The host stages are the port's verbatim copies of the JAX
+package's jax-free modules.
 """
 
 from __future__ import annotations
@@ -39,10 +40,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from cellranger_tpu.analysis import cell_calling
-from cellranger_tpu.io.chemistry import get_chemistry
-from cellranger_tpu.io.matrix_io import CountMatrix, FeatureReference
-from cellranger_tpu.pipeline.spill import MoleculeSpill
+from ..analysis import cell_calling
+from ..io.chemistry import get_chemistry
+from ..io.matrix_io import CountMatrix, FeatureReference
+from .spill import MoleculeSpill
 from ..align.aligner import DeviceIndex, make_aligner
 from ..align.annotate import (GENE_MULTI, GENE_NONE, REGION_EXONIC,
                               REGION_INTERGENIC, REGION_INTRONIC,
@@ -636,8 +637,8 @@ def run_count(cfg: CountConfig, out_dir: str,
     device = torch.device(device)
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.time()
-    from cellranger_tpu.params import get as _param
-    from cellranger_tpu.perf import PerfTrace
+    from ..params import get as _param
+    from ..perf import PerfTrace
     perf = PerfTrace()
     batch_size = int(_param("batch_size") or cfg.batch_size)
     if whitelist is None:
@@ -649,7 +650,7 @@ def run_count(cfg: CountConfig, out_dir: str,
     ann_idx = AnnotationIndex.build(ref.transcriptome, gi, device)
     n_genes = len(ref.transcriptome.genes)
     if len(ref.genomes) > 1:
-        from cellranger_tpu.io.matrix_io import FeatureDef
+        from ..io.matrix_io import FeatureDef
         features = FeatureReference(
             [FeatureDef(i, n_, "Gene Expression", gn)
              for i, n_, gn in zip(ref.transcriptome.gene_ids,
@@ -685,8 +686,7 @@ def run_count(cfg: CountConfig, out_dir: str,
     resume = None
     spool_dir = os.path.join(out_dir, "_bam_spool")
     if cfg.checkpoint:
-        from cellranger_tpu.pipeline.checkpoint import (CountCheckpoint,
-                                                        count_fingerprint)
+        from .checkpoint import CountCheckpoint, count_fingerprint
         ckpt = CountCheckpoint(out_dir, count_fingerprint(cfg))
         resume = ckpt.load("molecules")
         if resume is not None and cfg.write_bam:
@@ -1179,7 +1179,7 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
 
     # ---- molecule_info.h5 ----
     if have_h5:
-        from cellranger_tpu.io.molecule_info import save_molecule_info
+        from ..io.molecule_info import save_molecule_info
         library_info = [
             {"library_type": lib.library_type, "library_id": str(i),
              "gem_group": cfg.gem_group}
@@ -1198,7 +1198,7 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
 
     # ---- barnyard GEM classification (multi-genome references) ----
     if len(ref.genomes) > 1 and len(cells_idx):
-        from cellranger_tpu.analysis.multigenome import classify_gems
+        from ..analysis.multigenome import classify_gems
         genome_per_gene = ref.genome_of_gene()
         per_genome_counts = np.zeros((len(cells_idx), len(ref.genomes)))
         for gidx, gname in enumerate(ref.genomes):
@@ -1217,8 +1217,7 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
 
     # ---- CRISPR / antigen feature assignment on called cells ----
     if fb_ref is not None and len(cells_idx):
-        from cellranger_tpu.analysis.feature_assigner import \
-            run_feature_assignment
+        from ..analysis.feature_assigner import run_feature_assignment
         for ftype, sub, prefix in (
                 ("CRISPR Guide Capture", "crispr_analysis", "protospacer"),
                 ("Antigen Capture", "antigen_analysis", "antigen")):
@@ -1257,14 +1256,14 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
     })
     perf.lap("report_summary")
     if len(mbc):
-        from cellranger_tpu.analysis.subsample import subsample_metrics
+        from ..analysis.subsample import subsample_metrics
         ss = subsample_metrics(mbc, mgene, mreads, cells_idx)
         extra.update({k: v for k, v in ss.items() if k != "curves"})
         extra["subsample_curves"] = {str(r): c
                                      for r, c in ss["curves"].items()}
     perf.lap("report_subsample")
 
-    from cellranger_tpu.metrics import SimpleHistogram
+    from ..metrics import SimpleHistogram
     h_rpm = SimpleHistogram()
     if len(mreads):
         h_rpm.observe_array(mreads)
@@ -1295,7 +1294,7 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
         for b in filtered.barcodes:
             f.write(ref.genome_name + "," + b.decode() + "\n")
 
-    from cellranger_tpu.pipeline.websummary import build_web_summary
+    from .websummary import build_web_summary
     build_web_summary(out_dir, cfg.sample_id)
     perf.lap("report_websummary")
     perf.lap("reporting")
@@ -1308,7 +1307,7 @@ def _aggregate_barcodes(raw, features, n_genes, whitelist, raw_views,
     """Antibody aggregates, antigen UMI outliers and highly corrected
     barcodes (antibody/analysis.py:91-99); writes aggregate_barcodes.csv
     and fills agg_metrics when any is found."""
-    from cellranger_tpu.analysis.aggregates import (
+    from ..analysis.aggregates import (
         detect_antibody_aggregates, detect_highly_corrected_bcs,
         detect_outlier_umi_bcs)
     agg_bcs = np.zeros(0, np.int64)

@@ -346,7 +346,7 @@ def build_e2e_run(tmp: str, n_reads: int = 1_000_000) -> dict:
     seed 11, 8 Mb genome, 800 genes, 2000 cells, 20k whitelist.
     Uncompressed FASTQ so generation stays cheap.  Draw for draw the
     generator of bench.py `_gen_e2e_fixture`."""
-    from cellranger_tpu.io.gtf import write_fasta
+    from ..io.gtf import write_fasta
     from ..io.reference import ReferencePackage
 
     os.makedirs(tmp, exist_ok=True)
@@ -457,6 +457,57 @@ def sw_inputs(seed: int, B: int, L: int):
     return read, rmask, win, wmask
 
 
+def sw_adversarial_inputs(seed: int, B: int, L: int):
+    """Inputs that lean on the kernel's edge rules, eight kinds in turn:
+    reads with a planted deletion or insertion of 1-7 bases, fully masked
+    reads, windows masked at their start or at their end (the window of a
+    locus near a contig's end), reads and windows of one base throughout
+    (ties in every row), all-equal bases under random masks, and exact
+    placements at the band's two edges."""
+    from ..align.sw import BAND
+
+    rng = np.random.default_rng(seed)
+    W = L + BAND
+    read = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    win = rng.integers(0, 4, (B, W)).astype(np.uint8)
+    rmask = np.ones((B, L), bool)
+    wmask = np.ones((B, W), bool)
+    for b in range(B):
+        kind = b % 8
+        off = int(rng.integers(0, BAND))
+        n = int(rng.integers(1, 8))
+        cut = int(rng.integers(1, max(L - n, 2)))
+        if kind == 0:                      # deletion of n bases from the read
+            src = np.concatenate([read[b, :cut],
+                                  rng.integers(0, 4, n).astype(np.uint8),
+                                  read[b, cut:]])
+            k = min(len(src), W - off)
+            win[b, off:off + k] = src[:k]
+        elif kind == 1:                    # insertion of n bases in the read
+            src = np.concatenate([read[b, :cut], read[b, cut + n:]])
+            k = min(len(src), W - off)
+            win[b, off:off + k] = src[:k]
+        elif kind == 2:                    # fully masked read
+            win[b, off:off + min(L, W - off)] = read[b, :W - off]
+            rmask[b] = False
+        elif kind == 3:                    # window masked at its start
+            win[b, BAND // 2:BAND // 2 + L] = read[b]
+            wmask[b, :int(rng.integers(1, L))] = False
+        elif kind == 4:                    # window masked at its end
+            win[b, BAND // 2:BAND // 2 + L] = read[b]
+            wmask[b, W - int(rng.integers(1, L)):] = False
+        elif kind == 5:                    # one base throughout
+            read[b] = win[b] = b % 4
+        elif kind == 6:                    # one base, random masks
+            read[b] = win[b] = b % 4
+            rmask[b] = rng.random(L) > 0.2
+            wmask[b] = rng.random(W) > 0.2
+        else:                              # exact, at an edge of the band
+            e = (b // 8) % 2 * (BAND - 1)
+            win[b, e:e + L] = read[b, :W - e]
+    return read, rmask, win, wmask
+
+
 ANALYSIS_BACKGROUND_MEAN = 0.1   # ~10% of genes detected per cell, as PBMC
 ANALYSIS_MARKERS = 50            # marker genes per population
 ANALYSIS_MARKER_MEAN = 5.0
@@ -475,8 +526,7 @@ def build_analysis_matrix(n_cells: int, n_genes: int, n_pops: int,
     Returns (CountMatrix with a csc genes x cells matrix, truth [n_cells]).
     """
     import scipy.sparse as sp
-    from cellranger_tpu.io.matrix_io import (CountMatrix, FeatureDef,
-                                             FeatureReference)
+    from ..io.matrix_io import CountMatrix, FeatureDef, FeatureReference
 
     if n_genes < ANALYSIS_MARKERS * n_pops:
         raise ValueError(f"{n_pops} populations need at least "

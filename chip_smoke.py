@@ -5,10 +5,20 @@
 Phases, each printing one line; any failure raises and exits non-zero:
 
   device       require CUDA; print the card, its capability and power limit
-  build        compile the hand-written kernels (csrc/*.cu) from the checkout
+  build        compile the hand-written kernels (csrc/*.cu) and the native
+               FASTQ reader from the checkout, into build/
   sw_kernel    the banded Smith-Waterman kernel against its plain torch
-               version at the main path's shapes (B = 8192, 8191, 1;
-               L = 91): all outputs equal; CUDA-event times of both
+               version, all three outputs equal on every row: seeded random
+               inputs at (B, L) = (8192, 91), (8191, 91), (1, 91),
+               (2048, 91), (8192, 150), (257, 33); adversarial inputs at
+               (8192, 91) (indels of 1-7 bases, fully masked reads, windows
+               masked at either end, one base throughout); row slices whose
+               codes and masks are aligned differently; B = 0.  Times at
+               (8192, 91), (2048, 91), (8192, 150): the device time of a
+               launch (CUDA events around a CUDA graph of 10 launches,
+               median of 20, spread printed), the time of one eager call,
+               the bound computed from the same shapes and the share of
+               it reached; the plain version's time as information
   tiny_parity  the synthetic run through the default run_count (secondary
                analysis on) on cuda and on cpu: identical metrics (except
                wall_time_s) and MEX matrices; analysis/ under the
@@ -48,8 +58,8 @@ from __future__ import annotations
 import gzip
 import json
 import os
+import re
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -67,8 +77,28 @@ MEX_FILES = [os.path.join(sub, f)
 # the JAX package's outputs for this fixture (BENCH_r05.json, e2e)
 E2E_TOTAL_MOLECULES = 499_995
 E2E_CONF_MAPPED_FRAC = 1.0
-SW_SHAPES = (8192, 8191, 1)      # 8192 = batch 32768 // RESCUE_CAP_FRAC
-SW_READ_LEN = 91
+# (B, L) of the SW kernel check; B = batch // RESCUE_CAP_FRAC: 8192 at the
+# e2e batch of 32768, 2048 at batch 8192; L = 150 is a 150-base R2
+SW_SHAPES = ((8192, 91), (8191, 91), (1, 91), (2048, 91), (8192, 150),
+             (257, 33))
+SW_TIMED_SHAPES = ((8192, 91), (2048, 91), (8192, 150))
+# what the kernel report's `ms` holds; `call_ms` and `plain_ms` are medians
+# of single eager calls, as `ms` itself was before the kernel's redesign
+SW_MS_IS = ("device time of one launch: CUDA events around a CUDA graph of "
+            "10 launches, over 10, median of 20")
+# The card's peak rates for the kernel's bound.  Memory: 3.35 TB/s (NVIDIA
+# H100 SXM data sheet).  int32: 16.75 T operations/s, a quarter of the data
+# sheet's 67 TFLOP/s fp32: an SM has 64 int32 lanes to its 128 fp32 lanes
+# (Hopper architecture white paper), and an FMA counts as two.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 16.75e12
+# integer operations of one band cell: mask and, match compare, score
+# select, diagonal add, vertical add, three max (diag, vert, 0), the scan's
+# add and max, the activity select, the running-best max.  Each counts as
+# one, although a DPX instruction (__viaddmax_s32_relu) issues three of
+# them in one slot: the card's real ceiling for this recurrence is above
+# the rate used here, and the share of the bound reads high by that much.
+SW_OPS_PER_CELL = 12
 # secondary analysis: 10x's public "10k PBMC" scale, under max_cells_tsne
 ANALYSIS_CELLS = 10_000
 ANALYSIS_GENES = 20_000
@@ -90,51 +120,84 @@ def nvidia_smi_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of `reps` CUDA-event timings of fn() after warm-up."""
+def sw_bound(B: int, L: int) -> dict:
+    """The least time the card could take for one banded SW call: every
+    input byte read once and every output written once over the memory
+    rate, against the band's integer operations, counted one by one
+    (no DPX fusion), over the int32 rate."""
+    n_bytes = B * (2 * L + 2 * (L + 16)) + 3 * 4 * B
+    n_ops = B * L * 16 * SW_OPS_PER_CELL
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return dict(bytes=n_bytes, operations=n_ops, bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes > by_ops else "operations")
+
+
+def _sw_equal(sw, args, what: str) -> int:
+    """Kernel == plain version, all three outputs on every row (tolerance
+    0: the recurrence is integer); returns the largest difference seen."""
     import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    got = sw.banded_sw(*args)
+    torch.cuda.synchronize()
+    want = sw.banded_sw_ref(*args)
+    err = 0
+    for name, g, w in zip(("score", "end_i", "end_d"), got, want):
+        if g.shape != w.shape:
+            raise AssertionError(f"sw kernel {name} on {what}: shape "
+                                 f"{tuple(g.shape)} != {tuple(w.shape)}")
+        d = (g.long() - w.long()).abs()
+        if d.numel() and int(d.max()):
+            raise AssertionError(
+                f"sw kernel {name} differs on {what}: max abs err "
+                f"{int(d.max())}, rows {d.nonzero().flatten()[:5].tolist()}")
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return err
 
 
 def check_sw_kernel() -> dict:
     """Kernel vs plain version on the card; returns the report entry."""
     import torch
     from cellranger_tpu_torch.align import sw
-    from cellranger_tpu_torch.testing.fixtures import sw_inputs
+    from cellranger_tpu_torch.testing.fixtures import (sw_adversarial_inputs,
+                                                       sw_inputs)
+    from cellranger_tpu_torch.testing.sw_timing import both_clocks, time_calls
 
-    max_err = 0
-    report = {}
-    for B in SW_SHAPES:
-        args = [torch.from_numpy(a).cuda()
-                for a in sw_inputs(B, B, SW_READ_LEN)]
-        got = sw.banded_sw(*args)
-        torch.cuda.synchronize()
-        want = sw.banded_sw_ref(*args)
-        for name, g, w in zip(("score", "end_i", "end_d"), got, want):
-            err = int((g.long() - w.long()).abs().max())
-            max_err = max(max_err, err)
-            if err:
-                raise AssertionError(f"sw kernel {name} differs at B={B}: "
-                                     f"max abs err {err}")
-        if B == SW_SHAPES[0]:
-            report["ms"] = cuda_time_ms(lambda: sw.banded_sw(*args))
-            report["plain_ms"] = cuda_time_ms(
-                lambda: sw.banded_sw_ref(*args), reps=20, warmup=2)
-    report["max_abs_err"] = max_err
-    phase("sw_kernel", f"B={SW_SHAPES} L={SW_READ_LEN}: equal to the plain "
-          f"version (max abs err {max_err}); kernel {report['ms']:.4f} ms, "
-          f"plain {report['plain_ms']:.4f} ms at B={SW_SHAPES[0]}")
+    def on_card(arrays):
+        return [torch.from_numpy(a).cuda() for a in arrays]
+
+    by_shape, errs = {}, []
+    for B, L in SW_SHAPES:
+        args = on_card(sw_inputs(B, B, L))
+        errs.append(_sw_equal(sw, args, f"random inputs B={B} L={L}"))
+        if (B, L) in SW_TIMED_SHAPES:
+            t = both_clocks(lambda: sw.banded_sw(*args))
+            t.update(sw_bound(B, L))
+            t["share_of_bound"] = t["bound_ms"] / t["ms"]
+            by_shape[f"{B}x{L}"] = t
+        if (B, L) == SW_SHAPES[0]:
+            plain_ms = time_calls(lambda: sw.banded_sw_ref(*args),
+                                  warmup=2)["ms"]
+    B, L = SW_SHAPES[0]
+    adv = on_card(sw_adversarial_inputs(7, B, L))
+    errs.append(_sw_equal(sw, adv, f"adversarial inputs B={B} L={L}"))
+    # row slices: contiguous, but each tensor starts at another offset
+    # within its 16-byte line, so the kernel's per-byte staging runs
+    big = on_card(sw_inputs(3, 1030, L))
+    views = [big[0][1:1025], big[1][2:1026], big[2][3:1027], big[3][5:1029]]
+    rows = [big[0][1:1025], big[1][1:1025], big[2][1:1025], big[3][1:1025]]
+    errs.append(_sw_equal(sw, views, "misaligned row slices"))
+    errs.append(_sw_equal(sw, rows, "row slices off the 16-byte line"))
+    errs.append(_sw_equal(sw, [t[:0] for t in big], "B = 0"))
+    main = by_shape[f"{B}x{L}"]
+    report = dict(max_abs_err=max(errs), ms=main["ms"],
+                  call_ms=main["call_ms"], plain_ms=plain_ms,
+                  bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                  by_shape=by_shape)
+    phase("sw_kernel", f"equal to the plain version at {SW_SHAPES}, on "
+          "adversarial inputs, on misaligned slices and at B = 0; rates: "
+          f"{HBM_BYTES_PER_S:.3g} B/s, {INT32_OPS_PER_S:.4g} int32 op/s, "
+          f"{SW_OPS_PER_CELL} ops per cell; plain {plain_ms:.4f} ms at "
+          f"B={B} L={L}; " + json.dumps(by_shape))
     return report
 
 
@@ -203,7 +266,7 @@ def tiny_parity(tmp: str, devices=("cuda", "cpu"), batch_size: int = 256):
 def _golden_diffs(out: str, golden: str) -> tuple[list[str], list[str]]:
     """Differences of a run's outputs from a golden snapshot, through the
     repo's comparators; returns (diffs, h5 files skipped)."""
-    from cellranger_tpu.testing import correctness as cc
+    from cellranger_tpu_torch.testing import correctness as cc
     from cellranger_tpu_torch.pipeline.count import _h5py_available
 
     j = lambda d, f: os.path.join(d, f)  # noqa: E731
@@ -479,7 +542,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() "
                  "is false)")
-    from cellranger_tpu_torch import kernels   # the port must be here
+    from cellranger_tpu_torch import kernels, native   # the port must be here
     from cellranger_tpu_torch.testing.analysis_check import analysis_files
     from cellranger_tpu_torch.testing.fixtures import build_e2e_run
     name = torch.cuda.get_device_name(0)
@@ -491,7 +554,18 @@ def main() -> None:
 
     t = time.time()
     lib = kernels.build()
-    phase("build", f"{os.path.relpath(lib)} in {time.time() - t:.3f} s")
+    t_kernels = time.time() - t
+    fastq_lib = ("the native FASTQ reader under "
+                 f"{os.path.relpath(native.BUILD_DIR)}"
+                 if native.get_lib() is not None else
+                 "no native FASTQ reader (no g++ or zlib): python reader")
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers",
+                                       kernels.BUILD_LOG)]
+    spills = [int(m) for m in re.findall(r"(\d+) bytes spill",
+                                         kernels.BUILD_LOG)]
+    phase("build", f"{os.path.relpath(lib)} in {t_kernels:.3f} s, "
+          f"{len(regs)} kernels, at most {max(regs, default=0)} registers, "
+          f"{sum(spills)} bytes spilled; {fastq_lib}")
 
     sw_report = check_sw_kernel()
 
@@ -559,7 +633,11 @@ def main() -> None:
         "replaces": "cellranger_tpu/align/sw.py:131",
         "launches": launches["e2e"], "launches_by_path": launches,
         "max_abs_err": sw_report["max_abs_err"],
-        "ms": sw_report["ms"], "plain_ms": sw_report["plain_ms"]}]}))
+        "ms": sw_report["ms"], "ms_is": SW_MS_IS,
+        "call_ms": sw_report["call_ms"], "plain_ms": sw_report["plain_ms"],
+        "bound_ms": sw_report["bound_ms"],
+        "bound_by": sw_report["bound_by"], "library_ms": None,
+        "by_shape": sw_report["by_shape"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

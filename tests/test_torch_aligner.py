@@ -18,9 +18,10 @@ import jax.numpy as jnp
 from cellranger_tpu.align.aligner import DeviceIndex as JaxDeviceIndex
 from cellranger_tpu.align.aligner import make_aligner as jax_make_aligner
 from cellranger_tpu.align.index import GenomeIndex as JaxGenomeIndex
-from cellranger_tpu.io.gtf import Transcriptome
+from cellranger_tpu.io.gtf import Transcriptome as JaxTranscriptome
 from cellranger_tpu_torch.align.aligner import DeviceIndex, make_aligner
 from cellranger_tpu_torch.align.index import GenomeIndex
+from cellranger_tpu_torch.io.gtf import Transcriptome
 
 from util import random_genome, mutate, revcomp, make_two_gene_gtf
 from test_aligner import codes_batch
@@ -110,20 +111,21 @@ def _setup(name):
             gtf = os.path.join(d, "genes.gtf")
             make_two_gene_gtf(gtf)
             txome = Transcriptome.from_gtf(gtf)
+            jtxome = JaxTranscriptome.from_gtf(gtf)
         kw = dict(sampling="every", pos_mode="strand31")
         junctions = [(1400, 2200)]
     elif name == "minimizer_parity":
         genome = _genome_with_repeats(rng, 120_000)
-        txome = None
+        txome = jtxome = None
         kw = dict(sampling="minimizer", pos_mode="parity")
         junctions = []
     else:                                   # novel junctions, every layout
         genome, junctions = _planted_junction_genome(rng, 150_000)
-        txome = None
+        txome = jtxome = None
         kw = dict(sampling="every", pos_mode="strand31")
     seqs = {"chr1": genome}
     gi = GenomeIndex.build(seqs, txome, **kw)
-    jgi = JaxGenomeIndex.build(seqs, txome, **kw)
+    jgi = JaxGenomeIndex.build(seqs, jtxome, **kw)
     return genome, junctions, gi, jgi, rng
 
 

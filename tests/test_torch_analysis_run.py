@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from cellranger_tpu.analysis import run as jrun
+from cellranger_tpu.io import matrix_io as jmio
 from cellranger_tpu_torch.analysis import run as trun
 from cellranger_tpu_torch.testing.analysis_check import (analysis_files,
                                                          compare_analysis)
@@ -35,11 +36,19 @@ def _two_torch_threads():
     torch.set_num_threads(n)
 
 
+def _jax_matrix(mat):
+    """The JAX package's CountMatrix over the same arrays as the port's."""
+    feats = jmio.FeatureReference([
+        jmio.FeatureDef(f.id, f.name, f.feature_type, f.genome, dict(f.tags))
+        for f in mat.features.feature_defs])
+    return jmio.CountMatrix(mat.m.copy(), list(mat.barcodes), feats)
+
+
 @pytest.mark.parametrize("n_cells,n_pops", [(200, 2), (1000, 5)])
 def test_run_secondary_analysis_matches_jax(tmp_path, n_cells, n_pops):
     mat, truth = build_analysis_matrix(n_cells, 1000, n_pops, seed=0)
     j_out, t_out = str(tmp_path / "jax"), str(tmp_path / "torch")
-    jr = jrun.run_secondary_analysis(mat, j_out)
+    jr = jrun.run_secondary_analysis(_jax_matrix(mat), j_out)
     tr = trun.run_secondary_analysis(mat, t_out, device="cpu")
     assert len(analysis_files(j_out)) == 16
     diffs, seen = compare_analysis(j_out, t_out, truth)
@@ -58,7 +67,8 @@ def test_batch_corrected_analysis_matches_jax(tmp_path):
     mat, _ = build_analysis_matrix(200, 1000, 2, seed=0)
     batches = np.random.default_rng(5).integers(0, 2, 200)
     j_out, t_out = str(tmp_path / "jax"), str(tmp_path / "torch")
-    jr = jrun.run_secondary_analysis(mat, j_out, skip_embeddings=True,
+    jr = jrun.run_secondary_analysis(_jax_matrix(mat), j_out,
+                                     skip_embeddings=True,
                                      batch_labels=batches)
     tr = trun.run_secondary_analysis(mat, t_out, skip_embeddings=True,
                                      batch_labels=batches, device="cpu")

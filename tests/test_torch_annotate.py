@@ -14,10 +14,11 @@ import jax.numpy as jnp
 from cellranger_tpu.align.annotate import AnnotationIndex as JaxAnnotationIndex
 from cellranger_tpu.align.annotate import make_annotator as jax_make_annotator
 from cellranger_tpu.align.index import GenomeIndex as JaxGenomeIndex
-from cellranger_tpu.io.gtf import Transcriptome
+from cellranger_tpu.io.gtf import Transcriptome as JaxTranscriptome
 from cellranger_tpu_torch.align.annotate import (AnnotationIndex,
                                                  make_annotator)
 from cellranger_tpu_torch.align.index import GenomeIndex
+from cellranger_tpu_torch.io.gtf import Transcriptome
 
 from util import random_genome
 
@@ -48,12 +49,13 @@ def indices(tmp_path_factory):
     d = tmp_path_factory.mktemp("ann")
     _write_gtf(str(d / "g.gtf"))
     txome = Transcriptome.from_gtf(str(d / "g.gtf"))
+    jtxome = JaxTranscriptome.from_gtf(str(d / "g.gtf"))
     rng = np.random.default_rng(5)
     seqs = {"chr1": random_genome(rng, 16_000)}
     gi = GenomeIndex.build(seqs, txome)
-    jgi = JaxGenomeIndex.build(seqs, txome)
+    jgi = JaxGenomeIndex.build(seqs, jtxome)
     assert gi.n_junctions >= 4
-    jann = JaxAnnotationIndex.build(txome, jgi)
+    jann = JaxAnnotationIndex.build(jtxome, jgi)
     return txome, gi, jgi, jann
 
 

@@ -9,7 +9,7 @@ snapshots that gate the JAX package (tests/test_conformance.py):
     without re-reading FASTQs and writes the same records;
   * the port's `build_rich_run` writes the same files as the JAX one.
 
-Every output class goes through cellranger_tpu.testing.correctness
+Every output class goes through the port's testing.correctness
 (metrics, MEX, filtered h5, molecule_info.h5, BAM) plus
 filtered_barcodes.csv and junctions.tsv byte for byte.
 """
@@ -19,11 +19,11 @@ import os
 
 import pytest
 
-from cellranger_tpu.io.bam_read import read_bam
-from cellranger_tpu.testing import correctness as cc
 from cellranger_tpu.testing import fixtures as jax_fixtures
+from cellranger_tpu_torch.io.bam_read import read_bam
 from cellranger_tpu_torch.pipeline import bam_out
 from cellranger_tpu_torch.pipeline import count as tcount
+from cellranger_tpu_torch.testing import correctness as cc
 from cellranger_tpu_torch.testing.fixtures import (READ_LEN, build_rich_run,
                                                    build_synthetic_run)
 

@@ -28,12 +28,13 @@ import torch
 import jax.numpy as jnp
 
 import __graft_entry__ as graft
-from cellranger_tpu.io.chemistry import get_chemistry
+from cellranger_tpu.io.chemistry import get_chemistry as jax_get_chemistry
 from cellranger_tpu.pipeline import count as jax_count
 from cellranger_tpu.testing import correctness as cc
 from cellranger_tpu.testing.fixtures import build_rich_run
 from cellranger_tpu_torch.align.aligner import DeviceIndex
 from cellranger_tpu_torch.align.annotate import AnnotationIndex
+from cellranger_tpu_torch.io.chemistry import get_chemistry
 from cellranger_tpu_torch.pipeline import count as tcount
 from cellranger_tpu_torch.testing.analysis_check import (analysis_files,
                                                          compare_analysis)
@@ -54,7 +55,8 @@ def test_accumulate_step_matches_jax():
     jstep, wl, genome, rng = graft._synthetic_setup()
     didx, ann = jstep.bound_args
     chem = get_chemistry("SC3Pv3")
-    jacc_step = jax_count._make_step(didx, ann, chem, 91, accumulate=True)
+    jacc_step = jax_count._make_step(didx, ann, jax_get_chemistry("SC3Pv3"),
+                                     91, accumulate=True)
     tstep = tcount.make_count_step(DeviceIndex.from_jax(didx, "cpu"),
                                    AnnotationIndex.from_jax(ann, "cpu"),
                                    chem, 91)

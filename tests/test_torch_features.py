@@ -14,13 +14,13 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from cellranger_tpu.io.chemistry import get_chemistry
 from cellranger_tpu.io.feature_ref import \
     FeatureBarcodeReference as JaxFeatureRef
 from cellranger_tpu.ops import barcode as jbc
 from cellranger_tpu.ops.bucket_table import BucketTable as JaxBucketTable
 from cellranger_tpu.ops.features import \
     make_feature_extractor as jax_make_extractor
+from cellranger_tpu_torch.io.chemistry import get_chemistry
 from cellranger_tpu_torch.io.fastq import batches_from_fastqs
 from cellranger_tpu_torch.io.feature_ref import FeatureBarcodeReference
 from cellranger_tpu_torch.ops import barcode as tbc

@@ -1,12 +1,16 @@
-"""The port runs without JAX: in a subprocess whose import system refuses
-jax, jaxlib and h5py (the machine with the card has no h5py), import
+"""The port runs without JAX and without the JAX package: in a subprocess
+whose import system refuses jax, jaxlib, cellranger_tpu and h5py (the
+machine with the card has no h5py), import
 cellranger_tpu_torch, its count pipeline and the modules of its BAM,
 Feature Barcode and secondary-analysis paths, its CLI and chip_smoke,
 then build the synthetic run and count it on the CPU (secondary analysis
 on, as by default), run secondary analysis on a planted-population
 matrix, and run chip_smoke's parity, golden, overflow and analysis
-phases with the CPU as the device."""
+phases with the CPU as the device.  A second, static test walks the
+port's sources and chip_smoke.py and refuses any import of jax, jaxlib or
+cellranger_tpu, lazy imports inside functions included."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -17,7 +21,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent("""
     import os, sys
 
-    BLOCKED = ("jax", "jaxlib", "h5py")
+    BLOCKED = ("jax", "jaxlib", "cellranger_tpu", "h5py")
 
     class Refuse:
         def find_spec(self, name, path=None, target=None):
@@ -79,7 +83,7 @@ SCRIPT = textwrap.dedent("""
         g = chip_smoke.golden(os.path.join(tmp, "g"), which,
                               devices=("cpu",))
         assert g["h5_skipped"] and g["sw_launches_cpu"] == 0, g
-    from cellranger_tpu.io.bam_read import read_bam
+    from cellranger_tpu_torch.io.bam_read import read_bam
     bam = os.path.join(tmp, "g", "e2e_rich_cpu", "possorted_genome_bam.bam")
     assert chip_smoke.bam_records(bam) == len(read_bam(bam)[1])
     r = chip_smoke.overflow_run(fx, os.path.join(tmp, "ovf"), out,
@@ -100,3 +104,32 @@ def test_port_runs_without_jax(tmp_path):
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "NOJAX_OK" in res.stdout
+
+
+FORBIDDEN = ("cellranger_tpu", "jax", "jaxlib")
+
+
+def _port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(REPO, "cellranger_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    files = _port_sources()
+    assert len(files) > 60           # the walk found the package
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno}: {n}"
+                    for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad

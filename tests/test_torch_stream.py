@@ -13,13 +13,14 @@ import jax.numpy as jnp
 
 from cellranger_tpu.align.aligner import DeviceIndex as JaxDeviceIndex
 from cellranger_tpu.align.annotate import AnnotationIndex as JaxAnnIndex
-from cellranger_tpu.io.chemistry import get_chemistry
+from cellranger_tpu.io.chemistry import get_chemistry as jax_get_chemistry
 from cellranger_tpu.io.reference import ReferencePackage as JaxRefPackage
-from cellranger_tpu.io.whitelist import Whitelist
 from cellranger_tpu.pipeline import count as jax_count
 from cellranger_tpu_torch.align.aligner import DeviceIndex
 from cellranger_tpu_torch.align.annotate import AnnotationIndex
+from cellranger_tpu_torch.io.chemistry import get_chemistry
 from cellranger_tpu_torch.io.fastq import batches_from_fastqs
+from cellranger_tpu_torch.io.whitelist import Whitelist
 from cellranger_tpu_torch.ops.barcode import host_resolve_barcodes
 from cellranger_tpu_torch.pipeline import count as tcount
 from cellranger_tpu_torch.testing.fixtures import build_rich_run
@@ -39,8 +40,8 @@ def rich(tmp_path_factory):
 
 def test_stream_step_matches_jax(rich):
     fx, jdidx, jann = rich
-    chem = get_chemistry("SC3Pv3")
-    jstep = jax_count._make_step(jdidx, jann, chem, 91, accumulate=False,
+    chem, jchem = get_chemistry("SC3Pv3"), jax_get_chemistry("SC3Pv3")
+    jstep = jax_count._make_step(jdidx, jann, jchem, 91, accumulate=False,
                                  emit_secondary=True)
     tstep = tcount.make_stream_step(DeviceIndex.from_jax(jdidx, "cpu"),
                                     AnnotationIndex.from_jax(jann, "cpu"),
@@ -55,7 +56,7 @@ def test_stream_step_matches_jax(rich):
             wl.sorted_seqs, counts, chem.barcode_length)[0]
         plane = tcount.pack_step_input(91, batch, bc_idx)
         np.testing.assert_array_equal(
-            plane, jax_count.pack_step_input(chem, 91, batch, bc_idx))
+            plane, jax_count.pack_step_input(jchem, 91, batch, bc_idx))
         want_ho, want_m = jax_count.unpack_step_out(
             jstep(jnp.asarray(plane)))
         got_ho, got_m = tcount.unpack_step_out(tcount.fetch_step_out(
@@ -77,11 +78,11 @@ def test_stream_step_matches_jax(rich):
 def test_stream_step_without_secondaries(rich):
     """Count-width planes (no sec_* block) unpack to the JAX layout."""
     fx, jdidx, jann = rich
-    chem = get_chemistry("SC3Pv3")
+    chem, jchem = get_chemistry("SC3Pv3"), jax_get_chemistry("SC3Pv3")
     tstep = tcount.make_stream_step(DeviceIndex.from_jax(jdidx, "cpu"),
                                     AnnotationIndex.from_jax(jann, "cpu"),
                                     chem, 91)
-    jstep = jax_count._make_step(jdidx, jann, chem, 91, accumulate=False)
+    jstep = jax_count._make_step(jdidx, jann, jchem, 91, accumulate=False)
     batch = next(iter(batches_from_fastqs(chem, fx["fq1"], fx["fq2"], 256,
                                           91)))
     bc_idx = np.full(256, -1, np.int32)
