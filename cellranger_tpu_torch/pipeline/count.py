@@ -1,7 +1,6 @@
 """The `count` pipeline: FASTQ -> filtered feature x barcode matrix, BAM.
 
-Port of cellranger_tpu/pipeline/count.py `run_count` for one device and
-single-end chemistries:
+Port of cellranger_tpu/pipeline/count.py `run_count` for one device:
 
   pass 1 (== MAKE_SHARD): host barcode histogram over the whitelist (the
       correction prior);
@@ -9,11 +8,17 @@ single-end chemistries:
       decodes FASTQs, resolves barcodes on the host and packs each Gene
       Expression batch into one u32 plane; the device step trims, aligns
       (SW rescue through the CUDA kernel on the card), annotates and
-      promotes multimappers.  Count-only runs step in accumulate mode
+      promotes multimappers; paired-end chemistries (SC5P-PE) carry the
+      mate in the same plane, align it too and combine the pair.
+      Count-only runs step in accumulate mode
       (confidently mapped (bc, gene, umi) rows appended into device
       buffers that the host drains in bulk); BAM runs step in stream mode
       (per-read outputs fetched every batch into the BAM band spool).
-      Feature Barcode libraries are extracted and matched on the device;
+      Feature Barcode libraries are extracted and matched on the device.
+      RTL runs (probe_set_csv) have no genome index: each batch is aligned
+      to the probe set on the device (ops/probes.py) and, for MFRP
+      chemistries, lands in the (gel-bead x probe-barcode) product
+      barcode space;
   dedup (== mark_dups.rs): count-only rows dedup in the device molecule
       state; BAM and Feature Barcode rows, and count-only runs past the
       state's capacity, spill to barcode-hash partitions deduplicated one
@@ -23,9 +28,10 @@ single-end chemistries:
       (h5py), junctions, feature assignment, secondary analysis
       (analysis/, on the run's device), metrics JSON.
 
-Everything outside this slice raises NotImplementedError naming its
-ROADMAP item.  The host stages are the port's verbatim copies of the JAX
-package's jax-free modules.
+`shard_index` (multi-GPU) raises NotImplementedError naming its ROADMAP
+item; chemistry "auto" is resolved by pipeline/detect_chemistry.py before
+run_count, as in the JAX package.  The host stages are the port's
+verbatim copies of the JAX package's jax-free modules.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ import torch
 
 from ..analysis import cell_calling
 from ..io.chemistry import get_chemistry
-from ..io.matrix_io import CountMatrix, FeatureReference
+from ..io.matrix_io import CountMatrix, FeatureDef, FeatureReference
+from ..io.matrix_store import h5py_available
 from .spill import MoleculeSpill
 from ..align.aligner import DeviceIndex, make_aligner
 from ..align.annotate import (GENE_MULTI, GENE_NONE, REGION_EXONIC,
@@ -72,8 +79,7 @@ class LibraryDef:
 
 @dataclass
 class CountConfig:
-    """The JAX package's CountConfig, field for field; the port runs the
-    subset documented in run_count and raises on the rest."""
+    """The JAX package's CountConfig, field for field."""
 
     fastq_pairs: list[tuple[str, str | None]]
     reference_path: str | None = None
@@ -154,11 +160,14 @@ LIB_MASK = np.uint32((1 << LIB_SHIFT) - 1)
 # ---- stream-mode step output: three planes, one fetch each per batch ----
 # every [B] integer column rides one [B, NI] int32 plane (u32 columns as
 # their int32 bits), booleans one [B, NB] bool plane, scalar metrics one
-# [NM] int32 vector; the single-end layout of the JAX package
+# [NM] int32 vector; the layout of the JAX package
 I32_FIELDS = ("gene", "pos", "mapq", "strand", "aln_len", "aln_start",
               "region", "sj_donor", "sj_acceptor", "sj_right_len",
               "gene_unpaired")
-U32_FIELDS = frozenset(("gene", "pos", "sj_donor", "sj_acceptor"))
+# mate-2 columns appended for paired-end chemistries (presence inferred
+# from the i32 plane width in unpack_step_out)
+PE_I32_FIELDS = ("pos2", "mapq2", "strand2", "aln_len2", "aln_start2")
+U32_FIELDS = frozenset(("gene", "pos", "sj_donor", "sj_acceptor", "pos2"))
 BOOL_FIELDS = ("conf_ok", "mapped", "antisense", "novel_sj", "mm",
                "gene_discordant")
 METRIC_FIELDS = ("n_mapped", "n_conf", "n_exonic", "n_intronic",
@@ -168,6 +177,7 @@ METRIC_FIELDS = ("n_mapped", "n_conf", "n_exonic", "n_intronic",
 KG_LIST = 4  # gene_list/anti_list columns appended after I32_FIELDS
 
 SECOND_CAP_FRAC = 4    # 2nd-locus / novel-SJ annotation capacity = B // 4
+MAX_INSERT = 2000      # max genomic span of a proper read pair
 # distinct (bc, gene, umi) rows the device molecule state holds before it
 # flushes to the host (read at run time, so a caller may lower it)
 MOLECULE_STATE_CAP = 1 << 23
@@ -184,15 +194,23 @@ def unpack_step_out(out) -> tuple[dict, dict]:
     views for U32_FIELDS and sec_pos, int32 for the other columns, bool
     flags.
 
-    Plane width decides the layout: [I32_FIELDS, 2 x KG_LIST gene lists,
-    (4 x S secondary-locus columns)]."""
+    Plane width decides the layout: [I32_FIELDS, (PE_I32_FIELDS), 2 x
+    KG_LIST gene lists, (4 x S secondary-locus columns)].  Single-end and
+    paired widths differ by 5 and secondary blocks come in multiples of 4,
+    so the widths never collide."""
     i32 = np.asarray(out["i32"])
     flags = np.asarray(out["flags"])
     mvec = np.asarray(out["mvec"])
     ho: dict = {}
-    n = len(I32_FIELDS)
-    n_sec = (i32.shape[1] - n - 2 * KG_LIST) // 4
-    for j, k in enumerate(I32_FIELDS):
+    w = i32.shape[1]
+    base_se = len(I32_FIELDS) + 2 * KG_LIST
+    base_pe = base_se + len(PE_I32_FIELDS)
+    if (w - base_se) % 4 == 0:
+        names, n_sec = I32_FIELDS, (w - base_se) // 4
+    else:
+        names, n_sec = I32_FIELDS + PE_I32_FIELDS, (w - base_pe) // 4
+    n = len(names)
+    for j, k in enumerate(names):
         col = i32[:, j]
         ho[k] = col.view(np.uint32) if k in U32_FIELDS else col
     ho["gene_list"] = i32[:, n:n + KG_LIST]
@@ -224,15 +242,16 @@ def fetch_step_out(out: dict) -> dict:
 # ---- packed step input: ONE u32 plane per batch ----
 # Per-read words: 0 bc_idx (int32 bits; whitelist rank or -1), 1 umi
 # 2-bit packed, 2 flags (bit0 slot_valid, bit1 umi_valid), 3.. cDNA codes
-# 2-bit packed (16 bases/word) then nmask bits (32/word).
+# 2-bit packed (16 bases/word) then nmask bits (32/word); paired-end
+# chemistries append the mate's codes + mask.
 def _codes_words(read_len: int) -> tuple[int, int]:
     """(code words, nmask words) per read for a packed cDNA plane."""
     return (read_len + 15) // 16, (read_len + 31) // 32
 
 
-def packed_width(read_len: int) -> int:
+def packed_width(chem, read_len: int) -> int:
     rw, nw = _codes_words(read_len)
-    return 3 + rw + nw
+    return 3 + (rw + nw) * (2 if chem.rna2 is not None else 1)
 
 
 def _pack_codes_into(buf: np.ndarray, o: int, codes, nmask, L: int) -> int:
@@ -255,15 +274,18 @@ def _pack_codes_into(buf: np.ndarray, o: int, codes, nmask, L: int) -> int:
     return o + rw + nw
 
 
-def pack_step_input(read_len: int, batch, bc_idx: np.ndarray) -> np.ndarray:
-    """Host: assemble the uint32 input plane for one single-end batch."""
+def pack_step_input(chem, read_len: int, batch,
+                    bc_idx: np.ndarray) -> np.ndarray:
+    """Host: assemble the single uint32 input plane for one batch."""
     B = batch.batch_size
-    buf = np.zeros((B, packed_width(read_len)), np.uint32)
+    buf = np.zeros((B, packed_width(chem, read_len)), np.uint32)
     buf[:, 0] = np.asarray(bc_idx, np.int32).view(np.uint32)
     buf[:, 1] = batch.umi_packed
     buf[:, 2] = (batch.slot_valid.astype(np.uint32)
                  | (batch.umi_valid.astype(np.uint32) << 1))
-    _pack_codes_into(buf, 3, batch.rna, batch.rna_nmask, read_len)
+    o = _pack_codes_into(buf, 3, batch.rna, batch.rna_nmask, read_len)
+    if chem.rna2 is not None:
+        _pack_codes_into(buf, o, batch.rna2, batch.rna2_nmask, read_len)
     return buf
 
 
@@ -290,19 +312,24 @@ def _unpack_codes(buf: torch.Tensor, o: int, L: int):
 def _make_body(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
                read_len: int, emit_secondary: bool = False):
     """The fused per-batch device work shared by both step modes (port of
-    `_make_step`'s `_body` without the paired-end branch): unpack, trim,
-    align (SW rescue through the CUDA kernel on the card), annotate,
-    novel-junction right segments, multi-locus promotion.  Returns
-    body(plane) -> dict of [B] tensors (u32 values in int64) + metrics.
+    `_make_step`'s `_body`): unpack, trim, align (SW rescue through the
+    CUDA kernel on the card), annotate, novel-junction right segments,
+    multi-locus promotion and, for paired-end chemistries, the mate
+    combination (mate 2 goes through the same aligner, so the SW kernel
+    launches twice per batch).  Returns body(plane) -> dict of [B] tensors
+    (u32 values in int64) + metrics.
 
-    emit_secondary (BAM runs): also output the other distinct best-score
-    loci of multimapped reads (sec_*) for the BAM's secondary records
-    (tx_annotation/src/read.rs:155,224-226)."""
+    emit_secondary (single-end BAM runs): also output the other distinct
+    best-score loci of multimapped reads (sec_*) for the BAM's secondary
+    records (tx_annotation/src/read.rs:155,224-226)."""
     align = make_aligner(didx, read_len)
     annotate = make_annotator(ann_idx, didx.genome_len, didx.sj_overhang,
                               chem.strandedness)
     trim = make_trimmer(read_len)
     dev = didx.text_rows.device
+    paired = chem.rna2 is not None
+    glen = didx.genome_len
+    rw, nw = _codes_words(read_len)
 
     def body(plane):
         B = plane.shape[0]
@@ -313,6 +340,8 @@ def _make_body(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
         slot_valid = (flags_in & 1) > 0
         umi_valid = (flags_in & 2) > 0
         rna, rna_nmask = _unpack_codes(buf, 3, read_len)
+        if paired:
+            rna2, rna2_nmask = _unpack_codes(buf, 3 + rw + nw, read_len)
         bc_ok = (bc_idx >= 0) & slot_valid
 
         # ---- TSO/polyA trimming: mask, don't move ----
@@ -381,10 +410,56 @@ def _make_body(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
         conf_eff = ann["conf_mapped"] | promoted
         mapq_eff = torch.where(promoted, 255, aln["mapq"])
 
+        # ---- paired-end mate combination (aligner.rs:422 align_read_pair,
+        # read.rs:88-104 annotate_read_pe, transcript.rs:27 from_pair) ----
+        # mate 2 aligns independently; a PROPER pair = both mates mapped,
+        # opposite genomic strands, within the insert bound (or either on
+        # a junction contig).  Pair gene = the non-empty mate's gene, or
+        # the agreement when both are non-empty.  An improper pair is
+        # unmapped as a whole (read.rs:1142-1152).
+        gene_discordant = torch.zeros(B, dtype=torch.bool, device=dev)
+        gene_unpaired = gene_eff
+        n_improper = torch.zeros((), dtype=torch.int64, device=dev)
+        pe_out = {}
+        if paired:
+            # mate 2 is NOT adapter-trimmed (aligner.rs:399-402) and reads
+            # toward the 5' end: its sense is the flip of its own strand
+            aln2 = align(rna2, rna2_nmask)
+            ann2 = annotate(aln2["pos"], aln2["aln_len"],
+                            aln2["strand"] ^ 1, aln2["mapq"], aln2["mapped"])
+            p1, p2 = aln["pos"], aln2["pos"]      # u32 values in int64
+            on_contig = (p1 >= glen) | (p2 >= glen)
+            proper = (aln["mapped"] & aln2["mapped"]
+                      & (aln2["strand"] != aln["strand"])
+                      & (on_contig | ((p2 - p1).abs() <= MAX_INSERT)))
+            g1, g2 = gene_eff, ann2["gene"]
+            pair_gene = torch.where(
+                g2 == GENE_NONE, g1,
+                torch.where(g1 == GENE_NONE, g2,
+                            torch.where(g1 == g2, g1,
+                                        torch.where(g1 == GENE_MULTI, g2,
+                                                    torch.where(
+                                                        g2 == GENE_MULTI, g1,
+                                                        GENE_NONE)))))
+            n_improper = ((aln["mapped"] | aln2["mapped"]) & ~proper
+                          & slot_valid).sum()
+            gene_eff = torch.where(proper, pair_gene, GENE_NONE)
+            conf_eff = proper & (mapq_eff == 255) & (gene_eff >= 0)
+            # mates each hit a specific gene but disagree -> xf
+            # GENE_DISCORDANT + per-mate gX/gN tags (read.rs:1311-1319)
+            gene_discordant = proper & (g1 >= 0) & (g2 >= 0) & (g1 != g2)
+            aln = dict(aln, mapped=proper)
+            mapq_eff = torch.where(proper, mapq_eff, 0)
+            # mate-2 coordinates for the paired BAM records; an improper
+            # pair is unmapped as a whole, so its mate-2 MAPQ is 0 too
+            pe_out = dict(
+                pos2=p2, mapq2=torch.where(proper, aln2["mapq"], 0),
+                strand2=aln2["strand"], aln_len2=aln2["aln_len"],
+                aln_start2=aln2["aln_start"])
+
         conf_ok = conf_eff & bc_ok & umi_valid & slot_valid
         mapped = aln["mapped"] & slot_valid
         region = ann["region"]
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
         m = dict(
             n_mapped=mapped.sum(),
             n_conf=(conf_eff & slot_valid).sum(),
@@ -396,7 +471,7 @@ def _make_body(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
             n_promote_overflow=(need2 & ~fits).sum(),
             n_tso=(tr["matched_tso"] & slot_valid).sum(),
             n_polya_trimmed=((tr["polya_trimmed"] > 0) & slot_valid).sum(),
-            n_improper_pair=zero,
+            n_improper_pair=n_improper,
         )
         out = dict(
             bc=bc_idx & U32_MASK, umi=umi_packed,
@@ -408,13 +483,12 @@ def _make_body(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
             sj_donor=aln["sj_donor"], sj_acceptor=aln["sj_acceptor"],
             sj_right_len=aln["sj_right_len"],
             # BAM tag payloads: mm (rescued multimapper), TX/AN gene lists,
-            # and the paired-end gX/gN columns (single-end values)
+            # paired-end gene discordance + unpaired gene (gX/gN)
             mm=promoted, gene_list=ann["gene_list"],
             anti_list=ann["anti_list"],
-            gene_discordant=torch.zeros(B, dtype=torch.bool, device=dev),
-            gene_unpaired=gene_eff,
-            metrics=m)
-        if emit_secondary and ND > 1:
+            gene_discordant=gene_discordant, gene_unpaired=gene_unpaired,
+            metrics=m, **pe_out)
+        if emit_secondary and not paired and ND > 1:
             # other distinct best-score loci of multimapped reads, one
             # secondary BAM record each; promoted reads keep theirs
             # (demoted to MAPQ 0 by the writer, read.rs:152-156)
@@ -432,7 +506,7 @@ def _make_body(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
 def make_count_step(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
                     read_len: int):
     """The accumulate-mode device step (port of `_make_step(...,
-    accumulate=True)` without the paired-end branch).
+    accumulate=True)`).
 
     Returns step(plane, acc, lib_tag) which runs one packed batch and
     appends into the device buffers of `acc` IN PLACE (the JAX package
@@ -490,7 +564,8 @@ def _pack_stream(out: dict) -> dict:
     """Step outputs -> the three stream planes (int32 bits of u32 values;
     int64 -> int32 keeps the low 32 bits)."""
     i32 = lambda a: a.to(torch.int32)  # noqa: E731
-    cols = [i32(out[k])[:, None] for k in I32_FIELDS]
+    names = I32_FIELDS + (PE_I32_FIELDS if "pos2" in out else ())
+    cols = [i32(out[k])[:, None] for k in names]
     cols += [i32(out["gene_list"]), i32(out["anti_list"])]
     if "sec_pos" in out:
         cols += [i32(out[k]) for k in ("sec_pos", "sec_len", "sec_start",
@@ -506,12 +581,11 @@ def _pack_stream(out: dict) -> dict:
 def make_stream_step(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
                      read_len: int, emit_secondary: bool = False):
     """The stream-mode device step (port of `_make_step(...,
-    accumulate=False, emit_secondary=...)` for single-end chemistries):
-    step(plane) -> dict(i32, flags, mvec) planes, read back per batch with
-    `fetch_step_out` and named by `unpack_step_out`.  On the card the
-    planes are copied into pinned host buffers on the device stream and an
-    event marks the copy, so the host can read batch i while batch i+1
-    runs."""
+    accumulate=False, emit_secondary=...)`): step(plane) -> dict(i32,
+    flags, mvec) planes, read back per batch with `fetch_step_out` and
+    named by `unpack_step_out`.  On the card the planes are copied into
+    pinned host buffers on the device stream and an event marks the copy,
+    so the host can read batch i while batch i+1 runs."""
     body = _make_body(didx, ann_idx, chem, read_len, emit_secondary)
 
     def step(plane):
@@ -529,29 +603,53 @@ def make_stream_step(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
     return step
 
 
-def _check_supported(cfg: CountConfig, chem) -> None:
+def _check_supported(cfg: CountConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
-    todo = [
-        (cfg.probe_set_csv, "probe_set_csv: RTL probe alignment "
-         "(ROADMAP queue 1, RTL probes)"),
-        (chem.probe_bc is not None or cfg.probe_barcode_csv,
-         "probe-barcode multiplexing (ROADMAP queue 1, RTL probes)"),
-        (cfg.shard_index, "shard_index: multi-GPU (ROADMAP queue 1, "
-         "multi-GPU)"),
-        (chem.rna2 is not None, f"paired chemistry {chem.name} "
-         "(ROADMAP queue 1, paired-end)"),
-    ]
-    for bad, what in todo:
-        if bad:
-            raise NotImplementedError(f"cellranger_tpu_torch: {what}")
+    if cfg.shard_index:
+        raise NotImplementedError(
+            "cellranger_tpu_torch: shard_index: multi-GPU (ROADMAP queue 1, "
+            "multi-GPU)")
 
 
-def _h5py_available() -> bool:
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        return False
-    return True
+@dataclass
+class ProbeRun:
+    """What an RTL run carries instead of a genome index: the probe set,
+    its device aligner and the per-region usable-read tallies."""
+
+    probe_set: object
+    align: object
+    region_names: list
+    region_of_probe: np.ndarray
+    region_reads: np.ndarray
+
+
+def _load_probe_run(cfg: CountConfig, device) -> ProbeRun:
+    from ..io.probe_set import ProbeSet
+    from ..ops.probes import make_probe_aligner
+    ps = ProbeSet.from_csv(cfg.probe_set_csv)
+    names = sorted({r or "unknown" for r in ps.regions})
+    return ProbeRun(
+        ps, make_probe_aligner(ps, cfg.read_len, device), names,
+        np.asarray([names.index(r or "unknown") for r in ps.regions],
+                   np.int32),
+        np.zeros(len(names), np.int64))
+
+
+def _load_probe_barcodes(cfg: CountConfig, chem):
+    """RTL sample multiplexing: the probe-barcode whitelist of an MFRP
+    chemistry as packed u32 sequences, else None."""
+    if chem.probe_bc is None:
+        return None
+    if not cfg.probe_barcode_csv:
+        raise ValueError(
+            f"chemistry {chem.name} carries a probe barcode; pass "
+            "probe_barcode_csv (id,sequence rows)")
+    from ..io.probe_bc import load_probe_barcodes
+    _ids, packed, pbl = load_probe_barcodes(cfg.probe_barcode_csv)
+    if pbl != chem.probe_bc.length:
+        raise ValueError(f"probe barcodes are {pbl}bp; chemistry expects "
+                         f"{chem.probe_bc.length}bp")
+    return packed
 
 
 def _fb_tag_lists(pat, src, fo, fb_ref, features, n_genes: int, n: int):
@@ -630,10 +728,11 @@ def run_count(cfg: CountConfig, out_dir: str,
     installed the h5 outputs (H5_OUTPUTS) are not written."""
     if cfg.chemistry == "auto":
         raise NotImplementedError(
-            "cellranger_tpu_torch: chemistry auto-detection (ROADMAP "
-            "queue 1, chemistry auto-detect); pass an explicit chemistry")
+            "cellranger_tpu_torch: run_count does not resolve chemistry "
+            "'auto' itself; call pipeline.detect_chemistry.detect_chemistry "
+            "first (as the CLI does) and pass the chemistry it names")
     chem = get_chemistry(cfg.chemistry)
-    _check_supported(cfg, chem)
+    _check_supported(cfg)
     device = torch.device(device)
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.time()
@@ -644,22 +743,34 @@ def run_count(cfg: CountConfig, out_dir: str,
     if whitelist is None:
         whitelist = Whitelist.load(cfg.whitelist_path)
 
-    ref = ReferencePackage.load(cfg.reference_path)
-    gi = ref.genome_index
-    didx = DeviceIndex.from_host(gi, device)
-    ann_idx = AnnotationIndex.build(ref.transcriptome, gi, device)
-    n_genes = len(ref.transcriptome.genes)
-    if len(ref.genomes) > 1:
-        from ..io.matrix_io import FeatureDef
+    probe = None
+    if cfg.probe_set_csv:
+        # RTL run: align to the probe set (Hurtle analog); no genome index
+        probe = _load_probe_run(cfg, device)
+        ref = (ReferencePackage.load(cfg.reference_path)
+               if cfg.reference_path else None)
+        gi = didx = ann_idx = None
+        n_genes = len(probe.probe_set.genes)
         features = FeatureReference(
-            [FeatureDef(i, n_, "Gene Expression", gn)
-             for i, n_, gn in zip(ref.transcriptome.gene_ids,
-                                  ref.transcriptome.gene_names,
-                                  ref.genome_of_gene())])
+            [FeatureDef(g, g, "Gene Expression")
+             for g in probe.probe_set.genes])
     else:
-        features = FeatureReference.from_transcriptome(
-            ref.transcriptome.gene_ids, ref.transcriptome.gene_names,
-            ref.genome_name)
+        ref = ReferencePackage.load(cfg.reference_path)
+        gi = ref.genome_index
+        didx = DeviceIndex.from_host(gi, device)
+        ann_idx = AnnotationIndex.build(ref.transcriptome, gi, device)
+        n_genes = len(ref.transcriptome.genes)
+        if len(ref.genomes) > 1:
+            features = FeatureReference(
+                [FeatureDef(i, n_, "Gene Expression", gn)
+                 for i, n_, gn in zip(ref.transcriptome.gene_ids,
+                                      ref.transcriptome.gene_names,
+                                      ref.genome_of_gene())])
+        else:
+            features = FeatureReference.from_transcriptome(
+                ref.transcriptome.gene_ids, ref.transcriptome.gene_names,
+                ref.genome_name)
+    probe_bc_packed = _load_probe_barcodes(cfg, chem)
 
     fb_ref = None
     fb_extractors = {}
@@ -701,10 +812,12 @@ def run_count(cfg: CountConfig, out_dir: str,
         mlib = resume.get("mlib", np.zeros(len(mbc), np.uint16))
         sj_counts = {tuple(int(x) for x in k): int(v)
                      for k, v in zip(resume["sj_keys"], resume["sj_vals"])}
+        if probe is not None and "probe_region_reads" in resume:
+            probe.region_reads = resume["probe_region_reads"]
         metrics = CountMetrics(**resume["__meta__"]["metrics"])
         bam_collector = None
         raw_views = None
-        if cfg.write_bam:
+        if cfg.write_bam and gi is not None:
             # reopen the sealed band spool read-only; the FASTQ passes
             # are skipped and the run goes straight to band merge
             bam_collector = BamCollector(gi, ref.transcriptome, spool_dir,
@@ -717,7 +830,7 @@ def run_count(cfg: CountConfig, out_dir: str,
         perf.lap("resume_checkpoint")
     else:
         bam_collector = None
-        if cfg.write_bam:
+        if cfg.write_bam and gi is not None:
             bam_collector = BamCollector(gi, ref.transcriptome, spool_dir,
                                          read_group=cfg.sample_id)
         (mbc, mgene, mumi, mreads, mlib, sj_counts,
@@ -725,7 +838,8 @@ def run_count(cfg: CountConfig, out_dir: str,
             cfg, chem, whitelist, libraries, gi, didx, ann_idx, batch_size,
             metrics, perf, out_dir, fb_ref, fb_extractors, features,
             n_genes, bam_collector, int(_param("spill_partitions")
-                                        or SPILL_PARTS))
+                                        or SPILL_PARTS), device, probe,
+            probe_bc_packed)
         if ckpt is not None:
             sj_items = sorted(sj_counts.items())
             save = dict(mbc=mbc, mgene=mgene, mumi=mumi, mreads=mreads,
@@ -734,6 +848,8 @@ def run_count(cfg: CountConfig, out_dir: str,
                                            np.int64).reshape(-1, 4),
                         sj_vals=np.asarray([v for _, v in sj_items],
                                            np.int64))
+            if probe is not None:
+                save["probe_region_reads"] = probe.region_reads
             meta = dict(metrics=dict(metrics.__dict__))
             if bam_collector is not None:
                 # the band spool becomes the journal: seal it and persist
@@ -748,12 +864,13 @@ def run_count(cfg: CountConfig, out_dir: str,
     return _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi,
                      features, n_genes, metrics, mbc, mgene, mumi, mreads,
                      mlib, sj_counts, perf, t0, fb_ref, bam_collector,
-                     raw_views, device)
+                     raw_views, device, probe, probe_bc_packed)
 
 
 def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
                 batch_size, metrics, perf, out_dir, fb_ref, fb_extractors,
-                features, n_genes, bam_collector, n_parts):
+                features, n_genes, bam_collector, n_parts, device,
+                probe=None, probe_bc_packed=None):
     """Passes 1 and 2 and the dedup.  Returns the molecule table (bc, gene,
     umi, reads, library) sorted by (bc, gene, umi), the splice-junction
     tallies and, for BAM and Feature Barcode runs, the raw-triple views.
@@ -764,10 +881,15 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
     per-read outputs come back to the host for the BAM spool, and the
     molecule rows spill to barcode-hash partition files.  Feature Barcode
     runs without BAM keep accumulate mode but spill too; their FB
-    libraries are extracted batch by batch on the device."""
-    device = didx.text_rows.device
-    accumulate = not cfg.write_bam
-    if accumulate:
+    libraries are extracted batch by batch on the device.  RTL runs
+    (`probe`) have no fused step: each Gene Expression batch is resolved
+    on the host, probe-aligned on the device and spilled, synchronously;
+    with probe barcodes (MFRP) the barcode column is the product index
+    gel-bead rank * n_probe + probe-barcode rank."""
+    accumulate = probe is None and not cfg.write_bam
+    if probe is not None:
+        step = None
+    elif accumulate:
         step = make_count_step(didx, ann_idx, chem, cfg.read_len)
     else:
         step = make_stream_step(didx, ann_idx, chem, cfg.read_len,
@@ -807,11 +929,12 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
     # upload) feeding the device on this thread ----
     def prep(item):
         li, batch = item
-        if libraries[li].library_type != "Gene Expression":
+        if (libraries[li].library_type != "Gene Expression"
+                or probe is not None):
             return li, batch, None, None
         bc_idx, hit, corrected, corr_bc = resolve_bc(batch)
-        plane = upload_plane(pack_step_input(cfg.read_len, batch, bc_idx),
-                             device)
+        plane = upload_plane(
+            pack_step_input(chem, cfg.read_len, batch, bc_idx), device)
         hi = dict(bc_idx=bc_idx, corr_bc=corr_bc,
                   n_valid_bc=int(hit.sum()),
                   n_corrected=int(corrected.sum()),
@@ -846,7 +969,7 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
     sj_capacity_overflow = 0
     # device-resident dedup for count-only runs; BAM and Feature Barcode
     # runs need the raw-triple views and spill their rows instead
-    keep_raw = cfg.write_bam or fb_ref is not None
+    keep_raw = bam_collector is not None or fb_ref is not None
     mol_state = None
     if accumulate and not keep_raw:
         mol_state = MoleculeState(MOLECULE_STATE_CAP, chem.umi_length,
@@ -901,6 +1024,40 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
             # library-tagged gene: the dedup raw-triple join key
             ho["gene_lib"] = ho["gene"] | lib_bits
             bam_collector.add_batch(batch, ho)
+
+    def process_probe(li, batch):
+        """RTL batch: host cell-barcode resolve, probe alignment on the
+        device (inputs uploaded once, the five outputs fetched as one
+        array), probe-barcode assignment, molecule spill."""
+        from ..ops.probes import stack_outputs, unstack_outputs
+        bc_idx, _hit, corrected, _corr_bc = resolve_bc(batch)
+        bc_ok = bc_idx >= 0
+        pa = unstack_outputs(stack_outputs(probe.align(
+            torch.from_numpy(batch.rna).to(device),
+            torch.from_numpy(batch.rna_nmask).to(device))).cpu().numpy())
+        conf = pa["conf_mapped"] & bc_ok & batch.umi_valid
+        bc_combined = bc_idx.astype(np.int64)
+        if probe_bc_packed is not None:
+            from ..io.probe_bc import assign_probe_bcs
+            pidx, pok = assign_probe_bcs(
+                batch.probe_bc_packed, probe_bc_packed, chem.probe_bc.length)
+            conf = conf & pok
+            bc_combined = (bc_combined * len(probe_bc_packed)
+                           + np.maximum(pidx, 0))
+        metrics.total_reads += batch.n_reads
+        metrics.valid_barcode_reads += int(bc_ok.sum())
+        metrics.corrected_barcode_reads += int(corrected.sum())
+        metrics.valid_umi_reads += int(
+            (batch.umi_valid & batch.slot_valid).sum())
+        metrics.mapped_reads += int(pa["mapped"].sum())
+        metrics.conf_mapped_reads += int(pa["conf_mapped"].sum())
+        metrics.usable_reads += int(conf.sum())
+        np.add.at(probe.region_reads,
+                  probe.region_of_probe[pa["probe"][conf]], 1)
+        spill.append(bc_combined.astype(np.uint32)[conf],
+                     pa["gene"][conf].astype(np.uint32)
+                     | np.uint32(li << LIB_SHIFT),
+                     np.asarray(batch.umi_packed)[conf])
 
     def process_fb(li, batch):
         """Feature-barcode library batch: cell barcode resolve + feature
@@ -986,11 +1143,17 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
             in_len = batch.rna_qual[:n0][batch.rna_nmask[:n0]]
             metrics.q30_rna_bases += int((in_len >= 63).sum())
             metrics.rna_bases += int(in_len.size)
+            if batch.rna2 is not None:   # paired-end: the mate counts too
+                in2 = batch.rna2_qual[:n0][batch.rna2_nmask[:n0]]
+                metrics.q30_rna_bases += int((in2 >= 63).sum())
+                metrics.rna_bases += int(in2.size)
             if libraries[li].library_type != "Gene Expression":
                 if pending is not None:       # keep batch order
                     process_gex(*pending)
                     pending = None
                 process_fb(li, batch)
+            elif probe is not None:
+                process_probe(li, batch)
             elif accumulate:
                 if (acc_rows + batch.batch_size > mol_cap
                         or acc_sj_rows + sjb_per_batch > sj_cap):
@@ -1095,15 +1258,25 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
 
 def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
               n_genes, metrics, mbc, mgene, mumi, mreads, mlib, sj_counts,
-              perf, t0, fb_ref, bam_collector, raw_views, device):
+              perf, t0, fb_ref, bam_collector, raw_views, device,
+              probe=None, probe_bc_packed=None):
     """Matrices, aggregate removal, cell calls, BAM, junctions, molecule
     info, feature assignment, secondary analysis (on `device`), metrics."""
-    have_h5 = _h5py_available()
+    have_h5 = h5py_available()
+    n_probe = len(probe_bc_packed) if probe_bc_packed is not None else 1
     out_seqs = (whitelist.translation if whitelist.translation is not None
                 else whitelist.sorted_seqs)
     suffix = f"-{cfg.gem_group}".encode()
     barcodes = [encode.decode_codes(encode.unpack_np(s, whitelist.length))
-                + suffix for s in out_seqs]
+                for s in out_seqs]
+    if probe_bc_packed is not None:
+        # product barcode space: gel-bead barcode ++ probe barcode
+        # (DEMUX_PROBE_BC_MATRIX barcode composition)
+        probe_strs = [encode.decode_codes(encode.unpack_np(
+            np.uint32(p), chem.probe_bc.length)) for p in probe_bc_packed]
+        barcodes = [bc + ps + suffix for bc in barcodes for ps in probe_strs]
+    else:
+        barcodes = [bc + suffix for bc in barcodes]
     raw = CountMatrix.from_molecules(mbc.astype(np.int64),
                                      mgene.astype(np.int64), barcodes,
                                      features)
@@ -1118,7 +1291,8 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
     agg_metrics: dict = {}
     agg_bcs = np.zeros(0, np.int64)
     if fb_ref is not None:
-        agg_bcs = _aggregate_barcodes(raw, features, n_genes, whitelist,
+        agg_bcs = _aggregate_barcodes(raw, features, n_genes,
+                                      whitelist.size * n_probe, n_probe,
                                       raw_views, agg_metrics, out_dir)
 
     # ---- cell calling (on Gene Expression counts only when FB is
@@ -1142,7 +1316,7 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
         cells_idx, call_metrics = cell_calling.call_cells(
             call_matrix, umis_per_bc, cfg.chemistry,
             recovered_cells=cfg.recovered_cells, force_cells=cfg.force_cells,
-            num_probe_bcs=None)
+            num_probe_bcs=n_probe if n_probe > 1 else None)
     if len(agg_bcs):
         cells_idx = np.setdiff1d(np.asarray(cells_idx), agg_bcs)
         call_metrics.update(agg_metrics)
@@ -1173,7 +1347,7 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
         perf.lap("bam_write")
 
     # ---- splice junction table (STAR SJ.out.tab analog) ----
-    if sj_counts:
+    if sj_counts and gi is not None:
         _write_junctions(os.path.join(out_dir, "junctions.tsv"), sj_counts,
                          gi)
 
@@ -1197,7 +1371,7 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
     perf.lap("bam_junctions_molinfo")
 
     # ---- barnyard GEM classification (multi-genome references) ----
-    if len(ref.genomes) > 1 and len(cells_idx):
+    if ref is not None and len(ref.genomes) > 1 and len(cells_idx):
         from ..analysis.multigenome import classify_gems
         genome_per_gene = ref.genome_of_gene()
         per_genome_counts = np.zeros((len(cells_idx), len(ref.genomes)))
@@ -1232,7 +1406,7 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
     perf.lap("analysis_reporting")
 
     # ---- summary metrics ----
-    bc_space = whitelist.size
+    bc_space = whitelist.size * n_probe
     cell_mask = np.zeros(bc_space, bool)
     cell_mask[cells_idx] = True
     in_cell = cell_mask[mbc]
@@ -1274,6 +1448,10 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
         h_upc.observe_array(umis_in_cells)
         extra["umis_per_cell_p50"] = int(h_upc.quantile(0.5))
         extra["umis_per_cell_p90"] = int(h_upc.quantile(0.9))
+    if probe is not None:
+        # per-probe-region usable read tallies (targeted/RTL metrics)
+        extra.update({f"probe_reads_{nm}": int(c) for nm, c in
+                      zip(probe.region_names, probe.region_reads)})
     summary = metrics.to_dict(extra)
     with open(os.path.join(out_dir, "metrics_summary.json"), "w") as f:
         json.dump(summary, f, indent=2, default=float)
@@ -1290,9 +1468,16 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
                         f"{reads_per_bc[ci]},{int(umis_per_bc[ci])},"
                         f"{genes_per_bc_all[ci]}\n")
     perf.lap("report_per_barcode")
+    if ref is not None:
+        genome_name = ref.genome_name
+    elif probe is not None:
+        genome_name = probe.probe_set.metadata.get("reference_genome",
+                                                   "probe")
+    else:
+        genome_name = "genome"
     with open(os.path.join(out_dir, "filtered_barcodes.csv"), "w") as f:
         for b in filtered.barcodes:
-            f.write(ref.genome_name + "," + b.decode() + "\n")
+            f.write(genome_name + "," + b.decode() + "\n")
 
     from .websummary import build_web_summary
     build_web_summary(out_dir, cfg.sample_id)
@@ -1302,8 +1487,9 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
     return summary
 
 
-def _aggregate_barcodes(raw, features, n_genes, whitelist, raw_views,
-                        agg_metrics: dict, out_dir: str) -> np.ndarray:
+def _aggregate_barcodes(raw, features, n_genes, space: int, n_probe: int,
+                        raw_views, agg_metrics: dict,
+                        out_dir: str) -> np.ndarray:
     """Antibody aggregates, antigen UMI outliers and highly corrected
     barcodes (antibody/analysis.py:91-99); writes aggregate_barcodes.csv
     and fills agg_metrics when any is found."""
@@ -1318,7 +1504,8 @@ def _aggregate_barcodes(raw, features, n_genes, whitelist, raw_views,
                if d.feature_type == "Antigen Capture"]
     if ab_rows:
         agg_bcs = detect_antibody_aggregates(
-            np.asarray(raw.m[ab_rows, :].todense()), num_probe_barcodes=None)
+            np.asarray(raw.m[ab_rows, :].todense()),
+            num_probe_barcodes=n_probe if n_probe > 1 else None)
     if ag_rows:
         agg_bcs = np.union1d(agg_bcs, detect_outlier_umi_bcs(
             np.asarray(raw.m[ag_rows, :].todense())))
@@ -1329,7 +1516,6 @@ def _aggregate_barcodes(raw, features, n_genes, whitelist, raw_views,
         rb = raw_views["raw_bc"][fb_mask].astype(np.int64)
         rreads = raw_views["raw_reads"][fb_mask].astype(np.int64)
         rcorr = (raw_views["raw_corr_umi"] != raw_views["raw_umi"])[fb_mask]
-        space = whitelist.size
         reads_per = np.bincount(rb, weights=rreads, minlength=space)
         corr_per = np.bincount(rb[rcorr], weights=rreads[rcorr],
                                minlength=space)

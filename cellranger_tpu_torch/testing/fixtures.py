@@ -340,24 +340,37 @@ E2E_CELLS = 2000
 E2E_DUP = 2
 
 
-def build_e2e_run(tmp: str, n_reads: int = 1_000_000) -> dict:
-    """Vectorized synthetic run: n_reads reads = molecules emitted
-    E2E_DUP times each, drawn from '+'-strand exons, 2% barcode errors;
-    seed 11, 8 Mb genome, 800 genes, 2000 cells, 20k whitelist.
-    Uncompressed FASTQ so generation stays cheap.  Draw for draw the
-    generator of bench.py `_gen_e2e_fixture`."""
+def _e2e_whitelist(n_wl: int):
+    """The e2e fixtures' whitelist (seed 4): (sorted barcode strings, the
+    same as a [n_wl, 16] matrix of base bytes)."""
+    wl_rng = np.random.default_rng(4)
+    wl = sorted({"".join(wl_rng.choice(list("ACGT"), 16))
+                 for _ in range(n_wl + n_wl // 5)})[:n_wl]
+    return wl, np.asarray([list(w.encode()) for w in wl], np.uint8)
+
+
+def _e2e_reference(tmp: str, rng, genome_len: int, n_genes: int,
+                   n_wl: int, ref: dict | None = None):
+    """The e2e fixtures' shared inputs: a random genome drawn from `rng`
+    (its first draw), `n_genes` two-exon genes alternating strands, the
+    reference package and a whitelist of `n_wl` barcodes (seed 4).  With
+    `ref` (an earlier fixture's dict over the same genome) the files on
+    disk are reused and only the arrays are rebuilt.
+    Returns (genome bytes array, gene spacing, whitelist byte matrix,
+    ref_dir, wl_path)."""
     from ..io.gtf import write_fasta
     from ..io.reference import ReferencePackage
 
     os.makedirs(tmp, exist_ok=True)
-    rng = np.random.default_rng(11)
     bases = np.frombuffer(b"ACGT", np.uint8)
-    genome_codes = rng.integers(0, 4, E2E_GENOME_LEN).astype(np.uint8)
-    garr = bases[genome_codes]
+    garr = bases[rng.integers(0, 4, genome_len).astype(np.uint8)]
+    spacing = genome_len // n_genes
+    wl, wl_arr = _e2e_whitelist(n_wl)
+    if ref is not None:
+        return garr, spacing, wl_arr, ref["ref"], ref["wl"]
     write_fasta(os.path.join(tmp, "g.fa"), {"chr1": garr.tobytes()})
-    spacing = E2E_GENOME_LEN // E2E_GENES
     with open(os.path.join(tmp, "g.gtf"), "w") as f:
-        for g in range(E2E_GENES):
+        for g in range(n_genes):
             st = g * spacing + 1000
             s = "+" if g % 2 == 0 else "-"
             f.write(f'chr1\tx\texon\t{st + 1}\t{st + 600}\t.\t{s}\t.\t'
@@ -369,13 +382,47 @@ def build_e2e_run(tmp: str, n_reads: int = 1_000_000) -> dict:
     ref_dir = os.path.join(tmp, "ref")
     ReferencePackage.build(os.path.join(tmp, "g.fa"),
                            os.path.join(tmp, "g.gtf"), ref_dir)
-    wl_rng = np.random.default_rng(4)
-    wl = sorted({"".join(wl_rng.choice(list("ACGT"), 16))
-                 for _ in range(24_000)})[:20_000]
     wl_path = os.path.join(tmp, "wl.txt")
     with open(wl_path, "w") as f:
         f.writelines(w + "\n" for w in wl)
-    wl_arr = np.asarray([list(w.encode()) for w in wl], np.uint8)
+    return garr, spacing, wl_arr, ref_dir, wl_path
+
+
+def _fastq_block(seqmat: np.ndarray) -> bytes:
+    """FASTQ text of a [n, w] matrix of base bytes: fixed names, 'F'
+    qualities, uncompressed (generation stays cheap)."""
+    n_, w_ = seqmat.shape
+    name = np.frombuffer(b"@readxxxxxxxxxx\n", np.uint8)
+    rows = np.empty((n_, len(name) + 2 * w_ + 4), np.uint8)
+    rows[:, :len(name)] = name
+    rows[:, len(name):len(name) + w_] = seqmat
+    o = len(name) + w_
+    rows[:, o] = ord("\n")
+    rows[:, o + 1] = ord("+")
+    rows[:, o + 2] = ord("\n")
+    rows[:, o + 3:o + 3 + w_] = ord("F")
+    rows[:, -1] = ord("\n")
+    return rows.tobytes()
+
+
+def _write_fastq_pair(r1p: str, r2p: str, r1: np.ndarray, r2: np.ndarray):
+    with open(r1p, "wb") as f1, open(r2p, "wb") as f2:
+        C = 1 << 19
+        for i in range(0, len(r1), C):
+            f1.write(_fastq_block(r1[i:i + C]))
+            f2.write(_fastq_block(r2[i:i + C]))
+
+
+def build_e2e_run(tmp: str, n_reads: int = 1_000_000) -> dict:
+    """Vectorized synthetic run: n_reads reads = molecules emitted
+    E2E_DUP times each, drawn from '+'-strand exons, 2% barcode errors;
+    seed 11, 8 Mb genome, 800 genes, 2000 cells, 20k whitelist.
+    Uncompressed FASTQ so generation stays cheap.  Draw for draw the
+    generator of bench.py `_gen_e2e_fixture`."""
+    rng = np.random.default_rng(11)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    garr, spacing, wl_arr, ref_dir, wl_path = _e2e_reference(
+        tmp, rng, E2E_GENOME_LEN, E2E_GENES, 20_000)
 
     n_mol = n_reads // E2E_DUP
     cell_idx = rng.integers(0, E2E_CELLS, n_mol)
@@ -396,29 +443,332 @@ def build_e2e_run(tmp: str, n_reads: int = 1_000_000) -> dict:
 
     r1p = os.path.join(tmp, "e2e_S1_L001_R1_001.fastq")
     r2p = os.path.join(tmp, "e2e_S1_L001_R2_001.fastq")
-
-    def block(seqmat):
-        n_, w_ = seqmat.shape
-        name = np.frombuffer(b"@readxxxxxxxxxx\n", np.uint8)
-        rows = np.empty((n_, len(name) + 2 * w_ + 4), np.uint8)
-        rows[:, :len(name)] = name
-        rows[:, len(name):len(name) + w_] = seqmat
-        o = len(name) + w_
-        rows[:, o] = ord("\n")
-        rows[:, o + 1] = ord("+")
-        rows[:, o + 2] = ord("\n")
-        rows[:, o + 3:o + 3 + w_] = ord("F")
-        rows[:, -1] = ord("\n")
-        return rows.tobytes()
-
-    with open(r1p, "wb") as f1, open(r2p, "wb") as f2:
-        C = 1 << 19
-        for i in range(0, len(bc), C):
-            f1.write(block(np.concatenate(
-                [bc[i:i + C], umi[i:i + C]], axis=1)))
-            f2.write(block(cdna[i:i + C]))
+    _write_fastq_pair(r1p, r2p, np.concatenate([bc, umi], axis=1), cdna)
     return dict(ref=ref_dir, wl=wl_path, fq1=r1p, fq2=r2p,
                 n_reads=len(bc), n_molecules=n_mol)
+
+
+# ---------------------------------------------------------------------------
+# Fixtures whose expected counts hold by construction
+# ---------------------------------------------------------------------------
+
+def _coded_umis(cell_idx: np.ndarray, length: int, rng) -> np.ndarray:
+    """One UMI per molecule as base codes [n, length]: within a cell any
+    two UMIs differ in at least two bases (length - 1 data digits that are
+    distinct per molecule of the cell, plus a check base), so UMI
+    correction never merges two molecules, and the check base (digit sum
+    + 1 mod 4) rules out homopolymers."""
+    n = len(cell_idx)
+    order = np.argsort(cell_idx, kind="stable")
+    sorted_cells = cell_idx[order]
+    first = np.r_[True, sorted_cells[1:] != sorted_cells[:-1]]
+    start = np.maximum.accumulate(np.where(first, np.arange(n), 0))
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n) - start            # index within the cell
+    space = 4 ** (length - 1)
+    assert rank.max() < space
+    # an odd multiplier and a per-cell offset spread the data words
+    offset = rng.integers(0, space, cell_idx.max() + 1)
+    data = (rank * 2_654_435_761 + offset[cell_idx]) % space
+    digits = (data[:, None] >> (2 * np.arange(length - 1))[None, :]) & 3
+    check = (digits.sum(1) + 1) % 4
+    return np.concatenate([digits, check[:, None]], 1).astype(np.uint8)
+
+
+def _barcode_errors(bc: np.ndarray, rows: np.ndarray, wl_arr: np.ndarray,
+                    rng) -> None:
+    """Give each listed row one substituted barcode base, in place; a
+    substitution that lands on another whitelist barcode is undone, so
+    every error stays correctable to its own cell."""
+    pos = rng.integers(0, 16, len(rows))
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    old = bc[rows, pos].copy()
+    bc[rows, pos] = bases[rng.integers(0, 4, len(rows))]
+    wl_keys = {w.tobytes() for w in wl_arr}
+    for r, p, o in zip(rows.tolist(), pos.tolist(), old.tolist()):
+        if bc[r, p] != o and bc[r].tobytes() in wl_keys:
+            bc[r, p] = o
+
+
+PE_UMI_LEN = 10          # SC5P-PE
+PE_DISCORDANT_GAP = 5000  # mate-2 displacement of a discordant pair
+
+
+def build_pe_run(tmp: str, n_pairs: int = 1_000_000,
+                 discordant_frac: float = 0.1, seed: int = 17,
+                 genome_len: int = E2E_GENOME_LEN, n_genes: int = E2E_GENES,
+                 n_cells: int = E2E_CELLS, n_wl: int = 20_000,
+                 ref: dict | None = None) -> dict:
+    """Paired-end (SC5P-PE) run on the e2e fixture's genome, genes and
+    whitelist: n_pairs read pairs = molecules emitted E2E_DUP times each.
+    R1 = barcode + 10 bp UMI + mate 1 (sense, inside exon 1 of a '+'
+    gene); R2 = mate 2, the reverse complement of a fragment 100-300 bp
+    downstream in the same exon.  A `discordant_frac` share of molecules
+    places mate 2 PE_DISCORDANT_GAP bases further (beyond the insert
+    bound, intergenic): both mates map, the pair is improper.  One read of
+    every 25th molecule carries a barcode error that stays correctable.
+
+    Expected by construction (returned): total reads, confidently mapped
+    pairs (the proper ones), improper pairs, molecules (UMIs are coded so
+    that none merge).  `ref`: an e2e/pe fixture dict over the same genome
+    and whitelist, to reuse its reference package."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    comp = np.zeros(256, np.uint8)
+    comp[list(b"ACGT")] = list(b"TGCA")
+    garr, spacing, wl_arr, ref_dir, wl_path = _e2e_reference(
+        tmp, np.random.default_rng(11), genome_len, n_genes, n_wl, ref)
+    rng = np.random.default_rng(seed)
+    n_mol = n_pairs // E2E_DUP
+    cell_idx = rng.integers(0, n_cells, n_mol)
+    bc = wl_arr[cell_idx]
+    umi = bases[_coded_umis(cell_idx, PE_UMI_LEN, rng)]
+    gene = rng.integers(0, n_genes // 2, n_mol) * 2      # '+' strand only
+    p1 = gene * spacing + 1000 + rng.integers(0, 200, n_mol)
+    discordant = rng.random(n_mol) < discordant_frac
+    p2 = (p1 + rng.integers(100, 300, n_mol)
+          + np.where(discordant, PE_DISCORDANT_GAP, 0))
+    ar = np.arange(READ_LEN)
+    mate1 = garr[p1[:, None] + ar[None, :]]
+    mate2 = comp[garr[p2[:, None] + ar[None, ::-1]]]
+    order = rng.permutation(n_mol * E2E_DUP)
+    rep = lambda a: np.repeat(a, E2E_DUP, axis=0)[order]  # noqa: E731
+    bc, umi, mate1, mate2 = rep(bc), rep(umi), rep(mate1), rep(mate2)
+    # the first emitted copy of every 25th molecule gets the barcode error
+    copy_no = (np.arange(n_mol * E2E_DUP) % E2E_DUP)[order]
+    mol_no = (np.arange(n_mol * E2E_DUP) // E2E_DUP)[order]
+    _barcode_errors(bc, np.flatnonzero((copy_no == 0) & (mol_no % 25 == 0)),
+                    wl_arr, rng)
+    r1p = os.path.join(tmp, "pe_S1_L001_R1_001.fastq")
+    r2p = os.path.join(tmp, "pe_S1_L001_R2_001.fastq")
+    _write_fastq_pair(r1p, r2p, np.concatenate([bc, umi, mate1], axis=1),
+                      mate2)
+    n_disc = int(discordant.sum())
+    return dict(ref=ref_dir, wl=wl_path, fq1=r1p, fq2=r2p,
+                n_reads=n_mol * E2E_DUP,
+                expected=dict(
+                    total_reads=n_mol * E2E_DUP,
+                    conf_mapped_reads=(n_mol - n_disc) * E2E_DUP,
+                    improper_pair_reads=n_disc * E2E_DUP,
+                    total_molecules=n_mol - n_disc))
+
+
+# RTL probe run at the scale of a whole-transcriptome probe set
+RTL_PROBES = 54_000
+RTL_GENES = 18_000
+RTL_PROBE_LEN = 50
+RTL_HALF = RTL_PROBE_LEN // 2
+RTL_UMI_LEN = 12
+RTL_R2_LEN = 76              # probe 50 + filler 18 + probe barcode 8
+# molecule kinds and their shares; the first three are usable
+RTL_KINDS = ("exact", "one_mm", "rescued", "excluded", "junk")
+RTL_SHARES = (0.60, 0.15, 0.10, 0.05, 0.10)
+RTL_EXCLUDED_EVERY = 20      # every 20th probe is included=FALSE
+
+
+def rtl_probe_barcodes() -> list[str]:
+    """16 probe barcodes of 8 bp, any two at least 3 bases apart (so one
+    mismatch still names its barcode)."""
+    out = []
+    for a in range(4):
+        for b in range(4):
+            word = [a, b, a, b, a, b, (a + b) % 4, (a + 2 * b) % 4]
+            out.append("".join("ACGT"[x] for x in word))
+    return out
+
+
+def _rtl_probe_codes(n_probes: int, rng):
+    """Probe sequences [n, 50] as base codes, and per half the position of
+    every coded slot.  A half holds the probe's index as 8 base-4 digits
+    three times over (slots 0-7, 8-15, 16-23) plus one random base (slot
+    24), under a fixed slot -> position shuffle and a per-slot base
+    rotation.  Two probes differ in at least one digit, so in at least 3
+    bases of either half: a read within one mismatch of a probe half is
+    at least two mismatches from every other probe's."""
+    assert n_probes <= 4 ** 8
+    digits = (np.arange(n_probes)[:, None] >> (2 * np.arange(8))[None, :]) & 3
+    seq = np.zeros((n_probes, RTL_PROBE_LEN), np.uint8)
+    slot_pos = []
+    for h in range(2):
+        v = np.concatenate([digits, digits, digits,
+                            rng.integers(0, 4, (n_probes, 1))], 1)
+        v = (v + rng.integers(0, 4, RTL_HALF)[None, :]) % 4
+        pos = rng.permutation(RTL_HALF) + h * RTL_HALF
+        seq[:, pos] = v
+        slot_pos.append(pos)
+    return seq, np.stack(slot_pos)
+
+
+def build_rtl_run(tmp: str, n_reads: int = 1_000_000, seed: int = 29,
+                  n_probes: int = RTL_PROBES, n_genes: int = RTL_GENES,
+                  n_cells: int = E2E_CELLS, n_wl: int = 20_000) -> dict:
+    """RTL (MFRP-RNA) run at the scale of a whole-transcriptome probe set:
+    `n_probes` 50 bp probes over `n_genes` genes (every 20th probe
+    excluded), 16 probe barcodes, the e2e whitelist, n_reads reads =
+    molecules emitted E2E_DUP times each.  R1 = barcode + 12 bp UMI;
+    R2 = 50 probe bases + 18 filler + the cell's probe barcode (cell index
+    mod 16; one copy of every 25th molecule with one mismatch in it).
+
+    Molecule kinds, in the shares of RTL_SHARES: exact; one mismatch in
+    one half; one half with 3 mismatches inside one copy of the coded
+    index (its lookup fails, the other half rescues it: score 25 + 19);
+    exact on an excluded probe (mapped, not confident); junk (both halves
+    at least 4 mismatches from every probe).
+
+    Expected by construction (returned): usable and confidently mapped
+    reads (the first three kinds), mapped reads (those plus excluded),
+    molecules (UMIs are coded so that none merge), per-region reads."""
+    os.makedirs(tmp, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    codes, slot_pos = _rtl_probe_codes(n_probes, rng)
+    probe_gene = np.arange(n_probes) * n_genes // n_probes
+    included = np.arange(n_probes) % RTL_EXCLUDED_EVERY != 0
+    region = np.where(np.arange(n_probes) % 3 == 0, "unspliced", "spliced")
+    pcsv = os.path.join(tmp, "probes.csv")
+    seq_txt = bases[codes].view(f"S{RTL_PROBE_LEN}").ravel()
+    with open(pcsv, "w") as f:
+        f.write("#probe_set_file_format=1.0\n#panel_name=synthetic "
+                "whole transcriptome\n#reference_genome=synth\n")
+        f.write("gene_id,probe_seq,probe_id,included,region\n")
+        f.writelines(
+            f"GENE{g:05d},{s.decode()},GENE{g:05d}|p{i},"
+            f"{'TRUE' if inc else 'FALSE'},{r}\n"
+            for i, (g, s, inc, r) in enumerate(zip(
+                probe_gene.tolist(), seq_txt.tolist(), included.tolist(),
+                region.tolist())))
+    pbcs = rtl_probe_barcodes()
+    pbc_csv = os.path.join(tmp, "probe_barcodes.csv")
+    with open(pbc_csv, "w") as f:
+        f.write("id,sequence\n")
+        f.writelines(f"BC{i + 1:03d},{s}\n" for i, s in enumerate(pbcs))
+    pbc_arr = np.asarray([list(s.encode()) for s in pbcs], np.uint8)
+    wl, wl_arr = _e2e_whitelist(n_wl)
+    wl_path = os.path.join(tmp, "wl.txt")
+    with open(wl_path, "w") as f:
+        f.writelines(w + "\n" for w in wl)
+
+    n_mol = n_reads // E2E_DUP
+    cell_idx = rng.integers(0, n_cells, n_mol)
+    umi = bases[_coded_umis(cell_idx, RTL_UMI_LEN, rng)]
+    kind = rng.choice(len(RTL_KINDS), n_mol, p=RTL_SHARES)
+    inc_idx, exc_idx = np.flatnonzero(included), np.flatnonzero(~included)
+    is_exc = kind == RTL_KINDS.index("excluded")
+    probe = np.where(is_exc, exc_idx[rng.integers(0, len(exc_idx), n_mol)],
+                     inc_idx[rng.integers(0, len(inc_idx), n_mol)])
+    read = codes[probe].copy()
+    rows = np.arange(n_mol)
+
+    def bump(sel, pos):
+        """Substitute the base at read[sel, pos] by another one."""
+        read[sel, pos] = (read[sel, pos] + rng.integers(1, 4, len(sel))) % 4
+
+    sel = rows[kind == RTL_KINDS.index("one_mm")]
+    bump(sel, rng.integers(0, RTL_PROBE_LEN, len(sel)))
+    sel = rows[kind == RTL_KINDS.index("rescued")]
+    half = rng.integers(0, 2, len(sel))
+    copy = rng.integers(0, 3, len(sel))
+    for k in range(3):              # digits k, k+3 ... of the chosen copy
+        slot = 8 * copy + (rng.integers(0, 2, len(sel)) * 3 + k)
+        bump(sel, slot_pos[half, slot])
+    sel = rows[kind == RTL_KINDS.index("junk")]
+    for h in range(2):              # copies 1 and 2 each lose two digits
+        for slot in (8, 9, 18, 19):
+            bump(sel, np.full(len(sel), slot_pos[h, slot]))
+
+    r2 = np.empty((n_mol, RTL_R2_LEN), np.uint8)
+    r2[:, :RTL_PROBE_LEN] = bases[read]
+    r2[:, RTL_PROBE_LEN:68] = bases[rng.integers(0, 4, (n_mol, 18))]
+    r2[:, 68:] = pbc_arr[cell_idx % len(pbcs)]
+    r1 = np.concatenate([wl_arr[cell_idx], umi], axis=1)
+    order = rng.permutation(n_mol * E2E_DUP)
+    r1 = np.repeat(r1, E2E_DUP, axis=0)[order]
+    r2 = np.repeat(r2, E2E_DUP, axis=0)[order]
+    copy_no = (np.arange(n_mol * E2E_DUP) % E2E_DUP)[order]
+    mol_no = (np.arange(n_mol * E2E_DUP) // E2E_DUP)[order]
+    err = np.flatnonzero((copy_no == 1) & (mol_no % 25 == 0))
+    pos = 68 + rng.integers(0, 8, len(err))
+    r2[err, pos] = bases[(np.searchsorted(bases, r2[err, pos])
+                          + rng.integers(1, 4, len(err))) % 4]
+    r1p = os.path.join(tmp, "rtl_S1_L001_R1_001.fastq")
+    r2p = os.path.join(tmp, "rtl_S1_L001_R2_001.fastq")
+    _write_fastq_pair(r1p, r2p, r1, r2)
+
+    usable = kind <= RTL_KINDS.index("rescued")
+    n_usable = int(usable.sum())
+    regions = {}
+    for name in ("spliced", "unspliced"):
+        regions[f"probe_reads_{name}"] = E2E_DUP * int(
+            (usable & (region[probe] == name)).sum())
+    return dict(probes=pcsv, probe_barcodes=pbc_csv, wl=wl_path, fq1=r1p,
+                fq2=r2p, n_reads=n_mol * E2E_DUP, n_probe_bcs=len(pbcs),
+                n_wl=n_wl,
+                expected=dict(
+                    total_reads=n_mol * E2E_DUP,
+                    usable_reads=n_usable * E2E_DUP,
+                    conf_mapped_reads=n_usable * E2E_DUP,
+                    mapped_reads=(n_usable + int(is_exc.sum())) * E2E_DUP,
+                    total_molecules=n_usable, **regions))
+
+
+MULTI_CMOS = {"CMO301": "AAAACCCCGGGGTTT", "CMO302": "TTTTGGGGCCCCAAA"}
+MULTI_CMO_UMIS = 25          # tag molecules of a sample's first cell
+
+
+def build_multi_run(tmp: str, n_cells: int = 40, seed: int = 31) -> dict:
+    """A `multi` config over the tiny synthetic run: its Gene Expression
+    library, a Multiplexing Capture library (the first half of the cells
+    carry CMO301, the rest CMO302; the k-th cell of a sample carries
+    MULTI_CMO_UMIS + 3k tag molecules, so that no two cells of a sample
+    are the same point to its secondary analysis) and a [samples] section
+    mapping one tag to each of two samples.  Returns the config path, the
+    whitelist and the cells built per sample."""
+    fx = build_synthetic_run(os.path.join(tmp, "gex"), n_cells=n_cells)
+    rng = np.random.default_rng(seed)
+    fref = os.path.join(tmp, "cmo_features.csv")
+    with open(fref, "w") as f:
+        f.write("id,name,read,pattern,sequence,feature_type\n")
+        for cid, seq in MULTI_CMOS.items():
+            f.write(f"{cid},{cid},R2,5PNNNNNNNNNN(BC),{seq},"
+                    "Multiplexing Capture\n")
+    cdir = os.path.join(tmp, "cmo")
+    os.makedirs(cdir, exist_ok=True)
+    names = list(MULTI_CMOS)
+    built = {"sampleA": 0, "sampleB": 0}
+    n = 0
+    with gzip.open(os.path.join(cdir, "cmo_S1_L001_R1_001.fastq.gz"),
+                   "wt") as f1, \
+            gzip.open(os.path.join(cdir, "cmo_S1_L001_R2_001.fastq.gz"),
+                      "wt") as f2:
+        for ci, c in enumerate(fx["cells"]):
+            which = 0 if ci < n_cells // 2 else 1
+            built["sampleA" if which == 0 else "sampleB"] += 1
+            r2 = "T" * 10 + MULTI_CMOS[names[which]] + "A" * 46
+            for _ in range(MULTI_CMO_UMIS + 3 * (ci % (n_cells // 2))):
+                umi = "".join(rng.choice(list("ACGT"), 12))
+                f1.write(f"@c{n}\n{fx['wl_seqs'][c]}{umi}\n+\n{'F' * 28}\n")
+                f2.write(f"@c{n}\n{r2}\n+\n{'F' * len(r2)}\n")
+                n += 1
+    csv = os.path.join(tmp, "multi.csv")
+    with open(csv, "w") as f:
+        f.write(f"""[gene-expression]
+reference,{fx['ref']}
+chemistry,SC3Pv3
+
+[feature]
+reference,{fref}
+
+[libraries]
+fastq_id,fastqs,feature_types
+sample,{os.path.dirname(fx['fq1'])},Gene Expression
+cmo,{cdir},Multiplexing Capture
+
+[samples]
+sample_id,cmo_ids
+sampleA,{names[0]}
+sampleB,{names[1]}
+""")
+    return dict(csv=csv, wl=fx["wl"], built=built, n_cells=n_cells,
+                n_reads=fx["n_reads"] + n, gex=fx)
 
 
 def sw_inputs(seed: int, B: int, L: int):

@@ -32,12 +32,35 @@ Phases, each printing one line; any failure raises and exits non-zero:
                32768, secondary analysis on: read and molecule counts
                against the JAX package's values for this fixture, wall
                time, phase split (analysis_reporting apart), memory
-  e2e_bam      the same fixture with BAM (stream mode, spill + partition
-               dedup, BAM write): the same counts, the BAM write phase on
-               its own, BAM size and record count
+  e2e_bam      the first 250,000 reads of that fixture count-only and
+               with BAM (stream mode, spill + partition dedup, BAM write):
+               every read confidently mapped, the same molecules and MEX
+               bytes from both, the BAM write phase on its own, BAM size
+               and record count (a quarter of the reads: the per-record
+               BAM writer takes 170-410 s of host time for 1,000,000)
   overflow     the count-only e2e run with the device molecule state
                capped at 1 << 19 rows, which forces the host flush and the
                partition dedup: the same molecules and MEX bytes as e2e
+  pe_parity    a small SC5P-PE run (4,096 pairs on the e2e reference, a
+               tenth of them discordant, with BAM) on cuda and on cpu:
+               identical metrics, MEX and BAM bytes; two SW launches a step
+  pe           the full-width paired-end path: 1,000,000 read pairs
+               (testing/fixtures.build_pe_run on the e2e genome, genes and
+               whitelist), SC5P-PE, batch 32768, count-only: exactly the
+               fixture's molecules, confidently mapped pairs and improper
+               pairs; SW launches = 2 x batches; wall, phase split, memory
+  rtl_parity   a small MFRP-RNA run on cuda and on cpu: identical metrics
+               and MEX; the probe aligner alone on one batch of that run,
+               all five outputs equal between the devices
+  rtl          a probe run at the scale of a whole-transcriptome probe set
+               (testing/fixtures.build_rtl_run: 54,000 probes of 50 bp over
+               18,000 genes, 16 probe barcodes, 320,000 barcode columns,
+               1,000,000 reads, batch 32768): exactly the fixture's usable
+               reads, molecules and per-region reads; no SW launch; wall,
+               phase split, memory, the probe aligner's device time a batch
+  multi        run_multi of a Gene Expression + Multiplexing Capture config
+               with [samples] on cuda: per-sample outputs present, every
+               cell in the sample it was built for
   analysis     secondary analysis of a planted 8-population matrix
                (10,000 cells x 20,000 genes) on cuda, twice: identical
                analysis/ bytes, finite embeddings that separate the
@@ -49,7 +72,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
 
 Every path resets the SW kernel's launch count before it runs and reads
 it after; the kernel report counts the e2e path's launches and lists
-every path's.  The line before the last is the kernel report (JSON); the
+every path's (`pe`: two a batch, one per mate; `rtl`: none, no genome
+aligner runs).  The line before the last is the kernel report (JSON); the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -67,8 +91,21 @@ import time
 
 E2E_READS = 1_000_000
 E2E_BATCH = 32768
+# the BAM run takes the first quarter of the e2e reads (they are shuffled):
+# the per-record BAM writer takes 0.17-0.41 ms of host time a record
+E2E_BAM_READS = 250_000
 GOLDEN_BATCH = 4096
 OVERFLOW_STATE_CAP = 1 << 19
+PE_PAIRS = 1_000_000
+PE_PARITY_PAIRS = 4096
+PE_PARITY_BATCH = 1024
+RTL_READS = 1_000_000
+RTL_READ_LEN = 50
+# the small probe run of rtl_parity: reads, probes, genes, cells, whitelist
+RTL_PARITY = dict(n_reads=20_000, n_probes=3_000, n_genes=1_000, n_cells=50,
+                  n_wl=2_000)
+RTL_PARITY_BATCH = 4096
+PROBE_TIMING_SAMPLES = 30     # samples of each clock of the probe aligner
 GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "tests", "golden")
 MEX_FILES = [os.path.join(sub, f)
@@ -204,11 +241,19 @@ def check_sw_kernel() -> dict:
 def _count_cfg(fx: dict, batch_size: int, **kw):
     """The fixture's CountConfig; secondary analysis off unless asked."""
     from cellranger_tpu_torch.pipeline.count import CountConfig
-    kw = dict(dict(checkpoint=False, secondary_analysis=False), **kw)
+    kw = dict(dict(checkpoint=False, secondary_analysis=False,
+                   chemistry="SC3Pv3", read_len=91,
+                   reference_path=fx.get("ref")), **kw)
     return CountConfig(
-        fastq_pairs=[(fx["fq1"], fx["fq2"])], reference_path=fx["ref"],
-        whitelist_path=fx["wl"], chemistry="SC3Pv3", read_len=91,
+        fastq_pairs=[(fx["fq1"], fx["fq2"])], whitelist_path=fx["wl"],
         batch_size=batch_size, **kw)
+
+
+def _rtl_kw(fx: dict) -> dict:
+    """CountConfig fields of a build_rtl_run fixture."""
+    return dict(chemistry="MFRP-RNA", read_len=RTL_READ_LEN,
+                probe_set_csv=fx["probes"],
+                probe_barcode_csv=fx["probe_barcodes"])
 
 
 def _mex_diffs(out_a: str, out_b: str) -> list[str]:
@@ -247,10 +292,7 @@ def tiny_parity(tmp: str, devices=("cuda", "cpu"), batch_size: int = 256):
         if dev == "cpu" and grew != 0:
             raise AssertionError("cpu run launched the SW kernel")
     a, b = devices
-    diffs = [k for k in sorted(set(sums[a]) | set(sums[b]))
-             if k != "wall_time_s"
-             and json.dumps(sums[a].get(k)) != json.dumps(sums[b].get(k))]
-    diffs += _mex_diffs(outs[a], outs[b])
+    diffs = _metric_diffs(sums[a], sums[b]) + _mex_diffs(outs[a], outs[b])
     an = [os.path.join(outs[d], "analysis") for d in (b, a)]
     if len(check.analysis_files(an[0])) != 16:
         raise AssertionError(f"tiny {b} run wrote "
@@ -267,7 +309,7 @@ def _golden_diffs(out: str, golden: str) -> tuple[list[str], list[str]]:
     """Differences of a run's outputs from a golden snapshot, through the
     repo's comparators; returns (diffs, h5 files skipped)."""
     from cellranger_tpu_torch.testing import correctness as cc
-    from cellranger_tpu_torch.pipeline.count import _h5py_available
+    from cellranger_tpu_torch.io.matrix_store import h5py_available
 
     j = lambda d, f: os.path.join(d, f)  # noqa: E731
     diffs = cc.check_metrics(j(out, "metrics_summary.json"),
@@ -282,7 +324,7 @@ def _golden_diffs(out: str, golden: str) -> tuple[list[str], list[str]]:
             if fa.read() != fe.read():
                 diffs.append(f"{f} differs from golden")
     skipped = ["filtered_feature_bc_matrix.h5", "molecule_info.h5"]
-    if _h5py_available():
+    if h5py_available():
         diffs += cc.check_h5(j(out, skipped[0]), j(golden, skipped[0]))
         diffs += cc.check_molecule_info(j(out, skipped[1]),
                                         j(golden, skipped[1]))
@@ -378,6 +420,7 @@ def count_run(fx: dict, out: str, device: str = "cuda",
         reads_per_s=summary["total_reads"] / wall,
         total_molecules=summary["total_molecules"],
         conf_mapped_frac=summary["conf_mapped_frac"],
+        summary=summary,
         estimated_cells=summary["estimated_cells"],
         sw_launches=launches, n_steps=-(-summary["total_reads"]
                                          // batch_size),
@@ -388,15 +431,15 @@ def count_run(fx: dict, out: str, device: str = "cuda",
                     if not os.path.exists(os.path.join(out, f))])
 
 
-def check_e2e_counts(name: str, r: dict) -> None:
-    """The JAX package's values for the e2e fixture, and one SW launch at
-    least per step."""
-    if r["reads"] != E2E_READS:
+def check_e2e_counts(name: str, r: dict, reads: int = E2E_READS,
+                     molecules: int = E2E_TOTAL_MOLECULES) -> None:
+    """The JAX package's values for the e2e fixture (or the given ones),
+    and one SW launch at least per step."""
+    if r["reads"] != reads:
         raise AssertionError(f"{name} total_reads {r['reads']}")
-    if r["total_molecules"] != E2E_TOTAL_MOLECULES:
+    if r["total_molecules"] != molecules:
         raise AssertionError(f"{name} total_molecules "
-                             f"{r['total_molecules']} != "
-                             f"{E2E_TOTAL_MOLECULES}")
+                             f"{r['total_molecules']} != {molecules}")
     if r["conf_mapped_frac"] != E2E_CONF_MAPPED_FRAC:
         raise AssertionError(f"{name} conf_mapped_frac "
                              f"{r['conf_mapped_frac']}")
@@ -404,6 +447,46 @@ def check_e2e_counts(name: str, r: dict) -> None:
         raise AssertionError(f"{name} launched the SW kernel "
                              f"{r['sw_launches']} times in {r['n_steps']} "
                              "steps")
+
+
+def first_reads(fx: dict, n_reads: int, out_dir: str) -> dict:
+    """The fixture `fx` with FASTQs (plain or gzipped, as its own) that
+    hold its first n_reads reads."""
+    os.makedirs(out_dir, exist_ok=True)
+    cut = dict(fx, n_reads=n_reads)
+    for k in ("fq1", "fq2"):
+        cut[k] = os.path.join(out_dir, os.path.basename(fx[k]))
+        opener = gzip.open if fx[k].endswith(".gz") else open
+        with opener(fx[k], "rb") as src, opener(cut[k], "wb") as dst:
+            for _ in range(4 * n_reads):
+                dst.write(src.readline())
+    return cut
+
+
+def bam_run(fx: dict, tmp: str, n_reads: int = E2E_BAM_READS,
+            batch_size: int = E2E_BATCH) -> dict:
+    """The first n_reads reads of the e2e fixture count-only, then with
+    BAM (stream mode, spill, partition dedup, BAM writer): every read
+    confidently mapped, the same molecules and MEX bytes from both, a BAM
+    record at least for every read."""
+    fxb = first_reads(fx, n_reads, os.path.join(tmp, "e2e_bam_fq"))
+    ref_out = os.path.join(tmp, "e2e_bam_ref_out")
+    ref = count_run(fxb, ref_out, batch_size=batch_size)
+    bam_out = os.path.join(tmp, "e2e_bam_out")
+    rb = count_run(fxb, bam_out, batch_size=batch_size, write_bam=True)
+    rb.pop("summary")
+    check_e2e_counts("e2e_bam", rb, n_reads, ref["total_molecules"])
+    diffs = _mex_diffs(bam_out, ref_out)
+    if diffs:
+        raise AssertionError(f"e2e_bam MEX differs from count-only: {diffs}")
+    bam = os.path.join(bam_out, "possorted_genome_bam.bam")
+    rb["bam_bytes"] = os.path.getsize(bam)
+    rb["bam_records"] = bam_records(bam)
+    if rb["bam_records"] < n_reads:
+        raise AssertionError(f"e2e_bam wrote {rb['bam_records']} records "
+                             f"for {n_reads} reads")
+    rb["count_only_wall_s"] = ref["wall_s"]
+    return rb
 
 
 def overflow_run(fx: dict, out: str, ref_out: str, device: str = "cuda",
@@ -427,6 +510,7 @@ def overflow_run(fx: dict, out: str, ref_out: str, device: str = "cuda",
     molecule_state.MoleculeState.flush_to_host = flush
     try:
         r = count_run(fx, out, device, batch_size)
+        r.pop("summary")
     finally:
         count.MOLECULE_STATE_CAP = real_cap
         molecule_state.MoleculeState.flush_to_host = real_flush
@@ -438,6 +522,224 @@ def overflow_run(fx: dict, out: str, ref_out: str, device: str = "cuda",
         raise AssertionError(f"capped run MEX differs: {diffs}")
     r["flushes"] = len(flushes)
     return r
+
+
+def _metric_diffs(a: dict, b: dict) -> list[str]:
+    return [k for k in sorted(set(a) | set(b)) if k != "wall_time_s"
+            and json.dumps(a.get(k)) != json.dumps(b.get(k))]
+
+
+def _check_expected(name: str, r: dict, expected: dict) -> None:
+    """A fixture's counts, known by construction, against the run's."""
+    got = r.pop("summary")
+    off = {k: (got.get(k), v) for k, v in expected.items()
+           if got.get(k) != v}
+    if off:
+        raise AssertionError(f"{name}: (got, expected) {off}")
+    r["expected"] = expected
+
+
+def pe_parity(tmp: str, ref: dict | None, devices=("cuda", "cpu"),
+              n_pairs: int = PE_PARITY_PAIRS,
+              batch_size: int = PE_PARITY_BATCH, **fixture_kw) -> dict:
+    """A small SC5P-PE run with BAM on each device: identical metrics, MEX
+    and BAM bytes, the fixture's counts, two SW launches a step on cuda."""
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.pipeline.count import run_count
+    from cellranger_tpu_torch.testing.fixtures import build_pe_run
+
+    fx = build_pe_run(os.path.join(tmp, "pe_small"), n_pairs=n_pairs,
+                      ref=ref, **fixture_kw)
+    n_steps = -(-fx["n_reads"] // batch_size)
+    sums, outs, res = {}, {}, {}
+    for dev in devices:
+        outs[dev] = os.path.join(tmp, f"pe_small_{dev}")
+        sw.LAUNCHES = 0
+        sums[dev] = run_count(
+            _count_cfg(fx, batch_size, chemistry="SC5P-PE", write_bam=True),
+            outs[dev], device=dev)
+        res[f"sw_launches_{dev}"] = sw.LAUNCHES
+        if sw.LAUNCHES != (2 * n_steps if dev == "cuda" else 0):
+            raise AssertionError(f"pe_parity on {dev}: {sw.LAUNCHES} SW "
+                                 f"launches in {n_steps} steps")
+    a, b = devices
+    diffs = _metric_diffs(sums[a], sums[b]) + _mex_diffs(outs[a], outs[b])
+    bams = []
+    for dev in devices:
+        with open(os.path.join(outs[dev], "possorted_genome_bam.bam"),
+                  "rb") as f:
+            bams.append(f.read())
+    if bams[0] != bams[1]:
+        diffs.append("possorted_genome_bam.bam")
+    if diffs:
+        raise AssertionError(f"pe_parity: {a} and {b} differ: {diffs[:10]}")
+    res.update(pairs=fx["n_reads"], steps=n_steps, bam_bytes=len(bams[0]),
+               bam_records=bam_records(os.path.join(
+                   outs[a], "possorted_genome_bam.bam")),
+               summary=sums[a])
+    _check_expected("pe_parity", res, fx["expected"])
+    if res["bam_records"] != 2 * fx["n_reads"]:
+        raise AssertionError(f"pe_parity BAM holds {res['bam_records']} "
+                             f"records for {fx['n_reads']} pairs")
+    return res
+
+
+def pe_run(tmp: str, ref: dict, n_pairs: int = PE_PAIRS) -> dict:
+    """The full-width paired-end path on cuda, count-only."""
+    from cellranger_tpu_torch.testing.fixtures import build_pe_run
+
+    t = time.time()
+    fx = build_pe_run(os.path.join(tmp, "pe"), n_pairs=n_pairs, ref=ref)
+    t_fix = time.time() - t
+    r = count_run(fx, os.path.join(tmp, "pe_out"), chemistry="SC5P-PE")
+    _check_expected("pe", r, fx["expected"])
+    if r["sw_launches"] != 2 * r["n_steps"]:
+        raise AssertionError(f"pe launched the SW kernel {r['sw_launches']} "
+                             f"times in {r['n_steps']} steps")
+    r["fixture_s"] = t_fix
+    return r
+
+
+def _first_batch(fx: dict, batch_size: int):
+    from cellranger_tpu_torch.io.chemistry import get_chemistry
+    from cellranger_tpu_torch.io.fastq import batches_from_fastqs
+    return next(iter(batches_from_fastqs(
+        get_chemistry("MFRP-RNA"), fx["fq1"], fx["fq2"], batch_size,
+        RTL_READ_LEN)))
+
+
+def probe_aligner_outputs(fx: dict, batch, device: str, time_it: int = 0):
+    """The probe aligner of a fixture's probe set on `device`, on one
+    batch -> (its five outputs as one host array; with `time_it`, the
+    aligner's two clocks over that many samples as `testing/sw_timing`
+    takes the SW kernel's: `ms`, the device time of one call replayed
+    from a CUDA graph, with no host work between its ~1,700 launches, and
+    `call_ms`, one eager call between CUDA events, which waits on the
+    host that issues the launches)."""
+    import torch
+    from cellranger_tpu_torch.io.probe_set import ProbeSet
+    from cellranger_tpu_torch.ops.probes import (make_probe_aligner,
+                                                 stack_outputs)
+    from cellranger_tpu_torch.testing import sw_timing
+
+    align = make_probe_aligner(ProbeSet.from_csv(fx["probes"]),
+                               RTL_READ_LEN, device)
+    rna = torch.from_numpy(batch.rna).to(device)
+    nmask = torch.from_numpy(batch.rna_nmask).to(device)
+    out = stack_outputs(align(rna, nmask)).cpu().numpy()
+    ms = None
+    if time_it:
+        def fn():
+            return align(rna, nmask)
+        ms = sw_timing.time_on_device(fn, samples=time_it, per_sample=1)
+        calls = sw_timing.time_calls(fn, samples=time_it)
+        ms.update(call_ms=calls["ms"], call_min_ms=calls["min_ms"],
+                  call_max_ms=calls["max_ms"], samples=time_it)
+    return out, ms
+
+
+def rtl_parity(tmp: str, devices=("cuda", "cpu"),
+               batch_size: int = RTL_PARITY_BATCH) -> dict:
+    """A small MFRP-RNA run on each device: identical metrics and MEX and
+    the fixture's counts; the probe aligner alone on the run's first
+    batch: all five outputs equal between the devices."""
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.ops.probes import PROBE_OUT_FIELDS
+    from cellranger_tpu_torch.pipeline.count import run_count
+    from cellranger_tpu_torch.testing.fixtures import build_rtl_run
+
+    fx = build_rtl_run(os.path.join(tmp, "rtl_small"), **RTL_PARITY)
+    sums, outs = {}, {}
+    sw.LAUNCHES = 0
+    for dev in devices:
+        outs[dev] = os.path.join(tmp, f"rtl_small_{dev}")
+        sums[dev] = run_count(_count_cfg(fx, batch_size, **_rtl_kw(fx)),
+                              outs[dev], device=dev)
+    a, b = devices
+    diffs = _metric_diffs(sums[a], sums[b]) + _mex_diffs(outs[a], outs[b])
+    batch = _first_batch(fx, batch_size)
+    pa = [probe_aligner_outputs(fx, batch, dev)[0] for dev in devices]
+    diffs += [f"probe aligner {k}" for j, k in enumerate(PROBE_OUT_FIELDS)
+              if (pa[0][:, j] != pa[1][:, j]).any()]
+    if diffs:
+        raise AssertionError(f"rtl_parity: {a} and {b} differ: {diffs[:10]}")
+    res = dict(reads=fx["n_reads"], sw_launches=sw.LAUNCHES,
+               aligner_batch=int(pa[0].shape[0]),
+               aligner_mapped=int(pa[0][:, PROBE_OUT_FIELDS.index(
+                   "mapped")].sum()), summary=sums[a])
+    _check_expected("rtl_parity", res, fx["expected"])
+    if res["sw_launches"]:
+        raise AssertionError("a probe run launched the SW kernel")
+    return res
+
+
+def rtl_run(tmp: str, n_reads: int = RTL_READS) -> dict:
+    """The probe run at full scale on cuda; the probe aligner's device
+    two clocks on one batch of it, taken before the run and again after
+    it (the run leaves the allocator in another state)."""
+    from cellranger_tpu_torch.testing.fixtures import build_rtl_run
+
+    t = time.time()
+    fx = build_rtl_run(os.path.join(tmp, "rtl"), n_reads=n_reads)
+    t_fix = time.time() - t
+    batch = _first_batch(fx, E2E_BATCH)
+    _, ms_before = probe_aligner_outputs(fx, batch, "cuda",
+                                         time_it=PROBE_TIMING_SAMPLES)
+    r = count_run(fx, os.path.join(tmp, "rtl_out"), **_rtl_kw(fx))
+    _check_expected("rtl", r, fx["expected"])
+    if r["sw_launches"]:
+        raise AssertionError("the probe run launched the SW kernel")
+    r["fixture_s"] = t_fix
+    r["barcode_columns"] = fx["n_wl"] * fx["n_probe_bcs"]
+    _, ms_after = probe_aligner_outputs(fx, batch, "cuda",
+                                        time_it=PROBE_TIMING_SAMPLES)
+    r["probe_aligner_ms_per_batch"] = ms_after["ms"]
+    r["probe_aligner_call_ms_per_batch"] = ms_after["call_ms"]
+    r["probe_aligner_ms"] = dict(before_run=ms_before, after_run=ms_after)
+    r["probe_aligner_ms_is"] = (
+        f"one call at batch {E2E_BATCH}, medians of {PROBE_TIMING_SAMPLES} "
+        "samples: ms = device time replayed from a CUDA graph, call_ms = "
+        "an eager call between CUDA events, host launch time included")
+    return r
+
+
+def multi_run(tmp: str, device: str = "cuda") -> dict:
+    """run_multi of a Gene Expression + Multiplexing Capture config with a
+    [samples] section: every cell lands in the sample it was built for
+    and each sample's outputs are there, its secondary analysis (which
+    the demux writer runs on `device` and whose failure it would only
+    note) with all of its files."""
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.io.multi_config import run_multi
+    from cellranger_tpu_torch.testing import analysis_check as check
+    from cellranger_tpu_torch.testing.fixtures import build_multi_run
+
+    fx = build_multi_run(os.path.join(tmp, "multi"))
+    out = os.path.join(tmp, "multi_out")
+    sw.LAUNCHES = 0
+    t = time.time()
+    summary = run_multi(fx["csv"], out, fx["wl"], batch_size=GOLDEN_BATCH,
+                        device=device)
+    res = dict(wall_s=time.time() - t, sw_launches=sw.LAUNCHES,
+               reads=summary["count"]["total_reads"],
+               estimated_cells=summary["count"]["estimated_cells"],
+               samples=summary["demux"]["samples"], built=fx["built"])
+    if res["samples"] != fx["built"] or res["reads"] != fx["n_reads"]:
+        raise AssertionError(f"multi: {res}")
+    for sid, n in fx["built"].items():
+        sdir = os.path.join(out, "demux", "per_sample_outs", sid)
+        for f in ("sample_filtered_feature_bc_matrix/matrix.mtx.gz",
+                  "metrics_summary.json", "web_summary.html"):
+            if not os.path.exists(os.path.join(sdir, f)):
+                raise AssertionError(f"multi: {sid} lacks {f}")
+        with open(os.path.join(sdir, "metrics_summary.json")) as f:
+            if json.load(f)["cells"] != n:
+                raise AssertionError(f"multi: {sid} cell count is off")
+        files = check.analysis_files(os.path.join(sdir, "analysis"))
+        if len(files) != 16:
+            raise AssertionError(f"multi: {sid} analysis/ holds {files}")
+    res["analysis_files_per_sample"] = 16
+    return res
 
 
 def analysis_run(mat, out: str, device: str) -> tuple[dict, dict]:
@@ -589,6 +891,7 @@ def main() -> None:
         t_fix = time.time() - t0
         e2e_out = os.path.join(tmp, "e2e_out")
         r = count_run(fx, e2e_out, secondary_analysis=True)
+        r.pop("summary")
         check_e2e_counts("e2e", r)
         r["fixture_s"] = t_fix
         # analysis apart, so the count-only figures stay comparable
@@ -602,15 +905,7 @@ def main() -> None:
         launches["e2e"] = r["sw_launches"]
         phase("e2e", json.dumps(r))
 
-        bam_out = os.path.join(tmp, "e2e_bam_out")
-        rb = count_run(fx, bam_out, write_bam=True)
-        check_e2e_counts("e2e_bam", rb)
-        bam = os.path.join(bam_out, "possorted_genome_bam.bam")
-        rb["bam_bytes"] = os.path.getsize(bam)
-        rb["bam_records"] = bam_records(bam)
-        if rb["bam_records"] < E2E_READS:
-            raise AssertionError(f"e2e_bam wrote {rb['bam_records']} "
-                                 f"records for {E2E_READS} reads")
+        rb = bam_run(fx, tmp)
         launches["e2e_bam"] = rb["sw_launches"]
         phase("e2e_bam", json.dumps(rb))
 
@@ -619,6 +914,27 @@ def main() -> None:
         launches["overflow"] = ro["sw_launches"]
         phase("overflow", f"state cap {OVERFLOW_STATE_CAP}: same molecules "
               "and MEX bytes as e2e: " + json.dumps(ro))
+
+        g = pe_parity(tmp, fx)
+        launches["pe_parity"] = g["sw_launches_cuda"]
+        phase("pe_parity", "cuda == cpu, metrics, MEX and BAM bytes: "
+              + json.dumps(g))
+        rp = pe_run(tmp, fx)
+        launches["pe"] = rp["sw_launches"]
+        phase("pe", json.dumps(rp))
+
+        g = rtl_parity(tmp)
+        launches["rtl_parity"] = g["sw_launches"]
+        phase("rtl_parity", "cuda == cpu, metrics, MEX and the probe "
+              "aligner's five outputs: " + json.dumps(g))
+        rr = rtl_run(tmp)
+        launches["rtl"] = rr["sw_launches"]
+        phase("rtl", json.dumps(rr))
+
+        g = multi_run(tmp)
+        launches["multi"] = g["sw_launches"]
+        phase("multi", "cells in the samples they were built for: "
+              + json.dumps(g))
 
         phase("analysis", "two cuda runs identical: "
               + json.dumps(analysis(tmp)))

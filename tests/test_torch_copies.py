@@ -7,7 +7,19 @@ import lines and the module docstring (the only places a copy may differ),
 so a later reader learns when the reference and a copy have drifted.  The
 reference is frozen, so they should not.
 
-`native/__init__.py` is the one copy with a deliberate change (it builds
+`pipeline/demux.py`, `pipeline/multi_gem.py`, `pipeline/aggr.py` and
+`io/multi_config.py` call `run_count` and `run_secondary_analysis`, which
+need a device in the port: they are copies but for that keyword threaded
+down (THREADED_MODULES).  Their syntax trees are compared after the
+port's changes are undone one by one (`_Unthread`: the keyword-only
+`device` parameter and each `device=device` argument dropped,
+`load_count_matrix(d, name)` turned back into `CountMatrix.load_h5` of
+`<d>/<name>.h5`, the `if h5py_available():` guard opened) and, in
+`io/multi_config.py`, after the V(D)J statements are taken out of both
+(the original's dispatch to `run_vdj`, the port's refusal); what is left
+must be equal, statement for statement.
+
+`native/__init__.py` is the other copy with a deliberate change (it builds
 the FASTQ reader's library under build/native/, not into a package
 directory): its `NativeFastqReader` class and the C++ source are compared
 instead, and the build directory is checked.
@@ -33,7 +45,17 @@ COPIED_MODULES = [
     "analysis/feature_assigner.py",
     "analysis/preprocess.py", "analysis/hclust.py", "analysis/diffexp.py",
     "testing/correctness.py",
+    "io/probe_set.py", "io/probe_bc.py", "io/bam_filter.py",
+    "analysis/jibes.py",
+    "pipeline/detect_chemistry.py", "pipeline/preflight.py",
 ]
+
+# copies that differ from their original only where the port needs it: a
+# keyword `device` threaded down to run_count / run_secondary_analysis,
+# the count run's matrix read through io/matrix_store (h5, or MEX on a
+# machine without h5py), and in multi_config the V(D)J refusal
+THREADED_MODULES = ["pipeline/demux.py", "pipeline/multi_gem.py",
+                    "pipeline/aggr.py", "io/multi_config.py"]
 
 
 def _read(root, rel):
@@ -63,6 +85,120 @@ def test_copy_equals_original(rel):
     got = _body_lines(_read(COPY, rel))
     assert len(want) > 10, rel
     assert got == want, f"{rel} has drifted from cellranger_tpu/{rel}"
+
+
+def _is_docstring(stmt):
+    return isinstance(stmt, ast.Expr) \
+        and isinstance(stmt.value, ast.Constant) \
+        and isinstance(stmt.value.value, str)
+
+
+def _mentions_vdj(node):
+    return any((isinstance(n, ast.Name) and "vdj" in n.id.lower())
+               or (isinstance(n, ast.Constant) and isinstance(n.value, str)
+                   and "vdj" in n.value.lower())
+               for n in ast.walk(node))
+
+
+class _Unthread(ast.NodeTransformer):
+    """Undo, on a syntax tree, the changes a threaded copy may carry (and
+    nothing else); imports and docstrings go from both trees."""
+
+    def _block(self, stmts):
+        out = []
+        for st in stmts:
+            if isinstance(st, (ast.Import, ast.ImportFrom)) \
+                    or _is_docstring(st):
+                continue
+            st = self.visit(st)
+            out.extend(st if isinstance(st, list) else [st])
+        return out or [ast.Pass()]
+
+    def generic_visit(self, node):
+        for field in ("body", "orelse", "finalbody"):
+            block = getattr(node, field, None)
+            if isinstance(block, list) and block \
+                    and isinstance(block[0], ast.stmt):
+                setattr(node, field, self._block(block))
+        for field, value in ast.iter_fields(node):
+            if field in ("body", "orelse", "finalbody"):
+                continue
+            if isinstance(value, list):
+                setattr(node, field, [self.visit(v) if isinstance(v, ast.AST)
+                                      else v for v in value])
+            elif isinstance(value, ast.AST):
+                setattr(node, field, self.visit(value))
+        return node
+
+    def visit_FunctionDef(self, node):
+        keep = [i for i, a in enumerate(node.args.kwonlyargs)
+                if a.arg != "device"]
+        node.args.kwonlyargs = [node.args.kwonlyargs[i] for i in keep]
+        node.args.kw_defaults = [node.args.kw_defaults[i] for i in keep]
+        return self.generic_visit(node)
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        node.keywords = [
+            k for k in node.keywords
+            if not (k.arg == "device" and isinstance(k.value, ast.Name)
+                    and k.value.id == "device")]
+        if isinstance(node.func, ast.Name) \
+                and node.func.id == "load_count_matrix":
+            d, name = node.args
+            name = ast.Constant(name.value + ".h5")
+            is_join = isinstance(d, ast.Call) \
+                and ast.unparse(d.func) == "os.path.join"
+            path = ast.Call(ast.parse("os.path.join").body[0].value,
+                            (d.args if is_join else [d]) + [name], [])
+            return ast.Call(ast.parse("CountMatrix.load_h5").body[0].value,
+                            [path], [])
+        return node
+
+    def visit_If(self, node):
+        if ast.unparse(node.test) == "h5py_available()" and not node.orelse:
+            return self._block(node.body)
+        return self.generic_visit(node)
+
+
+class _WithoutVdj(_Unthread):
+    """io/multi_config.py: the statements that dispatch V(D)J libraries
+    (original) or refuse them (port) leave both trees: an assignment to
+    a V(D)J name, a loop over V(D)J rows, an `if` that asks for a V(D)J
+    library type (which keeps its `else` branch)."""
+
+    def _block(self, stmts):
+        out = []
+        for st in stmts:
+            if isinstance(st, ast.If) and _mentions_vdj(st.test):
+                out.extend(st.orelse)       # the port's refusal has none
+            elif not (isinstance(st, ast.Assign)
+                      and _mentions_vdj(st.targets[0])
+                      or isinstance(st, ast.For) and _mentions_vdj(st.iter)):
+                out.append(st)
+        return super()._block(out)
+
+
+def _normalised(root, rel):
+    tree = ast.parse(_read(root, rel))
+    cls = _WithoutVdj if rel == "io/multi_config.py" else _Unthread
+    tree.body = cls()._block(tree.body)
+    return ast.unparse(ast.fix_missing_locations(tree)).split("\n")
+
+
+@pytest.mark.parametrize("rel", THREADED_MODULES)
+def test_threaded_copy_differs_only_by_device(rel):
+    import difflib
+
+    assert _body_lines(_read(ORIGINAL, rel)) \
+        != _body_lines(_read(COPY, rel)), \
+        f"{rel} is a verbatim copy: list it in COPIED_MODULES"
+    want, got = _normalised(ORIGINAL, rel), _normalised(COPY, rel)
+    assert len(want) > 50, rel
+    diff = list(difflib.unified_diff(want, got, "original", "copy",
+                                     lineterm="", n=1))
+    assert not diff, f"{rel} differs beyond device threading:\n" \
+        + "\n".join(diff)
 
 
 def _class_source(text, name):

@@ -14,9 +14,10 @@
     10-NN preservation).  The tiny run's 2 genes make many cells
     identical, but no label there hangs on a tie: every clusters.csv is
     equal;
-  * what the port does not run raises NotImplementedError; secondary
-    analysis, BAM, Feature Barcode and multi-library configs pass the
-    check.
+  * what the port does not run (`shard_index`; chemistry "auto", which
+    `detect_chemistry` resolves before `run_count`) raises
+    NotImplementedError; secondary analysis, BAM, Feature Barcode,
+    multi-library, paired-end and probe configs pass the check.
 """
 
 import dataclasses
@@ -86,6 +87,7 @@ def test_pack_step_input_matches_jax():
     buf, host = graft._synthetic_batch(wl, genome, rng, 64)
     # same shim the graft entry builds, through the port's packer
     from types import SimpleNamespace
+    chem = get_chemistry("SC3Pv3")
     plane = np.asarray(buf)
     rw = (91 + 15) // 16
     codes = torch.from_numpy(plane.view(np.int32)).to(torch.int64) \
@@ -96,8 +98,8 @@ def test_pack_step_input_matches_jax():
                            umi_valid=np.ones(64, bool), rna=rna.numpy(),
                            rna_nmask=nmask.numpy())
     np.testing.assert_array_equal(
-        tcount.pack_step_input(91, shim, host["bc_idx"]), plane)
-    assert plane.shape[1] == tcount.packed_width(91) == 3 + rw + 3
+        tcount.pack_step_input(chem, 91, shim, host["bc_idx"]), plane)
+    assert plane.shape[1] == tcount.packed_width(chem, 91) == 3 + rw + 3
 
 
 def _compare_runs(t_out, j_out, t_sum, j_sum):
@@ -174,20 +176,22 @@ def test_run_count_resumes_from_checkpoint(tmp_path):
         assert "resume_checkpoint" in f.read()
 
 
-@pytest.mark.parametrize("change", [
-    dict(chemistry="MFRP-RNA"), dict(probe_set_csv="probes.csv"),
-    dict(probe_barcode_csv="pbc.csv"), dict(chemistry="SC5P-PE"),
-    dict(chemistry="auto"), dict(shard_index=True),
+@pytest.mark.parametrize("change, match", [
+    (dict(shard_index=True), "ROADMAP"),
+    (dict(chemistry="auto"), "detect_chemistry"),
 ])
-def test_unsupported_configs_raise(change, tmp_path):
+def test_unsupported_configs_raise(change, match, tmp_path):
     base = tcount.CountConfig(fastq_pairs=[], secondary_analysis=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match=match):
         tcount.run_count(dataclasses.replace(base, **change),
                          str(tmp_path / "o"), device="cpu")
 
 
 @pytest.mark.parametrize("change", [
     dict(secondary_analysis=True),
+    dict(chemistry="MFRP-RNA", probe_barcode_csv="pbc.csv"),
+    dict(chemistry="SFRP", probe_set_csv="probes.csv"),
+    dict(chemistry="SC5P-PE"), dict(chemistry="SC5P-PE", write_bam=True),
     dict(write_bam=True), dict(feature_ref_csv="f.csv"),
     dict(libraries=[tcount.LibraryDef([]),
                     tcount.LibraryDef([], "Antibody Capture")]),
@@ -199,4 +203,4 @@ def test_supported_configs_pass_the_check(change):
     cfg = dataclasses.replace(
         tcount.CountConfig(fastq_pairs=[], secondary_analysis=False),
         **change)
-    tcount._check_supported(cfg, get_chemistry(cfg.chemistry))
+    tcount._check_supported(cfg)

@@ -2,11 +2,12 @@
 whose import system refuses jax, jaxlib, cellranger_tpu and h5py (the
 machine with the card has no h5py), import
 cellranger_tpu_torch, its count pipeline and the modules of its BAM,
-Feature Barcode and secondary-analysis paths, its CLI and chip_smoke,
-then build the synthetic run and count it on the CPU (secondary analysis
-on, as by default), run secondary analysis on a planted-population
-matrix, and run chip_smoke's parity, golden, overflow and analysis
-phases with the CPU as the device.  A second, static test walks the
+Feature Barcode, probe, demux, multi and secondary-analysis paths, its CLI
+and chip_smoke, then build the synthetic run and count it on the CPU
+(secondary analysis on, as by default), run secondary analysis on a
+planted-population matrix, and run chip_smoke's parity, golden, overflow,
+analysis, paired-end (a tiny SC5P-PE count with BAM), probe (a tiny
+MFRP-RNA count) and multi phases with the CPU as the device.  A second, static test walks the
 port's sources and chip_smoke.py and refuses any import of jax, jaxlib or
 cellranger_tpu, lazy imports inside functions included."""
 
@@ -41,6 +42,18 @@ SCRIPT = textwrap.dedent("""
     import cellranger_tpu_torch.ops.features
     import cellranger_tpu_torch.parallel.molecule_state
     import cellranger_tpu_torch.cli
+    import cellranger_tpu_torch.ops.probes
+    import cellranger_tpu_torch.io.probe_set
+    import cellranger_tpu_torch.io.probe_bc
+    import cellranger_tpu_torch.io.bam_filter
+    import cellranger_tpu_torch.io.matrix_store
+    import cellranger_tpu_torch.io.multi_config
+    import cellranger_tpu_torch.analysis.jibes
+    import cellranger_tpu_torch.pipeline.detect_chemistry
+    import cellranger_tpu_torch.pipeline.preflight
+    import cellranger_tpu_torch.pipeline.demux
+    import cellranger_tpu_torch.pipeline.multi_gem
+    import cellranger_tpu_torch.pipeline.aggr
     import cellranger_tpu_torch.analysis.batch_correction
     import cellranger_tpu_torch.analysis.run as analysis_run
     import cellranger_tpu_torch.testing.analysis_check as check
@@ -89,6 +102,25 @@ SCRIPT = textwrap.dedent("""
     r = chip_smoke.overflow_run(fx, os.path.join(tmp, "ovf"), out,
                                 device="cpu", batch_size=256, cap=512)
     assert r["flushes"] and r["total_molecules"] == s["total_molecules"]
+    # the cut of a fixture to its first reads that the BAM phase runs on
+    cut = chip_smoke.first_reads(fx, 500, os.path.join(tmp, "cut"))
+    rc = chip_smoke.count_run(cut, os.path.join(tmp, "cut_out"),
+                              device="cpu", batch_size=256)
+    assert rc["reads"] == 500 and 0 < rc["total_molecules"] <= 500, rc
+    # a tiny SC5P-PE count with BAM and a tiny MFRP-RNA count, each held to
+    # its fixture's counts; then multi with sample demux, which reads the
+    # count run's MEX here (no h5py)
+    g = chip_smoke.pe_parity(os.path.join(tmp, "pe"), None,
+                             devices=("cpu", "cpu"), n_pairs=600,
+                             batch_size=256, genome_len=200_000, n_genes=20,
+                             n_cells=20, n_wl=500)
+    assert g["expected"]["improper_pair_reads"] > 0, g
+    assert g["bam_records"] == 2 * 600, g
+    g = chip_smoke.rtl_parity(os.path.join(tmp, "rtl"),
+                              devices=("cpu", "cpu"))
+    assert g["expected"]["total_molecules"] > 0 and g["aligner_mapped"], g
+    g = chip_smoke.multi_run(os.path.join(tmp, "multi"), device="cpu")
+    assert g["samples"] == {"sampleA": 20, "sampleB": 20}, g
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
@@ -101,7 +133,7 @@ def test_port_runs_without_jax(tmp_path):
     env.pop("PYTHONPATH", None)
     res = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)],
                          cwd=REPO, env=env, capture_output=True, text=True,
-                         timeout=300)
+                         timeout=600)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "NOJAX_OK" in res.stdout
 

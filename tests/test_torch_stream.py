@@ -54,7 +54,7 @@ def test_stream_step_matches_jax(rich):
         bc_idx = host_resolve_barcodes(
             batch.bc_packed, batch.bc_qual, batch.slot_valid,
             wl.sorted_seqs, counts, chem.barcode_length)[0]
-        plane = tcount.pack_step_input(91, batch, bc_idx)
+        plane = tcount.pack_step_input(chem, 91, batch, bc_idx)
         np.testing.assert_array_equal(
             plane, jax_count.pack_step_input(jchem, 91, batch, bc_idx))
         want_ho, want_m = jax_count.unpack_step_out(
@@ -86,7 +86,7 @@ def test_stream_step_without_secondaries(rich):
     batch = next(iter(batches_from_fastqs(chem, fx["fq1"], fx["fq2"], 256,
                                           91)))
     bc_idx = np.full(256, -1, np.int32)
-    plane = tcount.pack_step_input(91, batch, bc_idx)
+    plane = tcount.pack_step_input(chem, 91, batch, bc_idx)
     got = tcount.fetch_step_out(tstep(tcount.upload_plane(plane, "cpu")))
     want = jstep(jnp.asarray(plane))
     for k in ("i32", "flags", "mvec"):
