@@ -1,21 +1,27 @@
-"""cellranger-tpu-torch CLI: the subcommands of `cellranger_tpu` that the
-port runs, each on `--device` (default cuda).
+"""cellranger-tpu-torch CLI: the subcommands of `cellranger_tpu`; those
+that compute on a device run on `--device` (default cuda).
 
     python -m cellranger_tpu_torch count --id S --fastqs DIR \
         --reference REF --whitelist WL [--chemistry SC3Pv3|auto] [--bam]
     python -m cellranger_tpu_torch multi --id S --csv CONFIG --whitelist WL
+    python -m cellranger_tpu_torch vdj --id S --fastqs DIR \
+        --reference regions.fa --whitelist WL [--chemistry SCVDJ-R2]
     python -m cellranger_tpu_torch aggr --id S --csv RUNS.csv
     python -m cellranger_tpu_torch reanalyze --id S \
         --matrix filtered_feature_bc_matrix.h5
     python -m cellranger_tpu_torch mkref --genome NAME --fasta F --genes G \
         --out DIR
+    python -m cellranger_tpu_torch mkvdjref --genome NAME --seqs regions.fa \
+        --out DIR
     python -m cellranger_tpu_torch mkgtf IN.gtf OUT.gtf --attribute K:V
+    python -m cellranger_tpu_torch mkfastq --run BCL_DIR \
+        --samplesheet SHEET.csv [--index-kit KIT.csv] --out DIR
     python -m cellranger_tpu_torch testrun --out DIR
 
 `count` mirrors `cellranger_tpu count`: `--chemistry auto` detects the
 chemistry from the first FASTQ pair and the whitelist, and preflight checks
-run before any work.  `reanalyze` and `aggr` read h5 files (h5py).  `vdj`,
-`mkvdjref` and `mkfastq` are not ported.
+run before any work.  `reanalyze` and `aggr` read h5 files (h5py).
+`mkref`, `mkvdjref`, `mkgtf` and `mkfastq` run on the host only.
 """
 
 from __future__ import annotations
@@ -85,6 +91,23 @@ def _cmd_multi(args):
     print(f"outputs: {out_dir}")
 
 
+def _cmd_vdj(args):
+    from .io.fastq import find_fastqs
+    from .pipeline.vdj import VdjConfig, run_vdj
+
+    pairs = find_fastqs(args.fastqs, sample=args.sample)
+    if not pairs:
+        sys.exit(f"error: no FASTQs found in {args.fastqs}")
+    out_dir = os.path.join(args.output_dir or ".", args.id, "outs")
+    summary = run_vdj(VdjConfig(
+        fastq_pairs=pairs, vdj_reference_fasta=args.reference,
+        whitelist_path=args.whitelist, chemistry=args.chemistry,
+        read_len=args.read_len, sample_id=args.id), out_dir,
+        device=args.device)
+    print(json.dumps(summary, indent=2, default=float))
+    print(f"outputs: {out_dir}")
+
+
 def _cmd_aggr(args):
     from .pipeline.aggr import run_aggr
 
@@ -106,6 +129,23 @@ def _cmd_reanalyze(args):
     print(f"outputs: {out_dir}/analysis")
 
 
+def _cmd_mkvdjref(args):
+    import shutil
+
+    from .vdj.reference import VdjReference
+
+    ref = VdjReference.from_fasta(args.seqs)  # validates headers
+    os.makedirs(os.path.join(args.out, "fasta"), exist_ok=True)
+    shutil.copyfile(args.seqs, os.path.join(args.out, "fasta", "regions.fa"))
+    meta = dict(genome=args.genome, n_segments=len(ref.segments),
+                regions={r: sum(1 for s_ in ref.segments if s_.region == r)
+                         for r in ("V", "D", "J", "C", "UTR")},
+                version="cellranger-tpu-0.1.0")
+    with open(os.path.join(args.out, "reference.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+    print(json.dumps(meta, indent=2))
+
+
 def _cmd_mkref(args):
     from .io.reference import ReferencePackage
 
@@ -121,6 +161,14 @@ def _cmd_mkref(args):
         ref = ReferencePackage.build_multi(
             list(zip(genomes, fastas, gtfs)), args.out)
     print(json.dumps(ref.metadata, indent=2))
+
+
+def _cmd_mkfastq(args):
+    from .pipeline.mkfastq import run_mkfastq
+
+    summary = run_mkfastq(args.run, args.samplesheet, args.out,
+                          index_kit_csv=args.index_kit)
+    print(json.dumps(summary, indent=2))
 
 
 def _cmd_testrun(args):
@@ -241,7 +289,7 @@ def main(argv=None):
     r.set_defaults(fn=_cmd_reanalyze)
 
     mu = sub.add_parser("multi", help="CSV-config multi-library analysis "
-                        "(GEX + FB + sample multiplexing)")
+                        "(GEX + FB + VDJ + sample multiplexing)")
     mu.add_argument("--id", required=True)
     mu.add_argument("--csv", required=True, help="multi config CSV")
     mu.add_argument("--whitelist", required=True)
@@ -250,6 +298,18 @@ def main(argv=None):
     _add_device(mu)
     mu.add_argument("--output-dir", dest="output_dir")
     mu.set_defaults(fn=_cmd_multi)
+
+    v = sub.add_parser("vdj", help="V(D)J contig assembly + clonotypes")
+    v.add_argument("--id", required=True)
+    v.add_argument("--fastqs", required=True)
+    v.add_argument("--sample")
+    v.add_argument("--reference", required=True, help="V(D)J regions.fa")
+    v.add_argument("--whitelist", required=True)
+    v.add_argument("--chemistry", default="SCVDJ-R2")
+    v.add_argument("--read-len", type=int, default=120, dest="read_len")
+    _add_device(v)
+    v.add_argument("--output-dir", dest="output_dir")
+    v.set_defaults(fn=_cmd_vdj)
 
     a = sub.add_parser("aggr", help="aggregate multiple count runs")
     a.add_argument("--id", required=True)
@@ -265,6 +325,22 @@ def main(argv=None):
     m.add_argument("--genes", required=True)
     m.add_argument("--out", required=True)
     m.set_defaults(fn=_cmd_mkref)
+
+    mv = sub.add_parser("mkvdjref", help="build a V(D)J reference package")
+    mv.add_argument("--genome", required=True, help="reference name")
+    mv.add_argument("--seqs", required=True,
+                    help="regions.fa with V/D/J/C segments")
+    mv.add_argument("--out", required=True)
+    mv.set_defaults(fn=_cmd_mkvdjref)
+
+    mf = sub.add_parser("mkfastq", help="demultiplex a BCL run to FASTQs")
+    mf.add_argument("--run", required=True, help="BCL run directory")
+    mf.add_argument("--samplesheet", required=True,
+                    help="CSV: Lane,Sample,Index")
+    mf.add_argument("--index-kit", default=None,
+                    help="CSV mapping SI- set names to oligos")
+    mf.add_argument("--out", required=True)
+    mf.set_defaults(fn=_cmd_mkfastq)
 
     t = sub.add_parser("testrun", help="synthetic end-to-end smoke test")
     t.add_argument("--out", required=True)

@@ -8,10 +8,9 @@ cells, chemistry), feature reference, vdj reference, libraries rows
 (JIBES tag model -> per-sample matrices, pipeline.demux).
 
 Copy of cellranger_tpu/io/multi_config.py with a keyword `device` passed down
-to the port's run_count / run_secondary_analysis, which need one;
-the count run's matrix is read through io/matrix_store (h5, or MEX where
-h5py is missing); and a VDJ library row raises NotImplementedError (the
-V(D)J pipeline is not ported) instead of running run_vdj.
+to the port's run_count, run_vdj and the demux stages, which need one; and
+the count run's matrix read through io/matrix_store (h5, or MEX where h5py
+is missing).
 """
 
 from __future__ import annotations
@@ -102,29 +101,28 @@ class MultiConfig:
 def run_multi(config_csv: str, out_dir: str, whitelist_path: str,
               read_len: int = 91, batch_size: int = 8192,
               sample_id: str = "multi", *, device) -> dict:
-    """Execute a multi config on `device`: count for GEX(+FB) libraries
-    (SC_MULTI_CS analog, mro/rna/sc_multi_cs.mro:173).  A VDJ library row
-    raises NotImplementedError before any work is done."""
+    """Execute a multi config on `device`: count for GEX(+FB) libraries,
+    vdj for VDJ libraries (SC_MULTI_CS analog, mro/rna/sc_multi_cs.mro:173)."""
     import os
 
     from ..io.fastq import find_fastqs
     from ..pipeline.count import CountConfig, LibraryDef, run_count
 
     cfg = MultiConfig.from_csv(config_csv)
-    if any(row["feature_types"].startswith("VDJ") for row in cfg.libraries):
-        raise NotImplementedError(
-            "cellranger_tpu_torch: V(D)J libraries in a multi config "
-            "(ROADMAP queue 1, V(D)J)")
     gex = cfg.gene_expression
     summary: dict = {}
 
     count_libs = []
+    vdj_libs = []
     for row in cfg.libraries:
         pairs = find_fastqs(row["fastqs"], sample=row.get("fastq_id") or None)
         if not pairs:
             raise FileNotFoundError(
                 f"no FASTQs for library {row.get('fastq_id')} in {row['fastqs']}")
-        count_libs.append(LibraryDef(pairs, row["feature_types"]))
+        if row["feature_types"].startswith("VDJ"):
+            vdj_libs.append((row, pairs))
+        else:
+            count_libs.append(LibraryDef(pairs, row["feature_types"]))
 
     if count_libs:
         ccfg = CountConfig(
@@ -169,6 +167,19 @@ def run_multi(config_csv: str, out_dir: str, whitelist_path: str,
             ccfg.probe_barcode_csv, os.path.join(out_dir, "demux"),
             device=device)
 
+    for row, pairs in vdj_libs:
+        from ..pipeline.vdj import VdjConfig, run_vdj
+        vcfg = VdjConfig(
+            fastq_pairs=pairs,
+            vdj_reference_fasta=os.path.join(cfg.vdj.get("reference", ""),
+                                             "fasta", "regions.fa")
+            if os.path.isdir(cfg.vdj.get("reference", "")) else
+            cfg.vdj.get("reference", ""),
+            whitelist_path=whitelist_path, sample_id=sample_id)
+        summary.setdefault("vdj", {})[row.get("fastq_id", "vdj")] = run_vdj(
+            vcfg, os.path.join(out_dir, "vdj", row.get("fastq_id", "vdj")),
+            device=device)
+
     # top-level combined summary + web summary (MULTI_WEBSUMMARY_BUILDER
     # analog, mro/rna/sc_multi_core.mro:346): flatten the per-pipeline
     # summaries into one metrics file at the run root
@@ -182,6 +193,10 @@ def run_multi(config_csv: str, out_dir: str, whitelist_path: str,
         if d:
             for sname, n in d.get("samples", {}).items():
                 flat[f"cells_{sname}"] = n
+    for vid, vs in (summary.get("vdj") or {}).items():
+        for k in ("estimated_cells", "n_clonotypes"):
+            if k in vs:
+                flat[f"vdj_{vid}_{k}"] = vs[k]
     with open(os.path.join(out_dir, "metrics_summary.json"), "w") as f:
         json.dump(flat, f, indent=2, default=float)
     from ..pipeline.websummary import build_web_summary

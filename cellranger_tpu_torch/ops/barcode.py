@@ -3,8 +3,10 @@ correction (barcode/src/corrector.rs:111-164, the `Posterior` strategy).
 
 Port of cellranger_tpu/ops/barcode.py: `host_resolve_barcodes` (numpy,
 copied) resolves cell barcodes before upload; `correct_barcodes` (torch)
-corrects feature barcodes on the device against a BucketTable whose count
-column holds the prior (one row gather per candidate, `membership3`).
+corrects feature barcodes, and the V(D)J barcodes, on the device against a
+BucketTable whose count column holds the prior (one row gather per
+candidate, `membership3`); `whitelist_lookup` and `count_valid_barcodes`
+(torch) are the V(D)J pipeline's device membership and pass-1 histogram.
 """
 
 from __future__ import annotations
@@ -17,6 +19,22 @@ from ..constants import (
     ILLUMINA_QUAL_OFFSET,
 )
 from .bucket_table import BucketTable
+from .lookup import SortedTable
+
+
+def whitelist_lookup(packed: torch.Tensor, wl):
+    """Membership of packed barcodes (u32 values in int64) in the
+    whitelist.
+
+    wl: BucketTable (one row gather), SortedTable, or a raw ascending
+    tensor of u32 values (binary search).  Returns (is_member bool, index
+    int32, -1 on a miss)."""
+    if isinstance(wl, (SortedTable, BucketTable)):
+        return wl.membership(packed)
+    idx = torch.searchsorted(wl, packed)
+    idx_c = torch.clamp_max(idx, wl.shape[0] - 1)
+    hit = wl[idx_c] == packed
+    return hit, torch.where(hit, idx_c, -1).to(torch.int32)
 
 
 def qual_error_prob(qual: torch.Tensor) -> torch.Tensor:
@@ -135,3 +153,14 @@ def host_resolve_barcodes(bc_packed, bc_qual, slot_valid, wl_sorted,
         corr_bc[rows] = best_cand[accepted]
         bc_idx[rows] = take(cic)[accepted].astype(np.int32)
     return bc_idx, hit, corrected, corr_bc
+
+
+def count_valid_barcodes(idx: torch.Tensor, valid: torch.Tensor,
+                         wl_size: int) -> torch.Tensor:
+    """Histogram of the whitelist indices of valid reads -> int32 [W] (the
+    prior counts of correction, corrector.rs:14-16); a miss (idx -1) adds
+    0 at index 0."""
+    contrib = torch.where(idx >= 0, valid.to(torch.int32), 0)
+    out = torch.zeros(wl_size, dtype=torch.int32, device=idx.device)
+    return out.index_add_(0, torch.clamp_min(idx, 0).to(torch.int64),
+                          contrib.to(torch.int32))

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import gzip
 import os
+import struct
 
 import numpy as np
 
@@ -903,3 +904,438 @@ def build_analysis_matrix(n_cells: int, n_genes: int, n_pops: int,
     features = FeatureReference([FeatureDef(f"GENE{g:05d}", f"G{g}")
                                  for g in range(n_genes)])
     return CountMatrix(m, barcodes, features), truth
+
+
+# ---------------------------------------------------------------------------
+# V(D)J fixtures
+# ---------------------------------------------------------------------------
+
+def _rand_nt(n: int, rng) -> str:
+    return "".join(rng.choice(list("ACGT"), n))
+
+
+def build_vdj_single_world(tmp: str, barcodes: list[str] | None = None
+                           ) -> dict:
+    """The single-end V(D)J world of tests/test_vdj.py, draw for draw: a
+    TRB locus (two V genes ending in the conserved Cys, one J starting
+    with the FGxG motif, one C; rng 42) and 6 cells (4 of clonotype A, 2
+    of clonotype B) x 8 UMIs x 3 reads of 120 bases in SCVDJ-R2 layout
+    (R1 = barcode + 10 bp UMI, R2 = the read, sense; rng 9), gzipped, with
+    a 64-barcode whitelist.  With `barcodes` the cells take those instead
+    and no whitelist is written (the caller's holds them)."""
+    from ..io.gtf import write_fasta
+
+    os.makedirs(tmp, exist_ok=True)
+    rng = np.random.default_rng(42)
+    v_seq = _rand_nt(147, rng) + "TGT"
+    j_seq = "TTTGGAACAGGG" + _rand_nt(38, rng)
+    c_seq = _rand_nt(90, rng)
+    v2_seq = _rand_nt(147, rng) + "TGT"
+    fa = os.path.join(tmp, "regions.fa")
+    write_fasta(fa, {
+        "1|TRBV1-1|TRBV1-1|TRBV1-1|L-REGION+V-REGION|TRB|None|00":
+            v_seq.encode(),
+        "2|TRBV2-1|TRBV2-1|TRBV2-1|L-REGION+V-REGION|TRB|None|00":
+            v2_seq.encode(),
+        "3|TRBJ1-1|TRBJ1-1|TRBJ1-1|J-REGION|TRB|None|00": j_seq.encode(),
+        "4|TRBC1|TRBC1|TRBC1|C-REGION|TRB|None|00": c_seq.encode(),
+    })
+    tx_a = v_seq + "GCTGCAGCG" + j_seq + c_seq
+    tx_b = v_seq + "GATCGTGAA" + j_seq + c_seq
+    rng = np.random.default_rng(9)
+    wl_path = None
+    if barcodes is None:
+        barcodes = sorted({_rand_nt(16, rng) for _ in range(64)})
+        wl_path = os.path.join(tmp, "wl.txt")
+        with open(wl_path, "w") as f:
+            f.writelines(s + "\n" for s in barcodes)
+    r1p = os.path.join(tmp, "v_S1_L001_R1_001.fastq.gz")
+    r2p = os.path.join(tmp, "v_S1_L001_R2_001.fastq.gz")
+    n = 0
+    with gzip.open(r1p, "wt") as f1, gzip.open(r2p, "wt") as f2:
+        for ci in range(6):
+            tx = tx_a if ci < 4 else tx_b
+            for u in range(8):
+                umi = _rand_nt(10, rng)
+                for _ in range(3):
+                    p = int(rng.integers(0, len(tx) - 120))
+                    f1.write(f"@v{n}\n{barcodes[ci]}{umi}\n+\n{'F' * 26}\n")
+                    f2.write(f"@v{n}\n{tx[p:p + 120]}\n+\n{'F' * 120}\n")
+                    n += 1
+    return dict(fa=fa, wl=wl_path, fq1=r1p, fq2=r2p, n_reads=n,
+                chemistry="SCVDJ-R2", read_len=120, batch_size=1024,
+                cdr3_a=v_seq[147:] + "GCTGCAGCG" + "TTT",
+                expected=dict(total_reads=n, estimated_cells=6,
+                              n_clonotypes=2))
+
+
+def build_vdj_paired_world(tmp: str) -> dict:
+    """The paired-end SCVDJ world of tests/test_vdj.py, draw for draw (rng
+    33): a 220-base V, a CDR3-like core and an 80-base J; 60 read pairs
+    over 3 barcodes of a 30-barcode whitelist, R1 = barcode + 10 bp UMI +
+    15 bp TSO + mate 1 from the 5' end, R2 = mate 2 (antisense) from 90-110
+    bases further, gzipped."""
+    os.makedirs(tmp, exist_ok=True)
+    rng = np.random.default_rng(33)
+    v_seq = _rand_nt(220, rng)
+    j_seq = _rand_nt(80, rng)
+    tx = v_seq + "TGTGCCAGCAGC" + j_seq
+    fa = os.path.join(tmp, "regions.fa")
+    with open(fa, "w") as f:
+        f.write(f">1|TRBV1 TRBV1|L-REGION+V-REGION|TR|TRB|None|00\n{v_seq}\n"
+                f">2|TRBJ1 TRBJ1|J-REGION|TR|TRB|None|00\n{j_seq}\n")
+    wl = sorted({_rand_nt(16, rng) for _ in range(30)})
+    wl_path = os.path.join(tmp, "wl.txt")
+    with open(wl_path, "w") as f:
+        f.write("\n".join(wl) + "\n")
+    comp = str.maketrans("ACGT", "TGCA")
+    r1p = os.path.join(tmp, "v_S1_L001_R1_001.fastq.gz")
+    r2p = os.path.join(tmp, "v_S1_L001_R2_001.fastq.gz")
+    with gzip.open(r1p, "wt") as f1, gzip.open(r2p, "wt") as f2:
+        for i in range(60):
+            umi = _rand_nt(10, rng)
+            p1 = int(rng.integers(0, 10))
+            mate1 = tx[p1:p1 + 120]
+            p2 = int(rng.integers(90, 110))
+            mate2 = tx[p2:p2 + 120].translate(comp)[::-1]
+            r1 = wl[i % 3] + umi + "ACGTACGTACGTACG" + mate1
+            f1.write(f"@v{i}\n{r1}\n+\n{'F' * len(r1)}\n")
+            f2.write(f"@v{i}\n{mate2}\n+\n{'F' * len(mate2)}\n")
+    return dict(fa=fa, wl=wl_path, fq1=r1p, fq2=r2p, n_reads=60,
+                chemistry="SCVDJ", read_len=120, batch_size=256,
+                expected=dict(total_reads=60))
+
+
+VDJ_READ_LEN = 120
+VDJ_UMI_LEN = 10
+VDJ_TSO = "TTTCTTATATGGGAG"      # 15 bp between the UMI and mate 1
+VDJ_UTR = 30                     # 5' UTR ahead of the leader + V region
+VDJ_V_LEN = 300                  # L-REGION+V-REGION, ends in the Cys codon
+VDJ_J_LEN = 50
+VDJ_C_LEN = 180
+VDJ_V_GENES = 4                  # per chain
+VDJ_J_GENES = 2
+VDJ_INSERT = {"TRA": 12, "TRB": 15}   # N/D additions: CDR3 of 18 / 21 nt
+VDJ_UMIS_PER_CHAIN = 20          # molecules of each chain in a cell
+VDJ_MATE1_START = 20             # mate 1 starts in the first 20 bases
+VDJ_FRAGMENT = (150, 450)        # fragment length range (mate-2 end)
+VDJ_WL = 2000
+# codons of the N/D additions: no Cys (a later anchor), no Phe/Trp (a J
+# motif), no stop
+_VDJ_CODONS = ["GCT", "GAT", "GAA", "GGT", "CAT", "ATT", "AAA", "CTG",
+               "ATG", "AAC", "CCT", "CAG", "CGT", "AGC", "ACC", "GTT",
+               "TAT"]
+
+
+def _vdj_segments(rng) -> dict:
+    """A TRA + TRB segment reference: per chain VDJ_V_GENES V genes
+    (random, ending in TGT), VDJ_J_GENES J genes (F-G-x-G codons, then
+    random) and one C gene, each with a random 5' UTR for its transcripts.
+    Returns {chain: dict(v=[...], j=[...], c=str, utr=[...])}."""
+    out = {}
+    for chain in ("TRA", "TRB"):
+        v = [_rand_nt(VDJ_V_LEN - 3, rng) + "TGT" for _ in range(VDJ_V_GENES)]
+        j = ["TTT" + "GG" + _rand_nt(1, rng) + "AAA" + "GG" + _rand_nt(1, rng)
+             + _rand_nt(VDJ_J_LEN - 12, rng) for _ in range(VDJ_J_GENES)]
+        out[chain] = dict(v=v, j=j, c=_rand_nt(VDJ_C_LEN, rng),
+                          utr=[_rand_nt(VDJ_UTR, rng)
+                               for _ in range(VDJ_V_GENES)])
+    return out
+
+
+def _vdj_insert(chain: str, rng) -> str:
+    """N/D additions that keep the V-end Cys the last Cys codon before the
+    J motif in any frame, with no stop codon."""
+    while True:
+        ins = "".join(rng.choice(_VDJ_CODONS, VDJ_INSERT[chain] // 3))
+        if not any(m in "GT" + ins + "TT" for m in ("TGT", "TGC")):
+            return ins
+
+
+def _vdj_design(n_cells: int, seed: int) -> dict:
+    """Segments, clonotypes and cells of a V(D)J run.  Clonotypes 1 and 2
+    hold (n_cells - 1) // 2 + (n_cells - 1) % 2 and (n_cells - 1) // 2
+    cells, clonotype 3 one cell, and with more than 5 cells every further
+    clonotype one cell; clonotype k takes V gene k % VDJ_V_GENES and J gene
+    k % VDJ_J_GENES of each chain and its own N/D additions.  Transcript
+    2k (TRA) and 2k + 1 (TRB) of clonotype k: UTR + V + additions + J + C."""
+    if n_cells < 5:
+        raise ValueError("a V(D)J run needs at least 5 cells (two shared "
+                         "clonotypes and a singleton)")
+    rng = np.random.default_rng(seed)
+    seg = _vdj_segments(rng)
+    big = (n_cells - 1) // 2
+    sizes = [n_cells - 1 - big, big, 1]
+    if n_cells > 5:
+        sizes = [2, 2, 1] + [1] * (n_cells - 5)
+    clono = np.repeat(np.arange(len(sizes)), sizes)
+    tx, cdr3 = [], []
+    for k in range(len(sizes)):
+        per = {}
+        for chain in ("TRA", "TRB"):
+            s = seg[chain]
+            vi, ji = k % VDJ_V_GENES, k % VDJ_J_GENES
+            ins = _vdj_insert(chain, rng)
+            tx.append(s["utr"][vi] + s["v"][vi] + ins + s["j"][ji] + s["c"])
+            per[chain] = ("TGT" + ins + s["j"][ji][:3],
+                          f"{chain}V{vi + 1}", f"{chain}J{ji + 1}")
+        cdr3.append(per)
+    wl, wl_arr = _e2e_whitelist(VDJ_WL)
+    cell_wl = np.sort(rng.choice(VDJ_WL, n_cells, replace=False))
+    return dict(seg=seg, clono=rng.permutation(clono), tx=tx, cdr3=cdr3,
+                wl=wl, wl_arr=wl_arr, cell_wl=cell_wl, rng=rng)
+
+
+def _vdj_pairs(d: dict, pairs_per_cell: int):
+    """Read pairs of the design `d`, shuffled: each cell holds
+    2 x VDJ_UMIS_PER_CHAIN molecules (the first half TRA), every molecule
+    at least one pair.  Mate 1 starts in the first VDJ_MATE1_START bases
+    of its transcript; mate 2 ends VDJ_FRAGMENT bases after mate 1's
+    start.  Returns (cell [P], UMI codes [P, 10], transcript [P], mate-1
+    start [P], mate-2 end [P])."""
+    rng = d["rng"]
+    n_cells = len(d["clono"])
+    n_mol = 2 * VDJ_UMIS_PER_CHAIN
+    if pairs_per_cell < n_mol:
+        raise ValueError(f"{pairs_per_cell} pairs cannot cover {n_mol} "
+                         "molecules a cell")
+    mol_cell = np.repeat(np.arange(n_cells), n_mol)
+    mol_umi = _coded_umis(mol_cell, VDJ_UMI_LEN, rng)
+    mol_tx = (2 * d["clono"][mol_cell]
+              + (np.arange(n_cells * n_mol) % n_mol >= VDJ_UMIS_PER_CHAIN))
+    per_cell = np.concatenate([np.arange(n_mol), rng.integers(
+        0, n_mol, pairs_per_cell - n_mol)])
+    mol = (np.arange(n_cells)[:, None] * n_mol + per_cell[None, :]).ravel()
+    mol = mol[rng.permutation(len(mol))]
+    p1 = rng.integers(0, VDJ_MATE1_START, len(mol))
+    end = p1 + rng.integers(VDJ_FRAGMENT[0], VDJ_FRAGMENT[1] + 1, len(mol))
+    return mol_cell[mol], mol_umi[mol], mol_tx[mol], p1, end
+
+
+def _vdj_expected(d: dict, n_pairs: int) -> dict:
+    n_cells = len(d["clono"])
+    cdr3s = {}
+    for c in range(n_cells):
+        bc = d["wl"][d["cell_wl"][c]] + "-1"
+        per = d["cdr3"][d["clono"][c]]
+        cdr3s[bc] = sorted([ch, per[ch][0]] for ch in per)
+    return dict(total_reads=n_pairs, estimated_cells=n_cells,
+                n_clonotypes=len(d["cdr3"]), cdr3s=cdr3s,
+                bc_umi_pairs=n_cells * 2 * VDJ_UMIS_PER_CHAIN)
+
+
+def _vdj_mates(d: dict, t, p1, end) -> np.ndarray:
+    """Base codes [2P, 120] on the transcript strand: the P mate-1 reads,
+    then the P fragment ends that mate 2 reads in reverse complement."""
+    L = max(len(s) for s in d["tx"])
+    codes = np.zeros((len(d["tx"]), L), np.uint8)
+    lut = np.zeros(256, np.uint8)
+    lut[list(b"ACGT")] = [0, 1, 2, 3]
+    for i, s in enumerate(d["tx"]):
+        codes[i, :len(s)] = lut[np.frombuffer(s.encode(), np.uint8)]
+    P = len(t)
+    out = np.empty((2 * P, VDJ_READ_LEN), np.uint8)
+    ar = np.arange(VDJ_READ_LEN, dtype=np.int32)
+    block = 1 << 18                 # bounds the [block, 120] index planes
+    for s in range(0, P, block):
+        e = min(P, s + block)
+        out[s:e] = codes[t[s:e, None], p1[s:e, None] + ar]
+        out[P + s:P + e] = codes[t[s:e, None],
+                                 (end[s:e] - VDJ_READ_LEN)[:, None] + ar]
+    return out
+
+
+def vdj_kmer_inputs(n_cells: int, pairs_per_cell: int, seed: int = 37
+                    ) -> dict:
+    """The reads of build_vdj_run(n_cells, pairs_per_cell, seed) as the
+    V(D)J pipeline hands them to `count_bc_umi_kmers`, made in memory (no
+    FASTQ): barcode = whitelist index, UMI = packed u32, and two rows per
+    pair, mate 1 and the reverse complement of mate 2 (both on the
+    transcript strand), every base valid.  Also returns the distinct
+    (barcode, UMI) pairs by construction and the number of 20-mers."""
+    from ..ops.encode import pack_codes_np
+    d = _vdj_design(n_cells, seed)
+    cell, umi, t, p1, end = _vdj_pairs(d, pairs_per_cell)
+    rna = _vdj_mates(d, t, p1, end)
+    P = len(cell)
+    bc = d["cell_wl"][cell].astype(np.uint32)
+    umi_p = pack_codes_np(umi, VDJ_UMI_LEN)
+    exp = _vdj_expected(d, P)
+    return dict(bc=np.concatenate([bc, bc]), umi=np.concatenate([umi_p, umi_p]),
+                rna=rna, nmask=np.ones(rna.shape, bool),
+                bc_umi_pairs=exp["bc_umi_pairs"],
+                n_kmers=2 * P * (VDJ_READ_LEN - 19))
+
+
+def build_vdj_run(tmp: str, n_cells: int = 5, pairs_per_cell: int = 5000,
+                  seed: int = 37) -> dict:
+    """A paired-end SCVDJ run of T cells whose outcome holds by
+    construction.  Reference: TRA and TRB, VDJ_V_GENES V, VDJ_J_GENES J
+    and one C gene each (regions.fa).  Cells: clonotypes of 2, 2 and 1
+    cells at 5 cells (`_vdj_design`), each cell one TRA and one TRB
+    transcript, 2 x VDJ_UMIS_PER_CHAIN molecules, `pairs_per_cell` read
+    pairs (10x's recommended V(D)J depth is 5,000).  R1 = barcode + 10 bp
+    UMI + 15 bp TSO + mate 1 (120 bases, sense, from the transcript's 5'
+    end); R2 = mate 2 (120 bases, antisense) ending 150-450 bases after
+    mate 1's start, so the mates cover UTR, V, CDR3, J and the start of
+    C.  One pair in 50 carries a barcode error that stays correctable.
+    Plain FASTQ with 'F' qualities, a 2,000-barcode whitelist.
+
+    Expected (returned): reads, cells, clonotypes, each cell's CDR3
+    nucleotides per chain, distinct (barcode, UMI) pairs."""
+    from ..io.gtf import write_fasta
+
+    os.makedirs(tmp, exist_ok=True)
+    d = _vdj_design(n_cells, seed)
+    cell, umi, t, p1, end = _vdj_pairs(d, pairs_per_cell)
+    fa = os.path.join(tmp, "regions.fa")
+    recs, n = {}, 0
+    for chain in ("TRA", "TRB"):
+        s = d["seg"][chain]
+        for kind, region, seqs in (("V", "L-REGION+V-REGION", s["v"]),
+                                   ("J", "J-REGION", s["j"]),
+                                   ("C", "C-REGION", [s["c"]])):
+            for i, seq in enumerate(seqs):
+                n += 1
+                g = f"{chain}{kind}{i + 1}"
+                recs[f"{n}|{g}|{g}|{g}|{region}|{chain}|None|00"] = \
+                    seq.encode()
+    write_fasta(fa, recs)
+    wl_path = os.path.join(tmp, "wl.txt")
+    with open(wl_path, "w") as f:
+        f.writelines(w + "\n" for w in d["wl"])
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    codes = _vdj_mates(d, t, p1, end)
+    mate1 = bases[codes[:len(t)]]
+    mate2 = bases[3 - codes[len(t):, ::-1]]      # reverse complement
+    bc = d["wl_arr"][d["cell_wl"][cell]]
+    _barcode_errors(bc, np.arange(0, len(bc), 50), d["wl_arr"], d["rng"])
+    tso = np.frombuffer(VDJ_TSO.encode(), np.uint8)
+    r1 = np.concatenate([bc, bases[umi], np.broadcast_to(tso, (len(bc), 15)),
+                         mate1], axis=1)
+    r1p = os.path.join(tmp, "vdj_S1_L001_R1_001.fastq")
+    r2p = os.path.join(tmp, "vdj_S1_L001_R2_001.fastq")
+    _write_fastq_pair(r1p, r2p, r1, mate2)
+    return dict(fa=fa, wl=wl_path, fq1=r1p, fq2=r2p, n_reads=len(bc),
+                chemistry="SCVDJ", read_len=VDJ_READ_LEN,
+                expected=_vdj_expected(d, len(bc)))
+
+
+# ---------------------------------------------------------------------------
+# BCL run fixtures (mkfastq)
+# ---------------------------------------------------------------------------
+
+BCL_R1, BCL_I1, BCL_R2 = 28, 8, 50
+BCL_IDX_A = "ACGTACGT"
+BCL_IDX_A_1MM = "CCGTACGT"          # one mismatch from A: still routes to A
+BCL_IDX_B = ("TTTTCCCC", "GGGGAAAA")  # the index set SI-TT-B1
+BCL_QUAL = 37                       # classic q37 == CBCL bin 3
+BCL_RUN_INFO = (
+    '<?xml version="1.0"?><RunInfo><Run Id="240101_M0_0001_FLOW1">'
+    '<Flowcell>FLOW1</Flowcell>'
+    '<Reads>'
+    f'<Read Number="1" NumCycles="{BCL_R1}" IsIndexedRead="N"/>'
+    f'<Read Number="2" NumCycles="{BCL_I1}" IsIndexedRead="Y"/>'
+    f'<Read Number="3" NumCycles="{BCL_R2}" IsIndexedRead="N"/>'
+    '</Reads>'
+    '<FlowcellLayout LaneCount="1"/>'
+    '</Run></RunInfo>')
+
+
+def _write_locs(run: str, tile: int, n: int) -> None:
+    locd = os.path.join(run, "Data", "Intensities", "L001")
+    os.makedirs(locd, exist_ok=True)
+    xy = np.zeros((n, 2), "<f4")
+    xy[:, 0] = np.arange(n)
+    xy[:, 1] = tile
+    with open(os.path.join(locd, f"s_1_{tile}.locs"), "wb") as f:
+        f.write(struct.pack("<IfI", 1, 1.0, n) + xy.tobytes())
+
+
+def write_classic_bcl_run(run: str, tiles: dict, quals: int = BCL_QUAL
+                          ) -> str:
+    """Classic (HiSeq/MiSeq) run directory of lane 1, as make_run of
+    tests/test_mkfastq.py writes it: RunInfo.xml, one gzipped BCL per
+    cycle and tile (u32 count, then per cluster base | qual << 2, 0 for
+    N), a .filter and a .locs per tile.  tiles: {tile: (codes uint8
+    [N, cycles] 0-3 or 4 = N, pass_filter bool [N])}."""
+    bc = os.path.join(run, "Data", "Intensities", "BaseCalls", "L001")
+    os.makedirs(bc, exist_ok=True)
+    with open(os.path.join(run, "RunInfo.xml"), "w") as f:
+        f.write(BCL_RUN_INFO)
+    for tile, (codes, pf) in tiles.items():
+        n = len(codes)
+        b = np.where(codes == 4, 0, (codes & 3) | (quals << 2)).astype(np.uint8)
+        for c in range(codes.shape[1]):
+            cdir = os.path.join(bc, f"C{c + 1}.1")
+            os.makedirs(cdir, exist_ok=True)
+            with gzip.open(os.path.join(cdir, f"s_1_{tile}.bcl.gz"),
+                           "wb", compresslevel=1) as f:
+                f.write(struct.pack("<I", n) + b[:, c].tobytes())
+        with open(os.path.join(bc, f"s_1_{tile}.filter"), "wb") as f:
+            f.write(struct.pack("<III", 0, 3, n)
+                    + np.asarray(pf, np.uint8).tobytes())
+        _write_locs(run, tile, n)
+    return run
+
+
+def write_cbcl_bcl_run(run: str, tiles: dict) -> str:
+    """The same clusters in the NovaSeq CBCL layout (io/bcl.py
+    `write_cbcl_run`, quality bin 3 = q37), with the classic run's .locs,
+    so that both layouts name every read alike."""
+    from ..io.bcl import write_cbcl_run
+    os.makedirs(run, exist_ok=True)
+    write_cbcl_run(run, BCL_RUN_INFO, 1, {
+        t: (codes, np.full_like(codes, 3), np.asarray(pf, bool))
+        for t, (codes, pf) in tiles.items()})
+    for tile, (codes, _) in tiles.items():
+        _write_locs(run, tile, len(codes))
+    return run
+
+
+def build_bcl_run(tmp: str, n_clusters: int = 120, seed: int = 5) -> dict:
+    """One lane of clusters in both BCL layouts, with a sample sheet that
+    routes them: cluster i carries index A (i % 4 == 0), A with one
+    mismatch (1), one of the two oligos of set SI-TT-B1 (2), or a random
+    index at least two mismatches from every oligo (3, Undetermined);
+    every tenth cluster fails the chastity filter; even clusters lie on
+    tile 1101, odd ones on 2101 (two CBCL surfaces).  The plan of
+    tests/test_mkfastq.py's `bcl_run`, drawn in bulk.
+
+    Returns the classic and CBCL run directories, the sample sheet and
+    index kit CSVs, and the passing-filter reads per sample (`truth`)."""
+    os.makedirs(tmp, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    lut = np.zeros(256, np.uint8)
+    lut[list(b"ACGT")] = [0, 1, 2, 3]
+    enc = lambda s: lut[np.frombuffer(s.encode(), np.uint8)]  # noqa: E731
+    cycles = BCL_R1 + BCL_I1 + BCL_R2
+    codes = rng.integers(0, 4, (n_clusters, cycles)).astype(np.uint8)
+    i = np.arange(n_clusters)
+    pick = i % 4
+    idx = codes[:, BCL_R1:BCL_R1 + BCL_I1]
+    idx[pick == 0] = enc(BCL_IDX_A)
+    idx[pick == 1] = enc(BCL_IDX_A_1MM)
+    idx[(pick == 2) & (i % 8 == 2)] = enc(BCL_IDX_B[0])
+    idx[(pick == 2) & (i % 8 != 2)] = enc(BCL_IDX_B[1])
+    oligos = np.stack([enc(o) for o in (BCL_IDX_A,) + BCL_IDX_B])
+    near = ((idx[:, None, :] != oligos[None]).sum(2) <= 1).any(1)
+    keep = (pick != 3) | ~near          # drop random indexes that match
+    codes, i, pick = codes[keep], i[keep], pick[keep]
+    pf = i % 10 != 9
+    sample = np.array(["A", "A", "B", "Undetermined"])[pick]
+    truth = {s: int(((sample == s) & pf).sum())
+             for s in ("A", "B", "Undetermined")}
+    tiles = {1101: (codes[i % 2 == 0], pf[i % 2 == 0]),
+             2101: (codes[i % 2 == 1], pf[i % 2 == 1])}
+    kit = os.path.join(tmp, "kit.csv")
+    with open(kit, "w") as f:
+        f.write(f"SI-TT-B1,{BCL_IDX_B[0]},{BCL_IDX_B[1]}\n")
+    sheet = os.path.join(tmp, "samplesheet.csv")
+    with open(sheet, "w") as f:
+        f.write(f"Lane,Sample,Index\n1,A,{BCL_IDX_A}\n1,B,SI-TT-B1\n")
+    return dict(classic=write_classic_bcl_run(os.path.join(tmp, "classic"),
+                                              tiles),
+                cbcl=write_cbcl_bcl_run(os.path.join(tmp, "cbcl"), tiles),
+                samplesheet=sheet, index_kit=kit, truth=truth,
+                n_clusters=len(codes))

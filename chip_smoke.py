@@ -69,11 +69,31 @@ Phases, each printing one line; any failure raises and exits non-zero:
                files, the clusterings of one projection, and the t-SNE/UMAP
                steps over a short horizon) under testing/analysis_check.py's
                tolerances
+  vdj_parity   run_vdj on the single-end and the paired-end worlds of
+               tests/test_vdj.py on cuda and on cpu: every output file
+               equal; count_bc_umi_kmers on the rows run_vdj handed it,
+               split into blocks of a few hundred kmer rows, equal to the
+               pipeline's arrays on both devices
+  vdj          a paired-end SCVDJ run (testing/fixtures.build_vdj_run: 5
+               T cells in clonotypes of 2, 2 and 1, 5,000 read pairs a
+               cell) through run_vdj on cuda: exactly the fixture's cells,
+               clonotypes and each cell's CDR3s; wall, the device-
+               synchronized time of count_bc_umi_kmers, the host
+               assembly's time, peak memory
+  vdj_kmers    count_bc_umi_kmers alone on the reads of a 400-cell run at
+               5,000 pairs a cell (4,000,000 reads with mates, made in
+               memory): device time, peak memory; the fixture's distinct
+               (barcode, UMI) pairs, counts summing to the valid 20-mers,
+               keys strictly increasing; the first 200,000 reads give
+               equal arrays on cuda and on cpu
+  mkfastq      a lane of 200,000 clusters in the classic and in the CBCL
+               BCL layout through run_mkfastq: reads per sample as built,
+               equal decompressed FASTQs from both layouts
 
 Every path resets the SW kernel's launch count before it runs and reads
 it after; the kernel report counts the e2e path's launches and lists
-every path's (`pe`: two a batch, one per mate; `rtl`: none, no genome
-aligner runs).  The line before the last is the kernel report (JSON); the
+every path's (`pe`: two a batch, one per mate; `rtl`, the V(D)J paths
+and `mkfastq`: none, no genome aligner runs).  The line before the last is the kernel report (JSON); the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -143,6 +163,14 @@ ANALYSIS_POPS = 8
 # cuda against cpu on the 8-population matrix of tests/test_torch_analysis.py
 ANALYSIS_PARITY_CELLS = 2_000
 ANALYSIS_PARITY_GENES = 1_000
+# V(D)J: 10x's recommended depth is 5,000 read pairs a cell; the host
+# assembly takes 10-25 s a cell, so the run is cut in cells, not depth
+VDJ_CELLS = 5
+VDJ_PAIRS_PER_CELL = 5_000
+VDJ_PARITY_CHUNK = 500          # kmer rows a block: splits every world
+VDJ_KMER_CELLS = 400            # 2,000,000 pairs, 4,000,000 reads
+VDJ_KMER_PARITY_READS = 200_000
+MKFASTQ_CLUSTERS = 200_000
 
 
 def phase(name: str, msg: str) -> None:
@@ -838,6 +866,264 @@ def analysis_parity(tmp: str, n_cells: int = ANALYSIS_PARITY_CELLS,
     return rep
 
 
+def file_tree(root: str, gunzip: bool = False) -> dict:
+    """{relative path: bytes} of every file under root (decompressed with
+    `gunzip`: gzip headers carry a time stamp)."""
+    opener = gzip.open if gunzip else open
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            with opener(os.path.join(d, n), "rb") as f:
+                out[os.path.relpath(os.path.join(d, n), root)] = f.read()
+    return out
+
+
+def tree_diffs(a: str, b: str) -> list[str]:
+    """Files present under one root only, then files whose bytes differ."""
+    ta, tb = file_tree(a), file_tree(b)
+    return (sorted(set(ta) ^ set(tb))
+            + sorted(k for k in set(ta) & set(tb) if ta[k] != tb[k]))
+
+
+def _equal_arrays(got, want, what: str) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or g.shape != w.shape or (g != w).any():
+            raise AssertionError(f"{what}: output {i} differs ({g.dtype} "
+                                 f"{g.shape} against {w.dtype} {w.shape})")
+
+
+class _Recorder:
+    """Wraps pipeline/vdj.py's count_bc_umi_kmers for one run: keeps the
+    rows it was handed and its device-synchronized seconds."""
+
+    def __init__(self, device: str):
+        from cellranger_tpu_torch.pipeline import vdj
+        self.vdj, self.real, self.device = vdj, vdj.count_bc_umi_kmers, device
+        self.calls, self.seconds, self.end = [], 0.0, None
+
+    def __call__(self, *args, **kw):
+        import torch
+        sync = (torch.cuda.synchronize if self.device == "cuda"
+                else (lambda: None))
+        sync()
+        t = time.time()
+        out = self.real(*args, **kw)
+        sync()
+        self.end = time.time()
+        self.seconds += self.end - t
+        self.calls.append((args, out))
+        return out
+
+    def __enter__(self):
+        self.vdj.count_bc_umi_kmers = self
+        return self
+
+    def __exit__(self, *exc):
+        self.vdj.count_bc_umi_kmers = self.real
+
+
+def _vdj_cfg(fx: dict, **kw):
+    from cellranger_tpu_torch.pipeline.vdj import VdjConfig
+    return VdjConfig(fastq_pairs=[(fx["fq1"], fx["fq2"])],
+                     vdj_reference_fasta=fx["fa"], whitelist_path=fx["wl"],
+                     chemistry=fx["chemistry"], read_len=fx["read_len"],
+                     **kw)
+
+
+def vdj_parity(tmp: str, devices=("cuda", "cpu"),
+               chunk: int = VDJ_PARITY_CHUNK) -> dict:
+    """run_vdj of the tests' single-end and paired-end worlds on each
+    device: every output file equal; count_bc_umi_kmers on the rows the
+    first device's run handed it, in blocks of `chunk` kmer rows, equal to
+    that run's arrays on both devices."""
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.pipeline.vdj import run_vdj
+    from cellranger_tpu_torch.testing import fixtures
+    from cellranger_tpu_torch.vdj.assembly import K, count_bc_umi_kmers
+
+    res = dict(sw_launches=0)
+    for name, build in (("single", fixtures.build_vdj_single_world),
+                        ("paired", fixtures.build_vdj_paired_world)):
+        fx = build(os.path.join(tmp, f"vdj_{name}"))
+        sums, outs = [], []
+        for i, dev in enumerate(devices):
+            outs.append(os.path.join(tmp, f"vdj_{name}_{i}_{dev}"))
+            sw.LAUNCHES = 0
+            with _Recorder(dev) as rec:
+                sums.append(run_vdj(_vdj_cfg(fx, batch_size=fx["batch_size"]),
+                                    outs[-1], device=dev))
+            res["sw_launches"] += sw.LAUNCHES
+            if i == 0:
+                (rows, want), = rec.calls
+        diffs = tree_diffs(*outs)
+        if sums[0] != sums[1] or diffs:
+            raise AssertionError(f"vdj_parity {name}: {devices[0]} and "
+                                 f"{devices[1]} differ: {diffs[:10]}")
+        reads_per_block = max(1, chunk // (rows[2].shape[1] - K + 1))
+        for dev in devices:
+            _equal_arrays(count_bc_umi_kmers(*rows, chunk=chunk, device=dev),
+                          want, f"vdj_parity {name} kmers in blocks on {dev}")
+        res[name] = dict(reads=sums[0]["total_reads"],
+                         cells=sums[0]["estimated_cells"],
+                         clonotypes=sums[0]["n_clonotypes"],
+                         files=len(file_tree(outs[0])),
+                         kmer_rows=len(want[0]),
+                         kmers=int(want[3].sum()),
+                         blocks=-(-len(rows[0]) // reads_per_block))
+    if res["sw_launches"]:
+        raise AssertionError("a V(D)J run launched the SW kernel")
+    return res
+
+
+def _cell_cdr3s(out: str) -> dict:
+    """{barcode: sorted [chain, cdr3_nt]} of the productive contigs of the
+    cells in filtered_contig_annotations.csv."""
+    import csv
+    got: dict = {}
+    with open(os.path.join(out, "filtered_contig_annotations.csv")) as f:
+        for r in csv.DictReader(f):
+            if r["productive"] == "True":
+                got.setdefault(r["barcode"], []).append(
+                    [r["chain"], r["cdr3_nt"]])
+    return {b: sorted(v) for b, v in got.items()}
+
+
+def _pairs(b, u) -> int:
+    """Distinct (barcode, UMI) pairs of a kmer spectrum."""
+    import numpy as np
+    return len(np.unique((b.astype(np.uint64) << np.uint64(32)) | u))
+
+
+def vdj_run(tmp: str, n_cells: int = VDJ_CELLS,
+            pairs_per_cell: int = VDJ_PAIRS_PER_CELL,
+            device: str = "cuda") -> dict:
+    """A V(D)J run whose cells, clonotypes and CDR3s hold by
+    construction, through run_vdj on `device`."""
+    import torch
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.pipeline.vdj import run_vdj
+    from cellranger_tpu_torch.testing.fixtures import build_vdj_run
+
+    t = time.time()
+    fx = build_vdj_run(os.path.join(tmp, "vdj"), n_cells, pairs_per_cell)
+    t_fix = time.time() - t
+    out = os.path.join(tmp, "vdj_out")
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sw.LAUNCHES = 0
+    with _Recorder(device) as rec:
+        t = time.time()
+        s = run_vdj(_vdj_cfg(fx), out, device=device)
+        t_end = time.time()
+    exp = fx["expected"]
+    got = dict(total_reads=s["total_reads"],
+               estimated_cells=s["estimated_cells"],
+               n_clonotypes=s["n_clonotypes"], cdr3s=_cell_cdr3s(out),
+               bc_umi_pairs=_pairs(*rec.calls[0][1][:2]))
+    with open(os.path.join(out, "cell_barcodes.json")) as f:
+        if json.load(f) != sorted(exp["cdr3s"]):
+            raise AssertionError("vdj: cell barcodes are not the fixture's")
+    off = {k: (got[k], v) for k, v in exp.items() if got[k] != v}
+    if off:
+        raise AssertionError(f"vdj: (got, expected) {off}")
+    if sw.LAUNCHES:
+        raise AssertionError("the V(D)J run launched the SW kernel")
+    return dict(cells=n_cells, pairs_per_cell=pairs_per_cell,
+                reads=s["total_reads"], clonotypes=s["n_clonotypes"],
+                sw_launches=sw.LAUNCHES, fixture_s=t_fix,
+                wall_s=t_end - t, kmers_s=rec.seconds,
+                reads_to_kmers_s=rec.end - rec.seconds - t,
+                host_assembly_s=t_end - rec.end,
+                kmer_rows=len(rec.calls[0][1][0]),
+                peak_mem_bytes=(torch.cuda.max_memory_allocated()
+                                if device == "cuda" else None))
+
+
+def vdj_kmers(tmp: str, n_cells: int = VDJ_KMER_CELLS,
+              pairs_per_cell: int = VDJ_PAIRS_PER_CELL,
+              parity_reads: int = VDJ_KMER_PARITY_READS,
+              devices=("cuda", "cpu")) -> dict:
+    """count_bc_umi_kmers alone on the reads of a build_vdj_run(n_cells,
+    pairs_per_cell), on devices[0], twice (the first call pays the
+    allocator's growth); its first `parity_reads` reads on both devices."""
+    import numpy as np
+    import torch
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.testing.fixtures import vdj_kmer_inputs
+    from cellranger_tpu_torch.vdj.assembly import count_bc_umi_kmers
+
+    dev = devices[0]
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    t = time.time()
+    x = vdj_kmer_inputs(n_cells, pairs_per_cell)
+    rows = (x["bc"], x["umi"], x["rna"], x["nmask"])
+    rep = dict(cells=n_cells, reads=len(x["bc"]), fixture_s=time.time() - t)
+    sw.LAUNCHES = 0
+    secs = []
+    for _ in range(2):
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        t = time.time()
+        b, u, k, c = count_bc_umi_kmers(*rows, device=dev)
+        sync()
+        secs.append(time.time() - t)
+    rep.update(first_s=secs[0], s=secs[1], rows=len(b),
+               sw_launches=sw.LAUNCHES,
+               peak_mem_bytes=(torch.cuda.max_memory_allocated()
+                               if dev == "cuda" else None))
+    pairs = _pairs(b, u)
+    if pairs != x["bc_umi_pairs"] or int(c.sum(dtype=np.int64)) \
+            != x["n_kmers"]:
+        raise AssertionError(f"vdj_kmers: {pairs} (barcode, UMI) pairs, "
+                             f"{int(c.sum(dtype=np.int64))} kmers; expected "
+                             f"{x['bc_umi_pairs']}, {x['n_kmers']}")
+    up = ((b[1:] > b[:-1]) | ((b[1:] == b[:-1]) & ((u[1:] > u[:-1])
+          | ((u[1:] == u[:-1]) & (k[1:] > k[:-1])))))
+    if not up.all():
+        raise AssertionError("vdj_kmers: keys not strictly increasing")
+    head = tuple(a[:parity_reads] for a in rows)
+    _equal_arrays(count_bc_umi_kmers(*head, device=dev),
+                  count_bc_umi_kmers(*head, device=devices[1]),
+                  f"vdj_kmers first {parity_reads} reads, {devices}")
+    if sw.LAUNCHES:
+        raise AssertionError("count_bc_umi_kmers launched the SW kernel")
+    rep.update(parity_reads=parity_reads, bc_umi_pairs=pairs,
+               kmers=x["n_kmers"])
+    return rep
+
+
+def mkfastq_run(tmp: str, n_clusters: int = MKFASTQ_CLUSTERS) -> dict:
+    """A lane in the classic and the CBCL layouts through run_mkfastq:
+    reads per sample as built, equal decompressed FASTQs."""
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.pipeline.mkfastq import run_mkfastq
+    from cellranger_tpu_torch.testing.fixtures import build_bcl_run
+
+    t = time.time()
+    fx = build_bcl_run(os.path.join(tmp, "bcl"), n_clusters)
+    rep = dict(clusters=fx["n_clusters"], fixture_s=time.time() - t)
+    sw.LAUNCHES = 0
+    fastqs = []
+    for layout in ("classic", "cbcl"):
+        out = os.path.join(tmp, f"bcl_{layout}_out")
+        t = time.time()
+        s = run_mkfastq(fx[layout], fx["samplesheet"], out,
+                        index_kit_csv=fx["index_kit"])
+        rep[f"{layout}_s"] = time.time() - t
+        if s["samples"] != fx["truth"]:
+            raise AssertionError(f"mkfastq {layout}: {s['samples']} != "
+                                 f"{fx['truth']}")
+        fastqs.append(file_tree(out, gunzip=True))
+    if fastqs[0] != fastqs[1]:
+        raise AssertionError("mkfastq: classic and CBCL FASTQs differ")
+    rep.update(samples=fx["truth"], fastqs=len(fastqs[0]),
+               sw_launches=sw.LAUNCHES)
+    if sw.LAUNCHES:
+        raise AssertionError("mkfastq launched the SW kernel")
+    return rep
+
+
 def main() -> None:
     import torch
 
@@ -940,6 +1226,22 @@ def main() -> None:
               + json.dumps(analysis(tmp)))
         phase("analysis_parity", "cuda against cpu: "
               + json.dumps(analysis_parity(tmp)))
+
+        g = vdj_parity(tmp)
+        launches["vdj_parity"] = g["sw_launches"]
+        phase("vdj_parity", "cuda == cpu, every output file; kmers in "
+              "blocks equal: " + json.dumps(g))
+        g = vdj_run(tmp)
+        launches["vdj"] = g["sw_launches"]
+        phase("vdj", "the fixture's cells, clonotypes and CDR3s: "
+              + json.dumps(g))
+        g = vdj_kmers(tmp)
+        launches["vdj_kmers"] = g["sw_launches"]
+        phase("vdj_kmers", json.dumps(g))
+        g = mkfastq_run(tmp)
+        launches["mkfastq"] = g["sw_launches"]
+        phase("mkfastq", "reads per sample as built, classic == CBCL: "
+              + json.dumps(g))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

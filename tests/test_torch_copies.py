@@ -8,16 +8,18 @@ so a later reader learns when the reference and a copy have drifted.  The
 reference is frozen, so they should not.
 
 `pipeline/demux.py`, `pipeline/multi_gem.py`, `pipeline/aggr.py` and
-`io/multi_config.py` call `run_count` and `run_secondary_analysis`, which
-need a device in the port: they are copies but for that keyword threaded
-down (THREADED_MODULES).  Their syntax trees are compared after the
-port's changes are undone one by one (`_Unthread`: the keyword-only
-`device` parameter and each `device=device` argument dropped,
-`load_count_matrix(d, name)` turned back into `CountMatrix.load_h5` of
-`<d>/<name>.h5`, the `if h5py_available():` guard opened) and, in
-`io/multi_config.py`, after the V(D)J statements are taken out of both
-(the original's dispatch to `run_vdj`, the port's refusal); what is left
-must be equal, statement for statement.
+`io/multi_config.py` call `run_count`, `run_vdj` and
+`run_secondary_analysis`, which need a device in the port: they are
+copies but for that keyword threaded down (THREADED_MODULES).  Their
+syntax trees are compared after the port's changes are undone one by one
+(`_Unthread`: the keyword-only `device` parameter and each
+`device=device` argument dropped, `load_count_matrix(d, name)` turned back
+into `CountMatrix.load_h5` of `<d>/<name>.h5`, the `if h5py_available():`
+guard opened); what is left must be equal, statement for statement.
+
+`vdj/assembly.py` is the original but for its device half: every other
+top-level function, class and assignment must have the original's syntax
+tree.
 
 `native/__init__.py` is the other copy with a deliberate change (it builds
 the FASTQ reader's library under build/native/, not into a package
@@ -48,12 +50,14 @@ COPIED_MODULES = [
     "io/probe_set.py", "io/probe_bc.py", "io/bam_filter.py",
     "analysis/jibes.py",
     "pipeline/detect_chemistry.py", "pipeline/preflight.py",
+    "stats.py", "vdj/reference.py", "vdj/annotate.py", "io/bcl.py",
+    "pipeline/mkfastq.py",
 ]
 
 # copies that differ from their original only where the port needs it: a
-# keyword `device` threaded down to run_count / run_secondary_analysis,
-# the count run's matrix read through io/matrix_store (h5, or MEX on a
-# machine without h5py), and in multi_config the V(D)J refusal
+# keyword `device` threaded down to run_count / run_vdj /
+# run_secondary_analysis, and the count run's matrix read through
+# io/matrix_store (h5, or MEX on a machine without h5py)
 THREADED_MODULES = ["pipeline/demux.py", "pipeline/multi_gem.py",
                     "pipeline/aggr.py", "io/multi_config.py"]
 
@@ -91,13 +95,6 @@ def _is_docstring(stmt):
     return isinstance(stmt, ast.Expr) \
         and isinstance(stmt.value, ast.Constant) \
         and isinstance(stmt.value.value, str)
-
-
-def _mentions_vdj(node):
-    return any((isinstance(n, ast.Name) and "vdj" in n.id.lower())
-               or (isinstance(n, ast.Constant) and isinstance(n.value, str)
-                   and "vdj" in n.value.lower())
-               for n in ast.walk(node))
 
 
 class _Unthread(ast.NodeTransformer):
@@ -161,28 +158,9 @@ class _Unthread(ast.NodeTransformer):
         return self.generic_visit(node)
 
 
-class _WithoutVdj(_Unthread):
-    """io/multi_config.py: the statements that dispatch V(D)J libraries
-    (original) or refuse them (port) leave both trees: an assignment to
-    a V(D)J name, a loop over V(D)J rows, an `if` that asks for a V(D)J
-    library type (which keeps its `else` branch)."""
-
-    def _block(self, stmts):
-        out = []
-        for st in stmts:
-            if isinstance(st, ast.If) and _mentions_vdj(st.test):
-                out.extend(st.orelse)       # the port's refusal has none
-            elif not (isinstance(st, ast.Assign)
-                      and _mentions_vdj(st.targets[0])
-                      or isinstance(st, ast.For) and _mentions_vdj(st.iter)):
-                out.append(st)
-        return super()._block(out)
-
-
 def _normalised(root, rel):
     tree = ast.parse(_read(root, rel))
-    cls = _WithoutVdj if rel == "io/multi_config.py" else _Unthread
-    tree.body = cls()._block(tree.body)
+    tree.body = _Unthread()._block(tree.body)
     return ast.unparse(ast.fix_missing_locations(tree)).split("\n")
 
 
@@ -199,6 +177,40 @@ def test_threaded_copy_differs_only_by_device(rel):
                                      lineterm="", n=1))
     assert not diff, f"{rel} differs beyond device threading:\n" \
         + "\n".join(diff)
+
+
+# the device half of vdj/assembly.py (the original's `_join64` joined the
+# kmer words its device sorts returned; the port's sort key holds the
+# joined kmer), and the port's helpers of it
+VDJ_DEVICE = {"_rolling_kmers_2w", "_join64", "count_bc_kmers",
+              "count_bc_umi_kmers"}
+VDJ_PORT_HELPERS = {"_sort_count", "_kmer_spectrum", "KMER_BITS",
+                    "KMER_MASK", "RANKS_PER_KEY", "DEFAULT_CHUNK"}
+
+
+def _top_level(text):
+    """{name: ast dump} of the module's top-level functions, classes and
+    single-name assignments."""
+    out = {}
+    for node in ast.parse(text).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out[node.name] = ast.dump(node)
+        elif isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name):
+            out[node.targets[0].id] = ast.dump(node)
+    return out
+
+
+def test_vdj_assembly_differs_only_in_its_device_half():
+    rel = "vdj/assembly.py"
+    want, got = _top_level(_read(ORIGINAL, rel)), _top_level(_read(COPY, rel))
+    host = set(want) - VDJ_DEVICE
+    assert len(host) >= 20 and {"BarcodeGraph", "contig_base_quals",
+                                "umi_support", "assemble_barcode"} <= host
+    differ = sorted(n for n in host if got.get(n) != want[n])
+    assert not differ, f"{rel}: {differ} differ from the original"
+    assert set(got) - set(want) == VDJ_PORT_HELPERS
+    assert set(want) - set(got) == {"_join64"}
 
 
 def _class_source(text, name):

@@ -4,8 +4,8 @@
     Capture config with a [samples] section (CMO demux through JIBES,
     `demux_samples`) and on a Gene Expression + Antibody Capture config:
     equal summaries, MEX and CSV bytes, per-sample matrices and metrics;
-  * a VDJ library row makes the port's `run_multi` raise
-    NotImplementedError before any count runs;
+  * a Gene Expression + VDJ-T config: the V(D)J library through each
+    package's `run_vdj`, equal vdj/ outputs and metrics;
   * the port's downstream stages read a count run's MEX where the h5 is
     missing (a machine without h5py), with the same result;
   * the port's CLI `multi` through `main([...])`.
@@ -24,12 +24,14 @@ from cellranger_tpu_torch.cli import main
 from cellranger_tpu_torch.io import matrix_store
 from cellranger_tpu_torch.io import multi_config as tmulti
 from cellranger_tpu_torch.io.matrix_io import CountMatrix
-from cellranger_tpu_torch.pipeline import count as tcount
 from cellranger_tpu_torch.pipeline import demux as tdemux
 from cellranger_tpu_torch.testing import analysis_check as check
 from cellranger_tpu_torch.testing import correctness as cc
 from cellranger_tpu_torch.testing.fixtures import (build_multi_run,
-                                                   build_rich_run)
+                                                   build_rich_run,
+                                                   build_synthetic_run,
+                                                   build_vdj_single_world)
+from chip_smoke import file_tree, tree_diffs
 
 
 @pytest.fixture(autouse=True)
@@ -220,28 +222,51 @@ ab,{adir},Antibody Capture
         == ["Antibody Capture"] * 4
 
 
-def test_multi_refuses_vdj_before_any_count(tmp_path, monkeypatch):
+def test_multi_gex_and_vdj_matches_jax(tmp_path):
+    """A Gene Expression + VDJ-T config: the V(D)J library runs through
+    each package's run_vdj (the port's on the device run_multi was given)
+    with the count run's whitelist; equal summaries, vdj/ trees and
+    top-level metrics."""
+    fx = build_synthetic_run(str(tmp_path / "gex"))
+    cells = [fx["wl_seqs"][c] for c in fx["cells"][:6]]
+    vw = build_vdj_single_world(str(tmp_path / "vdjfq"), barcodes=cells)
     csv = str(tmp_path / "multi.csv")
     with open(csv, "w") as f:
         f.write(f"""[gene-expression]
-reference,{tmp_path / 'noref'}
+reference,{fx['ref']}
+chemistry,SC3Pv3
 
 [vdj]
-reference,{tmp_path / 'novdj'}
+reference,{vw['fa']}
 
 [libraries]
 fastq_id,fastqs,feature_types
-gex,{tmp_path / 'nofastqs'},Gene Expression
-tcr,{tmp_path / 'nofastqs'},VDJ-T
+sample,{os.path.dirname(fx['fq1'])},Gene Expression
+v,{os.path.dirname(vw['fq1'])},VDJ-T
 """)
+    t_out, j_out = str(tmp_path / "torch"), str(tmp_path / "jax")
+    got = tmulti.run_multi(csv, t_out, fx["wl"], batch_size=2048,
+                           device="cpu")
+    want = jax_run_multi(csv, j_out, fx["wl"], batch_size=2048)
+    assert _strip(got) == _strip(want)
+    assert got["vdj"]["v"]["estimated_cells"] == 6
+    assert got["vdj"]["v"]["n_clonotypes"] == 2
+    assert got["count"]["total_reads"] == fx["n_reads"]
+    assert tree_diffs(os.path.join(t_out, "vdj"),
+                      os.path.join(j_out, "vdj")) == []
+    assert len(file_tree(os.path.join(t_out, "vdj"))) >= 15
+    _same_count_outs(os.path.join(t_out, "count"),
+                     os.path.join(j_out, "count"))
+    with open(os.path.join(t_out, "metrics_summary.json")) as a, \
+            open(os.path.join(j_out, "metrics_summary.json")) as b:
+        ta, tb = json.load(a), json.load(b)
+    ta.pop("wall_time_s"), tb.pop("wall_time_s")
+    assert ta == tb
+    assert ta["vdj_v_estimated_cells"] == 6 and ta["vdj_v_n_clonotypes"] == 2
 
-    def no_count(*a, **k):
-        raise AssertionError("run_count was called")
 
-    monkeypatch.setattr(tcount, "run_count", no_count)
-    with pytest.raises(NotImplementedError, match=r"V\(D\)J.*ROADMAP"):
-        tmulti.run_multi(csv, str(tmp_path / "out"), "wl.txt", device="cpu")
-    assert not os.path.exists(tmp_path / "out")
+def test_multi_config_rejects_bad_csv(tmp_path):
+    csv = str(tmp_path / "multi.csv")
     for bad, msg in (("[nope]\nx,y\n", "unknown section"),
                      ("[gene-expression]\nreference,x\n", "libraries")):
         open(csv, "w").write(bad)

@@ -7,7 +7,8 @@ and chip_smoke, then build the synthetic run and count it on the CPU
 (secondary analysis on, as by default), run secondary analysis on a
 planted-population matrix, and run chip_smoke's parity, golden, overflow,
 analysis, paired-end (a tiny SC5P-PE count with BAM), probe (a tiny
-MFRP-RNA count) and multi phases with the CPU as the device.  A second, static test walks the
+MFRP-RNA count), multi, V(D)J (the tests' worlds, and the kmer spectrum of
+a tiny run) and mkfastq phases with the CPU as the device.  A second, static test walks the
 port's sources and chip_smoke.py and refuses any import of jax, jaxlib or
 cellranger_tpu, lazy imports inside functions included."""
 
@@ -56,6 +57,14 @@ SCRIPT = textwrap.dedent("""
     import cellranger_tpu_torch.pipeline.aggr
     import cellranger_tpu_torch.analysis.batch_correction
     import cellranger_tpu_torch.analysis.run as analysis_run
+    import cellranger_tpu_torch.stats
+    import cellranger_tpu_torch.ops.lookup
+    import cellranger_tpu_torch.vdj.reference
+    import cellranger_tpu_torch.vdj.annotate
+    import cellranger_tpu_torch.vdj.assembly
+    import cellranger_tpu_torch.pipeline.vdj
+    import cellranger_tpu_torch.io.bcl
+    import cellranger_tpu_torch.pipeline.mkfastq
     import cellranger_tpu_torch.testing.analysis_check as check
     import chip_smoke
     from cellranger_tpu_torch.testing.fixtures import (build_analysis_matrix,
@@ -121,6 +130,17 @@ SCRIPT = textwrap.dedent("""
     assert g["expected"]["total_molecules"] > 0 and g["aligner_mapped"], g
     g = chip_smoke.multi_run(os.path.join(tmp, "multi"), device="cpu")
     assert g["samples"] == {"sampleA": 20, "sampleB": 20}, g
+    # V(D)J: the tests' worlds cpu against cpu, kmers in blocks; the kmer
+    # spectrum of a tiny build_vdj_run; mkfastq on both BCL layouts
+    g = chip_smoke.vdj_parity(os.path.join(tmp, "vdj"),
+                              devices=("cpu", "cpu"))
+    assert g["single"]["cells"] == 6 and g["single"]["blocks"] > 1, g
+    g = chip_smoke.vdj_kmers(os.path.join(tmp, "vdjk"), n_cells=5,
+                             pairs_per_cell=100, parity_reads=300,
+                             devices=("cpu", "cpu"))
+    assert g["bc_umi_pairs"] == 200 and g["reads"] == 1000, g
+    g = chip_smoke.mkfastq_run(os.path.join(tmp, "bcl"), n_clusters=400)
+    assert g["samples"]["A"] == 180 and g["fastqs"] == 9, g
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
