@@ -1,7 +1,9 @@
 """cellranger_tpu_torch: the PyTorch/CUDA port of cellranger_tpu.
 
 A second package beside the JAX one, which stays the reference.  It runs
-everything the JAX package runs on one device: `count` and `multi` for
+everything the JAX package runs, on one device, on a mesh of devices
+(parallel/mesh.py) and across hosts (parallel/distributed.py): `count`
+and `multi` for
 every chemistry and library type (single-end and paired-end gene
 expression with or without a possorted BAM, Feature Barcode libraries
 beside it, RTL probe runs with probe-barcode multiplexing, V(D)J

@@ -289,9 +289,14 @@ def _distinct_count(keys_sorted: torch.Tensor) -> torch.Tensor:
 
 def make_aligner(idx: DeviceIndex, read_len: int,
                  score_min: int = DEFAULT_ALIGN_SCORE_MIN,
-                 sw_rescue: bool = True, novel_sj: bool = True):
+                 sw_rescue: bool = True, novel_sj: bool = True,
+                 seed_lookup=None):
     """Build align(rna uint8 [B, L], nmask bool [B, L]) -> dict of [B]
-    (and [B, D] loci_*) tensors, on the index's device."""
+    (and [B, D] loci_*) tensors, on the index's device.
+
+    seed_lookup: a replacement for idx.kmer_table.lookup (canonical kmers
+    [B, S] -> (hit, val) [B, S, H]); a mesh with a sharded kmer table
+    passes parallel/index_shard.ShardedIndex.lookup."""
     k = idx.k
     L = read_len
     MINI = idx.sampling == "minimizer"
@@ -314,6 +319,7 @@ def make_aligner(idx: DeviceIndex, read_len: int,
     contig_len = 2 * idx.sj_overhang
     glen = idx.genome_len
     fetch_win = make_window_fetch(idx, L + N_OFF - 1)
+    lookup = seed_lookup or idx.kmer_table.lookup
     dev = idx.text_rows.device
     seed_off_t = (None if seed_offsets is None
                   else torch.from_numpy(seed_offsets).to(dev))
@@ -372,7 +378,7 @@ def make_aligner(idx: DeviceIndex, read_len: int,
             flip = kmr < km
             canon = torch.where(flip, kmr, km)
             off = seed_off_t[None, :, None]
-        hit, val = idx.kmer_table.lookup(canon)      # [B, S, H]
+        hit, val = lookup(canon)                     # [B, S, H]
         hit = hit & kv[:, :, None]
         if PARITY:
             pos_h = val & 0xFFFFFFFE                 # strand in parity bit

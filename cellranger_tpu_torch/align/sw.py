@@ -107,10 +107,13 @@ def banded_sw(read_codes, read_mask, win_codes, win_mask):
     lib = kernels.library()         # a failed build raises, also for B = 0
     if B == 0:
         return tuple(outs)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.crt_banded_sw(
-        *(t.data_ptr() for t in ts), B, L, *(o.data_ptr() for o in outs),
-        stream)
+    # the launch goes to the inputs' card, which need not be the current
+    # one (a mesh of several cards steps slice i on card i)
+    with torch.cuda.device(dev):
+        rc = lib.crt_banded_sw(
+            *(t.data_ptr() for t in ts), B, L,
+            *(o.data_ptr() for o in outs),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"banded_sw kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

@@ -1,6 +1,8 @@
 """The `count` pipeline: FASTQ -> filtered feature x barcode matrix, BAM.
 
-Port of cellranger_tpu/pipeline/count.py `run_count` for one device:
+Port of cellranger_tpu/pipeline/count.py `run_count`, on one device, on
+a mesh of devices (parallel/mesh.py) and across hosts
+(parallel/distributed.py):
 
   pass 1 (== MAKE_SHARD): host barcode histogram over the whitelist (the
       correction prior);
@@ -28,17 +30,24 @@ Port of cellranger_tpu/pipeline/count.py `run_count` for one device:
       (h5py), junctions, feature assignment, secondary analysis
       (analysis/, on the run's device), metrics JSON.
 
-`shard_index` (multi-GPU) raises NotImplementedError naming its ROADMAP
-item; chemistry "auto" is resolved by pipeline/detect_chemistry.py before
+On a mesh, each batch splits over the devices and every slice runs the
+stream step on its own device (the kmer table sharded over the mesh with
+`shard_index`); the molecule rows spill and the partition dedup runs one
+partition per device.  Across hosts (the CRTPU_* environment contract),
+each host counts its share of the FASTQ pairs, the pass-1 histogram is
+summed over hosts, and host 0 merges every host's spill and metrics.
+Chemistry "auto" is resolved by pipeline/detect_chemistry.py before
 run_count, as in the JAX package.  The host stages are the port's
 verbatim copies of the JAX package's jax-free modules.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import queue as _queue
+import shutil
 import threading
 import time
 from dataclasses import dataclass
@@ -65,7 +74,11 @@ from ..ops.bucket_table import BucketTable
 from ..ops.features import make_feature_extractor
 from ..ops.tensor_ops import U32_MASK, compact_indices, scatter_drop, widen
 from ..ops.trim import make_trimmer
-from ..parallel.molecule_state import MoleculeState, dedup_partitions
+from ..parallel import distributed as dist
+from ..parallel.executor import Executor
+from ..parallel.index_shard import shard_device_index
+from ..parallel.mesh import to_device
+from ..parallel.molecule_state import MoleculeState
 from .bam_out import BamCollector
 
 
@@ -310,7 +323,8 @@ def _unpack_codes(buf: torch.Tensor, o: int, L: int):
 
 
 def _make_body(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
-               read_len: int, emit_secondary: bool = False):
+               read_len: int, emit_secondary: bool = False,
+               seed_lookup=None):
     """The fused per-batch device work shared by both step modes (port of
     `_make_step`'s `_body`): unpack, trim, align (SW rescue through the
     CUDA kernel on the card), annotate, novel-junction right segments,
@@ -321,8 +335,9 @@ def _make_body(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
 
     emit_secondary (single-end BAM runs): also output the other distinct
     best-score loci of multimapped reads (sec_*) for the BAM's secondary
-    records (tx_annotation/src/read.rs:155,224-226)."""
-    align = make_aligner(didx, read_len)
+    records (tx_annotation/src/read.rs:155,224-226).  seed_lookup: the
+    aligner's kmer lookup when the kmer table is sharded over a mesh."""
+    align = make_aligner(didx, read_len, seed_lookup=seed_lookup)
     annotate = make_annotator(ann_idx, didx.genome_len, didx.sj_overhang,
                               chem.strandedness)
     trim = make_trimmer(read_len)
@@ -578,37 +593,105 @@ def _pack_stream(out: dict) -> dict:
     return dict(i32=torch.cat(cols, 1), flags=flags, mvec=mvec)
 
 
-def make_stream_step(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
-                     read_len: int, emit_secondary: bool = False):
-    """The stream-mode device step (port of `_make_step(...,
-    accumulate=False, emit_secondary=...)`): step(plane) -> dict(i32,
-    flags, mvec) planes, read back per batch with `fetch_step_out` and
-    named by `unpack_step_out`.  On the card the planes are copied into
-    pinned host buffers on the device stream and an event marks the copy,
-    so the host can read batch i while batch i+1 runs."""
-    body = _make_body(didx, ann_idx, chem, read_len, emit_secondary)
-
-    def step(plane):
-        planes = _pack_stream(body(plane))
-        if plane.device.type != "cuda":
-            return planes
-        host = {}
+def host_copy(planes: dict) -> dict:
+    """Stream planes -> host.  On the card the planes are copied into
+    pinned host buffers on the device stream and an event marks the copy
+    (`fetch_step_out` waits for it), so the host can read batch i while
+    batch i+1 runs; CPU planes are returned as they are."""
+    dev = planes["i32"].device
+    if dev.type != "cuda":
+        return planes
+    host = {}
+    with torch.cuda.device(dev):
         for k, v in planes.items():
             host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
             host[k].copy_(v, non_blocking=True)
         host["event"] = torch.cuda.Event()
         host["event"].record()
-        return host
+    return host
 
+
+def make_stream_step(didx: DeviceIndex, ann_idx: AnnotationIndex, chem,
+                     read_len: int, emit_secondary: bool = False,
+                     seed_lookup=None):
+    """The stream-mode device step (port of `_make_step(...,
+    accumulate=False, emit_secondary=...)`): step(plane) -> dict(i32,
+    flags, mvec) planes on the host (`host_copy`), read back per batch
+    with `fetch_step_out` and named by `unpack_step_out`.  step.planes is
+    the same step with its planes left on the device, the form a mesh
+    concatenates (parallel/mesh.make_sharded_step)."""
+    body = _make_body(didx, ann_idx, chem, read_len, emit_secondary,
+                      seed_lookup)
+
+    def planes(plane):
+        return _pack_stream(body(plane))
+
+    def step(plane):
+        return host_copy(planes(plane))
+
+    step.planes = planes
     return step
 
 
-def _check_supported(cfg: CountConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    if cfg.shard_index:
+def _check_supported(cfg: CountConfig, mesh=None,
+                     multihost: bool = False) -> None:
+    """Refuse what run_count does not run: chemistry "auto" (resolved by
+    detect_chemistry first), and a mesh inside a multi-host run, which the
+    JAX package never runs either (its multi-host runs pass no mesh)."""
+    if cfg.chemistry == "auto":
         raise NotImplementedError(
-            "cellranger_tpu_torch: shard_index: multi-GPU (ROADMAP queue 1, "
-            "multi-GPU)")
+            "cellranger_tpu_torch: run_count does not resolve chemistry "
+            "'auto' itself; call pipeline.detect_chemistry.detect_chemistry "
+            "first (as the CLI does) and pass the chemistry it names")
+    if mesh is not None and multihost:
+        raise ValueError(
+            "cellranger_tpu_torch: a mesh inside a multi-host run is not "
+            "supported: across hosts only host arrays travel (gloo), so "
+            "each host runs on one device (ROADMAP, multi-host)")
+
+
+@dataclass
+class Hosts:
+    """This process's place in a multi-host run."""
+
+    pid: int
+    nproc: int
+    resume: bool                 # every host's pass 2 is durable on disk
+    fingerprint: str | None      # count_fingerprint, when resumable
+
+
+def _join_hosts(cfg: CountConfig, out_dir: str) -> Hosts:
+    """The multi-host prologue, the same collectives in the same order on
+    every host.  Resume is unanimous: a host whose partial
+    (_spill/host{pid}.json, written after its spill flushed) carries this
+    run's fingerprint votes yes, and the votes are summed, since a fresh
+    run's clean below would delete the spill of hosts that finished.
+    BAM, Feature Barcode and probe runs keep per-read state outside the
+    spill and always rerun.  A fresh run has host 0 clear stale spill
+    files and BAM spools (a smaller host set would otherwise leave files
+    that `load_union` merges) behind a barrier."""
+    pid, nproc = dist.process_index(), dist.process_count()
+    spill_dir = os.path.join(out_dir, "_spill")
+    fp, resume = None, False
+    if (cfg.checkpoint and not cfg.write_bam and not cfg.probe_set_csv
+            and not cfg.feature_ref_csv):
+        from .checkpoint import count_fingerprint
+        fp = count_fingerprint(cfg)
+        try:
+            with open(os.path.join(spill_dir, f"host{pid}.json")) as f:
+                mine_ok = json.load(f).get("fingerprint") == fp
+        except (OSError, ValueError):
+            mine_ok = False
+        votes = dist.allsum_array(np.array([1 if mine_ok else 0]))
+        resume = int(votes[0]) == nproc
+    if not resume:
+        if pid == 0:
+            for f in glob.glob(os.path.join(spill_dir, "*")):
+                os.remove(f)
+            shutil.rmtree(os.path.join(out_dir, "_bam_spool"),
+                          ignore_errors=True)
+        dist.barrier("spill-clean")
+    return Hosts(pid, nproc, resume, fp)
 
 
 @dataclass
@@ -722,24 +805,35 @@ def _add_step_metrics(metrics: CountMetrics, m: dict) -> None:
 
 
 def run_count(cfg: CountConfig, out_dir: str,
-              whitelist: Whitelist | None = None, *, device) -> dict:
+              whitelist: Whitelist | None = None, *, device,
+              mesh=None) -> dict:
     """Run the count pipeline on `device` ("cuda" or "cpu"); writes
     outputs into out_dir and returns the metrics dict.  Where h5py is not
-    installed the h5 outputs (H5_OUTPUTS) are not written."""
-    if cfg.chemistry == "auto":
-        raise NotImplementedError(
-            "cellranger_tpu_torch: run_count does not resolve chemistry "
-            "'auto' itself; call pipeline.detect_chemistry.detect_chemistry "
-            "first (as the CLI does) and pass the chemistry it names")
+    installed the h5 outputs (H5_OUTPUTS) are not written.
+
+    mesh: a parallel.mesh.Mesh; pass 2's step and the partition dedup run
+    over its devices (batch slices in parallel, the index replicated per
+    distinct device or, with cfg.shard_index, its kmer table sharded), the
+    rest on `device`.  The outputs equal the one-device run's.
+
+    Multi-host (the CRTPU_* variables of parallel/distributed.py): every
+    host runs this function over a shared out_dir; the FASTQ pairs are
+    dealt round-robin, molecule rows spill under out_dir, and host 0
+    merges every host's partial after a barrier and writes the outputs.
+    The other hosts return {"worker": pid, "total_reads": ...}."""
+    dist.init_from_env()   # no-op without the CRTPU_* contract
+    executor = Executor(mesh, device)
+    multihost = dist.process_count() > 1
+    _check_supported(cfg, executor.mesh, multihost)
     chem = get_chemistry(cfg.chemistry)
-    _check_supported(cfg)
-    device = torch.device(device)
+    device = executor.device
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.time()
     from ..params import get as _param
     from ..perf import PerfTrace
     perf = PerfTrace()
-    batch_size = int(_param("batch_size") or cfg.batch_size)
+    batch_size = executor.round_batch(
+        int(_param("batch_size") or cfg.batch_size))
     if whitelist is None:
         whitelist = Whitelist.load(cfg.whitelist_path)
 
@@ -795,8 +889,9 @@ def run_count(cfg: CountConfig, out_dir: str,
     # ---- checkpoint/resume (pipeline/checkpoint.py, host code) ----
     ckpt = None
     resume = None
+    hosts = _join_hosts(cfg, out_dir) if multihost else None
     spool_dir = os.path.join(out_dir, "_bam_spool")
-    if cfg.checkpoint:
+    if cfg.checkpoint and hosts is None:
         from .checkpoint import CountCheckpoint, count_fingerprint
         ckpt = CountCheckpoint(out_dir, count_fingerprint(cfg))
         resume = ckpt.load("molecules")
@@ -831,15 +926,23 @@ def run_count(cfg: CountConfig, out_dir: str,
     else:
         bam_collector = None
         if cfg.write_bam and gi is not None:
-            bam_collector = BamCollector(gi, ref.transcriptome, spool_dir,
-                                         read_group=cfg.sample_id)
-        (mbc, mgene, mumi, mreads, mlib, sj_counts,
-         raw_views) = _count_pass(
+            # multi-host: a band spool per host under the shared out dir;
+            # host 0 merges every host's bands at write time
+            bam_collector = BamCollector(
+                gi, ref.transcriptome,
+                spool_dir if hosts is None
+                else os.path.join(spool_dir, f"host{hosts.pid}"),
+                read_group=cfg.sample_id)
+        n_parts = int(_param("spill_partitions")
+                      or max(SPILL_PARTS, executor.n_devices))
+        passed = _count_pass(
             cfg, chem, whitelist, libraries, gi, didx, ann_idx, batch_size,
             metrics, perf, out_dir, fb_ref, fb_extractors, features,
-            n_genes, bam_collector, int(_param("spill_partitions")
-                                        or SPILL_PARTS), device, probe,
-            probe_bc_packed)
+            n_genes, bam_collector, n_parts, executor, probe,
+            probe_bc_packed, hosts)
+        if passed is None:       # a worker host: host 0 writes the outputs
+            return {"worker": hosts.pid, "total_reads": metrics.total_reads}
+        mbc, mgene, mumi, mreads, mlib, sj_counts, raw_views = passed
         if ckpt is not None:
             sj_items = sorted(sj_counts.items())
             save = dict(mbc=mbc, mgene=mgene, mumi=mumi, mreads=mreads,
@@ -869,11 +972,13 @@ def run_count(cfg: CountConfig, out_dir: str,
 
 def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
                 batch_size, metrics, perf, out_dir, fb_ref, fb_extractors,
-                features, n_genes, bam_collector, n_parts, device,
-                probe=None, probe_bc_packed=None):
+                features, n_genes, bam_collector, n_parts, executor,
+                probe=None, probe_bc_packed=None, hosts=None):
     """Passes 1 and 2 and the dedup.  Returns the molecule table (bc, gene,
     umi, reads, library) sorted by (bc, gene, umi), the splice-junction
-    tallies and, for BAM and Feature Barcode runs, the raw-triple views.
+    tallies and, for BAM and Feature Barcode runs, the raw-triple views;
+    None on a worker host of a multi-host run, once its spill and partial
+    are on disk.
 
     Count-only runs step in accumulate mode and dedup in the device
     molecule state (host flush + partition dedup past MOLECULE_STATE_CAP
@@ -885,17 +990,41 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
     (`probe`) have no fused step: each Gene Expression batch is resolved
     on the host, probe-aligned on the device and spilled, synchronously;
     with probe barcodes (MFRP) the barcode column is the product index
-    gel-bead rank * n_probe + probe-barcode rank."""
-    accumulate = probe is None and not cfg.write_bam
+    gel-bead rank * n_probe + probe-barcode rank.
+
+    On a mesh the step streams (its outputs are split over the devices)
+    and the rows spill; across hosts every host spills (host 0 reads them
+    all), so neither keeps the device molecule state."""
+    device = executor.device
+    accumulate = (probe is None and not cfg.write_bam
+                  and executor.mesh is None)
     if probe is not None:
         step = None
     elif accumulate:
         step = make_count_step(didx, ann_idx, chem, cfg.read_len)
     else:
-        step = make_stream_step(didx, ann_idx, chem, cfg.read_len,
-                                emit_secondary=True)
+        sharded = None
+        if cfg.shard_index and executor.mesh is not None:
+            sharded = shard_device_index(didx, executor.mesh)
+
+        def step_for(dev):
+            return make_stream_step(
+                sharded.replicas[dev] if sharded else to_device(didx, dev),
+                to_device(ann_idx, dev), chem, cfg.read_len,
+                emit_secondary=cfg.write_bam,
+                seed_lookup=sharded.lookup if sharded else None).planes
+
+        planes = executor.wrap_step(step_for)
+
+        def step(plane):
+            return host_copy(planes(plane))
+
     work = [(li, pair) for li, lib in enumerate(libraries)
             for pair in lib.fastq_pairs]
+    if hosts is not None:
+        # this host's share; none when every host's pass 2 is on disk
+        work = [] if hosts.resume else dist.host_shard(work, hosts.pid,
+                                                       hosts.nproc)
     # feature patterns declared on R1 need the R1-remainder view
     need_r1_rest = any(pat.read == "R1" for pat in fb_extractors)
 
@@ -916,6 +1045,8 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
     for _li, batch in my_batches(barcode_only=True):
         idx = whitelist.index_of(batch.bc_packed[:batch.n_reads])
         np.add.at(wl_counts, idx[idx >= 0], 1)
+    # every host needs the global prior for pass 2
+    wl_counts = dist.allsum_array(wl_counts)
     perf.lap("pass1_extract_whitelist")
 
     def resolve_bc(batch):
@@ -933,8 +1064,8 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
                 or probe is not None):
             return li, batch, None, None
         bc_idx, hit, corrected, corr_bc = resolve_bc(batch)
-        plane = upload_plane(
-            pack_step_input(chem, cfg.read_len, batch, bc_idx), device)
+        plane = executor.put(
+            pack_step_input(chem, cfg.read_len, batch, bc_idx))
         hi = dict(bc_idx=bc_idx, corr_bc=corr_bc,
                   n_valid_bc=int(hit.sum()),
                   n_corrected=int(corrected.sum()),
@@ -957,7 +1088,10 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
     producer = threading.Thread(target=_producer, daemon=True)
     producer.start()
 
-    spill = MoleculeSpill(os.path.join(out_dir, "_spill"), n_parts)
+    spill_dir = os.path.join(out_dir, "_spill")
+    spill = MoleculeSpill(
+        spill_dir, n_parts, prefix=f"host{hosts.pid}_" if hosts else "",
+        append=bool(hosts and hosts.resume))
     sj_counts: dict = {}
     mol_cap = max(4 * batch_size, 1 << 20)
     sj_cap = max(4 * batch_size, 1 << 18)
@@ -971,7 +1105,7 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
     # runs need the raw-triple views and spill their rows instead
     keep_raw = bam_collector is not None or fb_ref is not None
     mol_state = None
-    if accumulate and not keep_raw:
+    if accumulate and not keep_raw and hosts is None:
         mol_state = MoleculeState(MOLECULE_STATE_CAP, chem.umi_length,
                                   device)
 
@@ -1194,8 +1328,13 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
         metrics.sj_capacity_overflow += sj_capacity_overflow
     perf.lap("pass2_correct_align_annotate")
 
-    # ---- dedup ----
     spill.flush()
+    if hosts is not None and not _hand_off(
+            hosts, metrics, sj_counts, probe, bam_collector, spill,
+            out_dir):
+        return None
+
+    # ---- dedup ----
     raw_parts = []
     if mol_state is not None and not mol_state.flushed:
         # device-resident path: one dedup + one valid-molecule fetch
@@ -1215,7 +1354,8 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
                 msk = sub == j
                 parts.append((fb_[msk], fg_[msk], fu_[msk], fr_[msk]))
         for p in range(n_parts):
-            b, g, u = spill.load_part(p)
+            b, g, u = (MoleculeSpill.load_union(spill_dir, n_parts, p)
+                       if hosts is not None else spill.load_part(p))
             k = max(1, -(-len(b) // DEDUP_CHUNK_LIMIT))
             if k == 1:
                 if len(b):
@@ -1226,8 +1366,8 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
                     msk = sub == j
                     parts.append((b[msk], g[msk], u[msk]))
         parts_out = []
-        for dd in dedup_partitions(parts, chem.umi_length, device,
-                                   keep_raw=keep_raw):
+        for dd in executor.dedup_partitions(parts, chem.umi_length,
+                                            keep_raw=keep_raw):
             parts_out.append((dd["mol_bc"], dd["mol_gene"], dd["mol_umi"],
                               dd["mol_reads"]))
             if keep_raw:
@@ -1254,6 +1394,62 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
     spill.close(remove=True)
     perf.lap("dedup")
     return mbc, mgene, mumi, mreads, mlib, sj_counts, raw_views
+
+
+def _hand_off(hosts: Hosts, metrics: CountMetrics, sj_counts: dict, probe,
+              bam_collector, spill, out_dir: str) -> bool:
+    """The multi-host join, after this host's spill is flushed: publish
+    this host's partial (metrics, junction tallies, probe-region reads)
+    atomically, seal its BAM spool, and wait for every host.  A worker
+    closes its spill and returns False.  Host 0 folds every host's
+    partial into metrics, sj_counts and the probe tallies (in place),
+    points its BAM collector at the other hosts' spools, and returns
+    True."""
+    spill_dir = os.path.join(out_dir, "_spill")
+    if not hosts.resume:
+        partial = dict(
+            metrics=dict(metrics.__dict__),
+            sj=[[list(k), v] for k, v in sorted(sj_counts.items())],
+            fingerprint=hosts.fingerprint)
+        if probe is not None:
+            partial["probe_region_reads"] = probe.region_reads.tolist()
+        # the partial is the durable "my pass 2 is complete" marker
+        pj = os.path.join(spill_dir, f"host{hosts.pid}.json")
+        with open(pj + ".tmp", "w") as f:
+            json.dump(partial, f)
+        os.replace(pj + ".tmp", pj)
+    if bam_collector is not None:
+        bam_collector.spool.seal()
+    dist.barrier("count-spill")
+    if os.environ.get("CRTPU_TEST_DIE_AFTER_PASS2"):
+        # test hook: a whole-job crash at the point where every host's
+        # pass-2 state is durable (covers the resume)
+        raise SystemExit(42)
+    if hosts.pid != 0:
+        spill.close(remove=False)
+        return False
+    if bam_collector is not None:
+        bam_collector.sibling_dirs = sorted(
+            d for d in glob.glob(os.path.join(out_dir, "_bam_spool",
+                                              "host*"))
+            if os.path.basename(d) != f"host{hosts.pid}")
+    for k in metrics.__dict__:
+        setattr(metrics, k, 0)
+    sj_counts.clear()
+    if probe is not None:
+        probe.region_reads = np.zeros_like(probe.region_reads)
+    for path in sorted(glob.glob(os.path.join(spill_dir, "host*.json"))):
+        with open(path) as f:
+            part = json.load(f)
+        for k, v in part["metrics"].items():
+            setattr(metrics, k, getattr(metrics, k) + v)
+        for k, v in part["sj"]:
+            key = tuple(k)
+            sj_counts[key] = sj_counts.get(key, 0) + v
+        if probe is not None:
+            probe.region_reads += np.asarray(part["probe_region_reads"],
+                                             np.int64)
+    return True
 
 
 def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,

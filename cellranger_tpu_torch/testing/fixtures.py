@@ -1339,3 +1339,192 @@ def build_bcl_run(tmp: str, n_clusters: int = 120, seed: int = 5) -> dict:
                 cbcl=write_cbcl_bcl_run(os.path.join(tmp, "cbcl"), tiles),
                 samplesheet=sheet, index_kit=kit, truth=truth,
                 n_clusters=len(codes))
+
+
+# ---------------------------------------------------------------------------
+# Multi-device and multi-host runs (the JAX package's __graft_entry__.py and
+# tests/test_multihost.py fixtures, draw for draw, built by the port)
+# ---------------------------------------------------------------------------
+
+def synthetic_step_setup(read_len: int = READ_LEN, n_wl: int = 512,
+                         genome_len: int = 30_000, seed: int = 7):
+    """A two-gene 30 kb reference and a 512-barcode whitelist (the JAX
+    package's `__graft_entry__._synthetic_setup`).  Returns (make_step,
+    wl, genome, rng): make_step(device) is the stream step against that
+    reference on `device`."""
+    from ..align.aligner import DeviceIndex
+    from ..align.annotate import AnnotationIndex
+    from ..align.index import GenomeIndex
+    from ..io.chemistry import get_chemistry
+    from ..io.gtf import Gene, Transcript, Transcriptome
+    from ..io.whitelist import Whitelist
+    from ..pipeline.count import make_stream_step
+
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    genome = bases[rng.integers(0, 4, genome_len)].tobytes()
+    txome = Transcriptome(
+        genes=[Gene("G1", "G1", "chr1", "+", 0),
+               Gene("G2", "G2", "chr1", "-", 1)],
+        transcripts=[
+            Transcript("T1", 0, "chr1", "+", [(1000, 1900), (2500, 3400)]),
+            Transcript("T2", 1, "chr1", "-", [(8000, 9500)]),
+        ])
+    gi = GenomeIndex.build({"chr1": genome}, txome)
+    wl_seqs = sorted({"".join(rng.choice(list("ACGT"), 16))
+                      for _ in range(n_wl + 64)})
+    wl = Whitelist.from_seqs(wl_seqs[:n_wl])
+    chem = get_chemistry("SC3Pv3")
+
+    def make_step(device):
+        return make_stream_step(DeviceIndex.from_host(gi, device),
+                                AnnotationIndex.build(txome, gi, device),
+                                chem, read_len)
+
+    return make_step, wl, genome, rng
+
+
+def synthetic_batch(wl, genome: bytes, rng, B: int,
+                    read_len: int = READ_LEN):
+    """B reads from the genome with two base errors each, barcodes from
+    the whitelist's first 64 (the JAX package's
+    `__graft_entry__._synthetic_batch`).  Returns (packed uint32 step
+    plane, host views dict(bc_packed, bc_idx, umi))."""
+    from types import SimpleNamespace
+
+    from ..io.chemistry import get_chemistry
+    from ..ops import encode
+    from ..pipeline.count import pack_step_input
+
+    wl_strs = [encode.unpack_str(int(s), 16) for s in wl.sorted_seqs[:64]]
+    bcs = [wl_strs[int(rng.integers(len(wl_strs)))] for _ in range(B)]
+    bc_codes = np.stack([encode.encode_str(b)[0] for b in bcs])
+    bc_packed = encode.pack_codes_np(bc_codes, 16)
+    umi = rng.integers(0, 1 << 24, B).astype(np.uint32)
+    pos = rng.integers(0, len(genome) - read_len, B)
+    rna = np.zeros((B, read_len), np.uint8)
+    for i, p in enumerate(pos):
+        rna[i] = encode.encode_str(genome[p:p + read_len])[0]
+    err = rng.integers(0, read_len, (B, 2))
+    for i in range(B):
+        rna[i, err[i]] ^= 1
+    bc_idx = wl.index_of(bc_packed).astype(np.int32)
+    shim = SimpleNamespace(
+        batch_size=B, umi_packed=umi, slot_valid=np.ones(B, bool),
+        umi_valid=np.ones(B, bool), rna=rna,
+        rna_nmask=np.ones((B, read_len), bool), rna2=None, rna2_nmask=None)
+    plane = pack_step_input(get_chemistry("SC3Pv3"), read_len, shim, bc_idx)
+    return plane, dict(bc_packed=bc_packed, bc_idx=bc_idx, umi=umi)
+
+
+def build_tiny_mesh_run(tmp: str, read_len: int = READ_LEN) -> dict:
+    """240 reads of 8 barcodes over two genes (one per strand) on a 12 kb
+    reference (the JAX package's `__graft_entry__._tiny_run_fixture`).
+    Returns dict(ref, wl, fq1, fq2, n_reads)."""
+    from ..io.gtf import write_fasta
+    from ..io.reference import ReferencePackage
+
+    os.makedirs(tmp, exist_ok=True)
+    rng = np.random.default_rng(13)
+    bases = "ACGT"
+    genome = "".join(rng.choice(list(bases), 12_000))
+    write_fasta(os.path.join(tmp, "genome.fa"), {"chr1": genome.encode()})
+    with open(os.path.join(tmp, "genes.gtf"), "w") as f:
+        f.write('chr1\tt\texon\t1001\t2400\t.\t+\t.\t'
+                'gene_id "GA"; transcript_id "TA"; gene_name "GA";\n')
+        f.write('chr1\tt\texon\t5001\t6400\t.\t-\t.\t'
+                'gene_id "GB"; transcript_id "TB"; gene_name "GB";\n')
+    ReferencePackage.build(os.path.join(tmp, "genome.fa"),
+                           os.path.join(tmp, "genes.gtf"),
+                           os.path.join(tmp, "ref"))
+    wl = sorted({"".join(rng.choice(list(bases), 16)) for _ in range(64)})
+    with open(os.path.join(tmp, "wl.txt"), "w") as f:
+        f.writelines(s + "\n" for s in wl)
+    comp = str.maketrans(bases, "TGCA")
+    r1p = os.path.join(tmp, "t_S1_L001_R1_001.fastq.gz")
+    r2p = os.path.join(tmp, "t_S1_L001_R2_001.fastq.gz")
+    n_reads = 240
+    with gzip.open(r1p, "wt") as f1, gzip.open(r2p, "wt") as f2:
+        for i in range(n_reads):
+            bc = wl[i % 8]
+            umi = "".join(rng.choice(list(bases), 12))
+            if i % 2 == 0:
+                p = int(rng.integers(1000, 2400 - read_len))
+                cdna = genome[p:p + read_len]
+            else:
+                p = int(rng.integers(5000, 6400 - read_len))
+                cdna = genome[p:p + read_len].translate(comp)[::-1]
+            f1.write(f"@r{i}\n{bc}{umi}\n+\n{'F' * 28}\n")
+            f2.write(f"@r{i}\n{cdna}\n+\n{'F' * read_len}\n")
+    return dict(ref=os.path.join(tmp, "ref"), wl=os.path.join(tmp, "wl.txt"),
+                fq1=r1p, fq2=r2p, n_reads=n_reads)
+
+
+def build_lane_run(tmp: str, reads_per_lane=400, n_lanes: int = 4,
+                   read_len: int = READ_LEN) -> dict:
+    """Lanes of reads over two genes of a 30 kb reference, 16 barcodes
+    (the JAX package's `tests/test_multihost.py` `_build_run`).
+    reads_per_lane: one count for every lane, or a list of counts (one
+    lane each).  Returns dict(pairs [(r1, r2) per lane], ref, wl,
+    n_reads)."""
+    from ..io.gtf import write_fasta
+    from ..io.reference import ReferencePackage
+
+    lane_reads = (reads_per_lane if isinstance(reads_per_lane, list)
+                  else [reads_per_lane] * n_lanes)
+    os.makedirs(tmp, exist_ok=True)
+    rng = np.random.default_rng(55)
+    genome = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), 30_000))
+    write_fasta(os.path.join(tmp, "g.fa"), {"chr1": genome})
+    with open(os.path.join(tmp, "g.gtf"), "w") as f:
+        f.write('chr1\tt\texon\t2001\t12000\t.\t+\t.\t'
+                'gene_id "GM"; transcript_id "TM"; gene_name "GeneM";\n')
+        f.write('chr1\tt\texon\t15001\t25000\t.\t+\t.\t'
+                'gene_id "GN"; transcript_id "TN"; gene_name "GeneN";\n')
+    ReferencePackage.build(os.path.join(tmp, "g.fa"),
+                           os.path.join(tmp, "g.gtf"),
+                           os.path.join(tmp, "ref"))
+    wl = sorted({"".join(rng.choice(list("ACGT"), 16)) for _ in range(64)})
+    with open(os.path.join(tmp, "wl.txt"), "w") as f:
+        f.writelines(s + "\n" for s in wl)
+    pairs = []
+    n = 0
+    for lane, n_lane in enumerate(lane_reads):
+        r1p = os.path.join(tmp, f"mh_S1_L00{lane + 1}_R1_001.fastq.gz")
+        r2p = os.path.join(tmp, f"mh_S1_L00{lane + 1}_R2_001.fastq.gz")
+        with gzip.open(r1p, "wt") as f1, gzip.open(r2p, "wt") as f2:
+            for _ in range(n_lane):
+                umi = "".join(rng.choice(list("ACGT"), 12))
+                p = int(rng.integers(2000, 24000 - read_len))
+                cdna = genome[p:p + read_len].decode()
+                f1.write(f"@m{n}\n{wl[n % 16]}{umi}\n+\n{'F' * 28}\n")
+                f2.write(f"@m{n}\n{cdna}\n+\n{'F' * read_len}\n")
+                n += 1
+        pairs.append((r1p, r2p))
+    return dict(pairs=pairs, ref=os.path.join(tmp, "ref"),
+                wl=os.path.join(tmp, "wl.txt"), n_reads=n)
+
+
+def split_lanes(fx: dict, n_lanes: int, out_dir: str) -> dict:
+    """The fixture `fx` (fq1/fq2, plain or gzipped) with its reads cut
+    into n_lanes consecutive lanes of (nearly) equal size, written as
+    plain FASTQ pairs.  Returns dict(fx, pairs=[(r1, r2) per lane])."""
+    os.makedirs(out_dir, exist_ok=True)
+    reads = {}
+    for k in ("fq1", "fq2"):
+        opener = gzip.open if fx[k].endswith(".gz") else open
+        with opener(fx[k], "rb") as f:
+            reads[k] = f.readlines()
+    n = len(reads["fq1"]) // 4
+    cuts = [n * i // n_lanes for i in range(n_lanes + 1)]
+    pairs = []
+    for lane in range(n_lanes):
+        pair = []
+        for k, r in (("fq1", "R1"), ("fq2", "R2")):
+            path = os.path.join(out_dir,
+                                f"lanes_S1_L{lane + 1:03d}_{r}_001.fastq")
+            with open(path, "wb") as f:
+                f.writelines(reads[k][4 * cuts[lane]:4 * cuts[lane + 1]])
+            pair.append(path)
+        pairs.append(tuple(pair))
+    return dict(fx, pairs=pairs)

@@ -89,11 +89,27 @@ Phases, each printing one line; any failure raises and exits non-zero:
   mkfastq      a lane of 200,000 clusters in the classic and in the CBCL
                BCL layout through run_mkfastq: reads per sample as built,
                equal decompressed FASTQs from both layouts
+  mesh         the e2e fixture count-only through run_count on a mesh of 4
+               entries (4 distinct cards where the machine has them, else
+               cuda:0 four times: the sharded code path on one card, not a
+               multi-GPU speedup): every batch split in 4 slices, each
+               stepped on its device, rows spilled, partitions deduplicated
+               one per device; the same metrics (wall excluded) and MEX
+               bytes as e2e, 499,995 molecules, four SW launches a batch
+  mesh_shard_index  the same with the kmer table sharded over the mesh
+               (each slice's seed queries gathered by the owning entry)
+  multihost    the e2e reads cut into 4 lanes of 250,000, counted by 2
+               processes (testing/multihost_worker.py on cuda, gloo over a
+               free local port): host 0's metrics and MEX equal one
+               process's run of the same lanes, host 1 reports only its
+               own lanes' 500,000 reads
 
 Every path resets the SW kernel's launch count before it runs and reads
 it after; the kernel report counts the e2e path's launches and lists
-every path's (`pe`: two a batch, one per mate; `rtl`, the V(D)J paths
-and `mkfastq`: none, no genome aligner runs).  The line before the last is the kernel report (JSON); the
+every path's (`pe`: two a batch, one per mate; `mesh` and
+`mesh_shard_index`: one a slice; `multihost`: the sum of both processes'
+counts; `rtl`, the V(D)J paths and `mkfastq`: none, no genome aligner
+runs).  The line before the last is the kernel report (JSON); the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -171,6 +187,10 @@ VDJ_PARITY_CHUNK = 500          # kmer rows a block: splits every world
 VDJ_KMER_CELLS = 400            # 2,000,000 pairs, 4,000,000 reads
 VDJ_KMER_PARITY_READS = 200_000
 MKFASTQ_CLUSTERS = 200_000
+MESH_ENTRIES = 4
+MULTIHOST_PROCS = 2
+MULTIHOST_LANES = 4
+MULTIHOST_TIMEOUT_S = 600
 
 
 def phase(name: str, msg: str) -> None:
@@ -425,18 +445,22 @@ def bam_records(path: str) -> int:
 
 
 def count_run(fx: dict, out: str, device: str = "cuda",
-              batch_size: int = E2E_BATCH, **kw) -> dict:
-    """One run_count of a fixture; returns counts, wall, phase split, SW
-    launches (reset before the run) and peak device memory."""
+              batch_size: int = E2E_BATCH, mesh=None, **kw) -> dict:
+    """One run_count of a fixture (on `mesh` when one is given); returns
+    counts, wall, phase split, SW launches (reset before the run) and peak
+    device memory (the largest of the mesh's cards)."""
     import torch
     from cellranger_tpu_torch.align import sw
     from cellranger_tpu_torch.pipeline.count import H5_OUTPUTS, run_count
 
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    cards = ([d for d in mesh.distinct if d.type == "cuda"] if mesh
+             else [torch.device(device)] if device == "cuda" else [])
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
     sw.LAUNCHES = 0                 # count this path's launches only
     t1 = time.time()
-    summary = run_count(_count_cfg(fx, batch_size, **kw), out, device=device)
+    summary = run_count(_count_cfg(fx, batch_size, **kw), out, device=device,
+                        mesh=mesh)
     wall = time.time() - t1
     launches = sw.LAUNCHES
     with open(os.path.join(out, "_perf.json")) as f:
@@ -453,16 +477,18 @@ def count_run(fx: dict, out: str, device: str = "cuda",
         sw_launches=launches, n_steps=-(-summary["total_reads"]
                                          // batch_size),
         phase_s=phases,
-        peak_mem_bytes=(torch.cuda.max_memory_allocated()
-                        if device == "cuda" else None),
+        peak_mem_bytes=(max(torch.cuda.max_memory_allocated(d)
+                            for d in cards) if cards else None),
         h5_skipped=[f for f in H5_OUTPUTS
                     if not os.path.exists(os.path.join(out, f))])
 
 
 def check_e2e_counts(name: str, r: dict, reads: int = E2E_READS,
-                     molecules: int = E2E_TOTAL_MOLECULES) -> None:
+                     molecules: int = E2E_TOTAL_MOLECULES,
+                     per_step: int = 1) -> None:
     """The JAX package's values for the e2e fixture (or the given ones),
-    and one SW launch at least per step."""
+    and per_step SW launches at least per step (one a slice on a mesh; 0
+    where the run is on the CPU)."""
     if r["reads"] != reads:
         raise AssertionError(f"{name} total_reads {r['reads']}")
     if r["total_molecules"] != molecules:
@@ -471,10 +497,10 @@ def check_e2e_counts(name: str, r: dict, reads: int = E2E_READS,
     if r["conf_mapped_frac"] != E2E_CONF_MAPPED_FRAC:
         raise AssertionError(f"{name} conf_mapped_frac "
                              f"{r['conf_mapped_frac']}")
-    if r["sw_launches"] < r["n_steps"]:
+    if r["sw_launches"] < per_step * r["n_steps"]:
         raise AssertionError(f"{name} launched the SW kernel "
                              f"{r['sw_launches']} times in {r['n_steps']} "
-                             "steps")
+                             f"steps ({per_step} a step expected)")
 
 
 def first_reads(fx: dict, n_reads: int, out_dir: str) -> dict:
@@ -550,6 +576,108 @@ def overflow_run(fx: dict, out: str, ref_out: str, device: str = "cuda",
         raise AssertionError(f"capped run MEX differs: {diffs}")
     r["flushes"] = len(flushes)
     return r
+
+
+def mesh_devices(n: int = MESH_ENTRIES) -> list[str]:
+    """n distinct cards where the machine has them, else cuda:0 n times."""
+    import torch
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)]
+    return ["cuda:0"] * n
+
+
+def mesh_run(fx: dict, out: str, ref_out: str, ref_summary: dict, devices,
+             shard_index: bool = False, device: str = "cuda",
+             batch_size: int = E2E_BATCH,
+             molecules: int = E2E_TOTAL_MOLECULES) -> dict:
+    """The fixture count-only on a mesh of `devices`: the same metrics
+    (wall excluded) and MEX bytes as the one-device run in ref_out, one
+    SW launch a slice of every batch."""
+    from cellranger_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=devices)
+    r = count_run(fx, out, device, batch_size, mesh=mesh,
+                  shard_index=shard_index)
+    summary = r.pop("summary")
+    diffs = _metric_diffs(summary, ref_summary) + _mex_diffs(out, ref_out)
+    if diffs:
+        raise AssertionError(f"mesh run (shard_index={shard_index}) differs "
+                             f"from the one-device run: {diffs[:10]}")
+    check_e2e_counts("mesh", r, fx["n_reads"], molecules,
+                     mesh.size if device == "cuda" else 0)
+    r.update(devices=[str(d) for d in mesh.devices], shard_index=shard_index,
+             distinct_cards=len(mesh.distinct))
+    return r
+
+
+def multihost_run(fx: dict, tmp: str, device: str = "cuda",
+                  n_procs: int = MULTIHOST_PROCS,
+                  n_lanes: int = MULTIHOST_LANES,
+                  batch_size: int = E2E_BATCH,
+                  molecules: int = E2E_TOTAL_MOLECULES,
+                  timeout: float = MULTIHOST_TIMEOUT_S) -> dict:
+    """The fixture's reads cut into n_lanes lanes, counted by n_procs
+    processes of testing/multihost_worker.py (gloo, a free local port,
+    every process killed past `timeout`): host 0's metrics (wall
+    excluded) and MEX equal one process's run of the same lanes, and
+    every other host reports only its own lanes' reads."""
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.parallel.distributed import host_shard
+    from cellranger_tpu_torch.pipeline.count import CountConfig, run_count
+    from cellranger_tpu_torch.testing.fixtures import split_lanes
+    from cellranger_tpu_torch.testing.multihost_worker import launch
+
+    t = time.time()
+    lanes = split_lanes(fx, n_lanes, os.path.join(tmp, "mh_lanes"))
+    t_split = time.time() - t
+    cfg = dict(fastq_pairs=lanes["pairs"], reference_path=fx["ref"],
+               whitelist_path=fx["wl"], chemistry="SC3Pv3", read_len=91,
+               batch_size=batch_size, secondary_analysis=False,
+               checkpoint=False)
+    one_out = os.path.join(tmp, "mh_one_out")
+    sw.LAUNCHES = 0
+    t = time.time()
+    one = run_count(CountConfig(**cfg), one_out, device=device)
+    t_one = time.time() - t
+    one_launches = sw.LAUNCHES
+    out = os.path.join(tmp, "mh_out")
+    t = time.time()
+    res = launch(cfg, out, n_procs, device, timeout)
+    wall = time.time() - t
+    bad = [(pid, r["rc"], r["err"]) for pid, r in enumerate(res)
+           if r["rc"] != 0 or r["out"] is None]
+    if bad:
+        raise AssertionError(f"multihost: hosts failed: {bad}")
+    per_lane = [fx["n_reads"] * (i + 1) // n_lanes - fx["n_reads"] * i
+                // n_lanes for i in range(n_lanes)]
+    for pid, r in enumerate(res):
+        want = (fx["n_reads"] if pid == 0 else
+                sum(host_shard(per_lane, pid, n_procs)))
+        if r["out"]["total_reads"] != want:
+            raise AssertionError(f"multihost: host {pid} reports "
+                                 f"{r['out']['total_reads']} reads, not "
+                                 f"{want}")
+    with open(os.path.join(out, "metrics_summary.json")) as f:
+        summary = json.load(f)
+    diffs = _metric_diffs(summary, one) + _mex_diffs(out, one_out)
+    if diffs:
+        raise AssertionError(f"multihost: host 0's outputs differ from one "
+                             f"process's: {diffs[:10]}")
+    launches = sum(r["out"]["sw_launches"] for r in res)
+    rep = dict(reads=summary["total_reads"],
+               total_molecules=summary["total_molecules"],
+               conf_mapped_frac=summary["conf_mapped_frac"],
+               n_steps=sum(-(-n // batch_size) for n in per_lane),
+               sw_launches=launches, wall_s=wall,
+               hosts=[r["out"] for r in res],
+               peak_mem_bytes=max((r["out"]["peak_mem_bytes"] or 0)
+                                  for r in res) if device == "cuda" else None,
+               devices=[device] * n_procs, lanes=per_lane,
+               one_process_wall_s=t_one, one_process_sw_launches=one_launches,
+               split_s=t_split)
+    check_e2e_counts("multihost", rep, fx["n_reads"], molecules,
+                     int(device == "cuda"))
+    return rep
 
 
 def _metric_diffs(a: dict, b: dict) -> list[str]:
@@ -1177,7 +1305,7 @@ def main() -> None:
         t_fix = time.time() - t0
         e2e_out = os.path.join(tmp, "e2e_out")
         r = count_run(fx, e2e_out, secondary_analysis=True)
-        r.pop("summary")
+        e2e_summary = r.pop("summary")
         check_e2e_counts("e2e", r)
         r["fixture_s"] = t_fix
         # analysis apart, so the count-only figures stay comparable
@@ -1200,6 +1328,20 @@ def main() -> None:
         launches["overflow"] = ro["sw_launches"]
         phase("overflow", f"state cap {OVERFLOW_STATE_CAP}: same molecules "
               "and MEX bytes as e2e: " + json.dumps(ro))
+
+        devs = mesh_devices()
+        for path, shard in (("mesh", False), ("mesh_shard_index", True)):
+            rm = mesh_run(fx, os.path.join(tmp, f"{path}_out"), e2e_out,
+                          e2e_summary, devs, shard_index=shard)
+            launches[path] = rm["sw_launches"]
+            phase(path, ("4 distinct cards" if rm["distinct_cards"] > 1
+                         else "cuda:0 four times: the code path, not a "
+                         "multi-GPU speedup") + "; same metrics and MEX "
+                  "bytes as e2e: " + json.dumps(rm))
+        rh = multihost_run(fx, tmp)
+        launches["multihost"] = rh["sw_launches"]
+        phase("multihost", "host 0 == one process on the same lanes: "
+              + json.dumps(rh))
 
         g = pe_parity(tmp, fx)
         launches["pe_parity"] = g["sw_launches_cuda"]
@@ -1257,7 +1399,7 @@ def main() -> None:
         "bound_by": sw_report["bound_by"], "library_ms": None,
         "by_shape": sw_report["by_shape"]}]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 

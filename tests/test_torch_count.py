@@ -14,10 +14,11 @@
     10-NN preservation).  The tiny run's 2 genes make many cells
     identical, but no label there hangs on a tie: every clusters.csv is
     equal;
-  * what the port does not run (`shard_index`; chemistry "auto", which
-    `detect_chemistry` resolves before `run_count`) raises
-    NotImplementedError; secondary analysis, BAM, Feature Barcode,
-    multi-library, paired-end and probe configs pass the check.
+  * what the port does not run raises: chemistry "auto" (which
+    `detect_chemistry` resolves before `run_count`, NotImplementedError)
+    and a mesh inside a multi-host run (ValueError); secondary analysis,
+    BAM, Feature Barcode, multi-library, paired-end, probe and
+    `shard_index` configs pass the check.
 """
 
 import dataclasses
@@ -36,6 +37,8 @@ from cellranger_tpu.testing.fixtures import build_rich_run
 from cellranger_tpu_torch.align.aligner import DeviceIndex
 from cellranger_tpu_torch.align.annotate import AnnotationIndex
 from cellranger_tpu_torch.io.chemistry import get_chemistry
+from cellranger_tpu_torch.parallel import distributed
+from cellranger_tpu_torch.parallel.mesh import make_mesh
 from cellranger_tpu_torch.pipeline import count as tcount
 from cellranger_tpu_torch.testing.analysis_check import (analysis_files,
                                                          compare_analysis)
@@ -180,11 +183,18 @@ def test_run_count_resumes_from_checkpoint(tmp_path):
     (dict(shard_index=True), "ROADMAP"),
     (dict(chemistry="auto"), "detect_chemistry"),
 ])
-def test_unsupported_configs_raise(change, match, tmp_path):
+def test_unsupported_configs_raise(change, match, tmp_path, monkeypatch):
+    """shard_index runs on a mesh; what is refused is a mesh (sharded
+    index or not) inside a multi-host run, here a process that counts
+    two hosts."""
     base = tcount.CountConfig(fastq_pairs=[], secondary_analysis=False)
-    with pytest.raises(NotImplementedError, match=match):
+    kw = {}
+    if change.get("shard_index"):
+        monkeypatch.setattr(distributed, "process_count", lambda: 2)
+        kw["mesh"] = make_mesh(devices=["cpu"] * 2)
+    with pytest.raises((NotImplementedError, ValueError), match=match):
         tcount.run_count(dataclasses.replace(base, **change),
-                         str(tmp_path / "o"), device="cpu")
+                         str(tmp_path / "o"), device="cpu", **kw)
 
 
 @pytest.mark.parametrize("change", [
@@ -198,6 +208,7 @@ def test_unsupported_configs_raise(change, match, tmp_path):
     dict(write_bam=True, feature_ref_csv="f.csv",
          libraries=[tcount.LibraryDef([]),
                     tcount.LibraryDef([], "Antibody Capture")]),
+    dict(shard_index=True),
 ])
 def test_supported_configs_pass_the_check(change):
     cfg = dataclasses.replace(

@@ -2,9 +2,11 @@
 whose import system refuses jax, jaxlib, cellranger_tpu and h5py (the
 machine with the card has no h5py), import
 cellranger_tpu_torch, its count pipeline and the modules of its BAM,
-Feature Barcode, probe, demux, multi and secondary-analysis paths, its CLI
-and chip_smoke, then build the synthetic run and count it on the CPU
-(secondary analysis on, as by default), run secondary analysis on a
+Feature Barcode, probe, demux, multi, secondary-analysis, mesh and
+multi-host paths, its CLI and chip_smoke, then build the synthetic run and
+count it on the CPU (secondary analysis on, as by default) and on a mesh
+of two CPU entries (with and without the kmer table sharded), run
+secondary analysis on a
 planted-population matrix, and run chip_smoke's parity, golden, overflow,
 analysis, paired-end (a tiny SC5P-PE count with BAM), probe (a tiny
 MFRP-RNA count), multi, V(D)J (the tests' worlds, and the kmer spectrum of
@@ -65,6 +67,13 @@ SCRIPT = textwrap.dedent("""
     import cellranger_tpu_torch.pipeline.vdj
     import cellranger_tpu_torch.io.bcl
     import cellranger_tpu_torch.pipeline.mkfastq
+    import cellranger_tpu_torch.parallel.distributed
+    import cellranger_tpu_torch.parallel.executor
+    import cellranger_tpu_torch.parallel.shuffle
+    import cellranger_tpu_torch.parallel.index_shard
+    import cellranger_tpu_torch.testing.multichip
+    import cellranger_tpu_torch.testing.multihost_worker
+    from cellranger_tpu_torch.parallel.mesh import make_mesh
     import cellranger_tpu_torch.testing.analysis_check as check
     import chip_smoke
     from cellranger_tpu_torch.testing.fixtures import (build_analysis_matrix,
@@ -84,6 +93,16 @@ SCRIPT = textwrap.dedent("""
     assert os.path.exists(os.path.join(out, "filtered_feature_bc_matrix",
                                        "matrix.mtx.gz"))
     assert len(check.analysis_files(os.path.join(out, "analysis"))) == 16
+    # the same run on a mesh of two CPU entries, and with the kmer table
+    # sharded over it: the one-device run's metrics and MEX bytes
+    for shard in (False, True):
+        m_out = os.path.join(tmp, f"mesh_{shard}")
+        sm = count.run_count(
+            count.CountConfig(**dict(cfg.__dict__, secondary_analysis=False,
+                                     shard_index=shard)),
+            m_out, device="cpu", mesh=make_mesh(devices=["cpu"] * 2))
+        assert not chip_smoke._metric_diffs(sm, s), shard
+        assert not chip_smoke._mex_diffs(m_out, out), shard
     mat, truth = build_analysis_matrix(150, 400, 3, seed=2)
     a_out = os.path.join(tmp, "analysis")
     r = analysis_run.run_secondary_analysis(mat, a_out, device="cpu")
