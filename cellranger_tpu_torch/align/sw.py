@@ -10,10 +10,13 @@ against a window that starts BAND//2 before its candidate diagonal, in a
 CUDA tensors go to the hand-written kernel in csrc/sw.cu (a group of
 lanes per read, rows staged through shared memory; its header has the
 design), with no fallback.  `LAUNCHES` counts kernel launches.
+`sw_traceback_host` is the host DP with a traceback to a CIGAR, for one
+read.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..constants import (SW_GAP_EXTEND, SW_MATCH_SCORE,
@@ -118,3 +121,49 @@ def banded_sw(read_codes, read_mask, win_codes, win_mask):
         raise RuntimeError(f"banded_sw kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1
     return tuple(outs)
+
+
+def sw_traceback_host(read: np.ndarray, rmask: np.ndarray, win: np.ndarray,
+                      wmask: np.ndarray):
+    """Host DP and traceback for one read, with the kernel's scoring and
+    band (window position j of read row i in [i, i + BAND)): returns
+    (score, CIGAR as [(length, op)] with ops M, I, D, read start, window
+    start).  Each row's diagonal and up moves are computed at once; the
+    left move depends on the cell before it, so the row is then walked
+    cell by cell.  A cell takes the first best of (diagonal, up, left,
+    0); a masked read row or window cell stays 0."""
+    read, win = np.asarray(read), np.asarray(win)
+    L, W = len(read), len(win)
+    H = np.zeros((L + 1, W + 1), np.int64)
+    move = np.zeros((L + 1, W + 1), np.int8)   # 0 stop, 1 M, 2 I, 3 D
+    best, bi, bj = 0, 0, 0
+    for i in range(1, L + 1):
+        lo, hi = max(1, i), min(W + 1, i + BAND)
+        if not rmask[i - 1] or lo >= hi:
+            continue
+        score = np.where(win[lo - 1:hi - 1] == read[i - 1], SW_MATCH_SCORE,
+                         SW_MISMATCH_SCORE)
+        diag = H[i - 1, lo - 1:hi - 1] + score
+        up = H[i - 1, lo:hi] - GAP
+        for k, j in enumerate(range(lo, hi)):
+            if not wmask[j - 1]:
+                continue
+            cands = (int(diag[k]), int(up[k]), int(H[i, j - 1]) - GAP, 0)
+            v = max(cands)
+            H[i, j] = v
+            move[i, j] = cands.index(v) + 1 if v > 0 else 0
+            if v > best:
+                best, bi, bj = v, i, j
+    ops = []
+    i, j = bi, bj
+    while i > 0 and j > 0 and move[i, j]:
+        op = "MID"[move[i, j] - 1]
+        ops.append(op)
+        i, j = i - (op != "D"), j - (op != "I")
+    cigar: list[tuple[int, str]] = []
+    for op in reversed(ops):
+        if cigar and cigar[-1][1] == op:
+            cigar[-1] = (cigar[-1][0] + 1, op)
+        else:
+            cigar.append((1, op))
+    return int(best), cigar, i, j

@@ -20,7 +20,7 @@ that compute on a device run on `--device` (default cuda).
 
 `count` mirrors `cellranger_tpu count`: `--chemistry auto` detects the
 chemistry from the first FASTQ pair and the whitelist, and preflight checks
-run before any work.  `reanalyze` and `aggr` read h5 files (h5py).
+run before any work.  `reanalyze` and `aggr` read h5 files (io/hdf5.py).
 `mkref`, `mkvdjref`, `mkgtf` and `mkfastq` run on the host only.
 """
 

@@ -104,7 +104,7 @@ class CountMatrix:
     def save_h5(self, path: str, chemistry_description: str = "custom",
                 library_ids=("count",), sw_version: str = "cellranger-tpu-0.1.0",
                 extra_attrs: dict | None = None):
-        import h5py
+        from . import hdf5 as h5py
 
         def strs(xs):
             return np.asarray([x if isinstance(x, bytes) else str(x).encode()
@@ -141,7 +141,7 @@ class CountMatrix:
 
     @staticmethod
     def load_h5(path: str) -> "CountMatrix":
-        import h5py
+        from . import hdf5 as h5py
 
         with h5py.File(path, "r") as f:
             g = f["matrix"]

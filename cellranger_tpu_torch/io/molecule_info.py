@@ -46,7 +46,7 @@ def save_molecule_info(
     umi_type: np.ndarray | None = None,
     gem_group_per_mol: np.ndarray | None = None,
 ):
-    import h5py
+    from . import hdf5 as h5py
 
     n = len(barcode_idx)
     # reference sorts molecules by (gem_group, barcode_idx) for chunking
@@ -121,7 +121,7 @@ def save_molecule_info(
 
 
 def load_molecule_info(path: str) -> dict:
-    import h5py
+    from . import hdf5 as h5py
 
     with h5py.File(path, "r") as f:
         out = {k: f[k][:] for k in ["gem_group", "barcode_idx", "feature_idx",
@@ -144,7 +144,7 @@ def subset_molecule_info(src: str, dst: str, keep_barcodes) -> int:
     molecules whose barcode is in `keep_barcodes` (bytes, without the
     gem-group suffix or with — both accepted); pass_filter keeps only the
     sample's rows.  Returns the molecule count written."""
-    import h5py
+    from . import hdf5 as h5py
 
     keep = set()
     for b in keep_barcodes:

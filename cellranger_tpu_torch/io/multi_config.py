@@ -8,9 +8,7 @@ cells, chemistry), feature reference, vdj reference, libraries rows
 (JIBES tag model -> per-sample matrices, pipeline.demux).
 
 Copy of cellranger_tpu/io/multi_config.py with a keyword `device` passed down
-to the port's run_count, run_vdj and the demux stages, which need one; and
-the count run's matrix read through io/matrix_store (h5, or MEX where h5py
-is missing).
+to the port's run_count, run_vdj and the demux stages, which need one.
 """
 
 from __future__ import annotations
@@ -143,9 +141,9 @@ def run_multi(config_csv: str, out_dir: str, whitelist_path: str,
     # library; specificity.py beta-score semantics)
     if count_libs and cfg.antigen_specificity:
         from ..analysis.feature_assigner import antigen_specificity
-        from .matrix_store import load_count_matrix
-        filt = load_count_matrix(os.path.join(out_dir, "count"),
-                                 "filtered_feature_bc_matrix")
+        from .matrix_io import CountMatrix
+        filt = CountMatrix.load_h5(os.path.join(
+            out_dir, "count", "filtered_feature_bc_matrix.h5"))
         summary["antigen_specificity"] = antigen_specificity(
             filt, cfg.antigen_specificity,
             os.path.join(out_dir, "count", "antigen_analysis"))

@@ -120,6 +120,17 @@ class BucketTable:
                            probe_rows=probe_rows)
 
     @staticmethod
+    def build(keys: np.ndarray, vals: np.ndarray, device, entries: int = 8,
+              fields: int = 2, load: float = 0.5, probe_rows: int = 1,
+              min_bits: int = 8) -> "BucketTable":
+        """Best-effort build on `device`: bucket overflow beyond capacity
+        is dropped (degrades like the seed hit cap)."""
+        rows, bits = BucketTable.build_rows(keys, vals, entries, fields,
+                                            load, probe_rows, min_bits)
+        return BucketTable.from_rows(rows, bits, device, entries, fields,
+                                     probe_rows)
+
+    @staticmethod
     def build_exact(keys: np.ndarray, vals: np.ndarray, device,
                     entries: int = 8, fields: int = 3, load: float = 0.5,
                     max_bytes: int = 2 << 30) -> "BucketTable":

@@ -14,7 +14,7 @@ Stages re-expressed in-process:
 
 Copy of cellranger_tpu/pipeline/aggr.py with a keyword `device` passed down
 to the port's run_count / run_secondary_analysis, which need one.
-It reads molecule_info.h5 files, so it needs h5py.
+It reads and writes h5 files through io/hdf5.py.
 """
 
 from __future__ import annotations

@@ -25,9 +25,9 @@ a mesh of devices (parallel/mesh.py) and across hosts
       state; BAM and Feature Barcode rows, and count-only runs past the
       state's capacity, spill to barcode-hash partitions deduplicated one
       group at a time, keeping the raw-triple views the BAM joins against;
-  outputs: raw/filtered matrices (MEX, and h5 where h5py is installed),
-      aggregate removal and cell calls, possorted BAM, molecule_info.h5
-      (h5py), junctions, feature assignment, secondary analysis
+  outputs: raw/filtered matrices (MEX and h5, io/hdf5.py), aggregate
+      removal and cell calls, possorted BAM, molecule_info.h5,
+      junctions, feature assignment, secondary analysis
       (analysis/, on the run's device), metrics JSON.
 
 On a mesh, each batch splits over the devices and every slice runs the
@@ -58,7 +58,6 @@ import torch
 from ..analysis import cell_calling
 from ..io.chemistry import get_chemistry
 from ..io.matrix_io import CountMatrix, FeatureDef, FeatureReference
-from ..io.matrix_store import h5py_available
 from .spill import MoleculeSpill
 from ..align.aligner import DeviceIndex, make_aligner
 from ..align.annotate import (GENE_MULTI, GENE_NONE, REGION_EXONIC,
@@ -196,7 +195,7 @@ MAX_INSERT = 2000      # max genomic span of a proper read pair
 MOLECULE_STATE_CAP = 1 << 23
 DEDUP_CHUNK_LIMIT = 1 << 26  # dedup rows per device sort
 SPILL_PARTS = 8              # barcode-hash spill partitions
-# outputs written through h5py; skipped where h5py is not installed
+# the HDF5 outputs (written through io/hdf5.py)
 H5_OUTPUTS = ("raw_feature_bc_matrix.h5", "filtered_feature_bc_matrix.h5",
               "molecule_info.h5")
 
@@ -804,12 +803,36 @@ def _add_step_metrics(metrics: CountMetrics, m: dict) -> None:
     metrics.improper_pair_reads += m["n_improper_pair"]
 
 
+# the most recent reference and its device tables, so that run_count calls
+# against one reference in one process (multi's samples, multi-GEM wells)
+# load and upload it once, as the JAX package's _REF_MEMO does; keyed on
+# the reference's real path, its index's mtime and the device
+_REF_MEMO: dict = {"key": None, "value": None}
+
+
+def _load_reference_cached(path: str, device):
+    """(ReferencePackage, DeviceIndex, AnnotationIndex) of `path` on
+    `device`, loaded once for a run of calls with the same key."""
+    try:
+        mtime = os.path.getmtime(os.path.join(path, "index.npz"))
+    except OSError:
+        mtime = 0.0
+    key = (os.path.realpath(path), mtime, str(torch.device(device)))
+    if _REF_MEMO["key"] != key:
+        _REF_MEMO.update(key=None, value=None)   # free the old tables first
+        ref = ReferencePackage.load(path)
+        gi = ref.genome_index
+        _REF_MEMO.update(key=key, value=(
+            ref, DeviceIndex.from_host(gi, device),
+            AnnotationIndex.build(ref.transcriptome, gi, device)))
+    return _REF_MEMO["value"]
+
+
 def run_count(cfg: CountConfig, out_dir: str,
               whitelist: Whitelist | None = None, *, device,
               mesh=None) -> dict:
     """Run the count pipeline on `device` ("cuda" or "cpu"); writes
-    outputs into out_dir and returns the metrics dict.  Where h5py is not
-    installed the h5 outputs (H5_OUTPUTS) are not written.
+    outputs into out_dir and returns the metrics dict.
 
     mesh: a parallel.mesh.Mesh; pass 2's step and the partition dedup run
     over its devices (batch slices in parallel, the index replicated per
@@ -849,10 +872,9 @@ def run_count(cfg: CountConfig, out_dir: str,
             [FeatureDef(g, g, "Gene Expression")
              for g in probe.probe_set.genes])
     else:
-        ref = ReferencePackage.load(cfg.reference_path)
+        ref, didx, ann_idx = _load_reference_cached(cfg.reference_path,
+                                                    device)
         gi = ref.genome_index
-        didx = DeviceIndex.from_host(gi, device)
-        ann_idx = AnnotationIndex.build(ref.transcriptome, gi, device)
         n_genes = len(ref.transcriptome.genes)
         if len(ref.genomes) > 1:
             features = FeatureReference(
@@ -1458,7 +1480,6 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
               probe=None, probe_bc_packed=None):
     """Matrices, aggregate removal, cell calls, BAM, junctions, molecule
     info, feature assignment, secondary analysis (on `device`), metrics."""
-    have_h5 = h5py_available()
     n_probe = len(probe_bc_packed) if probe_bc_packed is not None else 1
     out_seqs = (whitelist.translation if whitelist.translation is not None
                 else whitelist.sorted_seqs)
@@ -1476,9 +1497,8 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
     raw = CountMatrix.from_molecules(mbc.astype(np.int64),
                                      mgene.astype(np.int64), barcodes,
                                      features)
-    if have_h5:
-        raw.save_h5(os.path.join(out_dir, "raw_feature_bc_matrix.h5"),
-                    chemistry_description=chem.description)
+    raw.save_h5(os.path.join(out_dir, "raw_feature_bc_matrix.h5"),
+                chemistry_description=chem.description)
     raw.save_mex(os.path.join(out_dir, "raw_feature_bc_matrix"))
     perf.lap("matrix_assembly")
 
@@ -1526,10 +1546,8 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
             mt_rows, cfg.max_mito_percent)
         call_metrics["cells_removed_mito_filter"] = int(len(mito_removed))
     filtered = raw.select_barcodes(cells_idx)
-    if have_h5:
-        filtered.save_h5(
-            os.path.join(out_dir, "filtered_feature_bc_matrix.h5"),
-            chemistry_description=chem.description)
+    filtered.save_h5(os.path.join(out_dir, "filtered_feature_bc_matrix.h5"),
+                     chemistry_description=chem.description)
     filtered.save_mex(os.path.join(out_dir, "filtered_feature_bc_matrix"))
     perf.lap("cell_calling")
 
@@ -1548,22 +1566,21 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
                          gi)
 
     # ---- molecule_info.h5 ----
-    if have_h5:
-        from ..io.molecule_info import save_molecule_info
-        library_info = [
-            {"library_type": lib.library_type, "library_id": str(i),
-             "gem_group": cfg.gem_group}
-            for i, lib in enumerate(libraries)]
-        save_molecule_info(
-            os.path.join(out_dir, "molecule_info.h5"),
-            barcode_idx=mbc, feature_idx=mgene, umi=mumi, count=mreads,
-            library_idx=mlib, library_info=library_info,
-            barcodes=barcodes, features=features, gem_group=cfg.gem_group,
-            pass_filter_bc_idx=np.asarray(cells_idx, np.uint64),
-            metrics={"total_reads": metrics.total_reads,
-                     "usable_read_pairs": metrics.usable_reads,
-                     "chemistry": cfg.chemistry,
-                     "sample_id": cfg.sample_id})
+    from ..io.molecule_info import save_molecule_info
+    library_info = [
+        {"library_type": lib.library_type, "library_id": str(i),
+         "gem_group": cfg.gem_group}
+        for i, lib in enumerate(libraries)]
+    save_molecule_info(
+        os.path.join(out_dir, "molecule_info.h5"),
+        barcode_idx=mbc, feature_idx=mgene, umi=mumi, count=mreads,
+        library_idx=mlib, library_info=library_info,
+        barcodes=barcodes, features=features, gem_group=cfg.gem_group,
+        pass_filter_bc_idx=np.asarray(cells_idx, np.uint64),
+        metrics={"total_reads": metrics.total_reads,
+                 "usable_read_pairs": metrics.usable_reads,
+                 "chemistry": cfg.chemistry,
+                 "sample_id": cfg.sample_id})
     perf.lap("bam_junctions_molinfo")
 
     # ---- barnyard GEM classification (multi-genome references) ----

@@ -5,9 +5,7 @@ samples per the [samples] config, and emit per-sample filtered matrices +
 an assignment CSV.
 
 Copy of cellranger_tpu/pipeline/demux.py with a keyword `device` passed down
-to the port's run_count / run_secondary_analysis, which need one;
-and the count run's filtered matrix is read through
-io/matrix_store.load_count_matrix (h5, or MEX where h5py is missing).
+to the port's run_count / run_secondary_analysis, which need one.
 """
 
 from __future__ import annotations
@@ -18,7 +16,6 @@ import numpy as np
 
 from ..analysis.jibes import fit_jibes
 from ..io.matrix_io import CountMatrix, MULTIPLEXING
-from ..io.matrix_store import h5py_available, load_count_matrix
 
 
 def write_sample_outs(sub: CountMatrix, sdir: str, sample_id: str,
@@ -33,9 +30,7 @@ def write_sample_outs(sub: CountMatrix, sdir: str, sample_id: str,
     import json
 
     os.makedirs(sdir, exist_ok=True)
-    if h5py_available():
-        sub.save_h5(os.path.join(sdir,
-                                 "sample_filtered_feature_bc_matrix.h5"))
+    sub.save_h5(os.path.join(sdir, "sample_filtered_feature_bc_matrix.h5"))
     sub.save_mex(os.path.join(sdir, "sample_filtered_feature_bc_matrix"))
     sample_bcs = {b.decode() if isinstance(b, bytes) else b
                   for b in sub.barcodes}
@@ -83,7 +78,8 @@ def demux_samples(count_out_dir: str, samples: list[dict], out_dir: str,
                   *, device) -> dict:
     """samples: rows with sample_id + cmo_ids ('|'-separated tag feature
     names). Returns summary dict."""
-    filtered = load_count_matrix(count_out_dir, "filtered_feature_bc_matrix")
+    filtered = CountMatrix.load_h5(
+        os.path.join(count_out_dir, "filtered_feature_bc_matrix.h5"))
     tag_rows = [i for i, f in enumerate(filtered.features.feature_defs)
                 if f.feature_type == MULTIPLEXING]
     if not tag_rows:
@@ -134,7 +130,8 @@ def demux_overhang_samples(count_out_dir: str, samples: list[dict],
     filtered matrix columns by those barcode bases.  samples rows carry
     `overhang_ids`: '|'-separated overhang sequences (or ids resolved
     upstream)."""
-    filtered = load_count_matrix(count_out_dir, "filtered_feature_bc_matrix")
+    filtered = CountMatrix.load_h5(
+        os.path.join(count_out_dir, "filtered_feature_bc_matrix.h5"))
     if chem.overhang is None:
         raise ValueError(f"chemistry {chem.name} has no overhang segment")
     o0 = chem.overhang.offset
@@ -181,7 +178,8 @@ def demux_probe_samples(count_out_dir: str, samples: list[dict],
     from ..io.probe_bc import load_probe_barcodes
     from ..ops import encode
 
-    filtered = load_count_matrix(count_out_dir, "filtered_feature_bc_matrix")
+    filtered = CountMatrix.load_h5(
+        os.path.join(count_out_dir, "filtered_feature_bc_matrix.h5"))
     ids, packed, plen = load_probe_barcodes(probe_barcode_csv)
     seq_to_id = {
         encode.decode_codes(encode.unpack_np(np.uint32(p), plen)).decode(): i

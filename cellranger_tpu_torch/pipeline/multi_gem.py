@@ -15,7 +15,7 @@ filter_barcodes/__init__.py groups by gem_group), then outputs merge:
 
 Copy of cellranger_tpu/pipeline/multi_gem.py with a keyword `device` passed down
 to the port's run_count / run_secondary_analysis, which need one.
-The merge reads and writes h5 files, so it needs h5py.
+The merge reads and writes h5 files through io/hdf5.py.
 """
 
 from __future__ import annotations

@@ -147,7 +147,7 @@ def check_h5(actual_path: str, expected_path: str,
              rel_tol: float = FLOAT_REL_TOL) -> list[str]:
     """Structural h5 compare (h5diff -cr analog): identical tree of groups/
     datasets/attributes with equal contents (floats within tolerance)."""
-    import h5py
+    from ..io import hdf5 as h5py
     diffs: list[str] = []
 
     def walk(ga, ge, path):

@@ -5,8 +5,7 @@
 
 Part 1 drives the production run_count on a mesh, and again with the
 kmer table sharded over it, and holds both to the one-device run: equal
-summaries (wall excluded), MEX bytes and, where h5py is installed,
-molecule_info.  Part 2 runs the sharded step on a synthetic batch against
+summaries (wall excluded), MEX bytes and molecule_info.  Part 2 runs the sharded step on a synthetic batch against
 the one-device step (every plane, the metrics), the sharded pass-1
 histogram, and the all-to-all barcode shuffle dedup on the step's rows.
 """
@@ -29,18 +28,16 @@ MEX = [os.path.join(sub, f) for sub in ("raw_feature_bc_matrix",
 
 
 def _same_outputs(a: str, b: str, what: str) -> None:
-    from ..io.matrix_store import h5py_available
+    from ..io.molecule_info import load_molecule_info
     for f in MEX:
         with gzip.open(os.path.join(a, f)) as fa, \
                 gzip.open(os.path.join(b, f)) as fb:
             assert fa.read() == fb.read(), f"{what}: {f} diverged"
-    if h5py_available():
-        from ..io.molecule_info import load_molecule_info
-        ma = load_molecule_info(os.path.join(a, "molecule_info.h5"))
-        mb = load_molecule_info(os.path.join(b, "molecule_info.h5"))
-        for k in ("barcode_idx", "feature_idx", "umi", "count"):
-            assert np.array_equal(ma[k], mb[k]), \
-                f"{what}: molecule_info[{k}] diverged"
+    ma = load_molecule_info(os.path.join(a, "molecule_info.h5"))
+    mb = load_molecule_info(os.path.join(b, "molecule_info.h5"))
+    for k in ("barcode_idx", "feature_idx", "umi", "count"):
+        assert np.array_equal(ma[k], mb[k]), \
+            f"{what}: molecule_info[{k}] diverged"
 
 
 def dryrun_multichip(n: int, devices) -> dict:

@@ -25,13 +25,17 @@ Phases, each printing one line; any failure raises and exits non-zero:
                tolerances of testing/analysis_check.py
   golden_tiny  the synthetic run with BAM on cuda against the checked-in
                snapshot tests/golden/e2e (metrics, MEX, BAM, barcode CSV,
-               junctions; the h5 files only where h5py imports)
+               junctions, filtered_feature_bc_matrix.h5 and
+               molecule_info.h5, both written by h5py there)
   golden_rich  the rich run (GEX + Antibody Capture, BAM) on cuda and on
-               cpu against tests/golden/e2e_rich; identical BAM bytes
+               cpu against tests/golden/e2e_rich (the h5 files too);
+               identical BAM bytes
   e2e          the 1M-read fixture through run_count on cuda at batch
                32768, secondary analysis on: read and molecule counts
                against the JAX package's values for this fixture, wall
-               time, phase split (analysis_reporting apart), memory
+               time, phase split (analysis_reporting apart), memory; the
+               three h5 outputs (io/hdf5.py): size and seconds of each
+               write, each read back to the arrays that were written
   e2e_bam      the first 250,000 reads of that fixture count-only and
                with BAM (stream mode, spill + partition dedup, BAM write):
                every read confidently mapped, the same molecules and MEX
@@ -58,6 +62,15 @@ Phases, each printing one line; any failure raises and exits non-zero:
                1,000,000 reads, batch 32768): exactly the fixture's usable
                reads, molecules and per-region reads; no SW launch; wall,
                phase split, memory, the probe aligner's device time a batch
+  h5_pipelines the h5 readers and writers above count, on cuda:
+               run_aggr over the e2e and overflow runs' molecule_info.h5
+               (equal depth, so nothing is subsampled: twice e2e's
+               molecules, each half of the raw matrix e2e's, GEM groups 1
+               and 2); run_count_gem_wells over the first two of the e2e
+               reads' four lanes (fixtures.split_lanes): the merged raw
+               matrix is the wells' side by side, the merged
+               molecule_info their rows; CLI reanalyze of e2e's
+               filtered h5: 16 analysis/ files
   multi        run_multi of a Gene Expression + Multiplexing Capture config
                with [samples] on cuda: per-sample outputs present, every
                cell in the sample it was built for
@@ -108,13 +121,14 @@ Every path resets the SW kernel's launch count before it runs and reads
 it after; the kernel report counts the e2e path's launches and lists
 every path's (`pe`: two a batch, one per mate; `mesh` and
 `mesh_shard_index`: one a slice; `multihost`: the sum of both processes'
-counts; `rtl`, the V(D)J paths and `mkfastq`: none, no genome aligner
-runs).  The line before the last is the kernel report (JSON); the
+counts; `h5_pipelines`: one a step of each GEM well; `rtl`, the V(D)J
+paths and `mkfastq`: none, no genome aligner runs).  The line before the last is the kernel report (JSON); the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gzip
 import json
 import os
@@ -353,11 +367,10 @@ def tiny_parity(tmp: str, devices=("cuda", "cpu"), batch_size: int = 256):
     return sums[a], n_steps
 
 
-def _golden_diffs(out: str, golden: str) -> tuple[list[str], list[str]]:
+def _golden_diffs(out: str, golden: str) -> list[str]:
     """Differences of a run's outputs from a golden snapshot, through the
-    repo's comparators; returns (diffs, h5 files skipped)."""
+    repo's comparators."""
     from cellranger_tpu_torch.testing import correctness as cc
-    from cellranger_tpu_torch.io.matrix_store import h5py_available
 
     j = lambda d, f: os.path.join(d, f)  # noqa: E731
     diffs = cc.check_metrics(j(out, "metrics_summary.json"),
@@ -371,13 +384,11 @@ def _golden_diffs(out: str, golden: str) -> tuple[list[str], list[str]]:
         with open(j(out, f), "rb") as fa, open(j(golden, f), "rb") as fe:
             if fa.read() != fe.read():
                 diffs.append(f"{f} differs from golden")
-    skipped = ["filtered_feature_bc_matrix.h5", "molecule_info.h5"]
-    if h5py_available():
-        diffs += cc.check_h5(j(out, skipped[0]), j(golden, skipped[0]))
-        diffs += cc.check_molecule_info(j(out, skipped[1]),
-                                        j(golden, skipped[1]))
-        skipped = []
-    return diffs, skipped
+    diffs += cc.check_h5(j(out, "filtered_feature_bc_matrix.h5"),
+                         j(golden, "filtered_feature_bc_matrix.h5"))
+    diffs += cc.check_molecule_info(j(out, "molecule_info.h5"),
+                                    j(golden, "molecule_info.h5"))
+    return diffs
 
 
 def golden(tmp: str, which: str, devices=("cuda",)) -> dict:
@@ -408,7 +419,7 @@ def golden(tmp: str, which: str, devices=("cuda",)) -> dict:
         summary = run_count(cfg, out, device=dev)
         res[f"wall_s_{dev}"] = time.time() - t
         launches = sw.LAUNCHES
-        diffs, skipped = _golden_diffs(out, os.path.join(GOLDEN_DIR, which))
+        diffs = _golden_diffs(out, os.path.join(GOLDEN_DIR, which))
         if diffs:
             raise AssertionError(f"{which} on {dev} differs from the golden "
                                  f"snapshot: {diffs[:10]}")
@@ -419,7 +430,7 @@ def golden(tmp: str, which: str, devices=("cuda",)) -> dict:
             bams.append(f.read())
         res.update(reads=summary["total_reads"],
                    molecules=summary["total_molecules"],
-                   h5_skipped=skipped, bam_bytes=len(bams[-1]))
+                   h5_compared=True, bam_bytes=len(bams[-1]))
         res[f"sw_launches_{dev}"] = launches
     if len(bams) == 2 and bams[0] != bams[1]:
         raise AssertionError(f"{which}: {devices[0]} and {devices[1]} BAMs "
@@ -451,7 +462,7 @@ def count_run(fx: dict, out: str, device: str = "cuda",
     device memory (the largest of the mesh's cards)."""
     import torch
     from cellranger_tpu_torch.align import sw
-    from cellranger_tpu_torch.pipeline.count import H5_OUTPUTS, run_count
+    from cellranger_tpu_torch.pipeline.count import run_count
 
     cards = ([d for d in mesh.distinct if d.type == "cuda"] if mesh
              else [torch.device(device)] if device == "cuda" else [])
@@ -478,9 +489,167 @@ def count_run(fx: dict, out: str, device: str = "cuda",
                                          // batch_size),
         phase_s=phases,
         peak_mem_bytes=(max(torch.cuda.max_memory_allocated(d)
-                            for d in cards) if cards else None),
-        h5_skipped=[f for f in H5_OUTPUTS
-                    if not os.path.exists(os.path.join(out, f))])
+                            for d in cards) if cards else None))
+
+
+@contextlib.contextmanager
+def h5_writes():
+    """Record every h5 write of the port's matrix and molecule_info
+    writers inside the block: [{path, write_s, written}], `written` the
+    CountMatrix or the keyword arguments that were written."""
+    from cellranger_tpu_torch.io import matrix_io, molecule_info
+
+    rec: list[dict] = []
+    save_h5 = matrix_io.CountMatrix.save_h5
+    save_mi = molecule_info.save_molecule_info
+
+    def timed_save_h5(self, path, *a, **kw):
+        t = time.time()
+        save_h5(self, path, *a, **kw)
+        rec.append(dict(path=path, write_s=time.time() - t, written=self))
+
+    def timed_save_mi(path, **kw):
+        t = time.time()
+        save_mi(path, **kw)
+        rec.append(dict(path=path, write_s=time.time() - t, written=kw))
+
+    matrix_io.CountMatrix.save_h5 = timed_save_h5
+    molecule_info.save_molecule_info = timed_save_mi
+    try:
+        yield rec
+    finally:
+        matrix_io.CountMatrix.save_h5 = save_h5
+        molecule_info.save_molecule_info = save_mi
+
+
+def h5_read_back(rec: list[dict]) -> dict:
+    """Each file `h5_writes` recorded, read back through io/hdf5.py and
+    held to what was written: {file name: bytes, write_s, read_s}."""
+    import numpy as np
+    from cellranger_tpu_torch.io.matrix_io import CountMatrix
+    from cellranger_tpu_torch.io.molecule_info import load_molecule_info
+
+    out = {}
+    for r in rec:
+        name, want = os.path.basename(r["path"]), r["written"]
+        t = time.time()
+        if isinstance(want, CountMatrix):
+            got = CountMatrix.load_h5(r["path"])
+            read_s = time.time() - t
+            defs = [[(d.id, d.name, d.feature_type, d.genome)
+                     for d in m.features.feature_defs] for m in (got, want)]
+            same = (got.m.shape == want.m.shape
+                    and (got.m != want.m).nnz == 0
+                    and got.barcodes == [b if isinstance(b, bytes)
+                                         else str(b).encode()
+                                         for b in want.barcodes]
+                    and defs[0] == defs[1])
+        else:
+            got = load_molecule_info(r["path"])
+            read_s = time.time() - t
+            order = np.argsort(want["barcode_idx"], kind="stable")
+            same = all(np.array_equal(got[k], want[k][order])
+                       for k in ("barcode_idx", "feature_idx", "umi",
+                                 "count")) \
+                and len(got["pass_filter"]) == len(want["pass_filter_bc_idx"])
+        if not same:
+            raise AssertionError(f"{r['path']} does not read back to the "
+                                 "arrays that were written")
+        out[name] = dict(bytes=os.path.getsize(r["path"]),
+                         write_s=r["write_s"], read_s=read_s)
+    return out
+
+
+def h5_pipelines(fx: dict, tmp: str, e2e_out: str, other_out: str,
+                 device: str = "cuda", n_lanes: int = 4,
+                 batch_size: int = E2E_BATCH) -> dict:
+    """The h5 readers and writers above count: run_aggr over the
+    molecule_info.h5 of two count-only runs of `fx` (e2e_out, other_out:
+    equal depth, so nothing is subsampled), run_count_gem_wells over the
+    first two of n_lanes lanes of fx's reads, CLI reanalyze of
+    e2e_out's filtered matrix; every check raises."""
+    import numpy as np
+    import scipy.sparse as sp
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.cli import main as cli_main
+    from cellranger_tpu_torch.io.matrix_io import CountMatrix
+    from cellranger_tpu_torch.io.molecule_info import load_molecule_info
+    from cellranger_tpu_torch.pipeline.aggr import run_aggr
+    from cellranger_tpu_torch.pipeline.count import CountConfig
+    from cellranger_tpu_torch.pipeline.multi_gem import run_count_gem_wells
+    from cellranger_tpu_torch.testing.analysis_check import analysis_files
+    from cellranger_tpu_torch.testing.fixtures import split_lanes
+
+    j = os.path.join
+    t0 = time.time()
+    sw.LAUNCHES = 0
+    rep: dict = {}
+    # aggr over two runs of the same reads
+    csv = j(tmp, "h5_aggr.csv")
+    with open(csv, "w") as f:
+        f.write("sample_id,molecule_h5\n"
+                f"a,{j(e2e_out, 'molecule_info.h5')}\n"
+                f"b,{j(other_out, 'molecule_info.h5')}\n")
+    out = j(tmp, "h5_aggr_out")
+    t = time.time()
+    s = run_aggr(csv, out, secondary_analysis=False, device=device)
+    rep["aggr_s"] = time.time() - t
+    one = CountMatrix.load_h5(j(e2e_out, "raw_feature_bc_matrix.h5"))
+    raw = CountMatrix.load_h5(j(out, "raw_feature_bc_matrix.h5"))
+    n_mol = int(one.m.sum())
+    n_bc = one.m.shape[1]
+    gem_groups = {b.rsplit(b"-", 1)[1] for b in raw.barcodes}
+    if s["normalization_rates"] != [1.0, 1.0] \
+            or s["total_molecules"] != 2 * n_mol \
+            or len(load_molecule_info(j(out, "molecule_info.h5"))["umi"]) \
+            != 2 * n_mol or gem_groups != {b"1", b"2"} \
+            or (raw.m[:, :n_bc] != one.m).nnz \
+            or (raw.m[:, n_bc:] != one.m).nnz:
+        raise AssertionError(f"aggr of two equal runs: {s}, GEM groups "
+                             f"{gem_groups}, {n_mol} molecules a run")
+    rep.update(aggr_molecules=s["total_molecules"],
+               aggr_cells=s["total_cells"])
+    # two GEM wells, a lane each
+    t = time.time()
+    lanes = split_lanes(fx, n_lanes, j(tmp, "h5_lanes"))["pairs"][:2]
+    rep["split_s"] = time.time() - t
+    cfgs = [CountConfig(fastq_pairs=[pair], reference_path=fx["ref"],
+                        whitelist_path=fx["wl"], chemistry="SC3Pv3",
+                        read_len=91, batch_size=batch_size, gem_group=g)
+            for g, pair in enumerate(lanes, 1)]
+    out = j(tmp, "h5_wells_out")
+    t = time.time()
+    s = run_count_gem_wells(cfgs, out, secondary_analysis=False,
+                            device=device)
+    rep["gem_wells_s"] = time.time() - t
+    wells = [j(out, "gem_wells", f"gw{g}") for g in (1, 2)]
+    parts = [CountMatrix.load_h5(j(w, "raw_feature_bc_matrix.h5"))
+             for w in wells]
+    merged = CountMatrix.load_h5(j(out, "raw_feature_bc_matrix.h5"))
+    mols = [load_molecule_info(j(d, "molecule_info.h5"))
+            for d in wells + [out]]
+    if merged.barcodes != parts[0].barcodes + parts[1].barcodes \
+            or (merged.m != sp.hstack([p.m for p in parts]).tocsc()).nnz \
+            or len(mols[2]["umi"]) != len(mols[0]["umi"]) \
+            + len(mols[1]["umi"]) \
+            or set(np.unique(mols[2]["gem_group"]).tolist()) != {1, 2}:
+        raise AssertionError("gem wells: the merged raw matrix or "
+                             "molecule_info is not the wells' joined")
+    rep.update(gem_wells_reads=s["total_reads"],
+               gem_wells_molecules=len(mols[2]["umi"]))
+    # reanalyze the e2e run's filtered matrix through the CLI
+    t = time.time()
+    cli_main(["reanalyze", "--id", "h5_re", "--matrix",
+              j(e2e_out, "filtered_feature_bc_matrix.h5"),
+              "--device", device, "--output-dir", tmp])
+    rep["reanalyze_s"] = time.time() - t
+    rep["reanalyze_files"] = len(analysis_files(
+        j(tmp, "h5_re", "outs", "analysis")))
+    if rep["reanalyze_files"] != 16:
+        raise AssertionError(f"reanalyze wrote {rep['reanalyze_files']} "
+                             "analysis files")
+    rep.update(sw_launches=sw.LAUNCHES, wall_s=time.time() - t0)
+    return rep
 
 
 def check_e2e_counts(name: str, r: dict, reads: int = E2E_READS,
@@ -1260,6 +1429,7 @@ def main() -> None:
                  "is false)")
     from cellranger_tpu_torch import kernels, native   # the port must be here
     from cellranger_tpu_torch.testing.analysis_check import analysis_files
+    from cellranger_tpu_torch.pipeline.count import H5_OUTPUTS
     from cellranger_tpu_torch.testing.fixtures import build_e2e_run
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -1304,7 +1474,11 @@ def main() -> None:
         fx = build_e2e_run(os.path.join(tmp, "e2e"), n_reads=E2E_READS)
         t_fix = time.time() - t0
         e2e_out = os.path.join(tmp, "e2e_out")
-        r = count_run(fx, e2e_out, secondary_analysis=True)
+        with h5_writes() as written:
+            r = count_run(fx, e2e_out, secondary_analysis=True)
+        r["h5"] = h5_read_back(written)
+        if sorted(r["h5"]) != sorted(H5_OUTPUTS):
+            raise AssertionError(f"e2e wrote the h5 files {sorted(r['h5'])}")
         e2e_summary = r.pop("summary")
         check_e2e_counts("e2e", r)
         r["fixture_s"] = t_fix
@@ -1323,11 +1497,16 @@ def main() -> None:
         launches["e2e_bam"] = rb["sw_launches"]
         phase("e2e_bam", json.dumps(rb))
 
-        ro = overflow_run(fx, os.path.join(tmp, "overflow_out"), e2e_out)
+        ovf_out = os.path.join(tmp, "overflow_out")
+        ro = overflow_run(fx, ovf_out, e2e_out)
         check_e2e_counts("overflow", ro)
         launches["overflow"] = ro["sw_launches"]
         phase("overflow", f"state cap {OVERFLOW_STATE_CAP}: same molecules "
               "and MEX bytes as e2e: " + json.dumps(ro))
+        g = h5_pipelines(fx, tmp, e2e_out, ovf_out)
+        launches["h5_pipelines"] = g["sw_launches"]
+        phase("h5_pipelines", "aggr, GEM wells and reanalyze through "
+              "io/hdf5.py: " + json.dumps(g))
 
         devs = mesh_devices()
         for path, shard in (("mesh", False), ("mesh_shard_index", True)):

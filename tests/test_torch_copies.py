@@ -13,9 +13,8 @@ reference is frozen, so they should not.
 copies but for that keyword threaded down (THREADED_MODULES).  Their
 syntax trees are compared after the port's changes are undone one by one
 (`_Unthread`: the keyword-only `device` parameter and each
-`device=device` argument dropped, `load_count_matrix(d, name)` turned back
-into `CountMatrix.load_h5` of `<d>/<name>.h5`, the `if h5py_available():`
-guard opened); what is left must be equal, statement for statement.
+`device=device` argument dropped); what is left must be equal, statement
+for statement.
 
 `vdj/assembly.py` is the original but for its device half: every other
 top-level function, class and assignment must have the original's syntax
@@ -56,8 +55,7 @@ COPIED_MODULES = [
 
 # copies that differ from their original only where the port needs it: a
 # keyword `device` threaded down to run_count / run_vdj /
-# run_secondary_analysis, and the count run's matrix read through
-# io/matrix_store (h5, or MEX on a machine without h5py)
+# run_secondary_analysis
 THREADED_MODULES = ["pipeline/demux.py", "pipeline/multi_gem.py",
                     "pipeline/aggr.py", "io/multi_config.py"]
 
@@ -140,22 +138,7 @@ class _Unthread(ast.NodeTransformer):
             k for k in node.keywords
             if not (k.arg == "device" and isinstance(k.value, ast.Name)
                     and k.value.id == "device")]
-        if isinstance(node.func, ast.Name) \
-                and node.func.id == "load_count_matrix":
-            d, name = node.args
-            name = ast.Constant(name.value + ".h5")
-            is_join = isinstance(d, ast.Call) \
-                and ast.unparse(d.func) == "os.path.join"
-            path = ast.Call(ast.parse("os.path.join").body[0].value,
-                            (d.args if is_join else [d]) + [name], [])
-            return ast.Call(ast.parse("CountMatrix.load_h5").body[0].value,
-                            [path], [])
         return node
-
-    def visit_If(self, node):
-        if ast.unparse(node.test) == "h5py_available()" and not node.orelse:
-            return self._block(node.body)
-        return self.generic_visit(node)
 
 
 def _normalised(root, rel):

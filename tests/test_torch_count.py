@@ -165,6 +165,38 @@ def test_run_count_rich_gex_matches_jax(tmp_path):
     assert os.path.exists(str(tmp_path / "torch" / "junctions.tsv"))
 
 
+def test_run_count_loads_the_reference_once(tmp_path, monkeypatch):
+    """Two run_count calls on one reference in one process load it and
+    build its device tables once (the memo of the JAX package's
+    count.py), and give equal outputs; another device loads it anew."""
+    from cellranger_tpu_torch.io import matrix_io
+
+    fx = build_synthetic_run(str(tmp_path / "fx"), n_cells=10)
+    loads = []
+    real_load = tcount.ReferencePackage.load
+    monkeypatch.setattr(tcount.ReferencePackage, "load", staticmethod(
+        lambda path: loads.append(path) or real_load(path)))
+    monkeypatch.setattr(tcount, "_REF_MEMO", {"key": None, "value": None})
+    cfg = tcount.CountConfig(fastq_pairs=[(fx["fq1"], fx["fq2"])],
+                             reference_path=fx["ref"], whitelist_path=fx["wl"],
+                             batch_size=256, secondary_analysis=False)
+    outs = [str(tmp_path / f"out{i}") for i in range(2)]
+    sums = [tcount.run_count(cfg, o, device="cpu") for o in outs]
+    assert loads == [fx["ref"]]
+    assert not cc.check_metrics(sums[0], sums[1])
+    for name in ("raw_feature_bc_matrix.h5", "filtered_feature_bc_matrix.h5",
+                 "molecule_info.h5"):
+        assert not cc.check_h5(*(os.path.join(o, name) for o in outs))
+    m = matrix_io.CountMatrix.load_h5(os.path.join(outs[0],
+                                                   "raw_feature_bc_matrix.h5"))
+    assert int(m.m.sum()) == sums[0]["total_molecules"]
+    memo = tcount._REF_MEMO["value"]
+    assert tcount._load_reference_cached(fx["ref"], torch.device("cpu")) \
+        is memo
+    tcount._load_reference_cached(fx["ref"], "meta")
+    assert len(loads) == 2
+
+
 def test_run_count_resumes_from_checkpoint(tmp_path):
     fx = build_synthetic_run(str(tmp_path / "fx"), n_cells=10)
     cfg = tcount.CountConfig(fastq_pairs=[(fx["fq1"], fx["fq2"])],

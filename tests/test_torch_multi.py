@@ -6,8 +6,9 @@
     equal summaries, MEX and CSV bytes, per-sample matrices and metrics;
   * a Gene Expression + VDJ-T config: the V(D)J library through each
     package's `run_vdj`, equal vdj/ outputs and metrics;
-  * the port's downstream stages read a count run's MEX where the h5 is
-    missing (a machine without h5py), with the same result;
+  * sample demux with h5py out of reach reads the count run's h5 and
+    writes each sample's h5 through io/hdf5.py, equal to the JAX run's
+    by the JAX package's own check_h5 (real h5py);
   * the port's CLI `multi` through `main([...])`.
 """
 
@@ -15,23 +16,23 @@ import filecmp
 import gzip
 import json
 import os
+import sys
 
 import pytest
 import torch
 
 from cellranger_tpu.io.multi_config import run_multi as jax_run_multi
 from cellranger_tpu_torch.cli import main
-from cellranger_tpu_torch.io import matrix_store
 from cellranger_tpu_torch.io import multi_config as tmulti
 from cellranger_tpu_torch.io.matrix_io import CountMatrix
 from cellranger_tpu_torch.pipeline import demux as tdemux
 from cellranger_tpu_torch.testing import analysis_check as check
-from cellranger_tpu_torch.testing import correctness as cc
 from cellranger_tpu_torch.testing.fixtures import (build_multi_run,
                                                    build_rich_run,
                                                    build_synthetic_run,
                                                    build_vdj_single_world)
 from chip_smoke import file_tree, tree_diffs
+from test_torch_hdf5 import h5_parity_diffs
 
 
 @pytest.fixture(autouse=True)
@@ -63,9 +64,9 @@ def _strip(summary):
 def _same_count_outs(t_out, j_out):
     for sub in ("raw_feature_bc_matrix", "filtered_feature_bc_matrix"):
         _same_mex(os.path.join(t_out, sub), os.path.join(j_out, sub))
-    assert not cc.check_molecule_info(
+    assert not h5_parity_diffs(
         os.path.join(t_out, "molecule_info.h5"),
-        os.path.join(j_out, "molecule_info.h5"))
+        os.path.join(j_out, "molecule_info.h5"), molecule_info=True)
     for f in ("filtered_barcodes.csv", "per_barcode_metrics.csv"):
         assert filecmp.cmp(os.path.join(t_out, f), os.path.join(j_out, f),
                            shallow=False), f
@@ -113,16 +114,17 @@ def test_multi_cmo_demux_matches_jax(cmo_multi):
         js = os.path.join(jd, "per_sample_outs", sid)
         mex = "sample_filtered_feature_bc_matrix"
         _same_mex(os.path.join(ts, mex), os.path.join(js, mex))
-        assert not cc.check_h5(os.path.join(ts, mex + ".h5"),
-                               os.path.join(js, mex + ".h5"))
+        assert not h5_parity_diffs(os.path.join(ts, mex + ".h5"),
+                                   os.path.join(js, mex + ".h5"))
         # the genome column, which only the h5 reader can hand on
         genomes = [[f.genome for f in CountMatrix.load_h5(
             os.path.join(d_, mex + ".h5")).features.feature_defs]
             for d_ in (ts, js)]
         assert genomes[0] == genomes[1] and "synth" in genomes[0]
-        assert not cc.check_molecule_info(
+        assert not h5_parity_diffs(
             os.path.join(ts, "sample_molecule_info.h5"),
-            os.path.join(js, "sample_molecule_info.h5"))
+            os.path.join(js, "sample_molecule_info.h5"),
+            molecule_info=True)
         with open(os.path.join(ts, "metrics_summary.json")) as a, \
                 open(os.path.join(js, "metrics_summary.json")) as b:
             sa, sb = json.load(a), json.load(b)
@@ -137,49 +139,42 @@ def test_multi_cmo_demux_matches_jax(cmo_multi):
     assert os.path.exists(os.path.join(m["t_out"], "web_summary.html"))
 
 
-def test_demux_reads_mex_where_h5_is_missing(cmo_multi, tmp_path,
+def test_demux_writes_sample_h5_without_h5py(cmo_multi, tmp_path,
                                              monkeypatch):
-    """With h5py out of reach the stages read the count run's MEX (the
-    branch a machine without h5py takes): the same assignments, per-sample
-    matrices, metrics and analysis as the JAX package's, no h5 written."""
+    """With the import of h5py refused, sample demux reads the count run's
+    filtered h5 and writes each sample's h5 and sample_molecule_info.h5
+    through io/hdf5.py: the genome column is there, and the JAX package's
+    own comparators (real h5py) find both equal to the JAX run's."""
+    import h5py
+
     m = cmo_multi
     count_dir = os.path.join(m["t_out"], "count")
-    from_h5 = matrix_store.load_count_matrix(count_dir,
-                                             "filtered_feature_bc_matrix")
-    monkeypatch.setattr(matrix_store, "h5py_available", lambda: False)
-    monkeypatch.setattr(tdemux, "h5py_available", lambda: False)
-    from_mex = matrix_store.load_count_matrix(count_dir,
-                                              "filtered_feature_bc_matrix")
-    assert from_mex.barcodes == from_h5.barcodes
-    assert [(d.id, d.name, d.feature_type)
-            for d in from_mex.features.feature_defs] \
-        == [(d.id, d.name, d.feature_type)
-            for d in from_h5.features.feature_defs]
-    assert (from_mex.m != from_h5.m).nnz == 0
-    # what MEX cannot carry, and why the h5 is read where it can be
-    assert {f.genome for f in from_mex.features.feature_defs} == {""}
-    assert "synth" in {f.genome for f in from_h5.features.feature_defs}
     samples = [dict(sample_id="sampleA", cmo_ids="CMO301"),
                dict(sample_id="sampleB", cmo_ids="CMO302")]
     out = str(tmp_path / "dx")
-    got = tdemux.demux_samples(count_dir, samples, out, device="cpu")
+    with monkeypatch.context() as mp:
+        mp.setitem(sys.modules, "h5py", None)     # `import h5py` raises
+        with pytest.raises(ImportError):
+            import h5py  # noqa: F401,F811
+        got = tdemux.demux_samples(count_dir, samples, out, device="cpu")
     assert got == m["want"]["demux"]
     ref = os.path.join(m["j_out"], "demux")
     assert filecmp.cmp(os.path.join(out, "assignments.csv"),
                        os.path.join(ref, "assignments.csv"), shallow=False)
     mex = "sample_filtered_feature_bc_matrix"
     for sid in ("sampleA", "sampleB"):
-        _same_mex(os.path.join(out, "per_sample_outs", sid, mex),
-                  os.path.join(ref, "per_sample_outs", sid, mex))
-        assert not os.path.exists(
-            os.path.join(out, "per_sample_outs", sid, mex + ".h5"))
-        with open(os.path.join(out, "per_sample_outs", sid,
-                               "metrics_summary.json")) as a, \
-                open(os.path.join(ref, "per_sample_outs", sid,
-                                  "metrics_summary.json")) as b:
-            assert json.load(a) == json.load(b)
-        _same_sample_analysis(os.path.join(out, "per_sample_outs", sid),
-                              os.path.join(ref, "per_sample_outs", sid))
+        ts = os.path.join(out, "per_sample_outs", sid)
+        js = os.path.join(ref, "per_sample_outs", sid)
+        _same_mex(os.path.join(ts, mex), os.path.join(js, mex))
+        assert not h5_parity_diffs(os.path.join(ts, mex + ".h5"),
+                                   os.path.join(js, mex + ".h5"))
+        with h5py.File(os.path.join(ts, mex + ".h5"), "r") as f:
+            genomes = set(f["matrix/features/genome"][:].tolist())
+        assert b"synth" in genomes
+        assert not h5_parity_diffs(
+            os.path.join(ts, "sample_molecule_info.h5"),
+            os.path.join(js, "sample_molecule_info.h5"),
+            molecule_info=True)
 
 
 def test_multi_gex_and_antibody_matches_jax(tmp_path):

@@ -1,18 +1,21 @@
-"""The port runs without JAX and without the JAX package: in a subprocess
-whose import system refuses jax, jaxlib, cellranger_tpu and h5py (the
-machine with the card has no h5py), import
+"""The port runs without JAX, without the JAX package and without h5py: in
+a subprocess whose import system refuses jax, jaxlib, cellranger_tpu and
+h5py (the port reads and writes HDF5 through its own io/hdf5.py), import
 cellranger_tpu_torch, its count pipeline and the modules of its BAM,
 Feature Barcode, probe, demux, multi, secondary-analysis, mesh and
 multi-host paths, its CLI and chip_smoke, then build the synthetic run and
-count it on the CPU (secondary analysis on, as by default) and on a mesh
-of two CPU entries (with and without the kmer table sharded), run
-secondary analysis on a
-planted-population matrix, and run chip_smoke's parity, golden, overflow,
-analysis, paired-end (a tiny SC5P-PE count with BAM), probe (a tiny
-MFRP-RNA count), multi, V(D)J (the tests' worlds, and the kmer spectrum of
-a tiny run) and mkfastq phases with the CPU as the device.  A second, static test walks the
-port's sources and chip_smoke.py and refuses any import of jax, jaxlib or
-cellranger_tpu, lazy imports inside functions included."""
+count it on the CPU (secondary analysis on, as by default: the three h5
+outputs written and read back to what was written) and on a mesh of two
+CPU entries (with and without the kmer table sharded), run secondary
+analysis on a planted-population matrix, and run chip_smoke's parity,
+golden (the h5 files against the h5py-written snapshots), overflow,
+h5_pipelines (aggr over two runs' molecule_info.h5, two GEM wells, CLI
+reanalyze), analysis, paired-end (a tiny SC5P-PE count with BAM), probe
+(a tiny MFRP-RNA count), multi, V(D)J (the tests' worlds, and the kmer
+spectrum of a tiny run) and mkfastq phases with the CPU as the device.
+A second, static test walks the port's sources and chip_smoke.py and
+refuses any import of jax, jaxlib, cellranger_tpu or h5py, lazy imports
+inside functions included."""
 
 import ast
 import os
@@ -49,7 +52,7 @@ SCRIPT = textwrap.dedent("""
     import cellranger_tpu_torch.io.probe_set
     import cellranger_tpu_torch.io.probe_bc
     import cellranger_tpu_torch.io.bam_filter
-    import cellranger_tpu_torch.io.matrix_store
+    import cellranger_tpu_torch.io.hdf5
     import cellranger_tpu_torch.io.multi_config
     import cellranger_tpu_torch.analysis.jibes
     import cellranger_tpu_torch.pipeline.detect_chemistry
@@ -85,11 +88,14 @@ SCRIPT = textwrap.dedent("""
         fastq_pairs=[(fx["fq1"], fx["fq2"])], reference_path=fx["ref"],
         whitelist_path=fx["wl"], batch_size=256)
     out = os.path.join(tmp, "out")
-    s = count.run_count(cfg, out, device="cpu")
+    with chip_smoke.h5_writes() as written:
+        s = count.run_count(cfg, out, device="cpu")
     assert s["total_reads"] == fx["n_reads"], s["total_reads"]
     assert s["total_molecules"] == int(fx["truth"].sum())
     for f in count.H5_OUTPUTS:
-        assert not os.path.exists(os.path.join(out, f)), f
+        assert os.path.exists(os.path.join(out, f)), f
+    assert sorted(chip_smoke.h5_read_back(written)) \
+        == sorted(count.H5_OUTPUTS)
     assert os.path.exists(os.path.join(out, "filtered_feature_bc_matrix",
                                        "matrix.mtx.gz"))
     assert len(check.analysis_files(os.path.join(out, "analysis"))) == 16
@@ -116,20 +122,25 @@ SCRIPT = textwrap.dedent("""
     rp = chip_smoke.analysis_parity(os.path.join(tmp, "an"), n_cells=160,
                                     n_genes=400, devices=("cpu", "cpu"))
     assert rp["short_horizon"]["tsne_10"] == 0.0, rp
-    # chip_smoke's cpu/cpu parity phase runs here too (the card has no h5py)
+    # chip_smoke's cpu/cpu parity phase runs here too
     chip_smoke.tiny_parity(os.path.join(tmp, "smoke"), devices=("cpu", "cpu"))
-    # the golden phases (h5 comparisons skipped without h5py), the BAM
-    # record counter and the overflow phase, on the CPU
+    # the golden phases (the h5 files against the h5py-written snapshots),
+    # the BAM record counter, the overflow phase and the h5 pipelines, on
+    # the CPU
     for which in ("e2e", "e2e_rich"):
         g = chip_smoke.golden(os.path.join(tmp, "g"), which,
                               devices=("cpu",))
-        assert g["h5_skipped"] and g["sw_launches_cpu"] == 0, g
+        assert g["h5_compared"] and g["sw_launches_cpu"] == 0, g
     from cellranger_tpu_torch.io.bam_read import read_bam
     bam = os.path.join(tmp, "g", "e2e_rich_cpu", "possorted_genome_bam.bam")
     assert chip_smoke.bam_records(bam) == len(read_bam(bam)[1])
     r = chip_smoke.overflow_run(fx, os.path.join(tmp, "ovf"), out,
                                 device="cpu", batch_size=256, cap=512)
     assert r["flushes"] and r["total_molecules"] == s["total_molecules"]
+    g = chip_smoke.h5_pipelines(fx, tmp, out, os.path.join(tmp, "ovf"),
+                                device="cpu", batch_size=256)
+    assert g["aggr_molecules"] == 2 * s["total_molecules"], g
+    assert g["reanalyze_files"] == 16 and g["gem_wells_molecules"] > 0, g
     # the cut of a fixture to its first reads that the BAM phase runs on
     cut = chip_smoke.first_reads(fx, 500, os.path.join(tmp, "cut"))
     rc = chip_smoke.count_run(cut, os.path.join(tmp, "cut_out"),
@@ -137,7 +148,7 @@ SCRIPT = textwrap.dedent("""
     assert rc["reads"] == 500 and 0 < rc["total_molecules"] <= 500, rc
     # a tiny SC5P-PE count with BAM and a tiny MFRP-RNA count, each held to
     # its fixture's counts; then multi with sample demux, which reads the
-    # count run's MEX here (no h5py)
+    # count run's filtered h5 through io/hdf5.py
     g = chip_smoke.pe_parity(os.path.join(tmp, "pe"), None,
                              devices=("cpu", "cpu"), n_pairs=600,
                              batch_size=256, genome_len=200_000, n_genes=20,
@@ -177,7 +188,7 @@ def test_port_runs_without_jax(tmp_path):
     assert "NOJAX_OK" in res.stdout
 
 
-FORBIDDEN = ("cellranger_tpu", "jax", "jaxlib")
+FORBIDDEN = ("cellranger_tpu", "jax", "jaxlib", "h5py")
 
 
 def _port_sources():
@@ -188,6 +199,8 @@ def _port_sources():
 
 
 def test_no_source_imports_jax_or_the_jax_package():
+    """No import of jax, jaxlib, cellranger_tpu or h5py anywhere in the
+    port or chip_smoke.py."""
     files = _port_sources()
     assert len(files) > 60           # the walk found the package
     bad = []

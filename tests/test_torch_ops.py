@@ -85,6 +85,50 @@ def test_bucket_table_queries(probe_rows):
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
+@pytest.mark.parametrize("case", ["duplicates", "overflow", "empty_key",
+                                  "random"])
+def test_bucket_table_build_matches_jax(case):
+    """BucketTable.build on the inputs of tests/test_bucket_table.py: the
+    same rows as the JAX table's and the same lookups."""
+    rng = np.random.default_rng(3)
+    kw = {}
+    if case == "duplicates":
+        keys = np.asarray([7, 7, 7, 9, 9, 1234567], np.uint32)
+        vals = np.asarray([10, 11, 12, 20, 21, 30], np.uint32)
+        q = np.asarray([7, 9, 1234567, 42], np.uint32)
+    elif case == "overflow":
+        keys = np.full(20, 99, np.uint32)
+        vals = np.arange(20, dtype=np.uint32)
+        q = np.asarray([99], np.uint32)
+        kw = dict(entries=4, probe_rows=1)
+    elif case == "empty_key":
+        keys = vals = np.asarray([1, 2, 3], np.uint32)
+        q = np.asarray([U32, 1, 2, 3], np.uint32)
+    else:
+        keys = rng.integers(0, 2**32 - 1, 5000, dtype=np.uint64) \
+            .astype(np.uint32)
+        vals = np.arange(len(keys), dtype=np.uint32)
+        q = np.concatenate([keys[::3], rng.integers(0, 2**32 - 1, 300,
+                                                    dtype=np.uint64)
+                            .astype(np.uint32)])
+        kw = dict(entries=8, fields=2)
+    jt = JaxBucketTable.build(keys, vals, **kw)
+    tt = BucketTable.build(keys, vals, "cpu", **kw)
+    assert (tt.bits, tt.entries, tt.fields, tt.probe_rows) \
+        == (jt.bits, jt.entries, jt.fields, jt.probe_rows)
+    np.testing.assert_array_equal(tt.rows.numpy().astype(np.uint32),
+                                  np.asarray(jt.rows))
+    jhit, jval = jt.lookup(jnp.asarray(q))
+    thit, tval = tt.lookup(_t(q))
+    np.testing.assert_array_equal(thit.numpy(), np.asarray(jhit))
+    np.testing.assert_array_equal(tval.numpy(),
+                                  np.asarray(jval).astype(np.int64))
+    if case == "overflow":
+        assert thit.numpy().sum() == 4
+    if case == "empty_key":
+        assert not thit.numpy()[0].any()
+
+
 def _adapter_reads(rng, B, L):
     """Reads with TSO prefixes (some mutated), polyA tails, both, Ns."""
     tso = np.frombuffer(TSO_SEQ, np.uint8)

@@ -10,8 +10,9 @@
   * `unpack_step_out` tells single-end from paired plane widths, with and
     without secondary-locus blocks, as the JAX package's does;
   * the three runs of tests/test_paired_end.py through both `run_count`s:
-    equal metrics, MEX bytes and BAM bytes, and that file's own assertions
-    hold for the port;
+    equal metrics, MEX bytes and BAM bytes, matrix h5 and molecule_info.h5
+    equal as real h5py reads them, and that file's own assertions hold
+    for the port;
   * `testing.fixtures.build_pe_run` at a small size: the counts it
     expects by construction are the counts the port gives.
 """
@@ -40,6 +41,7 @@ from cellranger_tpu_torch.pipeline import count as tcount
 from cellranger_tpu_torch.testing import correctness as cc
 from cellranger_tpu_torch.testing.fixtures import build_pe_run
 from test_paired_end import READ_LEN, _build_ref, _revcomp, _write_pe_run
+from test_torch_hdf5 import h5_parity_diffs
 
 L = READ_LEN
 
@@ -324,6 +326,11 @@ def test_sc5p_pe_run_matches_jax(tmp_path, build, check):
         for f in ("matrix.mtx.gz", "barcodes.tsv.gz", "features.tsv.gz"):
             assert _gunzip(os.path.join(t_out, sub, f)) \
                 == _gunzip(os.path.join(j_out, sub, f)), (sub, f)
+        assert not h5_parity_diffs(os.path.join(t_out, sub + ".h5"),
+                                   os.path.join(j_out, sub + ".h5")), sub
+    assert not h5_parity_diffs(os.path.join(t_out, "molecule_info.h5"),
+                               os.path.join(j_out, "molecule_info.h5"),
+                               molecule_info=True)
     if extra:
         bam = "possorted_genome_bam.bam"
         with open(os.path.join(t_out, bam), "rb") as a, \

@@ -45,6 +45,7 @@ from cellranger_tpu_torch.testing import correctness as cc
 from cellranger_tpu_torch.testing.fixtures import (build_rtl_run,
                                                    rtl_probe_barcodes)
 from test_probe_demux import PBCS, mfrp_run  # noqa: F401  (fixture)
+from test_torch_hdf5 import h5_parity_diffs
 
 ACGT = "ACGT"
 
@@ -207,11 +208,11 @@ def _run_both(tmp_path, **kw):
         for f in ("matrix.mtx.gz", "barcodes.tsv.gz", "features.tsv.gz"):
             assert _gunzip(os.path.join(t_out, sub, f)) \
                 == _gunzip(os.path.join(j_out, sub, f)), (sub, f)
-        assert not cc.check_h5(os.path.join(t_out, sub + ".h5"),
-                               os.path.join(j_out, sub + ".h5"))
-    assert not cc.check_molecule_info(
+        assert not h5_parity_diffs(os.path.join(t_out, sub + ".h5"),
+                                   os.path.join(j_out, sub + ".h5"))
+    assert not h5_parity_diffs(
         os.path.join(t_out, "molecule_info.h5"),
-        os.path.join(j_out, "molecule_info.h5"))
+        os.path.join(j_out, "molecule_info.h5"), molecule_info=True)
     for f in ("filtered_barcodes.csv", "per_barcode_metrics.csv"):
         assert filecmp.cmp(os.path.join(t_out, f), os.path.join(j_out, f),
                            shallow=False), f
@@ -337,8 +338,8 @@ def test_mfrp_run_and_demux_match_jax(mfrp_run, tmp_path):  # noqa: F811
         for f in ("matrix.mtx.gz", "barcodes.tsv.gz", "features.tsv.gz"):
             assert _gunzip(os.path.join(td, mex, f)) \
                 == _gunzip(os.path.join(jd, mex, f)), (sid, f)
-        assert not cc.check_h5(os.path.join(td, mex + ".h5"),
-                               os.path.join(jd, mex + ".h5"))
+        assert not h5_parity_diffs(os.path.join(td, mex + ".h5"),
+                                   os.path.join(jd, mex + ".h5"))
         assert filecmp.cmp(os.path.join(td, "metrics_summary.json"),
                            os.path.join(jd, "metrics_summary.json"),
                            shallow=False)
