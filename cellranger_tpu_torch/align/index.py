@@ -93,22 +93,11 @@ class GenomeIndex:
         <=128-base window lives in rows (r, r+1), so a candidate window
         costs exactly two row gathers (row fetches are the unit of HBM cost
         regardless of width — tools/row_bench.py). Two pad rows keep r+1 in
-        bounds at the text tail."""
+        bounds at the text tail.  Built a block of rows at a time, so the
+        host holds the rows and one block's scratch (a whole-text build
+        held ~3 bytes of scratch a base: 7 GB at human scale)."""
         if not hasattr(self, "_rows"):
-            G = len(self.text)
-            NR = (G + 255) // 256 + 2
-            padded = np.zeros(NR * 256, np.uint8)
-            padded[:G] = self.text
-            vpadded = np.zeros(NR * 256, bool)
-            vpadded[:G] = self.text_valid
-            tw = np.zeros(NR * 16, np.uint32)
-            vw = np.zeros(NR * 16, np.uint32)
-            for i in range(16):
-                tw = (tw << np.uint32(2)) | padded[i::16].astype(np.uint32)
-                vw = (vw << np.uint32(1)) | vpadded[i::16].astype(np.uint32)
-            rows = np.concatenate(
-                [tw.reshape(NR, 16), vw.reshape(NR, 16)], axis=1)
-            self._rows = rows
+            self._rows = _pack_text_rows(self.text, self.text_valid)
         return self._rows
 
     def packed_overlap_rows(self, rw: int = 14):
@@ -271,8 +260,13 @@ class GenomeIndex:
         )
 
     def save(self, path: str):
-        np.savez_compressed(
-            path, text=self.text, text_valid=np.packbits(self.text_valid),
+        np.savez_compressed(path, **self.npz_arrays())
+
+    def npz_arrays(self) -> dict:
+        """The arrays of index.npz, by key (`load` reads them from a
+        compressed or an uncompressed npz)."""
+        return dict(
+            text=self.text, text_valid=np.packbits(self.text_valid),
             text_len=len(self.text),
             chrom_starts=self.chrom_starts, genome_len=self.genome_len,
             sj_contig_start=self.sj_contig_start, sj_overhang=self.sj_overhang,
@@ -307,6 +301,31 @@ class GenomeIndex:
             pos_mode=str(z["pos_mode"]),
             source_path=os.path.abspath(path),
         )
+
+
+PACK_BLOCK_ROWS = 1 << 14   # text rows packed at a time (4 Mb of text)
+
+
+def _pack_text_rows(text, valid) -> np.ndarray:
+    """`GenomeIndex.packed_rows` of (text, valid), PACK_BLOCK_ROWS rows at
+    a time: each code is two bits and each validity flag one, packed
+    MSB-first by np.packbits into big-endian words."""
+    G = len(text)
+    NR = (G + 255) // 256 + 2
+    rows = np.zeros((NR, 32), np.uint32)
+    for r0 in range(0, (G + 255) // 256, PACK_BLOCK_ROWS):
+        r1 = min(r0 + PACK_BLOCK_ROWS, NR)
+        n = min(r1 * 256, G) - r0 * 256
+        c = np.zeros((r1 - r0) * 256, np.uint8)
+        c[:n] = text[r0 * 256:r0 * 256 + n]
+        v = np.zeros((r1 - r0) * 256, bool)
+        v[:n] = valid[r0 * 256:r0 * 256 + n]
+        bits = np.stack([c >> 1, c & 1], 1).reshape(-1, 32).astype(bool)
+        rows[r0:r1, :16] = np.packbits(bits, axis=1).view(">u4") \
+            .reshape(r1 - r0, 16)
+        rows[r0:r1, 16:] = np.packbits(v.reshape(-1, 16), axis=1) \
+            .view(">u2").reshape(r1 - r0, 16)
+    return rows
 
 
 def _canonical_kmers_block(text, valid, k):

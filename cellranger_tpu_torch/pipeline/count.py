@@ -812,19 +812,39 @@ _REF_MEMO: dict = {"key": None, "value": None}
 
 def _load_reference_cached(path: str, device):
     """(ReferencePackage, DeviceIndex, AnnotationIndex) of `path` on
-    `device`, loaded once for a run of calls with the same key."""
+    `device`, loaded once for a run of calls with the same key.  A load
+    leaves its host seconds in _REF_MEMO["split"]: index.npz and the GTF,
+    the text rows, the overlapped rows with the kmer bucket rows, the
+    copy to the device, the annotation tables."""
     try:
         mtime = os.path.getmtime(os.path.join(path, "index.npz"))
     except OSError:
         mtime = 0.0
     key = (os.path.realpath(path), mtime, str(torch.device(device)))
     if _REF_MEMO["key"] != key:
-        _REF_MEMO.update(key=None, value=None)   # free the old tables first
+        # free the old tables first
+        _REF_MEMO.update(key=None, value=None, split=None)
+        split = {}
+        t = time.time()
+
+        def lap(name):
+            nonlocal t
+            split[name] = time.time() - t
+            t = time.time()
+
         ref = ReferencePackage.load(path)
         gi = ref.genome_index
-        _REF_MEMO.update(key=key, value=(
-            ref, DeviceIndex.from_host(gi, device),
-            AnnotationIndex.build(ref.transcriptome, gi, device)))
+        lap("npz_load_s")
+        gi.packed_rows()
+        lap("packed_rows_s")
+        arrays, meta = DeviceIndex.host_arrays(gi)
+        lap("overlap_and_kmer_rows_s")
+        didx = DeviceIndex.from_numpy(arrays, meta, device)
+        del arrays
+        lap("upload_s")
+        ann = AnnotationIndex.build(ref.transcriptome, gi, device)
+        lap("annotation_s")
+        _REF_MEMO.update(key=key, value=(ref, didx, ann), split=split)
     return _REF_MEMO["value"]
 
 
@@ -1474,6 +1494,20 @@ def _hand_off(hosts: Hosts, metrics: CountMetrics, sj_counts: dict, probe,
     return True
 
 
+def barcode_names(packed: np.ndarray, length: int,
+                  suffix: bytes = b"") -> list[bytes]:
+    """The ASCII name (+ suffix) of each packed barcode, decoded in one
+    vectorized pass: a decode a barcode takes minutes over a 6.8M-barcode
+    whitelist (10x's 3' v3 list)."""
+    ascii_ = np.frombuffer(b"ACGT", np.uint8)[
+        encode.unpack_np(np.asarray(packed), length)]
+    names = np.concatenate(
+        [ascii_, np.broadcast_to(np.frombuffer(suffix, np.uint8),
+                                 (len(ascii_), len(suffix)))], 1)
+    return np.ascontiguousarray(names).view(f"S{names.shape[1]}") \
+        .ravel().tolist()
+
+
 def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
               n_genes, metrics, mbc, mgene, mumi, mreads, mlib, sj_counts,
               perf, t0, fb_ref, bam_collector, raw_views, device,
@@ -1484,16 +1518,16 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
     out_seqs = (whitelist.translation if whitelist.translation is not None
                 else whitelist.sorted_seqs)
     suffix = f"-{cfg.gem_group}".encode()
-    barcodes = [encode.decode_codes(encode.unpack_np(s, whitelist.length))
-                for s in out_seqs]
     if probe_bc_packed is not None:
         # product barcode space: gel-bead barcode ++ probe barcode
         # (DEMUX_PROBE_BC_MATRIX barcode composition)
         probe_strs = [encode.decode_codes(encode.unpack_np(
             np.uint32(p), chem.probe_bc.length)) for p in probe_bc_packed]
-        barcodes = [bc + ps + suffix for bc in barcodes for ps in probe_strs]
+        barcodes = [bc + ps + suffix
+                    for bc in barcode_names(out_seqs, whitelist.length)
+                    for ps in probe_strs]
     else:
-        barcodes = [bc + suffix for bc in barcodes]
+        barcodes = barcode_names(out_seqs, whitelist.length, suffix)
     raw = CountMatrix.from_molecules(mbc.astype(np.int64),
                                      mgene.astype(np.int64), barcodes,
                                      features)

@@ -18,8 +18,10 @@ JAX makes its own data, byte for byte the JAX package's.
 from __future__ import annotations
 
 import gzip
+import json
 import os
 import struct
+import time
 
 import numpy as np
 
@@ -1528,3 +1530,365 @@ def split_lanes(fx: dict, n_lanes: int, out_dir: str) -> dict:
             pair.append(path)
         pairs.append(tuple(pair))
     return dict(fx, pairs=pairs)
+
+
+# ---------------------------------------------------------------------------
+# Human-scale run: a text above 2**31 bases, so the index samples
+# minimizers and packs positions by parity
+# ---------------------------------------------------------------------------
+
+HUMAN_PAD = 2_000_000_000       # all-N contig ahead of chr1
+HUMAN_CHR1_LEN = 280_000_000    # bench.py HUMAN_GENOME_LEN
+HUMAN_REPEAT_LEN = 5_000_000    # chr1 opens with 4 copies of one segment
+HUMAN_REPEAT_COPIES = 4
+HUMAN_GENES = 36_601            # the genes of 10x Genomics' GRCh38-2020-A
+HUMAN_WL = 6_794_880            # the barcodes of 10x's 3M-february-2018.txt
+HUMAN_CELLS = 10_000
+HUMAN_UMI_LEN = 12
+# molecule kinds and their shares: exon 1 of a '+' gene off the repeat,
+# across a gene's exon 1 -> exon 2 junction, exon 1 of a '+' gene with a
+# 2-base deletion, a repeat position intergenic at every copy
+HUMAN_KINDS = ("exon", "junction", "deletion", "repeat")
+HUMAN_SHARES = (0.70, 0.10, 0.05, 0.15)
+HUMAN_DELETION = 2
+HUMAN_JUNCTION_MIN_SIDE = 20    # bases of a junction read on either exon
+HUMAN_DELETION_AT = (25, 36)    # read offsets of the deletion
+PAD_PREFIX = 256   # N bases an index is built over in place of a long pad
+
+
+def padded_index(seqs: dict, txome, pad_name: str, pad_len: int):
+    """(GenomeIndex, offset): the minimizer/parity index of the genome
+    {pad_name: pad_len N bases, **seqs}, built over PAD_PREFIX N bases in
+    place of the pad.  `shift_index(gi, offset)` is then the index of the
+    whole genome (its coordinates; `padded_text_rows` gives its text
+    rows): no kmer lies in the pad, and the prefix is longer than a
+    minimizer window plus a kmer, so every window at the pad's edge sees
+    what it sees in the whole genome.  The offset is a multiple of 256:
+    whole text rows, and even, which keeps a parity value's strand bit."""
+    from ..align.index import DEFAULT_K, MINIMIZER_W, GenomeIndex
+
+    offset = pad_len - PAD_PREFIX
+    assert PAD_PREFIX >= MINIMIZER_W + DEFAULT_K and PAD_PREFIX % 2 == 0
+    assert offset >= 0 and offset % 256 == 0, pad_len
+    gi = GenomeIndex.build({pad_name: b"N" * PAD_PREFIX, **seqs}, txome,
+                           sampling="minimizer", pos_mode="parity")
+    return gi, offset
+
+
+def shift_index(gi, offset: int):
+    """`gi` (from `padded_index`) with its first contig `offset` bases
+    longer: kmer values, contig starts, the genome length and the
+    junction contigs' coordinates move by offset.  The text arrays stay
+    gi's own (the text of a 2 Gb pad is 4.6 GB of host memory):
+    `padded_text_rows` and `_write_human_reference` add the pad."""
+    import dataclasses
+
+    assert gi.pos_mode == "parity" and offset % 256 == 0
+    assert int(gi.kmer_pos.max(initial=0)) + offset < 2**32
+    starts = gi.chrom_starts.copy()
+    starts[1:] += offset
+    return dataclasses.replace(
+        gi, chrom_starts=starts, genome_len=gi.genome_len + offset,
+        sj_contig_start=gi.sj_contig_start + offset,
+        sj_donor_end=gi.sj_donor_end + offset,
+        sj_acceptor_start=gi.sj_acceptor_start + offset,
+        kmer_pos=(gi.kmer_pos.astype(np.int64) + offset).astype(np.uint32),
+        source_path=None)
+
+
+def padded_text_rows(gi, offset: int) -> np.ndarray:
+    """The packed text rows of the whole padded genome (the JAX package's
+    `packed_rows()` of its whole build), without the pad's text: np.zeros
+    (pages that are never written take no memory) with the rows of gi's
+    text written at the end."""
+    rows = gi.packed_rows()
+    out = np.zeros((offset // 256 + len(rows), rows.shape[1]), np.uint32)
+    out[offset // 256:] = rows
+    return out
+
+
+def _human_gtf(path: str, n_genes: int, spacing: int) -> None:
+    """Two-exon genes on chr1, alternating strands, laid out as the e2e
+    fixtures lay them out: gene g's exons are [s, s+600) and [s+1200,
+    s+2400), s = g * spacing + 1000 (0-based)."""
+    with open(path, "w") as f:
+        for g in range(n_genes):
+            st = g * spacing + 1000
+            s = "+" if g % 2 == 0 else "-"
+            attrs = (f'gene_id "G{g}"; transcript_id "T{g}"; '
+                     f'gene_name "G{g}";\n')
+            f.write(f"chr1\tx\texon\t{st + 1}\t{st + 600}\t.\t{s}\t.\t{attrs}")
+            f.write(f"chr1\tx\texon\t{st + 1201}\t{st + 2400}\t.\t{s}\t.\t"
+                    f"{attrs}")
+
+
+def _human_whitelist(rng, n_wl: int) -> np.ndarray:
+    """n_wl distinct packed 16-base barcodes, sorted, drawn as u32s."""
+    draw = rng.integers(0, 2**32, n_wl + n_wl // 100 + 1024,
+                        dtype=np.uint64).astype(np.uint32)
+    u = np.unique(draw)
+    assert len(u) >= n_wl
+    return np.sort(rng.choice(u, n_wl, replace=False))
+
+
+def _unpack_barcodes(packed: np.ndarray, length: int = 16) -> np.ndarray:
+    """Packed barcodes -> [n, length] ASCII bases."""
+    from ..ops import encode
+
+    return np.frombuffer(b"ACGT", np.uint8)[encode.unpack_np(packed, length)]
+
+
+def _listed(wl: np.ndarray, packed: np.ndarray) -> np.ndarray:
+    i = np.minimum(np.searchsorted(wl, packed), len(wl) - 1)
+    return wl[i] == packed
+
+
+def _human_barcode_errors(bc_packed: np.ndarray, rows: np.ndarray,
+                          wl: np.ndarray, rng) -> np.ndarray:
+    """One substituted base in each listed row's packed barcode, in place,
+    kept only where the new barcode is not listed and its one listed
+    Hamming-1 neighbour is the original, so that correction takes it
+    back; returns the rows that keep their error."""
+    pos = rng.integers(0, 16, len(rows)).astype(np.uint32)
+    shift = 2 * (15 - pos)
+    delta = rng.integers(1, 4, len(rows)).astype(np.uint32)
+    old = bc_packed[rows]
+    new = old ^ (delta << shift)                       # a different base
+    d = np.arange(1, 4, dtype=np.uint32)
+    xor = (d[None, :] << (2 * (15 - np.arange(16, dtype=np.uint32)))
+           [:, None]).reshape(-1)                      # every neighbour
+    n_listed = _listed(wl, new[:, None] ^ xor[None, :]).sum(1)
+    keep = ~_listed(wl, new) & (n_listed == 1)
+    bc_packed[rows[keep]] = new[keep]
+    return rows[keep]
+
+
+def _intergenic_repeat_starts(spacing: int, repeat_len: int) -> np.ndarray:
+    """Read starts p on the repeat whose read overlaps no gene span
+    [s, s+2400) at any of its copies (bench.py's `genic` test)."""
+    p = np.arange(repeat_len - READ_LEN)
+    genic = np.zeros(len(p), bool)
+    for c in range(HUMAN_REPEAT_COPIES):
+        off = (p + c * repeat_len) % spacing
+        genic |= (off > 1000 - READ_LEN) & (off < 3400)
+    return p[~genic]
+
+
+def _write_human_reference(ref_dir: str, gi, offset: int, txome) -> None:
+    """index.npz (uncompressed) of shift_index(gi, offset) and
+    reference.json; the pad's text is written without its valid mask
+    ever being held (offset is a multiple of 8: its validity bits are
+    whole zero bytes)."""
+    arrays = shift_index(gi, offset).npz_arrays()
+    arrays.update(text=np.concatenate([np.zeros(offset, np.uint8), gi.text]),
+                  text_valid=np.concatenate([
+                      np.zeros(offset // 8, np.uint8),
+                      np.packbits(gi.text_valid)]),
+                  text_len=offset + len(gi.text))
+    np.savez(os.path.join(ref_dir, "index.npz"), **arrays)
+    del arrays
+    with open(os.path.join(ref_dir, "reference.json"), "w") as f:
+        json.dump({"genomes": ["genome"], "version": "cellranger-tpu-0.1.0",
+                   "input_fasta": "genome.fa", "input_gtf": "genes.gtf",
+                   "n_genes": len(txome.genes),
+                   "n_transcripts": len(txome.transcripts),
+                   "n_junctions": gi.n_junctions, "index_k": gi.k,
+                   "index_stride": gi.stride}, f, indent=2)
+
+
+def build_human_run(tmp: str, n_reads: int = 1_000_000, **kw) -> dict:
+    """`human_run_inputs` and the reference directory they belong to:
+    ref/index.npz, uncompressed, of the index shifted over the whole pad
+    (the text as zeros and the pad's validity bits as zero bytes, never a
+    mask the pad's length) and ref/reference.json beside genes/genes.gtf;
+    no fasta/, which count never reads."""
+    fx = human_run_inputs(tmp, n_reads, **kw)
+    t = time.time()
+    gi, offset = fx.pop("index")
+    _write_human_reference(fx["ref"], gi, offset, fx.pop("txome"))
+    fx["timing"]["npz_write_s"] = time.time() - t
+    return fx
+
+
+def human_run_inputs(tmp: str, n_reads: int = 1_000_000, *,
+                     pad_len: int = HUMAN_PAD,
+                     chr1_len: int = HUMAN_CHR1_LEN,
+                     repeat_len: int = HUMAN_REPEAT_LEN,
+                     n_genes: int = HUMAN_GENES, n_wl: int = HUMAN_WL,
+                     n_cells: int = HUMAN_CELLS, seed: int = 1) -> dict:
+    """A count run on a reference of human size: contig chrPad of pad_len
+    N bases, then chr1 (bench.py's human-scale genome: its first 4 x
+    repeat_len bases are four copies of one segment, the rest random) with
+    n_genes two-exon genes (`_human_gtf`), one annotated junction each;
+    a whitelist of n_wl random barcodes, n_cells of them cells; n_reads
+    reads, 2 a molecule, of the HUMAN_KINDS in HUMAN_SHARES; 2% of the
+    reads carry a barcode error that corrects back uniquely.
+
+    The text (pad + chr1 + junction contigs) is past AUTO_MINIMIZER_LEN
+    and, at the default sizes, past 2**31: the index samples minimizers
+    and packs positions by parity, and chr1 crosses 2**31, so about half
+    its genes and every junction contig lie above it.  The index is built
+    over a short pad and shifted (`padded_index`, `shift_index`): equal,
+    array for array, to GenomeIndex.build over the whole genome, in a
+    fraction of its host time; it is returned, not written
+    (`build_human_run` writes it), as `index` = (the index over the short
+    pad, the offset), with the transcriptome (`txome`).
+
+    Returns paths, `expected` (total reads, molecules, confidently mapped
+    reads, molecules per gene: the repeat molecules map at MAPQ < 255 and
+    are never counted), each read's kind, molecule, gene (-1 on the
+    repeat) and ASCII cDNA (`read_kind`, `read_mol`, `read_gene`, `cdna`,
+    in FASTQ order), the genome's chr1 codes and layout for
+    `human_truth_reads`, and the host seconds of each part (`timing`)."""
+    from ..io.gtf import Transcriptome
+
+    timing = {}
+    t = time.time()
+    os.makedirs(tmp, exist_ok=True)
+    ref_dir = os.path.join(tmp, "ref")
+    os.makedirs(os.path.join(ref_dir, "genes"), exist_ok=True)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(seed)
+    rep_end = HUMAN_REPEAT_COPIES * repeat_len
+    seg = rng.integers(0, 4, repeat_len).astype(np.uint8)
+    codes = np.concatenate([np.tile(seg, HUMAN_REPEAT_COPIES),
+                            rng.integers(0, 4, chr1_len - rep_end)
+                            .astype(np.uint8)])
+    garr = bases[codes]
+    spacing = chr1_len // n_genes
+    assert spacing >= 3600, "genes need 2400 bases and 1000 ahead"
+    gtf = os.path.join(ref_dir, "genes", "genes.gtf")
+    _human_gtf(gtf, n_genes, spacing)
+    txome = Transcriptome.from_gtf(gtf)
+    timing["genome_s"] = time.time() - t
+
+    t = time.time()
+    gi, offset = padded_index({"chr1": garr.tobytes()}, txome, "chrPad",
+                              pad_len)
+    timing["index_build_s"] = time.time() - t
+
+    t = time.time()
+    wl = _human_whitelist(rng, n_wl)
+    wl_path = os.path.join(tmp, "wl.txt")
+    lines = np.empty((n_wl, 17), np.uint8)
+    lines[:, :16] = _unpack_barcodes(wl)
+    lines[:, 16] = ord("\n")
+    with open(wl_path, "wb") as f:
+        f.write(lines.tobytes())
+    del lines
+    timing["whitelist_s"] = time.time() - t
+
+    t = time.time()
+    L = READ_LEN
+    ar = np.arange(L)
+    comp = np.zeros(256, np.uint8)
+    comp[list(b"ACGT")] = list(b"TGCA")
+    rng = np.random.default_rng(seed + 1)
+    n_mol = n_reads // E2E_DUP
+    n_kind = [int(n_mol * s) for s in HUMAN_SHARES]
+    n_kind[0] = n_mol - sum(n_kind[1:])
+    kind = np.repeat(np.arange(len(HUMAN_KINDS)), n_kind)
+    g_first = -(-(rep_end - 1000) // spacing)        # first gene off it
+    plus = np.arange(g_first + (g_first & 1), n_genes, 2)
+    cdna = np.empty((n_mol, L), np.uint8)
+    gene = np.full(n_mol, -1, np.int64)
+    sel = kind == 0                                   # exon 1, '+' gene
+    gene[sel] = rng.choice(plus, n_kind[0])
+    start = gene[sel] * spacing + 1000 + rng.integers(0, 600 - L - 8,
+                                                      n_kind[0])
+    cdna[sel] = garr[start[:, None] + ar]
+    sel = kind == 1                                   # exon 1 -> exon 2
+    g = rng.integers(g_first, n_genes, n_kind[1])
+    gene[sel] = g
+    m = HUMAN_JUNCTION_MIN_SIDE
+    left = rng.integers(m, L - m + 1, n_kind[1])[:, None]
+    st = (g * spacing + 1000)[:, None]
+    idx = np.where(ar < left, st + 600 - left + ar, st + 1200 + ar - left)
+    seq = garr[idx]
+    minus = g % 2 == 1                                # sense of a '-' gene
+    seq[minus] = comp[seq[minus, ::-1]]
+    cdna[sel] = seq
+    sel = kind == 2                                   # 2-base deletion
+    gene[sel] = rng.choice(plus, n_kind[2])
+    st = (gene[sel] * spacing + 1000
+          + rng.integers(0, 600 - L - 8, n_kind[2]))[:, None]
+    cut = rng.integers(*HUMAN_DELETION_AT, n_kind[2])[:, None]
+    cdna[sel] = garr[np.where(ar < cut, st + ar, st + ar + HUMAN_DELETION)]
+    sel = kind == 3                        # repeat, intergenic at all copies
+    p = rng.choice(_intergenic_repeat_starts(spacing, repeat_len), n_kind[3])
+    cdna[sel] = garr[p[:, None] + ar]
+
+    cells = rng.choice(n_wl, n_cells, replace=False)
+    cell_idx = rng.integers(0, n_cells, n_mol)
+    umi = bases[_coded_umis(cell_idx, HUMAN_UMI_LEN, rng)]
+    order = rng.permutation(n_mol * E2E_DUP)
+    rep = lambda a: np.repeat(a, E2E_DUP, axis=0)[order]  # noqa: E731
+    bc_packed = rep(wl[cells[cell_idx]])
+    umi, cdna, read_kind = rep(umi), rep(cdna), rep(kind)
+    read_mol = rep(np.arange(n_mol))
+    n_err = len(bc_packed) // 50
+    err_rows = _human_barcode_errors(
+        bc_packed, rng.choice(len(bc_packed), n_err, replace=False), wl, rng)
+    r1p = os.path.join(tmp, "human_S1_L001_R1_001.fastq")
+    r2p = os.path.join(tmp, "human_S1_L001_R2_001.fastq")
+    _write_fastq_pair(r1p, r2p, np.concatenate(
+        [_unpack_barcodes(bc_packed), umi], axis=1), cdna)
+    timing["reads_s"] = time.time() - t
+
+    counted = kind != HUMAN_KINDS.index("repeat")
+    return dict(
+        ref=ref_dir, wl=wl_path, fq1=r1p, fq2=r2p, n_reads=len(cdna),
+        text_len=offset + len(gi.text),
+        genome_len=int(gi.genome_len) + offset,
+        chr1_start=offset + PAD_PREFIX, n_kmers=len(gi.kmer_keys),
+        n_junctions=int(gi.n_junctions), n_wl=n_wl, wl_packed=wl,
+        barcode_errors=len(err_rows), read_kind=read_kind,
+        read_mol=read_mol, read_gene=gene[read_mol], cdna=cdna,
+        chr1_codes=codes, spacing=spacing, repeat_len=repeat_len,
+        plus_genes=plus, timing=timing, gtf=gtf, index=(gi, offset),
+        txome=txome,
+        expected=dict(
+            total_reads=len(cdna), mapped_reads=len(cdna),
+            conf_mapped_reads=int(counted.sum()) * E2E_DUP,
+            total_molecules=int(counted.sum()),
+            gene_molecules=np.bincount(gene[counted], minlength=n_genes)))
+
+
+def human_truth_reads(fx: dict, n: int, seed: int = 7):
+    """bench.py's truth probe over a `build_human_run` genome: n
+    error-free reads, the first half at repeat positions intergenic at
+    every copy (an honest aligner reports them below MAPQ 255), the rest
+    inside exon 1 of a '+' gene off the repeat (each must map to its gene
+    at MAPQ 255).  Returns (ASCII reads [n, READ_LEN], true gene or -1,
+    in_repeat bool)."""
+    L = READ_LEN
+    rng = np.random.default_rng(seed)
+    spacing, rl = fx["spacing"], fx["repeat_len"]
+    n_rep = n // 2
+    p = rng.choice(_intergenic_repeat_starts(spacing, rl), n_rep)
+    gene = rng.choice(fx["plus_genes"], n - n_rep)
+    pos = np.concatenate([p, gene * spacing + 1000
+                          + rng.integers(0, 600 - L, n - n_rep)])
+    reads = np.frombuffer(b"ACGT", np.uint8)[
+        fx["chr1_codes"][pos[:, None] + np.arange(L)]]
+    true_gene = np.concatenate([np.full(n_rep, -1), gene])
+    return reads, true_gene, np.arange(n) < n_rep
+
+
+def reads_plane(reads: np.ndarray, bc_idx: np.ndarray, umi: np.ndarray):
+    """The SC3Pv3 step plane of ASCII cDNA reads [B, READ_LEN] (every
+    read's barcode rank bc_idx, packed UMI umi, every slot valid)."""
+    from types import SimpleNamespace
+
+    from ..io.chemistry import get_chemistry
+    from ..ops import encode
+    from ..pipeline.count import pack_step_input
+
+    codes, valid = encode.encode_seqs(reads)
+    B = len(reads)
+    shim = SimpleNamespace(
+        batch_size=B, umi_packed=np.asarray(umi, np.uint32),
+        slot_valid=np.ones(B, bool), umi_valid=np.ones(B, bool), rna=codes,
+        rna_nmask=valid, rna2=None, rna2_nmask=None)
+    return pack_step_input(get_chemistry("SC3Pv3"), READ_LEN, shim,
+                           np.asarray(bc_idx, np.int32))

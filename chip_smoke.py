@@ -116,13 +116,31 @@ Phases, each printing one line; any failure raises and exits non-zero:
                free local port): host 0's metrics and MEX equal one
                process's run of the same lanes, host 1 reports only its
                own lanes' 500,000 reads
+  human_parity the human-scale reference (testing/fixtures.build_human_run:
+               a 2 Gb all-N contig, then a 280 Mb chr1 with 36,601 genes,
+               so minimizer sampling, parity positions and half of chr1
+               above 2**31; 6,794,880 whitelist barcodes; 1,000,000
+               reads), loaded through run_count's reference memo: its
+               first 4,096 reads through the stream step and the aligner
+               on cuda and on cpu, every output equal, the deletion reads
+               rescued by K1; bench.py's truth probe on 32,768 error-free
+               reads, every miss one of the reference's known losses and
+               the off-repeat reads' score at least HUMAN_TRUTH_FLOOR
+  human_scale  those reads through run_count on cuda, count-only, batch
+               32768: the molecules, confidently mapped reads and
+               molecules per gene of an account of every read (counted
+               under its gene or a known loss of the reference, each loss
+               within HUMAN_LOSS_CAPS), one K1 launch a step; the fixture's seconds, the reference load's
+               split, each device table's bytes, peak device memory and
+               host RSS
 
 Every path resets the SW kernel's launch count before it runs and reads
 it after; the kernel report counts the e2e path's launches and lists
 every path's (`pe`: two a batch, one per mate; `mesh` and
 `mesh_shard_index`: one a slice; `multihost`: the sum of both processes'
-counts; `h5_pipelines`: one a step of each GEM well; `rtl`, the V(D)J
-paths and `mkfastq`: none, no genome aligner runs).  The line before the last is the kernel report (JSON); the
+counts; `h5_pipelines`: one a step of each GEM well; `human_parity`:
+its cuda step, aligner call and truth-probe step and aligner call;
+`rtl`, the V(D)J paths and `mkfastq`: none, no genome aligner runs).  The line before the last is the kernel report (JSON); the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -205,6 +223,28 @@ MESH_ENTRIES = 4
 MULTIHOST_PROCS = 2
 MULTIHOST_LANES = 4
 MULTIHOST_TIMEOUT_S = 600
+# the human-scale reference (testing/fixtures.build_human_run): its
+# 1,000,000 reads at the e2e batch; its parity batch; bench.py's
+# truth-probe batch
+HUMAN_BATCH = 32768
+HUMAN_PARITY_READS = 4096
+HUMAN_TRUTH_READS = 32768
+# The reference's known losses on the human layout (known_losses,
+# ROADMAP.md section 3), bounded: the truth probe's off-repeat reads must
+# score at least HUMAN_TRUTH_FLOOR (0.99072 measured on an H100), and in
+# human_scale each loss may take at most its share of each kind's reads
+# plus HUMAN_LOSS_SLACK reads.  The shares are 1.25 times those of the
+# fixture's 1,000,000 reads measured on an H100 (PERF.md section 6):
+# saturated 4,458 of 700,000 exon, 4,100 of 100,000 junction and 528 of
+# 50,000 deletion reads; straddling 152 and false novel junction 2
+# deletion reads.  A pair absent here may take the slack only.
+HUMAN_TRUTH_FLOOR = 0.985
+HUMAN_LOSS_CAPS = {
+    "saturated": {"exon": 0.0080, "junction": 0.052, "deletion": 0.0133},
+    "contig_straddle": {"deletion": 0.0038},
+    "false_novel_junction": {"deletion": 0.00005},
+}
+HUMAN_LOSS_SLACK = 8
 
 
 def phase(name: str, msg: str) -> None:
@@ -1421,6 +1461,343 @@ def mkfastq_run(tmp: str, n_clusters: int = MKFASTQ_CLUSTERS) -> dict:
     return rep
 
 
+def human_fixture(tmp: str) -> dict:
+    """build_human_run under tmp; its host seconds in fx["timing"]."""
+    from cellranger_tpu_torch.testing.fixtures import build_human_run
+
+    t = time.time()
+    fx = build_human_run(os.path.join(tmp, "human"))
+    fx["timing"]["total_s"] = time.time() - t
+    return fx
+
+
+def _human_planes(fx: dict, batch_size: int):
+    """(first read's index, ReadBatch, packed plane) of fx's FASTQs in run
+    order, barcodes resolved on the host as pass 2 resolves them (a flat
+    prior: every barcode error of the fixture corrects back uniquely)."""
+    import numpy as np
+    from cellranger_tpu_torch.io.chemistry import get_chemistry
+    from cellranger_tpu_torch.io.fastq import batches_from_fastqs
+    from cellranger_tpu_torch.ops.barcode import host_resolve_barcodes
+    from cellranger_tpu_torch.pipeline.count import pack_step_input
+
+    chem = get_chemistry("SC3Pv3")
+    ones = np.ones(len(fx["wl_packed"]), np.int64)
+    first = 0
+    for batch in batches_from_fastqs(chem, fx["fq1"], fx["fq2"], batch_size,
+                                     91):
+        bc_idx = host_resolve_barcodes(batch.bc_packed, batch.bc_qual,
+                                       batch.slot_valid, fx["wl_packed"],
+                                       ones, 16)[0]
+        yield first, batch, pack_step_input(chem, 91, batch, bc_idx)
+        first += batch.n_reads
+
+
+def _human_reads(didx, ann, dev: str, plane, rna, nmask) -> tuple:
+    """The stream step's named outputs and metrics of one plane, and the
+    aligner's outputs on its reads (codes `rna`, mask `nmask`), all on
+    `dev`, back as numpy."""
+    import torch
+    from cellranger_tpu_torch.align.aligner import make_aligner
+    from cellranger_tpu_torch.io.chemistry import get_chemistry
+    from cellranger_tpu_torch.pipeline import count
+
+    step = count.make_stream_step(didx, ann, get_chemistry("SC3Pv3"), 91)
+    ho, m = count.unpack_step_out(count.fetch_step_out(
+        step(count.upload_plane(plane, dev))))
+    al = make_aligner(didx, 91)(torch.from_numpy(rna).to(dev),
+                                torch.from_numpy(nmask).to(dev))
+    return ho, m, {k: v.cpu().numpy() for k, v in al.items()}
+
+
+def _deletions_rescued(fx: dict, first: int, al: dict) -> int:
+    """The fixture's 2-base deletion reads among the aligned rows whose
+    picked locus is on the genome: each must get a K1 score above its
+    ungapped score and at least that of the read aligned whole with one
+    2-base gap.  (A pick on a junction contig's copy, the reference's
+    `contig_straddle` loss of `known_losses`, gets a window cut at the
+    contig's start.)  Returns their count."""
+    from cellranger_tpu_torch.align.sw import GAP
+    from cellranger_tpu_torch.testing.fixtures import (HUMAN_DELETION,
+                                                       HUMAN_KINDS)
+    n = len(al["score"])
+    d = fx["read_kind"][first:first + n] == HUMAN_KINDS.index("deletion")
+    d &= al["pos"] < fx["genome_len"]
+    floor = 91 - GAP * HUMAN_DELETION
+    bad = d & ~((al["sw_score"] > al["score"]) & (al["sw_score"] >= floor))
+    if bad.any():
+        i = int(bad.nonzero()[0][0])
+        raise AssertionError(
+            f"deletion read {first + i} not rescued by K1: score "
+            f"{al['score'][i]}, sw_score {al['sw_score'][i]} (floor {floor})")
+    return int(d.sum())
+
+
+def human_parity(fx: dict, devices=("cuda", "cpu"),
+                 n_reads: int = HUMAN_PARITY_READS,
+                 n_truth: int = HUMAN_TRUTH_READS) -> dict:
+    """The first n_reads reads of the human-scale fixture through the
+    fused stream step and the aligner on both devices (devices[0]'s tables
+    through run_count's reference memo, as human_scale then finds them;
+    devices[1]'s built from the same host index): every output equal;
+    the deletion reads among them rescued by K1 on both.  Then bench.py's
+    truth probe on devices[0]: n_truth error-free reads, half intergenic
+    at every repeat copy, half in exon 1 of a '+' gene off the repeat."""
+    import numpy as np
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.align.aligner import DeviceIndex
+    from cellranger_tpu_torch.align.annotate import AnnotationIndex
+    from cellranger_tpu_torch.ops import encode
+    from cellranger_tpu_torch.pipeline import count
+    from cellranger_tpu_torch.testing.fixtures import (human_truth_reads,
+                                                       reads_plane)
+
+    a, b = devices
+    t = time.time()
+    ref, didx_a, ann_a = count._load_reference_cached(fx["ref"], a)
+    rep = dict(load_reference_s=time.time() - t,
+               load_split_s=dict(count._REF_MEMO["split"]))
+    gi = ref.genome_index
+    t = time.time()
+    tables = {a: (didx_a, ann_a),
+              b: (DeviceIndex.from_host(gi, b),
+                  AnnotationIndex.build(ref.transcriptome, gi, b))}
+    rep[f"{b}_tables_s"] = time.time() - t
+    sw.LAUNCHES = 0
+    first, batch, plane = next(_human_planes(fx, n_reads))
+    got = {dev: _human_reads(*tables[dev], dev, plane, batch.rna,
+                             batch.rna_nmask)
+           for dev in devices}
+    (ho_a, m_a, al_a), (ho_b, m_b, al_b) = got[a], got[b]
+    if m_a != m_b:
+        raise AssertionError(f"human_parity metrics: {m_a} != {m_b}")
+    for what, x, y in (("step", ho_a, ho_b), ("aligner", al_a, al_b)):
+        if sorted(x) != sorted(y):
+            raise AssertionError(f"human_parity {what} fields differ")
+        _equal_arrays([x[k] for k in sorted(x)], [y[k] for k in sorted(y)],
+                      f"human_parity {what} ({sorted(x)})")
+    rep.update(reads=batch.n_reads, fields=len(ho_a) + len(al_a),
+               deletion_reads_rescued=_deletions_rescued(fx, first, al_a),
+               conf=int(ho_a["conf_ok"].sum()),
+               above_2_31=int((ho_a["pos"] >= 2**31).sum()))
+    del tables[b]
+
+    reads, true_gene, in_rep = human_truth_reads(fx, n_truth)
+    plane = reads_plane(reads, np.zeros(n_truth, np.int32),
+                        np.arange(n_truth, dtype=np.uint32))
+    ho, _m, al = _human_reads(didx_a, ann_a, a, plane,
+                              *encode.encode_seqs(reads))
+    off = ~in_rep
+    gene_ok = (ho["gene"].astype(np.int64) == true_gene) & ho["conf_ok"]
+    truth = dict(
+        off_repeat_correct_gene_mapq255=float(
+            (gene_ok & (ho["mapq"] == 255))[off].mean()),
+        repeat_low_mapq=float((ho["mapped"] & (ho["mapq"] < 255))[in_rep]
+                              .mean()),
+        repeat_false_confident=float(
+            (ho["conf_ok"] & (ho["mapq"] == 255))[in_rep].mean()))
+    # an off-repeat read may only be missed as the reference misses it
+    loss = known_losses(al, off & ~(gene_ok & (ho["mapq"] == 255)),
+                        _m["n_promote_overflow"] > 0, didx_a)
+    rep.update(truth=truth, truth_reads=n_truth,
+               truth_missed={k: int(v.sum()) for k, v in loss.items()},
+               sw_launches=sw.LAUNCHES)
+    if (truth["repeat_low_mapq"] != 1.0
+            or truth["repeat_false_confident"] != 0.0
+            or truth["off_repeat_correct_gene_mapq255"] < HUMAN_TRUTH_FLOOR
+            or loss["other"].any()):
+        i = int(loss["other"].argmax())
+        raise AssertionError("human truth probe: " + json.dumps(rep) + " "
+                             + json.dumps({f: np.asarray(v[i]).tolist()
+                                           for f, v in al.items()}))
+    return rep
+
+
+def _nbytes(t) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
+def human_tables(didx, ann) -> dict:
+    """Bytes of each device table of the human reference.  The whitelist
+    has none: pass 2 resolves barcodes on the host."""
+    return dict(text_rows=_nbytes(didx.text_rows),
+                overlap_rows=_nbytes(didx.text_rows_ov),
+                kmer_table=_nbytes(didx.kmer_table.rows),
+                junction_rows=_nbytes(didx.sj_rows),
+                annotation=(_nbytes(ann.iv_rows) + _nbytes(ann.iv_grid)
+                            + _nbytes(ann.sj_rows)),
+                whitelist_table=0)
+
+
+LOSSES = ("saturated", "contig_straddle", "false_novel_junction",
+          "promote_overflow")
+
+
+def known_losses(al: dict, miss, overflow: bool, didx) -> dict:
+    """The reference's known losses among the reads `miss` (bool), from
+    the aligner's outputs `al` on the device index `didx` (ROADMAP.md
+    section 3), each read in the
+    first class it fits, the rest under "other":
+      saturated        parity rounding splits one locus over two vote
+                       keys, so a read seen on a locus and on its
+                       junction contig copy passes the candidate cap with
+                       one canonical locus and is reported as a repeat;
+      contig_straddle  a best locus on a junction contig whose alignment
+                       runs past the contig's end (the read starts in the
+                       contig before it): canonical_pos and the
+                       annotation read the wrong junction;
+      false_novel_junction  an unspliced read (a deletion read) whose
+                       low ungapped score lets a chance seed match far
+                       away pair with its true locus into a novel
+                       junction, whose left segment annotates elsewhere;
+      promote_overflow a multi-locus read of a batch whose promotion
+                       capacity overflowed (`overflow`)."""
+    import numpy as np
+
+    contig_len = 2 * didx.sj_overhang
+    on = al["loci_ok"] & (al["loci_pos"] >= didx.genome_len)
+    off = (al["loci_pos"] - didx.genome_len) % contig_len
+    straddle = (on & (off + al["loci_start"] + al["loci_len"]
+                      > contig_len)).any(1)
+    out, left = {}, np.asarray(miss, bool).copy()
+    for name, hit in (("saturated", al["saturated"]),
+                      ("contig_straddle", straddle),
+                      ("false_novel_junction", al["novel_sj"]),
+                      ("promote_overflow", (al["n_best"] >= 2) & overflow)):
+        out[name] = left & hit
+        left &= ~hit
+    out["other"] = left
+    return out
+
+
+def human_account(fx: dict, didx, ann, device: str,
+                  batch_size: int = HUMAN_BATCH) -> dict:
+    """Every read of the fixture through the stream step and the aligner
+    in run_count's batches, on `device`, held against what the fixture
+    built.  A read of a counted kind that is not confidently mapped must
+    be one of the reference's known losses (`known_losses`, from the
+    aligner's outputs of the same batch); anything else fails.  Returns
+    the counts a run of the same batches must give and the losses by
+    kind."""
+    import numpy as np
+    from cellranger_tpu_torch.testing.fixtures import HUMAN_KINDS
+
+    n = fx["n_reads"]
+    conf = np.zeros(n, bool)
+    lost = {c: np.zeros(n, bool) for c in LOSSES}
+    rep = dict(deletion_reads_rescued=0, promote_overflow_reads=0)
+    repeat = HUMAN_KINDS.index("repeat")
+    for first, batch, plane in _human_planes(fx, batch_size):
+        ho, m, al = _human_reads(didx, ann, device, plane, batch.rna,
+                                 batch.rna_nmask)
+        k = batch.n_reads
+        sl = slice(first, first + k)
+        ho = {f: v[:k] for f, v in ho.items()}
+        al = {f: v[:k] for f, v in al.items()}
+        kind, gene = fx["read_kind"][sl], fx["read_gene"][sl]
+        c = ho["conf_ok"]
+        if c.sum() != m["n_conf"]:
+            raise AssertionError("a read lost its barcode or UMI")
+        if (c & (kind == repeat)).any() or not (
+                ho["mapped"] & (ho["mapq"] < 255))[kind == repeat].all():
+            raise AssertionError("a repeat read is unmapped or confident")
+        if (ho["gene"].astype(np.int64)[c] != gene[c]).any():
+            raise AssertionError("a confident read has the wrong gene")
+        conf[sl] = c
+        loss = known_losses(al, ~c & (kind != repeat),
+                            m["n_promote_overflow"] > 0, didx)
+        if loss["other"].any():
+            i = int(loss["other"].nonzero()[0][0])
+            raise AssertionError(
+                f"read {first + i} ({HUMAN_KINDS[kind[i]]}) lost: "
+                + json.dumps({f: np.asarray(v[i]).tolist()
+                              for f, v in al.items()}))
+        for name in LOSSES:
+            lost[name][sl] = loss[name]
+        rep["deletion_reads_rescued"] += _deletions_rescued(fx, first, al)
+        rep["promote_overflow_reads"] += m["n_promote_overflow"]
+    mols = np.unique(fx["read_mol"][conf])
+    gene_of = np.full(fx["read_mol"].max() + 1, -1)
+    gene_of[fx["read_mol"]] = fx["read_gene"]
+    e = fx["expected"]
+    rep.update(
+        conf_mapped_reads=int(conf.sum()), total_molecules=len(mols),
+        gene_molecules=np.bincount(gene_of[mols],
+                                   minlength=len(e["gene_molecules"])),
+        truth_molecules=e["total_molecules"],
+        truth_conf_mapped_reads=e["conf_mapped_reads"],
+        lost_reads={name: {HUMAN_KINDS[i]: int((x & (fx["read_kind"] == i))
+                                               .sum())
+                           for i in range(len(HUMAN_KINDS))}
+                    for name, x in lost.items()})
+    return rep
+
+
+def loss_overruns(fx: dict, lost_reads: dict, caps: dict) -> list:
+    """The (loss, kind) pairs of `lost_reads` (human_account's) past their
+    cap: caps[loss][kind] times the fixture's reads of that kind, plus
+    HUMAN_LOSS_SLACK reads."""
+    import numpy as np
+    from cellranger_tpu_torch.testing.fixtures import HUMAN_KINDS
+
+    n_kind = np.bincount(fx["read_kind"], minlength=len(HUMAN_KINDS))
+    over = []
+    for loss, by_kind in lost_reads.items():
+        for i, kind in enumerate(HUMAN_KINDS):
+            cap = (caps.get(loss, {}).get(kind, 0.0) * n_kind[i]
+                   + HUMAN_LOSS_SLACK)
+            if by_kind[kind] > cap:
+                over.append(f"{loss} {kind}: {by_kind[kind]} > {cap:.1f}")
+    return over
+
+
+def human_scale(fx: dict, out: str, device: str = "cuda",
+                batch_size: int = HUMAN_BATCH,
+                loss_caps: dict = HUMAN_LOSS_CAPS) -> dict:
+    """The fixture's reads through run_count on `device`, count-only:
+    wall, phases, the reference load's split, device tables and peak
+    memory; the run must give exactly the molecules, confidently mapped
+    reads and molecules per gene that `human_account` finds read by read
+    (each read the fixture built either counted under its own gene or one
+    of the reference's known losses), each loss within `loss_caps`
+    (`loss_overruns`), and launch K1 once a step."""
+    import resource
+
+    import numpy as np
+    from cellranger_tpu_torch.io.matrix_io import CountMatrix
+    from cellranger_tpu_torch.pipeline import count
+
+    r = count_run(fx, out, device=device, batch_size=batch_size)
+    s = r.pop("summary")
+    _ref, didx, ann = count._load_reference_cached(fx["ref"], device)
+    r.update(device_tables=human_tables(didx, ann),
+             load_split_s=dict(count._REF_MEMO["split"] or {}),
+             peak_host_rss_bytes=resource.getrusage(
+                 resource.RUSAGE_SELF).ru_maxrss * 1024,
+             conf_mapped_reads=s["conf_mapped_reads"],
+             promote_overflow=s["promote_overflow"])
+    t = time.time()
+    acct = human_account(fx, didx, ann, device, batch_size)
+    r["account_s"] = time.time() - t
+    m = CountMatrix.load_h5(os.path.join(out, "raw_feature_bc_matrix.h5"))
+    per_gene = np.asarray(m.m.sum(1)).ravel()
+    diffs = [k for k in ("total_molecules", "conf_mapped_reads")
+             if r[k] != acct[k]]
+    if not np.array_equal(per_gene, acct["gene_molecules"]):
+        diffs.append("molecules per gene")
+    if r["reads"] != fx["n_reads"]:
+        diffs.append("reads")
+    if r["sw_launches"] != (r["n_steps"] if device == "cuda" else 0):
+        diffs.append(f"{r['sw_launches']} K1 launches in {r['n_steps']} "
+                     f"steps on {device}")
+    diffs += loss_overruns(fx, acct["lost_reads"], loss_caps)
+    acct.pop("gene_molecules")
+    r["account"] = acct
+    if diffs:
+        raise AssertionError(f"human_scale: {diffs}: " + json.dumps(r))
+    return r
+
+
 def main() -> None:
     import torch
 
@@ -1563,6 +1940,16 @@ def main() -> None:
         launches["mkfastq"] = g["sw_launches"]
         phase("mkfastq", "reads per sample as built, classic == CBCL: "
               + json.dumps(g))
+
+        fx = human_fixture(tmp)
+        g = human_parity(fx)
+        launches["human_parity"] = g["sw_launches"]
+        phase("human_parity", "cuda == cpu, every step and aligner output;"
+              " truth probe: " + json.dumps(dict(g, fixture_s=fx["timing"])))
+        g = human_scale(fx, os.path.join(tmp, "human_out"))
+        launches["human_scale"] = g["sw_launches"]
+        phase("human_scale", "the fixture's reads counted or lost as the "
+              "reference loses them: " + json.dumps(g))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
