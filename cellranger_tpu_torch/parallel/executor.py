@@ -74,15 +74,18 @@ class Executor:
             return step_for_device(self.device)
         return make_sharded_step(step_for_device, self.mesh)
 
-    def dedup_partitions(self, parts, umi_len: int, keep_raw: bool = True):
+    def dedup_partitions(self, parts, umi_len: int, keep_raw: bool = True,
+                         chunk_limit: int = 1 << 21):
         """Dedup barcode-disjoint molecule partitions; yields one host
-        dict per partition group (see molecule_state.dedup_partitions).
+        dict per partition group of at most chunk_limit rows (see
+        molecule_state.dedup_partitions).
         On a mesh, n_devices partitions run per call, partition d on
         devices[d], each padded to one common power-of-two length (dedup
         is pad-invariant: invalid rows carry sentinel keys); the raw-
         triple views always come back."""
         if self.mesh is None:
             yield from _dedup_partitions_one(parts, umi_len, self.device,
+                                             chunk_limit=chunk_limit,
                                              keep_raw=keep_raw)
             return
         parts = list(parts)

@@ -13,7 +13,10 @@ runs on the state.  A run whose distinct triples exceed the capacity
 flushes the merged state to the host; its rows, like the spilled rows of
 BAM and Feature Barcode runs, are deduplicated by `dedup_partitions` over
 barcode-disjoint partitions, which also returns the raw-triple views the
-BAM writer joins against.
+BAM writer joins against.  `split_partition` cuts a partition into
+barcode-complete pieces so that no device call of the dedup pads past the
+caller's limit (count.py DEDUP_CHUNK_LIMIT), and `MoleculeState.
+bound_dedup` sends a state larger than that limit the same way.
 
 The state is updated in place (index_copy_ into a preallocated buffer),
 which takes the place of the JAX package's buffer donation.
@@ -128,6 +131,16 @@ class MoleculeState:
         self._n_dev = torch.zeros((), dtype=torch.int64, device=self.device)
         self.n = 0
 
+    def bound_dedup(self, limit: int) -> None:
+        """Before `finalize`: a state whose merged rows would pad past
+        _pow2(limit) flushes to the host, so that its final dedup, too,
+        runs over host partitions of at most `limit` rows."""
+        if self.flushed or self.n <= _pow2(limit):
+            return
+        self.merge_now()
+        if self.n > _pow2(limit):
+            self.flush_to_host()
+
     def finalize(self):
         """-> (bc, gene, umi, reads) uint32 host arrays.  Without a flush:
         the valid molecules, deduplicated on the device (shrink to the
@@ -136,6 +149,7 @@ class MoleculeState:
         for `dedup_partitions`."""
         if self.flushed:
             self.flush_to_host()
+            self.rows = None        # free the card for the partition dedup
             allr = np.concatenate(self.flushed, axis=0)
             self.flushed = []
             return allr[:, 0], allr[:, 1], allr[:, 2], allr[:, 3]
@@ -158,6 +172,40 @@ class MoleculeState:
 # (the dtypes of the JAX package's unpacked dedup plane)
 DD_U32 = frozenset(("mol_bc", "mol_gene", "mol_umi", "raw_bc", "raw_gene",
                     "raw_umi", "raw_corr_umi"))
+
+
+def _mix32(x: np.ndarray, salt: int) -> np.ndarray:
+    """murmur3's 32-bit finalizer of x ^ salt: every output bit depends on
+    every input bit, so a partition whose barcodes share their low bits
+    (bc % n_parts is fixed in a spill partition) still spreads."""
+    h = np.asarray(x, np.uint32) ^ np.uint32(salt)
+    h = h ^ (h >> np.uint32(16))
+    h = h * np.uint32(0x85EBCA6B)
+    h = h ^ (h >> np.uint32(13))
+    h = h * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def split_partition(part: tuple, limit: int, salt: int = 0) -> list:
+    """One barcode-complete partition (equal-length column arrays, bc
+    first) -> barcode-complete pieces of at most `limit` rows each.  Rows
+    go to ceil(n / limit) buckets by a hash of the barcode; a bucket still
+    over the limit (hash variance) splits again under another salt.  The
+    rows of one barcode are never split, so a piece that holds a single
+    barcode may exceed the limit."""
+    bc = part[0]
+    n = len(bc)
+    if n <= limit or bc.min() == bc.max():
+        return [part]
+    k = max(2, -(-n // limit))
+    sub = _mix32(bc, salt) % np.uint32(k)
+    pieces = []
+    for j in range(k):
+        msk = sub == j
+        if msk.any():
+            pieces += split_partition(tuple(c[msk] for c in part), limit,
+                                      salt + 1)
+    return pieces
 
 
 def dedup_partitions(parts, umi_len: int, device, chunk_limit: int = 1 << 21,

@@ -77,7 +77,7 @@ from ..parallel import distributed as dist
 from ..parallel.executor import Executor
 from ..parallel.index_shard import shard_device_index
 from ..parallel.mesh import to_device
-from ..parallel.molecule_state import MoleculeState
+from ..parallel.molecule_state import MoleculeState, split_partition
 from .bam_out import BamCollector
 
 
@@ -193,7 +193,18 @@ MAX_INSERT = 2000      # max genomic span of a proper read pair
 # distinct (bc, gene, umi) rows the device molecule state holds before it
 # flushes to the host (read at run time, so a caller may lower it)
 MOLECULE_STATE_CAP = 1 << 23
-DEDUP_CHUNK_LIMIT = 1 << 26  # dedup rows per device sort
+# rows of the step's molecule buffer, drained into the state when the next
+# batch might not fit (read at run time: a small value drains often)
+MOLECULE_BUFFER_ROWS = 1 << 20
+# Rows of one device call of the partition dedup (ops/dedup.py
+# dedup_molecules, padded to _pow2(DEDUP_CHUNK_LIMIT) rows) and the device
+# memory that call may take.  Eager torch keeps every intermediate of the
+# sort pipeline that XLA fuses: 2,976 bytes a padded row at 2**20-2**23
+# rows on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit (chip_smoke.py
+# dedup_memory), so 12.48 GB at 2**22, where the JAX package's 1 << 26
+# would need ~200 GB
+DEDUP_CHUNK_LIMIT = 1 << 22
+DEDUP_BUDGET_BYTES = 16 * 10**9
 SPILL_PARTS = 8              # barcode-hash spill partitions
 # the HDF5 outputs (written through io/hdf5.py)
 H5_OUTPUTS = ("raw_feature_bc_matrix.h5", "filtered_feature_bc_matrix.h5",
@@ -1135,7 +1146,7 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
         spill_dir, n_parts, prefix=f"host{hosts.pid}_" if hosts else "",
         append=bool(hosts and hosts.resume))
     sj_counts: dict = {}
-    mol_cap = max(4 * batch_size, 1 << 20)
+    mol_cap = max(4 * batch_size, MOLECULE_BUFFER_ROWS)
     sj_cap = max(4 * batch_size, 1 << 18)
     sjb_per_batch = max(batch_size // 4, 64)
     acc = step.init_acc(mol_cap, sj_cap) if accumulate else None
@@ -1378,38 +1389,30 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
 
     # ---- dedup ----
     raw_parts = []
+    if mol_state is not None:
+        mol_state.bound_dedup(DEDUP_CHUNK_LIMIT)
     if mol_state is not None and not mol_state.flushed:
         # device-resident path: one dedup + one valid-molecule fetch
         mbc, mgene, mumi, mreads = mol_state.finalize()
     else:
         # barcode-hash partitions (bounded memory): each spill partition
         # holds complete barcodes; oversized ones sub-split by a second
-        # barcode hash, so a device sort stays <= DEDUP_CHUNK_LIMIT rows
+        # barcode hash (split_partition), so a device call stays within
+        # _pow2(DEDUP_CHUNK_LIMIT) padded rows
         parts = []
         if mol_state is not None:
             # overflow path: the merged state flushed to the host; dedup
             # its reads-weighted rows over bc-hash partitions
-            fb_, fg_, fu_, fr_ = mol_state.finalize()
-            k = max(1, -(-len(fb_) // DEDUP_CHUNK_LIMIT))
-            sub = (fb_ * np.uint32(0x9E3779B9)) % np.uint32(k)
-            for j in range(k):
-                msk = sub == j
-                parts.append((fb_[msk], fg_[msk], fu_[msk], fr_[msk]))
+            parts += split_partition(mol_state.finalize(), DEDUP_CHUNK_LIMIT)
         for p in range(n_parts):
             b, g, u = (MoleculeSpill.load_union(spill_dir, n_parts, p)
                        if hosts is not None else spill.load_part(p))
-            k = max(1, -(-len(b) // DEDUP_CHUNK_LIMIT))
-            if k == 1:
-                if len(b):
-                    parts.append((b, g, u))
-            else:
-                sub = (b // np.uint32(n_parts)) % np.uint32(k)
-                for j in range(k):
-                    msk = sub == j
-                    parts.append((b[msk], g[msk], u[msk]))
+            if len(b):
+                parts += split_partition((b, g, u), DEDUP_CHUNK_LIMIT)
         parts_out = []
         for dd in executor.dedup_partitions(parts, chem.umi_length,
-                                            keep_raw=keep_raw):
+                                            keep_raw=keep_raw,
+                                            chunk_limit=DEDUP_CHUNK_LIMIT):
             parts_out.append((dd["mol_bc"], dd["mol_gene"], dd["mol_umi"],
                               dd["mol_reads"]))
             if keep_raw:

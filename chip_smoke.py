@@ -36,15 +36,32 @@ Phases, each printing one line; any failure raises and exits non-zero:
                time, phase split (analysis_reporting apart), memory; the
                three h5 outputs (io/hdf5.py): size and seconds of each
                write, each read back to the arrays that were written
-  e2e_bam      the first 250,000 reads of that fixture count-only and
+  e2e_bam      the first 100,000 reads of that fixture count-only and
                with BAM (stream mode, spill + partition dedup, BAM write):
                every read confidently mapped, the same molecules and MEX
                bytes from both, the BAM write phase on its own, BAM size
-               and record count (a quarter of the reads: the per-record
+               and record count (a tenth of the reads: the per-record
                BAM writer takes 170-410 s of host time for 1,000,000)
   overflow     the count-only e2e run with the device molecule state
                capped at 1 << 19 rows, which forces the host flush and the
                partition dedup: the same molecules and MEX bytes as e2e
+  dedup_memory the partition dedup's device call (parallel/molecule_state.py
+               _dedup_host) on seeded weighted rows at 2**20 and 2**22
+               padded rows and at the port's limit, _pow2(count.
+               DEDUP_CHUNK_LIMIT): peak device memory, seconds and bytes
+               per padded row of each; the limit's call must stay within
+               count.DEDUP_BUDGET_BYTES
+  deep         20,000,000 reads of the e2e generator (10,000,000 molecules
+               at 2 reads, 2,000 cells; 5.3 GB of FASTQ, deleted after)
+               through run_count on cuda, count-only, batch 32768, at the
+               real MOLECULE_STATE_CAP: the JAX package's reads, molecules,
+               conf_mapped_frac and the sha256 of each decompressed MEX
+               file (DEEP_EXPECTED); at least one flush of the molecule
+               state at its cap; every dedup_molecules call within
+               _pow2(DEDUP_CHUNK_LIMIT) padded rows; one K1 launch a step;
+               peak device memory under DEEP_PEAK_BYTES; the three h5
+               files read back; fixture seconds, wall, phase split,
+               flushes, dedup calls, peak host RSS
   pe_parity    a small SC5P-PE run (4,096 pairs on the e2e reference, a
                tenth of them discordant, with BAM) on cuda and on cpu:
                identical metrics, MEX and BAM bytes; two SW launches a step
@@ -138,7 +155,8 @@ Every path resets the SW kernel's launch count before it runs and reads
 it after; the kernel report counts the e2e path's launches and lists
 every path's (`pe`: two a batch, one per mate; `mesh` and
 `mesh_shard_index`: one a slice; `multihost`: the sum of both processes'
-counts; `h5_pipelines`: one a step of each GEM well; `human_parity`:
+counts; `h5_pipelines`: one a step of each GEM well; `deep`: one a
+step, 611 at 20,000,000 reads; `human_parity`:
 its cuda step, aligner call and truth-probe step and aligner call;
 `rtl`, the V(D)J paths and `mkfastq`: none, no genome aligner runs).  The line before the last is the kernel report (JSON); the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -148,6 +166,7 @@ from __future__ import annotations
 
 import contextlib
 import gzip
+import hashlib
 import json
 import os
 import re
@@ -159,9 +178,10 @@ import time
 
 E2E_READS = 1_000_000
 E2E_BATCH = 32768
-# the BAM run takes the first quarter of the e2e reads (they are shuffled):
-# the per-record BAM writer takes 0.17-0.41 ms of host time a record
-E2E_BAM_READS = 250_000
+# the BAM run takes the first tenth of the e2e reads (they are shuffled):
+# the per-record BAM writer takes 0.17-0.41 ms of host time a record, and
+# the script's time limit is shared with `deep`
+E2E_BAM_READS = 100_000
 GOLDEN_BATCH = 4096
 OVERFLOW_STATE_CAP = 1 << 19
 PE_PAIRS = 1_000_000
@@ -182,6 +202,40 @@ MEX_FILES = [os.path.join(sub, f)
 # the JAX package's outputs for this fixture (BENCH_r05.json, e2e)
 E2E_TOTAL_MOLECULES = 499_995
 E2E_CONF_MAPPED_FRAC = 1.0
+# deep: the e2e generator at sequencing depth, 10,000 reads a cell
+# (10x recommends 20,000 read pairs a cell; 2,000 cells here): ~10M
+# distinct (barcode, gene, UMI) triples, past MOLECULE_STATE_CAP = 2**23
+DEEP_READS = 20_000_000
+# The JAX package's outputs for build_e2e_run(dir, DEEP_READS), made by
+# `JAX_PLATFORMS=cpu python tests/deep_reference.py DIR` (that package's
+# run_count on the CPU: SC3Pv3, read length 91, batch 32768, count-only,
+# no checkpoint) with cellranger_tpu as of commit 852ac7f; the digests are
+# sha256 of each decompressed MEX file.
+DEEP_EXPECTED = dict(
+    total_reads=20_000_000,
+    total_molecules=9_996_895,
+    conf_mapped_frac=1.0,
+    mex_sha256={
+        "raw_feature_bc_matrix/matrix.mtx.gz":
+            "11caaac82676f3e6171fa55eaec7d3e17014eb8b9fd77806a05dfb0098427f6b",
+        "raw_feature_bc_matrix/barcodes.tsv.gz":
+            "dea523a5aa907b8277bf893eae22dac728ab917ce512ac37c6db6ab7a72a91ee",
+        "raw_feature_bc_matrix/features.tsv.gz":
+            "18e89285353dcefb4222050217c50f40595c3a8c37122627d04269ead1830aad",
+        "filtered_feature_bc_matrix/matrix.mtx.gz":
+            "fffa5e60f4945ef096cf3dd222fcce51adce64b2288e96d4bb7f6912bd11e1c1",
+        "filtered_feature_bc_matrix/barcodes.tsv.gz":
+            "daea9c8407a1ecdc10b03bc875dcf727ddc6f4c8c6a50f49d2049a0e0b6342a5",
+        "filtered_feature_bc_matrix/features.tsv.gz":
+            "18e89285353dcefb4222050217c50f40595c3a8c37122627d04269ead1830aad",
+    })
+# the phase's peak device memory: the dedup's budget
+# (count.DEDUP_BUDGET_BYTES) plus ~1.2 GB of molecule state and merge and
+# ~1.8 GB of e2e's tables and step buffers, with room
+DEEP_PEAK_BYTES = 24e9
+# padded rows of the dedup_memory phase, besides the port's limit
+DEDUP_MEMORY_ROWS = (1 << 20, 1 << 22)
+DEDUP_MEMORY_SEED = 5
 # (B, L) of the SW kernel check; B = batch // RESCUE_CAP_FRAC: 8192 at the
 # e2e batch of 32768, 2048 at batch 8192; L = 150 is a 150-base R2
 SW_SHAPES = ((8192, 91), (8191, 91), (1, 91), (2048, 91), (8192, 150),
@@ -784,6 +838,160 @@ def overflow_run(fx: dict, out: str, ref_out: str, device: str = "cuda",
     if diffs:
         raise AssertionError(f"capped run MEX differs: {diffs}")
     r["flushes"] = len(flushes)
+    return r
+
+
+def mex_sha256(out: str) -> dict:
+    """sha256 of each decompressed MEX file under out: {path: hex}."""
+    digests = {}
+    for f in MEX_FILES:
+        with gzip.open(os.path.join(out, f), "rb") as fh:
+            digests[f] = hashlib.sha256(fh.read()).hexdigest()
+    return digests
+
+
+def dedup_rows(n_rows: int, seed: int = DEDUP_MEMORY_SEED) -> tuple:
+    """Seeded weighted rows as the flushed molecule state holds them:
+    (bc, gene, umi, reads) uint32, 2,000 barcodes, 400 genes, random
+    12-base UMIs, 1-3 reads a row."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 2000, n_rows, dtype=np.uint32) * 7919,
+            rng.integers(0, 400, n_rows, dtype=np.uint32),
+            rng.integers(0, 1 << 24, n_rows, dtype=np.uint32),
+            rng.integers(1, 4, n_rows, dtype=np.uint32))
+
+
+def dedup_memory(device: str = "cuda", sizes=DEDUP_MEMORY_ROWS,
+                 fill: float = 0.6) -> dict:
+    """One device call of the partition dedup (`_dedup_host`, count-only
+    as the main path calls it) at each padded size N, on fill x N seeded
+    rows, and at the port's limit: seconds, peak device memory above what
+    was allocated before, bytes per padded row.  The limit's call must
+    stay within count.DEDUP_BUDGET_BYTES (on the card)."""
+    import torch
+    from cellranger_tpu_torch.parallel.molecule_state import (_dedup_host,
+                                                              _pow2)
+    from cellranger_tpu_torch.pipeline import count
+
+    limit_rows = _pow2(count.DEDUP_CHUNK_LIMIT)
+    calls = []
+    for N in sorted(set(sizes) | {limit_rows}):
+        bc, gene, umi, reads = dedup_rows(int(fill * N))
+        on_card = device == "cuda"
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        dd = _dedup_host(bc, gene, umi, 12, N, device, False, reads)
+        if on_card:
+            torch.cuda.synchronize()
+        sec = time.time() - t
+        peak = torch.cuda.max_memory_allocated() - base if on_card else None
+        calls.append(dict(padded_rows=N, rows=len(bc), seconds=sec,
+                          molecules=len(dd["mol_bc"]), peak_bytes=peak,
+                          bytes_per_row=None if peak is None else peak / N))
+    at_limit = calls[[c["padded_rows"] for c in calls].index(limit_rows)]
+    r = dict(calls=calls, limit_rows=limit_rows,
+             budget_bytes=count.DEDUP_BUDGET_BYTES)
+    if at_limit["peak_bytes"] is not None:
+        r["reckoned_2_24_bytes"] = at_limit["bytes_per_row"] * (1 << 24)
+        if at_limit["peak_bytes"] > count.DEDUP_BUDGET_BYTES:
+            raise AssertionError(
+                f"dedup at the limit's {limit_rows} padded rows took "
+                f"{at_limit['peak_bytes']} bytes of the card, over the "
+                f"budget of {count.DEDUP_BUDGET_BYTES}: " + json.dumps(r))
+    return r
+
+
+def deep(tmp: str, n_reads: int = DEEP_READS,
+         expected: dict = DEEP_EXPECTED, device: str = "cuda",
+         batch_size: int = E2E_BATCH, cap: int | None = None,
+         peak_limit: float = DEEP_PEAK_BYTES) -> dict:
+    """build_e2e_run at n_reads through run_count on `device`, count-only,
+    with the molecule state at its real cap (or `cap`): reads, molecules,
+    conf_mapped_frac and MEX digests equal to `expected` (the JAX
+    package's); at least one flush of the state during pass 2; every
+    dedup_molecules call of molecule_state.py within
+    _pow2(DEDUP_CHUNK_LIMIT) padded rows; one K1 launch a step on cuda;
+    peak device memory under peak_limit; the h5 files read back.  The
+    fixture's directory is deleted at the end."""
+    import resource
+
+    from cellranger_tpu_torch.parallel import molecule_state
+    from cellranger_tpu_torch.pipeline import count
+    from cellranger_tpu_torch.testing.fixtures import build_e2e_run
+
+    fx_dir = os.path.join(tmp, "deep")
+    t = time.time()
+    fx = build_e2e_run(fx_dir, n_reads=n_reads)
+    fixture_s = time.time() - t
+    flushes, dedup_calls = [], []
+    at_end = []                  # set once the run reaches its dedup
+    MS = molecule_state.MoleculeState
+    real_flush, real_bound = MS.flush_to_host, MS.bound_dedup
+    real_dedup = molecule_state.dedup_molecules
+    real_cap = count.MOLECULE_STATE_CAP
+
+    def flush(self):
+        real_flush(self)
+        flushes.append(dict(rows=len(self.flushed[-1]),
+                            at="end" if at_end else "cap"))
+
+    def bound_dedup(self, limit):
+        at_end.append(True)
+        real_bound(self, limit)
+
+    def dedup_molecules(bc, *a, **kw):
+        dedup_calls.append(int(bc.shape[0]))
+        return real_dedup(bc, *a, **kw)
+
+    MS.flush_to_host, MS.bound_dedup = flush, bound_dedup
+    molecule_state.dedup_molecules = dedup_molecules
+    if cap is not None:
+        count.MOLECULE_STATE_CAP = cap
+    try:
+        with h5_writes() as written:
+            r = count_run(fx, os.path.join(fx_dir, "out"), device,
+                          batch_size)
+        r["h5"] = h5_read_back(written)
+        digests = mex_sha256(os.path.join(fx_dir, "out"))
+    finally:
+        MS.flush_to_host, MS.bound_dedup = real_flush, real_bound
+        molecule_state.dedup_molecules = real_dedup
+        count.MOLECULE_STATE_CAP = real_cap
+        shutil.rmtree(fx_dir, ignore_errors=True)
+    r.pop("summary")
+    limit_rows = molecule_state._pow2(count.DEDUP_CHUNK_LIMIT)
+    r.update(fixture_s=fixture_s, state_cap=cap or real_cap,
+             flushes=flushes, dedup_calls=dedup_calls,
+             dedup_limit_rows=limit_rows,
+             peak_host_rss_bytes=resource.getrusage(
+                 resource.RUSAGE_SELF).ru_maxrss * 1024)
+    diffs = [f"{k} {r[k]} != {expected[k]}"
+             for k in ("total_molecules", "conf_mapped_frac")
+             if r[k] != expected[k]]
+    if r["reads"] != expected["total_reads"] or r["reads"] != n_reads:
+        diffs.append(f"reads {r['reads']}")
+    diffs += [f"{f} sha256 {digests[f]}" for f in MEX_FILES
+              if digests[f] != expected["mex_sha256"][f]]
+    if r["total_molecules"] > n_reads // 2:
+        diffs.append("more molecules than the fixture built")
+    if not any(f["at"] == "cap" and f["rows"] for f in flushes):
+        diffs.append(f"the molecule state never flushed at its cap "
+                     f"{r['state_cap']}")
+    if not dedup_calls or max(dedup_calls) > limit_rows:
+        diffs.append(f"dedup calls {dedup_calls} past {limit_rows} rows")
+    if r["sw_launches"] != (r["n_steps"] if device == "cuda" else 0):
+        diffs.append(f"{r['sw_launches']} K1 launches in {r['n_steps']} "
+                     f"steps on {device}")
+    if r["peak_mem_bytes"] is not None and r["peak_mem_bytes"] > peak_limit:
+        diffs.append(f"peak device memory {r['peak_mem_bytes']}")
+    if diffs:
+        raise AssertionError(f"deep: {diffs}: " + json.dumps(r))
     return r
 
 
@@ -1880,6 +2088,13 @@ def main() -> None:
         launches["overflow"] = ro["sw_launches"]
         phase("overflow", f"state cap {OVERFLOW_STATE_CAP}: same molecules "
               "and MEX bytes as e2e: " + json.dumps(ro))
+        g = dedup_memory()
+        phase("dedup_memory", f"{smi}: " + json.dumps(g))
+        g = deep(tmp)
+        launches["deep"] = g["sw_launches"]
+        phase("deep", f"{g['reads']} reads, the JAX package's molecules and"
+              " MEX bytes, the state flushed at its cap, every dedup call "
+              "within the limit: " + json.dumps(g))
         g = h5_pipelines(fx, tmp, e2e_out, ovf_out)
         launches["h5_pipelines"] = g["sw_launches"]
         phase("h5_pipelines", "aggr, GEM wells and reanalyze through "
