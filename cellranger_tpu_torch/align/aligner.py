@@ -38,7 +38,8 @@ from ..ops.bucket_table import BucketTable
 from ..ops.encode import revcomp_packed
 from ..ops.tensor_ops import (U32_MASK, U32_MAX, compact_indices,
                               scatter_drop, u32_table, widen)
-from .index import GenomeIndex, MINIMIZER_HASH
+from .index import (GenomeIndex, MINIMIZER_HASH, overlap_rows_torch,
+                    pack_text_rows_torch)
 
 # Tunables, as in the JAX package (align_and_count.rs:63 for the floor).
 SEED_STRIDE = 10       # extract a seed every N bases of the read
@@ -112,9 +113,6 @@ class DeviceIndex:
         is made of, built from a GenomeIndex exactly as the JAX package
         builds its DeviceIndex."""
         assert len(gi.text) < 2**32, "u32 position space: text must be <4Gb"
-        sj = np.stack([gi.sj_donor_end.astype(np.uint32),
-                       gi.sj_acceptor_start.astype(np.uint32)], axis=1) \
-            if gi.n_junctions else np.zeros((0, 2), np.uint32)
         from ..params import get as _param
         ov_max = int(_param("overlap_rows_max_text")
                      or OVERLAP_ROWS_MAX_TEXT)
@@ -123,7 +121,7 @@ class DeviceIndex:
             text_rows=gi.packed_rows(),
             kmer_rows=rows,
             chrom_starts=gi.chrom_starts.astype(np.int64),
-            sj_rows=sj,
+            sj_rows=_junction_rows(gi),
             text_rows_ov=(gi.packed_overlap_rows()
                           if len(gi.text) <= ov_max else None))
         meta = dict(kmer_bits=bits, genome_len=int(gi.genome_len),
@@ -151,6 +149,48 @@ class DeviceIndex:
             minimizer_w=int(meta["minimizer_w"]))
 
     @staticmethod
+    def build(gi: GenomeIndex, device, lap=None) -> "DeviceIndex":
+        """The tables of `host_arrays`, made on `device`: the text, its
+        mask and the kmer arrays uploaded once, then the text rows
+        (`pack_text_rows_torch`), the overlapped rows
+        (`overlap_rows_torch`, for texts up to the overlap limit) and the
+        kmer bucket rows (`BucketTable.build_rows_torch`) built there.
+        No `.btrows` sidecar is read or written.  `lap(name)`, if given,
+        is called after each step: "upload_s", "text_rows_s",
+        "overlap_rows_s", "kmer_rows_s"."""
+        assert len(gi.text) < 2**32, "u32 position space: text must be <4Gb"
+        lap = lap or (lambda name: None)
+        from ..params import get as _param
+        ov_max = int(_param("overlap_rows_max_text")
+                     or OVERLAP_ROWS_MAX_TEXT)
+        text = torch.from_numpy(gi.text).to(device)
+        valid = torch.from_numpy(gi.text_valid).to(device)
+        keys = torch.from_numpy(gi.kmer_keys.view(np.int32)).to(device)
+        vals = torch.from_numpy(gi.kmer_pos.view(np.int32)).to(device)
+        lap("upload_s")
+        text_rows = pack_text_rows_torch(text, valid)
+        del text, valid
+        lap("text_rows_s")
+        ov = (overlap_rows_torch(text_rows, len(gi.text))
+              if len(gi.text) <= ov_max else None)
+        lap("overlap_rows_s")
+        rows, bits = BucketTable.build_rows_torch(
+            keys, vals, entries=MAX_HITS_PER_SEED, fields=2)
+        del keys, vals
+        lap("kmer_rows_s")
+        return DeviceIndex(
+            text_rows=text_rows,
+            kmer_table=BucketTable(rows=rows, bits=bits,
+                                   entries=MAX_HITS_PER_SEED, fields=2,
+                                   probe_rows=1),
+            chrom_starts=torch.from_numpy(
+                gi.chrom_starts.astype(np.int64)).to(device),
+            sj_rows=u32_table(_junction_rows(gi), device), text_rows_ov=ov,
+            genome_len=int(gi.genome_len), text_len=len(gi.text),
+            sj_overhang=int(gi.sj_overhang), k=gi.k, pos_mode=gi.pos_mode,
+            sampling=gi.sampling, minimizer_w=int(gi.minimizer_w))
+
+    @staticmethod
     def from_host(gi: GenomeIndex, device) -> "DeviceIndex":
         arrays, meta = DeviceIndex.host_arrays(gi)
         return DeviceIndex.from_numpy(arrays, meta, device)
@@ -172,6 +212,15 @@ class DeviceIndex:
                     k=jidx.k, pos_mode=jidx.pos_mode,
                     sampling=jidx.sampling, minimizer_w=jidx.minimizer_w)
         return DeviceIndex.from_numpy(arrays, meta, device)
+
+
+def _junction_rows(gi: GenomeIndex) -> np.ndarray:
+    """uint32 [J, 2]: each junction contig's (donor end, acceptor start)
+    in text coordinates."""
+    if not gi.n_junctions:
+        return np.zeros((0, 2), np.uint32)
+    return np.stack([gi.sj_donor_end.astype(np.uint32),
+                     gi.sj_acceptor_start.astype(np.uint32)], axis=1)
 
 
 def _rolling_kmers(codes: torch.Tensor, k: int) -> torch.Tensor:

@@ -15,14 +15,18 @@ aligner.rs:396 align_read) with a TPU-friendly design:
     vectorized binary search returning a position range per seed. Positions
     are sampled every `stride` bases to bound HBM (seeds are extracted at
     every read offset, so any alignment still yields ~(L-k)/stride hits).
-  * Everything is plain numpy on host, uploaded once to the device and
+  * The index's arrays are host numpy, uploaded once to the device and
     shared by all batches (the analog of STAR's mmap-shared index).
 
 Host build cost is O(G log G) numpy sorts — minutes for human-scale, and
 cacheable to .npz (mkref analog, lib/python/cellranger/reference_builder.py).
 
 Copied from cellranger_tpu/align/index.py over the port's encode; it reads
-and writes the same index.npz as the JAX package.
+and writes the same index.npz as the JAX package.  The port adds a torch
+build of the kmer table (`kmer_table_torch`, `GenomeIndex.build(device=)`)
+and of the packed text rows (`pack_text_rows_torch`,
+`overlap_rows_torch`), each equal array for array to the numpy functions
+below, which stay as their plain versions.
 """
 
 from __future__ import annotations
@@ -32,9 +36,11 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..io.gtf import Transcriptome
 from ..ops import encode
+from ..ops.tensor_ops import U32_MASK, _pack2
 
 DEFAULT_K = 16
 DEFAULT_STRIDE = 1
@@ -178,7 +184,12 @@ class GenomeIndex:
               sj_overhang: int = 120,
               sampling: str = "auto",
               minimizer_w: int = MINIMIZER_W,
-              pos_mode: str = "auto") -> "GenomeIndex":
+              pos_mode: str = "auto", device=None) -> "GenomeIndex":
+        """device: None builds the kmer table with the numpy functions on
+        the host; a torch device builds it there (`kmer_table_torch`),
+        text and mask uploaded once, the table copied back.  Either gives
+        the same arrays.  Text encoding and junction contigs are host
+        numpy in both."""
         chrom_names = list(seqs)
         chrom_codes = []
         chrom_valid = []
@@ -240,7 +251,14 @@ class GenomeIndex:
             pos_mode = "strand31" if len(text) < 2**31 else "parity"
         assert len(text) < 2**31 or pos_mode == "parity", \
             "text >= 2Gb requires parity position packing"
-        if sampling == "minimizer":
+        if device is not None:
+            keys, pos = kmer_table_torch(
+                torch.from_numpy(text).to(device),
+                torch.from_numpy(text_valid).to(device), k, stride,
+                sampling, minimizer_w, pos_mode)
+            keys = keys.cpu().numpy().view(np.uint32)
+            pos = pos.cpu().numpy().view(np.uint32)
+        elif sampling == "minimizer":
             keys, pos = _build_kmer_table_minimizer(text, text_valid, k,
                                                     minimizer_w, pos_mode)
         else:
@@ -437,3 +455,129 @@ def _build_kmer_table_minimizer(text, valid, k, w, pos_mode,
     vals = np.concatenate(vals_l) if vals_l else np.zeros(0, np.uint32)
     order = np.lexsort((vals, keys))
     return keys[order], vals[order]
+
+
+# ---------------------------------------------------------------------------
+# torch build: the kmer table and the packed text rows on a device, equal
+# to the numpy functions above (u32 values in int64, tables returned as
+# int32 bit-views; ops/tensor_ops.py)
+# ---------------------------------------------------------------------------
+
+KMER_BLOCK = 1 << 26   # kmer starts per block (_build_kmer_table_minimizer)
+ROW_BLOCK = 1 << 18    # text rows packed per block (64 Mb of text)
+
+
+def _canonical_kmers_torch(text, valid, k):
+    """`_canonical_kmers_block` on tensors, through the aligner's rolling
+    kmers and window mask on a [1, n] view: (keys int64 u32 values,
+    is_rc, ok) for every kmer start of `text` (uint8 codes, bool mask)."""
+    from .aligner import _rolling_kmers, _window_valid
+
+    fwd = _rolling_kmers(text[None], k)[0] & U32_MASK
+    rc = encode.revcomp_packed(fwd, k) & U32_MASK
+    is_rc = rc < fwd
+    keys = torch.where(is_rc, rc, fwd)
+    del rc, fwd
+    return keys, is_rc, _window_valid(valid[None], k)[0]
+
+
+def _pack_vals_torch(pos, is_rc, pos_mode):
+    """`_pack_vals` on int64 tensors."""
+    if pos_mode == "strand31":
+        return pos | (is_rc.to(torch.int64) << 31)
+    return (pos & 0xFFFFFFFE) | is_rc.to(torch.int64)
+
+
+def kmer_table_torch(text, valid, k, stride, sampling, w, pos_mode,
+                     block: int = KMER_BLOCK):
+    """(kmer_keys, kmer_pos) of the text on its device, as int32
+    bit-views of the numpy build's uint32 arrays: `_build_kmer_table`
+    (every `stride`-th start, sorted by (key, position)) or
+    `_build_kmer_table_minimizer` (window minimizers, sorted by (key,
+    value)), in blocks of `block` kmer starts with the numpy build's
+    overlap of w + k.  Each entry is kept as one int64 sort key, (key,
+    position) or (key, value) with the key's sign bit flipped: a sort of
+    those orders the entries as lexsort does.  Equal (key, value) pairs
+    (parity packing) are equal entries, so the sort need not be stable."""
+    from .aligner import _minimizer_picks
+
+    G = text.shape[0]
+    dev = text.device
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    if G < k:
+        return empty, empty
+    n_all = G - k + 1
+    ov = w + k if sampling == "minimizer" else 0
+    packed, rcs = [], []
+    start = 0
+    while start < n_all:
+        stop = min(start + block, n_all)
+        lo = max(start - ov, 0)
+        hi = min(stop + ov + k, G) if ov else stop + k - 1
+        keys, is_rc, ok = _canonical_kmers_torch(text[lo:hi], valid[lo:hi],
+                                                 k)
+        abs_pos = torch.arange(lo, lo + keys.shape[0], device=dev)
+        if sampling == "minimizer":
+            mh = (keys * int(MINIMIZER_HASH)) & U32_MASK
+            mh = torch.where(ok, mh, U32_MASK)
+            # the aligner's picks are `minimizer_mask`, its short case
+            # (n < w: every position holding the minimum) included
+            sel = _minimizer_picks(mh[None], w)[0] & ok
+            del mh
+            sel &= (abs_pos >= start) & (abs_pos < stop)
+            vals = _pack_vals_torch(abs_pos[sel], is_rc[sel], pos_mode)
+            packed.append(_pack2(keys[sel], vals))
+        else:
+            sel = ok & (abs_pos % stride == 0)
+            packed.append(_pack2(keys[sel], abs_pos[sel]))
+            rcs.append(is_rc[sel])
+        del keys, is_rc, ok, abs_pos, sel
+        start = stop
+    packed = torch.cat(packed)
+    if sampling == "minimizer":
+        packed = torch.sort(packed).values
+        keys = (packed >> 32) + (1 << 31)
+        vals = packed & U32_MASK
+    else:
+        packed, order = torch.sort(packed)
+        keys = (packed >> 32) + (1 << 31)
+        vals = _pack_vals_torch(packed & U32_MASK, torch.cat(rcs)[order],
+                                pos_mode)
+    del packed
+    return keys.to(torch.int32), vals.to(torch.int32)
+
+
+def pack_text_rows_torch(text, valid, block: int = ROW_BLOCK):
+    """`_pack_text_rows` on the text's device: [NR+2, 32] int32 bit-view,
+    code words (16 MSB-first 2-bit codes) then validity words (16
+    MSB-first bits), `block` rows at a time."""
+    G = text.shape[0]
+    dev = text.device
+    n_rows = (G + 255) // 256
+    rows = torch.zeros((n_rows + 2, 32), dtype=torch.int32, device=dev)
+    c_sh = 2 * (15 - torch.arange(16, device=dev))
+    v_sh = 15 - torch.arange(16, device=dev)
+    for r0 in range(0, n_rows, block):
+        r1 = min(r0 + block, n_rows)
+        n = min(r1 * 256, G) - r0 * 256
+        c = torch.zeros((r1 - r0) * 256, dtype=torch.int64, device=dev)
+        c[:n] = text[r0 * 256:r0 * 256 + n]
+        v = torch.zeros((r1 - r0) * 256, dtype=torch.int64, device=dev)
+        v[:n] = valid[r0 * 256:r0 * 256 + n]
+        # disjoint bit fields: their sum is their OR
+        rows[r0:r1, :16] = (c.view(-1, 16) << c_sh).sum(1) \
+            .view(r1 - r0, 16).to(torch.int32)
+        rows[r0:r1, 16:] = (v.view(-1, 16) << v_sh).sum(1) \
+            .view(r1 - r0, 16).to(torch.int32)
+    return rows
+
+
+def overlap_rows_torch(rows, text_len: int, rw: int = 14):
+    """`GenomeIndex.packed_overlap_rows` of `pack_text_rows_torch`'s
+    rows: windows of rw words at a stride of 8 words (128 bases) over the
+    code words and over the validity words, side by side."""
+    R = text_len // 128 + 2
+    tws = rows[:, :16].reshape(-1).unfold(0, rw, 8)[:R]
+    vws = rows[:, 16:].reshape(-1).unfold(0, rw, 8)[:R]
+    R = min(tws.shape[0], vws.shape[0])
+    return torch.cat([tws[:R], vws[:R]], 1)

@@ -21,7 +21,8 @@ that compute on a device run on `--device` (default cuda).
 `count` mirrors `cellranger_tpu count`: `--chemistry auto` detects the
 chemistry from the first FASTQ pair and the whitelist, and preflight checks
 run before any work.  `reanalyze` and `aggr` read h5 files (io/hdf5.py).
-`mkref`, `mkvdjref`, `mkgtf` and `mkfastq` run on the host only.
+`mkref` builds its kmer table on `--device`; `mkvdjref`, `mkgtf` and
+`mkfastq` run on the host only.
 """
 
 from __future__ import annotations
@@ -156,10 +157,11 @@ def _cmd_mkref(args):
         sys.exit("error: --genome/--fasta/--genes need matching counts")
     if len(genomes) == 1:
         ref = ReferencePackage.build(fastas[0], gtfs[0], args.out,
-                                     genome_name=genomes[0])
+                                     genome_name=genomes[0],
+                                     device=args.device)
     else:
         ref = ReferencePackage.build_multi(
-            list(zip(genomes, fastas, gtfs)), args.out)
+            list(zip(genomes, fastas, gtfs)), args.out, device=args.device)
     print(json.dumps(ref.metadata, indent=2))
 
 
@@ -196,7 +198,7 @@ def _cmd_testrun(args):
                 'gene_id "G2"; transcript_id "T2"; gene_name "GeneTwo";\n')
     ReferencePackage.build(os.path.join(out, "genome.fa"),
                            os.path.join(out, "genes.gtf"),
-                           os.path.join(out, "ref"))
+                           os.path.join(out, "ref"), device=args.device)
     wl = sorted({"".join(rng.choice(list("ACGT"), 16)) for _ in range(256)})
     with open(os.path.join(out, "wl.txt"), "w") as f:
         f.writelines(s + "\n" for s in wl)
@@ -324,6 +326,7 @@ def main(argv=None):
     m.add_argument("--fasta", required=True)
     m.add_argument("--genes", required=True)
     m.add_argument("--out", required=True)
+    _add_device(m)
     m.set_defaults(fn=_cmd_mkref)
 
     mv = sub.add_parser("mkvdjref", help="build a V(D)J reference package")

@@ -2,11 +2,16 @@
 
 The reference's mkref (lib/python/cellranger/reference_builder.py:40,370)
 produces fasta/ + genes/ + STAR index; ours produces fasta/ + genes/ +
-a kmer index (.npz) + reference.json metadata. Build is host-side numpy
-(minutes for a mammalian genome vs STAR's ~8 core-hours, reference_builder
-.py:404) because the TPU aligner needs only the sorted kmer table.
+a kmer index (.npz) + reference.json metadata. The aligner needs only the
+sorted kmer table, so the build is minutes of host numpy for a mammalian
+genome (vs STAR's ~8 core-hours, reference_builder.py:404), or under a
+minute with the kmer table built on a device.
 
-Copied from cellranger_tpu/io/reference.py over the port's GenomeIndex.
+Copied from cellranger_tpu/io/reference.py over the port's GenomeIndex;
+`build` and `build_multi` take `device` as a required keyword, as the
+port's other computing entry points do: the torch device the kmer table is
+built on (`GenomeIndex.build(device=)`), or None for the host numpy build,
+the same index.npz either way.
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ class ReferencePackage:
     @staticmethod
     def build_multi(inputs: list[tuple[str, str, str]], out_dir: str,
                     k: int = 16, stride: int = 1,
-                    sj_overhang: int = 120) -> "ReferencePackage":
+                    sj_overhang: int = 120, *,
+                    device) -> "ReferencePackage":
         """Multi-genome (barnyard) reference: inputs = [(genome_name,
         fasta, gtf)]; chromosomes and GTF seqnames get '<genome>_' prefixes
         (the reference's mkref multi-genome convention,
@@ -79,13 +85,13 @@ class ReferencePackage:
         write_fasta(fa_dst, merged)
         pkg = ReferencePackage._build_from(fa_dst, gtf_dst, out_dir,
                                            [n for n, _, _ in inputs],
-                                           k, stride, sj_overhang)
+                                           k, stride, sj_overhang, device)
         return pkg
 
     @staticmethod
     def build(fasta_path: str, gtf_path: str, out_dir: str,
               genome_name: str = "genome", k: int = 16, stride: int = 1,
-              sj_overhang: int = 120) -> "ReferencePackage":
+              sj_overhang: int = 120, *, device) -> "ReferencePackage":
         os.makedirs(os.path.join(out_dir, "fasta"), exist_ok=True)
         os.makedirs(os.path.join(out_dir, "genes"), exist_ok=True)
         fa_dst = os.path.join(out_dir, "fasta", "genome.fa")
@@ -96,16 +102,16 @@ class ReferencePackage:
             shutil.copyfile(gtf_path, gtf_dst)
         return ReferencePackage._build_from(fa_dst, gtf_dst, out_dir,
                                             [genome_name], k, stride,
-                                            sj_overhang)
+                                            sj_overhang, device)
 
     @staticmethod
     def _build_from(fa_dst: str, gtf_dst: str, out_dir: str,
                     genome_names: list[str], k: int, stride: int,
-                    sj_overhang: int) -> "ReferencePackage":
+                    sj_overhang: int, device) -> "ReferencePackage":
         seqs = read_fasta(fa_dst)
         txome = Transcriptome.from_gtf(gtf_dst)
         gi = GenomeIndex.build(seqs, txome, k=k, stride=stride,
-                               sj_overhang=sj_overhang)
+                               sj_overhang=sj_overhang, device=device)
         gi.save(os.path.join(out_dir, "index.npz"))
         meta = {
             "genomes": genome_names,

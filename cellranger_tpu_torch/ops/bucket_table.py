@@ -9,9 +9,11 @@ when `probe_rows`=2, or is dropped (counted).  The all-ones key is
 reserved as EMPTY.
 
 The host build (`_place`, `build_rows`, `build_exact`, `with_counts`) is
-the numpy code of the JAX package, copied; the query half (`_fetch`,
-`lookup`, `membership`, `membership3`) is torch over the rows kept as an
-int32 bit-view on the device.
+the numpy code of the JAX package, copied; `_place_torch` and
+`build_rows_torch` are its torch counterparts for the kmer table's layout
+(probe_rows=1), the same rows bit for bit on any device; the query half
+(`_fetch`, `lookup`, `membership`, `membership3`) is torch over the rows
+kept as an int32 bit-view on the device.
 """
 
 from __future__ import annotations
@@ -96,6 +98,60 @@ class BucketTable:
             if cs is not None:
                 rows[r_k, 2 * E + s_k] = cs[keep]
         return rows, n_dropped
+
+    @staticmethod
+    def _place_torch(keys: torch.Tensor, vals: torch.Tensor, bits: int,
+                     entries: int, fields: int, probe_rows: int,
+                     block: int = 1 << 26):
+        """`_place` on the keys' device (u32 values or int32 bit-views):
+        a stable sort by bucket, each entry's rank within its bucket, the
+        entries past `entries` dropped, the rest scattered into their
+        rows `block` entries at a time.  Returns (rows int32 bit-view
+        [R + 1, W], n_dropped)."""
+        if probe_rows != 1:
+            raise NotImplementedError("the torch placement has no spill "
+                                      "row (probe_rows=1 only)")
+        R = 1 << bits
+        E = entries
+        W = _pad_width(E, fields)
+        dev = keys.device
+        h = ((widen(keys) * int(MIX)) & U32_MASK) >> (32 - bits)
+        hs, order = torch.sort(h, stable=True)
+        del h
+        counts = torch.bincount(hs, minlength=R)
+        first = torch.cumsum(counts, 0) - counts   # each bucket's first slot
+        del counts
+        rows = torch.zeros((R + 1, W), dtype=torch.int32, device=dev)
+        rows[:, :E] = -1                           # EMPTY's bits
+        flat = rows.view(-1)
+        n_dropped = 0
+        for i in range(0, hs.shape[0], block):
+            b = hs[i:i + block]
+            rank = torch.arange(i, i + b.shape[0], device=dev) - first[b]
+            keep = rank < E
+            n_dropped += int((~keep).sum())
+            at = (b * W + rank)[keep]
+            o = order[i:i + block][keep]
+            flat[at] = keys[o].to(torch.int32)
+            flat[at + E] = vals[o].to(torch.int32)
+        return rows, n_dropped
+
+    @staticmethod
+    def build_rows_torch(keys: torch.Tensor, vals: torch.Tensor,
+                         entries: int = 8, fields: int = 2,
+                         load: float = 0.5, probe_rows: int = 1,
+                         min_bits: int = 8):
+        """`build_rows` on the keys' device: -> (rows int32 bit-view
+        tensor, bits)."""
+        keep = widen(keys) != U32_MAX
+        if not bool(keep.all()):
+            keys, vals = keys[keep], vals[keep]
+        del keep
+        n = max(int(keys.shape[0]), 1)
+        bits = max(min_bits, int(np.ceil(np.log2(n / (entries * load)))))
+        rows, _ = BucketTable._place_torch(keys, vals, bits, entries, fields,
+                                           probe_rows)
+        return rows, bits
 
     @staticmethod
     def build_rows(keys: np.ndarray, vals: np.ndarray, entries: int = 8,

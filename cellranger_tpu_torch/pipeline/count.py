@@ -823,10 +823,12 @@ _REF_MEMO: dict = {"key": None, "value": None}
 
 def _load_reference_cached(path: str, device):
     """(ReferencePackage, DeviceIndex, AnnotationIndex) of `path` on
-    `device`, loaded once for a run of calls with the same key.  A load
-    leaves its host seconds in _REF_MEMO["split"]: index.npz and the GTF,
-    the text rows, the overlapped rows with the kmer bucket rows, the
-    copy to the device, the annotation tables."""
+    `device`, loaded once for a run of calls with the same key; the index
+    tables are built on `device` (`DeviceIndex.build`).  A load leaves
+    the seconds of each step in _REF_MEMO["split"] (the device
+    synchronized at each step's end): index.npz and the GTF, the upload,
+    the text rows, the overlapped rows, the kmer bucket rows, the
+    annotation tables."""
     try:
         mtime = os.path.getmtime(os.path.join(path, "index.npz"))
     except OSError:
@@ -840,19 +842,15 @@ def _load_reference_cached(path: str, device):
 
         def lap(name):
             nonlocal t
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
             split[name] = time.time() - t
             t = time.time()
 
         ref = ReferencePackage.load(path)
         gi = ref.genome_index
         lap("npz_load_s")
-        gi.packed_rows()
-        lap("packed_rows_s")
-        arrays, meta = DeviceIndex.host_arrays(gi)
-        lap("overlap_and_kmer_rows_s")
-        didx = DeviceIndex.from_numpy(arrays, meta, device)
-        del arrays
-        lap("upload_s")
+        didx = DeviceIndex.build(gi, device, lap)
         ann = AnnotationIndex.build(ref.transcriptome, gi, device)
         lap("annotation_s")
         _REF_MEMO.update(key=key, value=(ref, didx, ann), split=split)

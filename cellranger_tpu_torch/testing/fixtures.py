@@ -68,7 +68,8 @@ def build_synthetic_run(tmp: str, seed: int = 11, genome_len: int = 120_000,
 
     from ..io.reference import ReferencePackage
     ref_dir = os.path.join(tmp, "ref")
-    ReferencePackage.build(fasta, gtf, ref_dir, genome_name="synth")
+    ReferencePackage.build(fasta, gtf, ref_dir, genome_name="synth",
+                           device=None)
 
     wl_seqs = sorted({"".join(rng.choice(list("ACGT"), 16))
                       for _ in range(n_wl + 200)})[:n_wl]
@@ -205,7 +206,8 @@ def build_rich_run(tmp: str, seed: int = 23, genome_len: int = 300_000,
 
     from ..io.reference import ReferencePackage
     ref_dir = os.path.join(tmp, "ref")
-    ReferencePackage.build(fasta, gtf, ref_dir, genome_name="synthrich")
+    ReferencePackage.build(fasta, gtf, ref_dir, genome_name="synthrich",
+                           device=None)
 
     wl_seqs = sorted({"".join(rng.choice(list("ACGT"), 16))
                       for _ in range(n_wl + 300)})[:n_wl]
@@ -352,6 +354,12 @@ def _e2e_whitelist(n_wl: int):
     return wl, np.asarray([list(w.encode()) for w in wl], np.uint8)
 
 
+def _e2e_genome_draw(rng, genome_len: int) -> np.ndarray:
+    """The e2e genome: genome_len ASCII bases, `rng`'s next draw."""
+    return np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, genome_len).astype(np.uint8)]
+
+
 def _e2e_reference(tmp: str, rng, genome_len: int, n_genes: int,
                    n_wl: int, ref: dict | None = None):
     """The e2e fixtures' shared inputs: a random genome drawn from `rng`
@@ -365,26 +373,16 @@ def _e2e_reference(tmp: str, rng, genome_len: int, n_genes: int,
     from ..io.reference import ReferencePackage
 
     os.makedirs(tmp, exist_ok=True)
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    garr = bases[rng.integers(0, 4, genome_len).astype(np.uint8)]
+    garr = _e2e_genome_draw(rng, genome_len)
     spacing = genome_len // n_genes
     wl, wl_arr = _e2e_whitelist(n_wl)
     if ref is not None:
         return garr, spacing, wl_arr, ref["ref"], ref["wl"]
     write_fasta(os.path.join(tmp, "g.fa"), {"chr1": garr.tobytes()})
-    with open(os.path.join(tmp, "g.gtf"), "w") as f:
-        for g in range(n_genes):
-            st = g * spacing + 1000
-            s = "+" if g % 2 == 0 else "-"
-            f.write(f'chr1\tx\texon\t{st + 1}\t{st + 600}\t.\t{s}\t.\t'
-                    f'gene_id "G{g}"; transcript_id "T{g}"; '
-                    f'gene_name "G{g}";\n')
-            f.write(f'chr1\tx\texon\t{st + 1201}\t{st + 2400}\t.\t{s}\t.\t'
-                    f'gene_id "G{g}"; transcript_id "T{g}"; '
-                    f'gene_name "G{g}";\n')
+    _human_gtf(os.path.join(tmp, "g.gtf"), n_genes, spacing)
     ref_dir = os.path.join(tmp, "ref")
     ReferencePackage.build(os.path.join(tmp, "g.fa"),
-                           os.path.join(tmp, "g.gtf"), ref_dir)
+                           os.path.join(tmp, "g.gtf"), ref_dir, device=None)
     wl_path = os.path.join(tmp, "wl.txt")
     with open(wl_path, "w") as f:
         f.writelines(w + "\n" for w in wl)
@@ -1438,7 +1436,7 @@ def build_tiny_mesh_run(tmp: str, read_len: int = READ_LEN) -> dict:
                 'gene_id "GB"; transcript_id "TB"; gene_name "GB";\n')
     ReferencePackage.build(os.path.join(tmp, "genome.fa"),
                            os.path.join(tmp, "genes.gtf"),
-                           os.path.join(tmp, "ref"))
+                           os.path.join(tmp, "ref"), device=None)
     wl = sorted({"".join(rng.choice(list(bases), 16)) for _ in range(64)})
     with open(os.path.join(tmp, "wl.txt"), "w") as f:
         f.writelines(s + "\n" for s in wl)
@@ -1485,7 +1483,7 @@ def build_lane_run(tmp: str, reads_per_lane=400, n_lanes: int = 4,
                 'gene_id "GN"; transcript_id "TN"; gene_name "GeneN";\n')
     ReferencePackage.build(os.path.join(tmp, "g.fa"),
                            os.path.join(tmp, "g.gtf"),
-                           os.path.join(tmp, "ref"))
+                           os.path.join(tmp, "ref"), device=None)
     wl = sorted({"".join(rng.choice(list("ACGT"), 16)) for _ in range(64)})
     with open(os.path.join(tmp, "wl.txt"), "w") as f:
         f.writelines(s + "\n" for s in wl)
@@ -1612,14 +1610,21 @@ def _human_gtf(path: str, n_genes: int, spacing: int) -> None:
     fixtures lay them out: gene g's exons are [s, s+600) and [s+1200,
     s+2400), s = g * spacing + 1000 (0-based)."""
     with open(path, "w") as f:
-        for g in range(n_genes):
-            st = g * spacing + 1000
-            s = "+" if g % 2 == 0 else "-"
-            attrs = (f'gene_id "G{g}"; transcript_id "T{g}"; '
-                     f'gene_name "G{g}";\n')
-            f.write(f"chr1\tx\texon\t{st + 1}\t{st + 600}\t.\t{s}\t.\t{attrs}")
-            f.write(f"chr1\tx\texon\t{st + 1201}\t{st + 2400}\t.\t{s}\t.\t"
-                    f"{attrs}")
+        _write_genes(f, "chr1", 0, np.arange(n_genes) * spacing + 1000)
+
+
+def _write_genes(f, chrom: str, first: int, starts) -> None:
+    """GTF rows of genes G{first}, G{first+1}, ... on `chrom`, exon 1 of
+    gene first+j at [starts[j], starts[j]+600) and exon 2 at
+    [starts[j]+1200, starts[j]+2400) (0-based), '+' for even numbers."""
+    for j, st in enumerate(np.asarray(starts).tolist()):
+        g = first + j
+        s = "+" if g % 2 == 0 else "-"
+        attrs = (f'gene_id "G{g}"; transcript_id "T{g}"; '
+                 f'gene_name "G{g}";\n')
+        f.write(f"{chrom}\tx\texon\t{st + 1}\t{st + 600}\t.\t{s}\t.\t{attrs}")
+        f.write(f"{chrom}\tx\texon\t{st + 1201}\t{st + 2400}\t.\t{s}\t.\t"
+                f"{attrs}")
 
 
 def _human_whitelist(rng, n_wl: int) -> np.ndarray:
@@ -1687,13 +1692,7 @@ def _write_human_reference(ref_dir: str, gi, offset: int, txome) -> None:
                   text_len=offset + len(gi.text))
     np.savez(os.path.join(ref_dir, "index.npz"), **arrays)
     del arrays
-    with open(os.path.join(ref_dir, "reference.json"), "w") as f:
-        json.dump({"genomes": ["genome"], "version": "cellranger-tpu-0.1.0",
-                   "input_fasta": "genome.fa", "input_gtf": "genes.gtf",
-                   "n_genes": len(txome.genes),
-                   "n_transcripts": len(txome.transcripts),
-                   "n_junctions": gi.n_junctions, "index_k": gi.k,
-                   "index_stride": gi.stride}, f, indent=2)
+    write_reference_json(ref_dir, gi, txome)
 
 
 def build_human_run(tmp: str, n_reads: int = 1_000_000, **kw) -> dict:
@@ -1738,8 +1737,9 @@ def human_run_inputs(tmp: str, n_reads: int = 1_000_000, *,
     reads, molecules per gene: the repeat molecules map at MAPQ < 255 and
     are never counted), each read's kind, molecule, gene (-1 on the
     repeat) and ASCII cDNA (`read_kind`, `read_mol`, `read_gene`, `cdna`,
-    in FASTQ order), the genome's chr1 codes and layout for
-    `human_truth_reads`, and the host seconds of each part (`timing`)."""
+    in FASTQ order), the genome's chr1 codes (`codes`) and layout
+    (`gene_start`, exon 1 of each gene in them) for `human_truth_reads`,
+    and the host seconds of each part (`timing`)."""
     from ..io.gtf import Transcriptome
 
     timing = {}
@@ -1767,6 +1767,28 @@ def human_run_inputs(tmp: str, n_reads: int = 1_000_000, *,
                               pad_len)
     timing["index_build_s"] = time.time() - t
 
+    fx = _human_reads(tmp, rng, seed + 1, n_reads, codes,
+                      np.arange(n_genes) * spacing + 1000,
+                      -(-(rep_end - 1000) // spacing), n_genes, spacing,
+                      repeat_len, n_wl, n_cells, timing)
+    return dict(
+        fx, ref=ref_dir, text_len=offset + len(gi.text),
+        genome_len=int(gi.genome_len) + offset,
+        chr1_start=offset + PAD_PREFIX, n_kmers=len(gi.kmer_keys),
+        n_junctions=int(gi.n_junctions), chr1_codes=codes, codes=codes,
+        chrom_names=["chrPad", "chr1"],
+        chrom_starts=np.asarray([0, offset + PAD_PREFIX], np.int64),
+        gtf=gtf, index=(gi, offset), txome=txome)
+
+
+def _human_reads(tmp: str, rng, seed: int, n_reads: int, codes, gene_start,
+                 g_first: int, n_genes: int, spacing: int, repeat_len: int,
+                 n_wl: int, n_cells: int, timing: dict) -> dict:
+    """The whitelist (drawn from `rng`) and the reads (seed `seed`) of a
+    human-layout run, written under tmp: genes g_first.. lie off chr1's
+    repeat, gene g's exon 1 starts at codes[gene_start[g]], the repeat's
+    copies start at codes[0] with the genes of chr1 every `spacing`
+    bases.  Returns the run's fields of `human_run_inputs`."""
     t = time.time()
     wl = _human_whitelist(rng, n_wl)
     wl_path = os.path.join(tmp, "wl.txt")
@@ -1781,42 +1803,42 @@ def human_run_inputs(tmp: str, n_reads: int = 1_000_000, *,
     t = time.time()
     L = READ_LEN
     ar = np.arange(L)
+    bases = np.frombuffer(b"ACGT", np.uint8)
     comp = np.zeros(256, np.uint8)
     comp[list(b"ACGT")] = list(b"TGCA")
-    rng = np.random.default_rng(seed + 1)
+    rng = np.random.default_rng(seed)
     n_mol = n_reads // E2E_DUP
     n_kind = [int(n_mol * s) for s in HUMAN_SHARES]
     n_kind[0] = n_mol - sum(n_kind[1:])
     kind = np.repeat(np.arange(len(HUMAN_KINDS)), n_kind)
-    g_first = -(-(rep_end - 1000) // spacing)        # first gene off it
     plus = np.arange(g_first + (g_first & 1), n_genes, 2)
     cdna = np.empty((n_mol, L), np.uint8)
     gene = np.full(n_mol, -1, np.int64)
     sel = kind == 0                                   # exon 1, '+' gene
     gene[sel] = rng.choice(plus, n_kind[0])
-    start = gene[sel] * spacing + 1000 + rng.integers(0, 600 - L - 8,
-                                                      n_kind[0])
-    cdna[sel] = garr[start[:, None] + ar]
+    start = gene_start[gene[sel]] + rng.integers(0, 600 - L - 8, n_kind[0])
+    cdna[sel] = bases[codes[start[:, None] + ar]]
     sel = kind == 1                                   # exon 1 -> exon 2
     g = rng.integers(g_first, n_genes, n_kind[1])
     gene[sel] = g
     m = HUMAN_JUNCTION_MIN_SIDE
     left = rng.integers(m, L - m + 1, n_kind[1])[:, None]
-    st = (g * spacing + 1000)[:, None]
+    st = gene_start[g][:, None]
     idx = np.where(ar < left, st + 600 - left + ar, st + 1200 + ar - left)
-    seq = garr[idx]
+    seq = bases[codes[idx]]
     minus = g % 2 == 1                                # sense of a '-' gene
     seq[minus] = comp[seq[minus, ::-1]]
     cdna[sel] = seq
     sel = kind == 2                                   # 2-base deletion
     gene[sel] = rng.choice(plus, n_kind[2])
-    st = (gene[sel] * spacing + 1000
+    st = (gene_start[gene[sel]]
           + rng.integers(0, 600 - L - 8, n_kind[2]))[:, None]
     cut = rng.integers(*HUMAN_DELETION_AT, n_kind[2])[:, None]
-    cdna[sel] = garr[np.where(ar < cut, st + ar, st + ar + HUMAN_DELETION)]
+    cdna[sel] = bases[codes[np.where(ar < cut, st + ar,
+                                     st + ar + HUMAN_DELETION)]]
     sel = kind == 3                        # repeat, intergenic at all copies
     p = rng.choice(_intergenic_repeat_starts(spacing, repeat_len), n_kind[3])
-    cdna[sel] = garr[p[:, None] + ar]
+    cdna[sel] = bases[codes[p[:, None] + ar]]
 
     cells = rng.choice(n_wl, n_cells, replace=False)
     cell_idx = rng.integers(0, n_cells, n_mol)
@@ -1837,16 +1859,11 @@ def human_run_inputs(tmp: str, n_reads: int = 1_000_000, *,
 
     counted = kind != HUMAN_KINDS.index("repeat")
     return dict(
-        ref=ref_dir, wl=wl_path, fq1=r1p, fq2=r2p, n_reads=len(cdna),
-        text_len=offset + len(gi.text),
-        genome_len=int(gi.genome_len) + offset,
-        chr1_start=offset + PAD_PREFIX, n_kmers=len(gi.kmer_keys),
-        n_junctions=int(gi.n_junctions), n_wl=n_wl, wl_packed=wl,
-        barcode_errors=len(err_rows), read_kind=read_kind,
+        wl=wl_path, fq1=r1p, fq2=r2p, n_reads=len(cdna), n_wl=n_wl,
+        wl_packed=wl, barcode_errors=len(err_rows), read_kind=read_kind,
         read_mol=read_mol, read_gene=gene[read_mol], cdna=cdna,
-        chr1_codes=codes, spacing=spacing, repeat_len=repeat_len,
-        plus_genes=plus, timing=timing, gtf=gtf, index=(gi, offset),
-        txome=txome,
+        gene_start=gene_start, spacing=spacing, repeat_len=repeat_len,
+        plus_genes=plus, timing=timing,
         expected=dict(
             total_reads=len(cdna), mapped_reads=len(cdna),
             conf_mapped_reads=int(counted.sum()) * E2E_DUP,
@@ -1854,23 +1871,196 @@ def human_run_inputs(tmp: str, n_reads: int = 1_000_000, *,
             gene_molecules=np.bincount(gene[counted], minlength=n_genes)))
 
 
+# GRCh38's primary chromosomes and their lengths (GRC's GRCh38 assembly
+# report): 3,088,269,832 bases
+GRCH38_CHROMS = (
+    ("chr1", 248_956_422), ("chr2", 242_193_529), ("chr3", 198_295_559),
+    ("chr4", 190_214_555), ("chr5", 181_538_259), ("chr6", 170_805_979),
+    ("chr7", 159_345_973), ("chr8", 145_138_636), ("chr9", 138_394_717),
+    ("chr10", 133_797_422), ("chr11", 135_086_622), ("chr12", 133_275_309),
+    ("chr13", 114_364_328), ("chr14", 107_043_718), ("chr15", 101_991_189),
+    ("chr16", 90_338_345), ("chr17", 83_257_441), ("chr18", 80_373_285),
+    ("chr19", 58_617_616), ("chr20", 64_444_167), ("chr21", 46_709_983),
+    ("chr22", 50_818_468), ("chrX", 156_040_895), ("chrY", 57_227_415))
+
+
+def genes_per_chrom(lens, n_genes: int) -> np.ndarray:
+    """n_genes spread over chromosomes of lengths `lens` in proportion to
+    length (largest remainders take the rest)."""
+    lens = np.asarray(lens, np.int64)
+    q = lens * n_genes
+    n = q // lens.sum()
+    rest = n_genes - int(n.sum())
+    n[np.argsort(-(q % lens.sum()), kind="stable")[:rest]] += 1
+    return n
+
+
+def write_reference_json(ref_dir: str, gi, txome) -> None:
+    with open(os.path.join(ref_dir, "reference.json"), "w") as f:
+        json.dump({"genomes": ["genome"], "version": "cellranger-tpu-0.1.0",
+                   "input_fasta": "genome.fa", "input_gtf": "genes.gtf",
+                   "n_genes": len(txome.genes),
+                   "n_transcripts": len(txome.transcripts),
+                   "n_junctions": gi.n_junctions, "index_k": gi.k,
+                   "index_stride": gi.stride}, f, indent=2)
+
+
+def build_grch38_run(tmp: str, n_reads: int = 1_000_000, *,
+                     chroms=GRCH38_CHROMS,
+                     repeat_len: int = HUMAN_REPEAT_LEN,
+                     n_genes: int = HUMAN_GENES, n_wl: int = HUMAN_WL,
+                     n_cells: int = HUMAN_CELLS, seed: int = 3,
+                     device="cuda", sampling: str = "auto",
+                     pos_mode: str = "auto") -> dict:
+    """A count run on a reference of GRCh38's shape: the 24 `chroms` of
+    seeded random bases (chr1, the first, opens with HUMAN_REPEAT_COPIES
+    copies of one repeat_len segment), n_genes two-exon genes spread over
+    them in proportion to length (`genes_per_chrom`; within a chromosome
+    the layout of `_human_gtf` at its own spacing), one annotated
+    junction each; then the whitelist, cells and reads of
+    `human_run_inputs` (`_human_reads`), truth by construction.
+
+    The index is GenomeIndex.build over the whole genome on `device` (no
+    pad, no shift), written uncompressed to ref/index.npz beside
+    ref/reference.json and genes/genes.gtf.  At the default sizes the text
+    is 3,097,054,072 bases (genome and 36,601 junction contigs): minimizer
+    sampling and parity positions; chr13 crosses 2**31 and chr13-chrY lie
+    above it.  Returns the fields of `human_run_inputs` (the genome's
+    text codes as `codes`, exon 1 of each gene in them as `gene_start`,
+    chr1's gene spacing as `spacing`), the index's size and sampling, and
+    the host seconds of each part (`timing`: genome, device build, npz
+    write, whitelist, reads)."""
+    from ..align.index import GenomeIndex
+    from ..io.gtf import Transcriptome
+
+    timing = {}
+    t = time.time()
+    ref_dir = os.path.join(tmp, "ref")
+    os.makedirs(os.path.join(ref_dir, "genes"), exist_ok=True)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(seed)
+    lens = np.asarray([n for _, n in chroms], np.int64)
+    n_per = genes_per_chrom(lens, n_genes)
+    spacing = lens // np.maximum(n_per, 1)
+    assert (spacing[n_per > 0] >= 3600).all(), "genes need 3,400 bases"
+    rep_end = HUMAN_REPEAT_COPIES * repeat_len
+    assert rep_end <= lens[0]
+    ascii_of = bases[np.arange(256) & 3]      # a random byte's low 2 bits
+
+    def draw(n):
+        return ascii_of[np.frombuffer(rng.bytes(n), np.uint8)]
+
+    seqs = {}
+    for i, (name, n) in enumerate(chroms):
+        if i == 0:
+            seqs[name] = np.concatenate([
+                np.tile(draw(repeat_len), HUMAN_REPEAT_COPIES),
+                draw(n - rep_end)]).tobytes()
+        else:
+            seqs[name] = draw(n).tobytes()
+    gtf = os.path.join(ref_dir, "genes", "genes.gtf")
+    local = []
+    with open(gtf, "w") as f:
+        first = 0
+        for (name, _), k, sp in zip(chroms, n_per, spacing):
+            local.append(np.arange(k) * sp + 1000)
+            _write_genes(f, name, first, local[-1])
+            first += k
+    txome = Transcriptome.from_gtf(gtf)
+    timing["genome_s"] = time.time() - t
+
+    t = time.time()
+    gi = GenomeIndex.build(seqs, txome, sampling=sampling,
+                           pos_mode=pos_mode, device=device)
+    del seqs
+    timing["device_build_s"] = time.time() - t
+
+    t = time.time()
+    np.savez(os.path.join(ref_dir, "index.npz"), **gi.npz_arrays())
+    write_reference_json(ref_dir, gi, txome)
+    timing["npz_write_s"] = time.time() - t
+
+    gene_start = np.concatenate(
+        [gi.chrom_starts[i] + x for i, x in enumerate(local)])
+    fx = _human_reads(tmp, rng, seed + 1, n_reads, gi.text, gene_start,
+                      -(-(rep_end - 1000) // int(spacing[0])), n_genes,
+                      int(spacing[0]), repeat_len, n_wl, n_cells, timing)
+    return dict(
+        fx, ref=ref_dir, text_len=len(gi.text), genome_len=int(gi.genome_len),
+        n_kmers=len(gi.kmer_keys), n_junctions=int(gi.n_junctions),
+        sampling=gi.sampling, pos_mode=gi.pos_mode, codes=gi.text, gtf=gtf,
+        chrom_names=list(gi.chrom_names), chrom_starts=gi.chrom_starts,
+        chr1_start=0)
+
+
+def e2e_genome(tmp: str, genome_len: int = E2E_GENOME_LEN,
+               n_genes: int = E2E_GENES):
+    """The e2e fixtures' genome and genes (`_e2e_reference`'s first draw
+    of seed 11, its GTF written to tmp/g.gtf): ({"chr1": bytes},
+    Transcriptome)."""
+    from ..io.gtf import Transcriptome
+
+    os.makedirs(tmp, exist_ok=True)
+    garr = _e2e_genome_draw(np.random.default_rng(11), genome_len)
+    gtf = os.path.join(tmp, "g.gtf")
+    _human_gtf(gtf, n_genes, genome_len // n_genes)
+    return {"chr1": garr.tobytes()}, Transcriptome.from_gtf(gtf)
+
+
+def index_genome(tmp: str, genome_len: int, n_chroms: int = 4,
+                 n_genes: int = 2000, seed: int = 41):
+    """A seeded genome of n_chroms chromosomes, genome_len bases in all,
+    with runs of N (each chromosome opens and ends with one, and one of
+    1-5,000 N starts in about every 50,000 bases, some across a gene's
+    junction flanks) and n_genes two-exon genes, one annotated junction
+    each (GTF at tmp/g.gtf): ({name: bytes}, Transcriptome)."""
+    from ..io.gtf import Transcriptome
+
+    os.makedirs(tmp, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGTN", np.uint8)
+    lens = genes_per_chrom(np.ones(n_chroms, np.int64), genome_len)
+    n_per = genes_per_chrom(lens, n_genes)
+    seqs = {}
+    gtf = os.path.join(tmp, "g.gtf")
+    with open(gtf, "w") as f:
+        first = 0
+        for c, (n, k) in enumerate(zip(lens, n_per)):
+            codes = rng.integers(0, 4, n).astype(np.uint8)
+            n_runs = max(int(n) // 50_000, 1)
+            starts = rng.integers(0, n, n_runs)
+            ends = np.minimum(starts + rng.integers(1, 5000, n_runs), n)
+            cover = np.zeros(n + 1, np.int64)
+            np.add.at(cover, starts, 1)
+            np.add.at(cover, ends, -1)
+            codes[np.cumsum(cover[:n]) > 0] = 4
+            codes[:rng.integers(1, 300)] = 4
+            codes[n - rng.integers(1, 300):] = 4
+            seqs[f"chr{c + 1}"] = bases[codes].tobytes()
+            sp = int(n) // max(int(k), 1)
+            assert sp >= 3600 or k == 0, "genes need 3,400 bases"
+            _write_genes(f, f"chr{c + 1}", first, np.arange(k) * sp + 1000)
+            first += int(k)
+    return seqs, Transcriptome.from_gtf(gtf)
+
+
 def human_truth_reads(fx: dict, n: int, seed: int = 7):
-    """bench.py's truth probe over a `build_human_run` genome: n
-    error-free reads, the first half at repeat positions intergenic at
-    every copy (an honest aligner reports them below MAPQ 255), the rest
-    inside exon 1 of a '+' gene off the repeat (each must map to its gene
-    at MAPQ 255).  Returns (ASCII reads [n, READ_LEN], true gene or -1,
-    in_repeat bool)."""
+    """bench.py's truth probe over a `build_human_run` or
+    `build_grch38_run` genome: n error-free reads, the first half at
+    repeat positions intergenic at every copy (an honest aligner reports
+    them below MAPQ 255), the rest inside exon 1 of a '+' gene off the
+    repeat (each must map to its gene at MAPQ 255).  Returns (ASCII reads
+    [n, READ_LEN], true gene or -1, in_repeat bool)."""
     L = READ_LEN
     rng = np.random.default_rng(seed)
     spacing, rl = fx["spacing"], fx["repeat_len"]
     n_rep = n // 2
     p = rng.choice(_intergenic_repeat_starts(spacing, rl), n_rep)
     gene = rng.choice(fx["plus_genes"], n - n_rep)
-    pos = np.concatenate([p, gene * spacing + 1000
+    pos = np.concatenate([p, fx["gene_start"][gene]
                           + rng.integers(0, 600 - L, n - n_rep)])
     reads = np.frombuffer(b"ACGT", np.uint8)[
-        fx["chr1_codes"][pos[:, None] + np.arange(L)]]
+        fx["codes"][pos[:, None] + np.arange(L)]]
     true_gene = np.concatenate([np.full(n_rep, -1), gene])
     return reads, true_gene, np.arange(n) < n_rep
 

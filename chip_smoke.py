@@ -19,6 +19,13 @@ Phases, each printing one line; any failure raises and exits non-zero:
                median of 20, spread printed), the time of one eager call,
                the bound computed from the same shapes and the share of
                it reached; the plain version's time as information
+  index_build  GenomeIndex.build with its kmer table built on cuda against
+               the numpy build, every index.npz array equal, and
+               DeviceIndex.build's text rows, overlapped rows and kmer
+               bucket rows against the host tables: on the e2e fixture's
+               genome (every/strand31) and on a seeded 64 Mb genome with
+               N runs and 2,000 junction contigs forced to minimizer
+               sampling and parity positions; both builds' seconds
   tiny_parity  the synthetic run through the default run_count (secondary
                analysis on) on cuda and on cpu: identical metrics (except
                wall_time_s) and MEX matrices; analysis/ under the
@@ -133,13 +140,18 @@ Phases, each printing one line; any failure raises and exits non-zero:
                free local port): host 0's metrics and MEX equal one
                process's run of the same lanes, host 1 reports only its
                own lanes' 500,000 reads
-  human_parity the human-scale reference (testing/fixtures.build_human_run:
-               a 2 Gb all-N contig, then a 280 Mb chr1 with 36,601 genes,
-               so minimizer sampling, parity positions and half of chr1
+  human_parity a reference of GRCh38's shape (testing/fixtures.
+               build_grch38_run: its 24 primary chromosomes at their
+               lengths, 3,088,269,832 random bases, chr1 opening with 4
+               copies of a 5 Mb segment, 36,601 two-exon genes; the index
+               built on cuda over the whole genome, text 3,097,054,072,
+               so minimizer sampling, parity positions and chr13-chrY
                above 2**31; 6,794,880 whitelist barcodes; 1,000,000
-               reads), loaded through run_count's reference memo: its
-               first 4,096 reads through the stream step and the aligner
-               on cuda and on cpu, every output equal, the deletion reads
+               reads), its tables built on cuda through run_count's
+               reference memo (load split, table bytes, peak memory):
+               its first 4,096 reads through the stream step and the
+               aligner on cuda and on cpu (the cpu's tables copies of the
+               cuda tables), every output equal, the deletion reads
                rescued by K1; bench.py's truth probe on 32,768 error-free
                reads, every miss one of the reference's known losses and
                the off-repeat reads' score at least HUMAN_TRUTH_FLOOR
@@ -147,9 +159,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
                32768: the molecules, confidently mapped reads and
                molecules per gene of an account of every read (counted
                under its gene or a known loss of the reference, each loss
-               within HUMAN_LOSS_CAPS), one K1 launch a step; the fixture's seconds, the reference load's
-               split, each device table's bytes, peak device memory and
-               host RSS
+               within HUMAN_LOSS_CAPS), one K1 launch a step; the
+               fixture's seconds (genome, device build, npz write), the
+               reference load's split, each device table's bytes, peak
+               device memory, peak host RSS and MemTotal
 
 Every path resets the SW kernel's launch count before it runs and reads
 it after; the kernel report counts the e2e path's launches and lists
@@ -158,7 +171,8 @@ every path's (`pe`: two a batch, one per mate; `mesh` and
 counts; `h5_pipelines`: one a step of each GEM well; `deep`: one a
 step, 611 at 20,000,000 reads; `human_parity`:
 its cuda step, aligner call and truth-probe step and aligner call;
-`rtl`, the V(D)J paths and `mkfastq`: none, no genome aligner runs).  The line before the last is the kernel report (JSON); the
+`rtl`, the V(D)J paths, `mkfastq` and `index_build`: none, no genome
+aligner runs).  The line before the last is the kernel report (JSON); the
 last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
@@ -277,7 +291,11 @@ MESH_ENTRIES = 4
 MULTIHOST_PROCS = 2
 MULTIHOST_LANES = 4
 MULTIHOST_TIMEOUT_S = 600
-# the human-scale reference (testing/fixtures.build_human_run): its
+# index_build: the seeded genome with N runs and junction contigs built
+# minimizer/parity on both sides (fixtures.index_genome)
+INDEX_BUILD_LEN = 64_000_000
+INDEX_BUILD_GENES = 2_000
+# the GRCh38-shaped reference (testing/fixtures.build_grch38_run): its
 # 1,000,000 reads at the e2e batch; its parity batch; bench.py's
 # truth-probe batch
 HUMAN_BATCH = 32768
@@ -291,12 +309,16 @@ HUMAN_TRUTH_READS = 32768
 # fixture's 1,000,000 reads measured on an H100 (PERF.md section 6):
 # saturated 4,458 of 700,000 exon, 4,100 of 100,000 junction and 528 of
 # 50,000 deletion reads; straddling 152 and false novel junction 2
-# deletion reads.  A pair absent here may take the slack only.
+# deletion reads (build_human_run's 2 Gb pad and 280 Mb chr1).  The
+# GRCh38-shaped fixture that replaced it loses fewer of each and adds
+# chance_locus: 8 of 50,000 deletion reads.  A pair absent here may take
+# the slack only.
 HUMAN_TRUTH_FLOOR = 0.985
 HUMAN_LOSS_CAPS = {
     "saturated": {"exon": 0.0080, "junction": 0.052, "deletion": 0.0133},
     "contig_straddle": {"deletion": 0.0038},
     "false_novel_junction": {"deletion": 0.00005},
+    "chance_locus": {"deletion": 0.0002},
 }
 HUMAN_LOSS_SLACK = 8
 
@@ -1669,13 +1691,119 @@ def mkfastq_run(tmp: str, n_clusters: int = MKFASTQ_CLUSTERS) -> dict:
     return rep
 
 
-def human_fixture(tmp: str) -> dict:
-    """build_human_run under tmp; its host seconds in fx["timing"]."""
-    from cellranger_tpu_torch.testing.fixtures import build_human_run
+def memory_report(device) -> dict:
+    """Peak device memory since the last reset (None off the card), peak
+    host RSS of this process and the machine's MemTotal, in bytes."""
+    import resource
 
+    import torch
+    total = None
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                total = int(line.split()[1]) * 1024
+    return dict(
+        peak_device_bytes=(torch.cuda.max_memory_allocated(device)
+                           if torch.device(device).type == "cuda" else None),
+        peak_host_rss_bytes=resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024,
+        mem_total_bytes=total)
+
+
+def index_build(tmp: str, device: str = "cuda",
+                genome_len: int = INDEX_BUILD_LEN,
+                n_genes: int = INDEX_BUILD_GENES,
+                e2e_len: int | None = None) -> dict:
+    """GenomeIndex.build on `device` against the numpy build, array for
+    array (every array of index.npz), and DeviceIndex.build's tables
+    (text rows, overlapped rows, kmer bucket rows and their bits) against
+    those of DeviceIndex.host_arrays: on the e2e fixture's genome
+    (every/strand31) and on a seeded genome of genome_len bases with N
+    runs and n_genes junction contigs (fixtures.index_genome) forced to
+    minimizer sampling and parity positions.  Seconds of both builds and
+    of both table builds (the device's synchronized), entries, dropped
+    entries, peak device memory.  Launches no SW kernel."""
+    import numpy as np
+    import torch
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.align.aligner import (MAX_HITS_PER_SEED,
+                                                    DeviceIndex)
+    from cellranger_tpu_torch.align.index import GenomeIndex
+    from cellranger_tpu_torch.testing import fixtures
+
+    e2e_kw = ({} if e2e_len is None
+              else dict(genome_len=e2e_len, n_genes=e2e_len // 10_000))
+    cases = {
+        "e2e": (fixtures.e2e_genome(os.path.join(tmp, "ib_e2e"), **e2e_kw),
+                {}),
+        "n_runs": (fixtures.index_genome(os.path.join(tmp, "ib_n"),
+                                         genome_len, n_genes=n_genes),
+                   dict(sampling="minimizer", pos_mode="parity"))}
+    sw.LAUNCHES = 0
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    rep = {}
+    for name, ((seqs, txome), kw) in cases.items():
+        t = time.time()
+        host = GenomeIndex.build(seqs, txome, **kw)
+        t_host = time.time() - t
+        t = time.time()
+        dev = GenomeIndex.build(seqs, txome, device=device, **kw)
+        t_dev = time.time() - t
+        want, got = host.npz_arrays(), dev.npz_arrays()
+        for k in want:
+            w, g = np.asarray(want[k]), np.asarray(got[k])
+            if w.dtype != g.dtype or w.shape != g.shape or (w != g).any():
+                raise AssertionError(f"index_build {name}: {k} differs")
+        t = time.time()
+        arrays, meta = DeviceIndex.host_arrays(host)
+        t_host_tables = time.time() - t
+        t = time.time()
+        didx = DeviceIndex.build(dev, device)
+        if on_card:
+            torch.cuda.synchronize(device)
+        t_dev_tables = time.time() - t
+        if didx.kmer_table.bits != meta["kmer_bits"]:
+            raise AssertionError(f"index_build {name}: kmer bits differ")
+        ov = arrays["text_rows_ov"]
+        _equal_arrays(
+            [didx.text_rows.cpu().numpy(), didx.kmer_table.rows.cpu().numpy()]
+            + ([] if ov is None else [didx.text_rows_ov.cpu().numpy()]),
+            [arrays["text_rows"].view(np.int32),
+             arrays["kmer_rows"].view(np.int32)]
+            + ([] if ov is None else [ov.view(np.int32)]),
+            f"index_build {name} tables (text rows, kmer rows, overlapped)")
+        placed = int((didx.kmer_table.rows[:, :MAX_HITS_PER_SEED] != -1)
+                     .sum())
+        rep[name] = dict(
+            text_len=len(host.text), sampling=host.sampling,
+            pos_mode=host.pos_mode, entries=len(host.kmer_keys),
+            kmer_bits=meta["kmer_bits"],
+            dropped_entries=len(host.kmer_keys) - placed,
+            junctions=host.n_junctions,
+            invalid_bases=int((~host.text_valid).sum()),
+            numpy_build_s=t_host, device_build_s=t_dev,
+            numpy_tables_s=t_host_tables, device_tables_s=t_dev_tables)
+        del didx, dev, host, arrays
+    rep.update(memory_report(device), sw_launches=sw.LAUNCHES)
+    if sw.LAUNCHES:
+        raise AssertionError("index_build launched the SW kernel")
+    return rep
+
+
+def human_fixture(tmp: str, device: str = "cuda", **kw) -> dict:
+    """build_grch38_run under tmp, its index built on `device`; its host
+    seconds in fx["timing"], with the peak device memory of the build."""
+    import torch
+    from cellranger_tpu_torch.testing.fixtures import build_grch38_run
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t = time.time()
-    fx = build_human_run(os.path.join(tmp, "human"))
+    fx = build_grch38_run(os.path.join(tmp, "human"), device=device, **kw)
     fx["timing"]["total_s"] = time.time() - t
+    fx["timing"].update(memory_report(device))
     return fx
 
 
@@ -1718,19 +1846,21 @@ def _human_reads(didx, ann, dev: str, plane, rna, nmask) -> tuple:
     return ho, m, {k: v.cpu().numpy() for k, v in al.items()}
 
 
-def _deletions_rescued(fx: dict, first: int, al: dict) -> int:
+def _deletions_rescued(fx: dict, first: int, al: dict, loss: dict) -> int:
     """The fixture's 2-base deletion reads among the aligned rows whose
     picked locus is on the genome: each must get a K1 score above its
     ungapped score and at least that of the read aligned whole with one
     2-base gap.  (A pick on a junction contig's copy, the reference's
     `contig_straddle` loss of `known_losses`, gets a window cut at the
-    contig's start.)  Returns their count."""
+    contig's start; a read that `loss`, known_losses' classes of these
+    rows, puts under `chance_locus` has its pick, and K1's window, at the
+    chance locus.)  Returns their count."""
     from cellranger_tpu_torch.align.sw import GAP
     from cellranger_tpu_torch.testing.fixtures import (HUMAN_DELETION,
                                                        HUMAN_KINDS)
     n = len(al["score"])
     d = fx["read_kind"][first:first + n] == HUMAN_KINDS.index("deletion")
-    d &= al["pos"] < fx["genome_len"]
+    d &= (al["pos"] < fx["genome_len"]) & ~loss["chance_locus"][:n]
     floor = 91 - GAP * HUMAN_DELETION
     bad = d & ~((al["sw_score"] > al["score"]) & (al["sw_score"] >= floor))
     if bad.any():
@@ -1741,34 +1871,163 @@ def _deletions_rescued(fx: dict, first: int, al: dict) -> int:
     return int(d.sum())
 
 
+def high_positions(gi, didx, device, above: int = 2**31,
+                   window: int = 1 << 21, rows_chunk: int = 1 << 20) -> dict:
+    """The device tables at text positions `above` and beyond, held
+    against the host-encoded text by code that shares nothing with their
+    build (whose casts to int32 bit-views wrap above 2**31):
+      * every kmer bucket-row entry at such a position: its k bases,
+        gathered from the text, give its canonical key, its strand bit and
+        its bucket (parity: at one of the two positions its value rounds);
+      * the text rows and overlapped rows of the `window` bases on each
+        side of `above`, and of the text's last `window` bases, against
+        the numpy packing of those bases;
+      * the kmer entries of the bases on each side of `above` against the
+        numpy build of those bases alone, positions offset.
+    Returns the counts checked and the seconds."""
+    import numpy as np
+    import torch
+    from cellranger_tpu_torch.align import index as tidx
+    from cellranger_tpu_torch.ops.bucket_table import MIX
+    from cellranger_tpu_torch.ops.tensor_ops import U32_MASK, widen
+
+    t0 = time.time()
+    k, G = gi.k, len(gi.text)
+    parity = gi.pos_mode == "parity"
+    tab = didx.kmer_table
+    E, bits = tab.entries, tab.bits
+    text = torch.from_numpy(gi.text).to(device)
+    valid = torch.from_numpy(gi.text_valid).to(device)
+    ar = torch.arange(k, device=device)
+    sh = 2 * (k - 1 - ar)
+    n_entries = 0
+    for r0 in range(0, tab.rows.shape[0], rows_chunk):
+        blk = tab.rows[r0:r0 + rows_chunk]
+        key, val = widen(blk[:, :E]), widen(blk[:, E:2 * E])
+        row = torch.arange(r0, r0 + blk.shape[0],
+                           device=device)[:, None].expand_as(key)
+        pos = val & (0xFFFFFFFE if parity else 0x7FFFFFFF)
+        strand = val & 1 if parity else val >> 31
+        sel = (key != U32_MASK) & (pos >= above)
+        key, pos, strand, row = key[sel], pos[sel], strand[sel], row[sel]
+        ok = ((key * int(MIX)) & U32_MASK) >> (32 - bits) == row
+        found = torch.zeros_like(ok)
+        for p in (pos, pos + 1) if parity else (pos,):
+            inb = p + k <= G
+            at = torch.where(inb, p, 0)[:, None] + ar
+            c = text[at].to(torch.int64)
+            fwd = (c << sh).sum(1)
+            rc = ((3 - c.flip(1)) << sh).sum(1)
+            is_rc = rc < fwd
+            found |= (inb & valid[at].all(1)
+                      & (torch.where(is_rc, rc, fwd) == key)
+                      & (is_rc.to(torch.int64) == strand))
+        ok &= found
+        if not bool(ok.all()):
+            i = int((~ok).nonzero()[0, 0])
+            raise AssertionError(
+                f"kmer entry at text position {int(pos[i])} (row "
+                f"{int(row[i])}, key {int(key[i])}, strand "
+                f"{int(strand[i])}) is not the text's")
+        n_entries += int(key.shape[0])
+    del text, valid
+    entries_s = time.time() - t0
+
+    t = time.time()
+    n_rows = 0
+    a_mid = max(above - window, 0) // 256 * 256
+    for a, b in ((a_mid, min(a_mid + 2 * window, G)),
+                 (max(G - window, 0) // 256 * 256, G)):
+        want = tidx._pack_text_rows(gi.text[a:b], gi.text_valid[a:b])
+        if b < G:
+            want = want[:(b - a) // 256]
+        got = didx.text_rows[a // 256:a // 256 + len(want)]
+        if not np.array_equal(got.cpu().numpy().view(np.uint32), want):
+            raise AssertionError(f"text rows of bases [{a}, {b}) differ "
+                                 "from their numpy packing")
+        n_rows += len(want)
+        if didx.text_rows_ov is not None:
+            from numpy.lib.stride_tricks import sliding_window_view
+            tw = sliding_window_view(want[:, :16].reshape(-1), 14)[::8]
+            vw = sliding_window_view(want[:, 16:].reshape(-1), 14)[::8]
+            got = didx.text_rows_ov[a // 128:a // 128 + len(tw)]
+            got = got.cpu().numpy().view(np.uint32)
+            if not np.array_equal(got, np.concatenate([tw, vw], 1)[
+                    :len(got)]):
+                raise AssertionError(f"overlapped rows of bases [{a}, {b}) "
+                                     "differ from their numpy packing")
+    rows_s = time.time() - t
+
+    t = time.time()
+    a, b = a_mid, min(a_mid + 2 * window, G)
+    lo, hi = max(a - 256, 0), min(b + 256, G)
+    if gi.sampling == "minimizer":
+        keys, vals = tidx._build_kmer_table_minimizer(
+            gi.text[lo:hi], gi.text_valid[lo:hi], k, gi.minimizer_w,
+            gi.pos_mode)
+    else:
+        assert lo % gi.stride == 0
+        keys, vals = tidx._build_kmer_table(
+            gi.text[lo:hi], gi.text_valid[lo:hi], k, gi.stride, gi.pos_mode)
+    pmask = np.uint32(0xFFFFFFFE if parity else 0x7FFFFFFF)
+    vals = (vals & ~pmask) | ((vals & pmask) + np.uint32(lo))
+
+    def in_window(keys, vals):
+        p = vals & pmask
+        m = (p >= a) & (p < b)
+        keys, vals = keys[m], vals[m]
+        order = np.lexsort((vals, keys))
+        return keys[order], vals[order]
+
+    want = in_window(keys, vals)
+    got = in_window(gi.kmer_keys, gi.kmer_pos)
+    if not all(np.array_equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError(f"kmer entries of bases [{a}, {b}): "
+                             f"{len(got[0])} in the table, {len(want[0])} "
+                             "in their numpy build")
+    return dict(above=above, entries_checked=n_entries,
+                entries_s=entries_s, rows_checked=n_rows, rows_s=rows_s,
+                window_entries=len(want[0]), window_s=time.time() - t)
+
+
 def human_parity(fx: dict, devices=("cuda", "cpu"),
                  n_reads: int = HUMAN_PARITY_READS,
                  n_truth: int = HUMAN_TRUTH_READS) -> dict:
     """The first n_reads reads of the human-scale fixture through the
     fused stream step and the aligner on both devices (devices[0]'s tables
-    through run_count's reference memo, as human_scale then finds them;
-    devices[1]'s built from the same host index): every output equal;
+    built through run_count's reference memo, as human_scale then finds
+    them, with their bytes, the load's split and peak memory;
+    devices[1]'s copies of them, which index_build and the tests hold
+    equal to the host build's): every output equal;
     the deletion reads among them rescued by K1 on both.  Then bench.py's
     truth probe on devices[0]: n_truth error-free reads, half intergenic
     at every repeat copy, half in exon 1 of a '+' gene off the repeat."""
     import numpy as np
+    import torch
     from cellranger_tpu_torch.align import sw
-    from cellranger_tpu_torch.align.aligner import DeviceIndex
     from cellranger_tpu_torch.align.annotate import AnnotationIndex
     from cellranger_tpu_torch.ops import encode
+    from cellranger_tpu_torch.parallel.mesh import to_device
     from cellranger_tpu_torch.pipeline import count
     from cellranger_tpu_torch.testing.fixtures import (human_truth_reads,
                                                        reads_plane)
 
     a, b = devices
+    if torch.device(a).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(a)
     t = time.time()
     ref, didx_a, ann_a = count._load_reference_cached(fx["ref"], a)
     rep = dict(load_reference_s=time.time() - t,
-               load_split_s=dict(count._REF_MEMO["split"]))
+               load_split_s=dict(count._REF_MEMO["split"]),
+               device_tables=human_tables(didx_a, ann_a),
+               load=memory_report(a))
     gi = ref.genome_index
+    rep["high_positions"] = high_positions(
+        gi, didx_a, a,
+        above=2**31 if len(gi.text) > 2**31 else len(gi.text) // 2)
     t = time.time()
     tables = {a: (didx_a, ann_a),
-              b: (DeviceIndex.from_host(gi, b),
+              b: (to_device(didx_a, b),
                   AnnotationIndex.build(ref.transcriptome, gi, b))}
     rep[f"{b}_tables_s"] = time.time() - t
     sw.LAUNCHES = 0
@@ -1784,8 +2043,15 @@ def human_parity(fx: dict, devices=("cuda", "cpu"),
             raise AssertionError(f"human_parity {what} fields differ")
         _equal_arrays([x[k] for k in sorted(x)], [y[k] for k in sorted(y)],
                       f"human_parity {what} ({sorted(x)})")
+    k = batch.n_reads
+    kind = fx["read_kind"][first:first + k]
+    loss = known_losses({f: v[:k] for f, v in al_a.items()},
+                        ~ho_a["conf_ok"][:k] & (kind != _kind("repeat")),
+                        m_a["n_promote_overflow"] > 0, didx_a,
+                        deletion=kind == _kind("deletion"))
     rep.update(reads=batch.n_reads, fields=len(ho_a) + len(al_a),
-               deletion_reads_rescued=_deletions_rescued(fx, first, al_a),
+               deletion_reads_rescued=_deletions_rescued(
+                   fx, first, {f: v[:k] for f, v in al_a.items()}, loss),
                conf=int(ho_a["conf_ok"].sum()),
                above_2_31=int((ho_a["pos"] >= 2**31).sum()))
     del tables[b]
@@ -1806,7 +2072,8 @@ def human_parity(fx: dict, devices=("cuda", "cpu"),
             (ho["conf_ok"] & (ho["mapq"] == 255))[in_rep].mean()))
     # an off-repeat read may only be missed as the reference misses it
     loss = known_losses(al, off & ~(gene_ok & (ho["mapq"] == 255)),
-                        _m["n_promote_overflow"] > 0, didx_a)
+                        _m["n_promote_overflow"] > 0, didx_a,
+                        deletion=np.zeros(n_truth, bool))
     rep.update(truth=truth, truth_reads=n_truth,
                truth_missed={k: int(v.sum()) for k, v in loss.items()},
                sw_launches=sw.LAUNCHES)
@@ -1838,14 +2105,21 @@ def human_tables(didx, ann) -> dict:
 
 
 LOSSES = ("saturated", "contig_straddle", "false_novel_junction",
-          "promote_overflow")
+          "promote_overflow", "chance_locus")
 
 
-def known_losses(al: dict, miss, overflow: bool, didx) -> dict:
+def _kind(name: str) -> int:
+    from cellranger_tpu_torch.testing.fixtures import HUMAN_KINDS
+    return HUMAN_KINDS.index(name)
+
+
+def known_losses(al: dict, miss, overflow: bool, didx, *,
+                 deletion) -> dict:
     """The reference's known losses among the reads `miss` (bool), from
     the aligner's outputs `al` on the device index `didx` (ROADMAP.md
-    section 3), each read in the
-    first class it fits, the rest under "other":
+    section 3), each read in the first class it fits, the rest under
+    "other".  `deletion` (bool) marks the fixture's deletion reads, the
+    only kind `chance_locus` takes:
       saturated        parity rounding splits one locus over two vote
                        keys, so a read seen on a locus and on its
                        junction contig copy passes the candidate cap with
@@ -1859,7 +2133,14 @@ def known_losses(al: dict, miss, overflow: bool, didx) -> dict:
                        away pair with its true locus into a novel
                        junction, whose left segment annotates elsewhere;
       promote_overflow a multi-locus read of a batch whose promotion
-                       capacity overflowed (`overflow`)."""
+                       capacity overflowed (`overflow`);
+      chance_locus     an unmapped deletion read whose pick gains nothing
+                       from K1 (sw_score <= score): its true window
+                       starts outside the offsets that parity
+                       rounding lets the aligner try scores a few bases
+                       there, and a chance seed match elsewhere (most
+                       reads have one in 3 Gb of text) scores more, so the
+                       pick and K1's rescue go to the chance locus."""
     import numpy as np
 
     contig_len = 2 * didx.sj_overhang
@@ -1871,11 +2152,35 @@ def known_losses(al: dict, miss, overflow: bool, didx) -> dict:
     for name, hit in (("saturated", al["saturated"]),
                       ("contig_straddle", straddle),
                       ("false_novel_junction", al["novel_sj"]),
-                      ("promote_overflow", (al["n_best"] >= 2) & overflow)):
+                      ("promote_overflow", (al["n_best"] >= 2) & overflow),
+                      ("chance_locus", np.asarray(deletion, bool)
+                       & ~al["mapped"] & (al["sw_score"] <= al["score"]))):
         out[name] = left & hit
         left &= ~hit
     out["other"] = left
     return out
+
+
+def _chance_read(fx: dict, read: int, codes, al: dict, i: int) -> dict:
+    """Where read `read` (its codes `codes`, row i of the aligner's
+    outputs `al`), a `chance_locus` loss, was picked: chromosome and
+    offset, strand, scores, and how many of its kmers (16 bases) equal
+    the text on the pick's diagonal, from the fixture's host text."""
+    import numpy as np
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    pos, strand = int(al["pos"][i]), int(al["strand"][i])
+    r = codes if strand == 0 else 3 - codes[::-1]
+    at = pos - fx["chr1_start"]
+    eq = fx["codes"][at:at + len(r)] == r[:max(len(fx["codes"]) - at, 0)]
+    c = int(np.searchsorted(fx["chrom_starts"], pos, side="right")) - 1
+    return dict(read=int(read), gene=int(fx["read_gene"][read]),
+                chrom=str(fx["chrom_names"][c]),
+                at=pos - int(fx["chrom_starts"][c]), strand=strand,
+                score=int(al["score"][i]), aln_len=int(al["aln_len"][i]),
+                sw_score=int(al["sw_score"][i]),
+                kmers_on_diagonal=int(sliding_window_view(eq, 16).all(1)
+                                      .sum()) if len(eq) >= 16 else 0)
 
 
 def human_account(fx: dict, didx, ann, device: str,
@@ -1893,7 +2198,8 @@ def human_account(fx: dict, didx, ann, device: str,
     n = fx["n_reads"]
     conf = np.zeros(n, bool)
     lost = {c: np.zeros(n, bool) for c in LOSSES}
-    rep = dict(deletion_reads_rescued=0, promote_overflow_reads=0)
+    rep = dict(deletion_reads_rescued=0, promote_overflow_reads=0,
+               chance_locus_reads=[])
     repeat = HUMAN_KINDS.index("repeat")
     for first, batch, plane in _human_planes(fx, batch_size):
         ho, m, al = _human_reads(didx, ann, device, plane, batch.rna,
@@ -1913,7 +2219,8 @@ def human_account(fx: dict, didx, ann, device: str,
             raise AssertionError("a confident read has the wrong gene")
         conf[sl] = c
         loss = known_losses(al, ~c & (kind != repeat),
-                            m["n_promote_overflow"] > 0, didx)
+                            m["n_promote_overflow"] > 0, didx,
+                            deletion=kind == _kind("deletion"))
         if loss["other"].any():
             i = int(loss["other"].nonzero()[0][0])
             raise AssertionError(
@@ -1922,7 +2229,11 @@ def human_account(fx: dict, didx, ann, device: str,
                               for f, v in al.items()}))
         for name in LOSSES:
             lost[name][sl] = loss[name]
-        rep["deletion_reads_rescued"] += _deletions_rescued(fx, first, al)
+        rep["chance_locus_reads"] += [
+            _chance_read(fx, first + i, batch.rna[i], al, i)
+            for i in np.flatnonzero(loss["chance_locus"])]
+        rep["deletion_reads_rescued"] += _deletions_rescued(fx, first, al,
+                                                            loss)
         rep["promote_overflow_reads"] += m["n_promote_overflow"]
     mols = np.unique(fx["read_mol"][conf])
     gene_of = np.full(fx["read_mol"].max() + 1, -1)
@@ -1969,8 +2280,6 @@ def human_scale(fx: dict, out: str, device: str = "cuda",
     (each read the fixture built either counted under its own gene or one
     of the reference's known losses), each loss within `loss_caps`
     (`loss_overruns`), and launch K1 once a step."""
-    import resource
-
     import numpy as np
     from cellranger_tpu_torch.io.matrix_io import CountMatrix
     from cellranger_tpu_torch.pipeline import count
@@ -1980,8 +2289,7 @@ def human_scale(fx: dict, out: str, device: str = "cuda",
     _ref, didx, ann = count._load_reference_cached(fx["ref"], device)
     r.update(device_tables=human_tables(didx, ann),
              load_split_s=dict(count._REF_MEMO["split"] or {}),
-             peak_host_rss_bytes=resource.getrusage(
-                 resource.RUSAGE_SELF).ru_maxrss * 1024,
+             memory=memory_report(device),
              conf_mapped_reads=s["conf_mapped_reads"],
              promote_overflow=s["promote_overflow"])
     t = time.time()
@@ -2043,6 +2351,10 @@ def main() -> None:
     tmp = tempfile.mkdtemp(prefix="crt_smoke_")
     launches = {}
     try:
+        g = index_build(tmp)
+        launches["index_build"] = g["sw_launches"]
+        phase("index_build", f"{smi}: cuda == numpy, every index.npz array "
+              "and the text, overlapped and kmer rows: " + json.dumps(g))
         s, n_steps = tiny_parity(tmp)
         phase("tiny_parity", f"cuda == cpu over {n_steps} steps: "
               f"{s['total_reads']} reads, {s['total_molecules']} molecules")
@@ -2159,8 +2471,8 @@ def main() -> None:
         fx = human_fixture(tmp)
         g = human_parity(fx)
         launches["human_parity"] = g["sw_launches"]
-        phase("human_parity", "cuda == cpu, every step and aligner output;"
-              " truth probe: " + json.dumps(dict(g, fixture_s=fx["timing"])))
+        phase("human_parity", f"{smi}: {fx['text_len']}-base text; cuda =="
+              " cpu, every step and aligner output; truth probe: " + json.dumps(dict(g, fixture_s=fx["timing"])))
         g = human_scale(fx, os.path.join(tmp, "human_out"))
         launches["human_scale"] = g["sw_launches"]
         phase("human_scale", "the fixture's reads counted or lost as the "

@@ -180,7 +180,9 @@ def test_reference_losses_are_the_jax_packages(small):
 
     got = port(codes, valid)
     counted = small["read_kind"] != fixtures.HUMAN_KINDS.index("repeat")
-    loss = chip_smoke.known_losses(got, counted, False, didx)
+    loss = chip_smoke.known_losses(
+        got, counted, False, didx,
+        deletion=small["read_kind"] == fixtures.HUMAN_KINDS.index("deletion"))
     sel = np.flatnonzero(loss["saturated"] | loss["contig_straddle"])
     assert loss["saturated"].any() and loss["contig_straddle"].any()
     # one batch of just these reads through both (rescue capacity is a

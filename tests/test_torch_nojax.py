@@ -12,7 +12,8 @@ golden (the h5 files against the h5py-written snapshots), overflow,
 h5_pipelines (aggr over two runs' molecule_info.h5, two GEM wells, CLI
 reanalyze), analysis, paired-end (a tiny SC5P-PE count with BAM), probe
 (a tiny MFRP-RNA count), multi, V(D)J (the tests' worlds, and the kmer
-spectrum of a tiny run) and mkfastq phases with the CPU as the device.
+spectrum of a tiny run), mkfastq and index_build (the torch index build
+against the numpy one) phases with the CPU as the device.
 A second, static test walks the port's sources and chip_smoke.py and
 refuses any import of jax, jaxlib, cellranger_tpu or h5py, lazy imports
 inside functions included."""
@@ -171,6 +172,12 @@ SCRIPT = textwrap.dedent("""
     assert g["bc_umi_pairs"] == 200 and g["reads"] == 1000, g
     g = chip_smoke.mkfastq_run(os.path.join(tmp, "bcl"), n_clusters=400)
     assert g["samples"]["A"] == 180 and g["fastqs"] == 9, g
+    # the index build on the device (here the cpu) against the numpy build
+    g = chip_smoke.index_build(os.path.join(tmp, "ib"), device="cpu",
+                               genome_len=400_000, n_genes=30,
+                               e2e_len=300_000)
+    assert g["e2e"]["sampling"] == "every", g
+    assert g["n_runs"]["pos_mode"] == "parity" and g["sw_launches"] == 0, g
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded

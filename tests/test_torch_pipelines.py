@@ -308,7 +308,8 @@ def gem_wells(tmp_path_factory):
     with open(t / "g.gtf", "w") as f:
         f.write('chr1\tt\texon\t1001\t6000\t.\t+\t.\t'
                 'gene_id "GW"; transcript_id "TW"; gene_name "GW";\n')
-    ReferencePackage.build(str(t / "g.fa"), str(t / "g.gtf"), str(t / "ref"))
+    ReferencePackage.build(str(t / "g.fa"), str(t / "g.gtf"), str(t / "ref"),
+                           device=None)
     wl = _seqs(rng, 40, 16)
     open(t / "wl.txt", "w").writelines(s + "\n" for s in wl)
 
@@ -405,7 +406,7 @@ def test_overhang_demux_matches_jax(tmp_path):
         f.write('chr1\tt\texon\t1001\t5000\t.\t+\t.\t'
                 'gene_id "G1"; transcript_id "T1"; gene_name "G1";\n')
     ReferencePackage.build(str(tmp_path / "g.fa"), str(tmp_path / "g.gtf"),
-                           str(tmp_path / "ref"))
+                           str(tmp_path / "ref"), device=None)
     base = ["".join(rng.choice(acgt, 16)) for _ in range(12)]
     wl = sorted({b[:7] + oh + b[9:] for b in base for oh in ("AT", "GG")})
     open(tmp_path / "wl.txt", "w").writelines(s + "\n" for s in wl)
@@ -471,7 +472,7 @@ def test_cli_mkref_and_mkgtf(tmp_path, capsys):
     text = open(kept).read()
     assert 'gene_id "A"' in text and 'gene_id "B"' not in text
     main(["mkref", "--genome", "tiny", "--fasta", fa, "--genes", kept,
-          "--out", str(tmp_path / "ref")])
+          "--out", str(tmp_path / "ref"), "--device", "cpu"])
     assert '"tiny"' in capsys.readouterr().out
     ref = ReferencePackage.load(str(tmp_path / "ref"))
     assert ref.transcriptome.gene_ids == ["A"]

@@ -67,7 +67,8 @@ def wells(tmp_path_factory):
             f.write(f'chr1\tt\texon\t{4000 * g + 1001}\t{4000 * g + 3000}'
                     f'\t.\t+\t.\tgene_id "G{g}"; transcript_id "T{g}"; '
                     f'gene_name "G{g}";\n')
-    ReferencePackage.build(str(t / "g.fa"), str(t / "g.gtf"), str(t / "ref"))
+    ReferencePackage.build(str(t / "g.fa"), str(t / "g.gtf"), str(t / "ref"),
+                           device=None)
     wl = sorted({"".join(rng.choice(ACGT, 16)) for _ in range(80)})
     open(t / "wl.txt", "w").writelines(s + "\n" for s in wl)
 
