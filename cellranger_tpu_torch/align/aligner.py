@@ -27,7 +27,6 @@ makes no host round trip.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -81,33 +80,6 @@ class DeviceIndex:
     minimizer_w: int = 0
 
     @staticmethod
-    def _kmer_rows_cached(gi: GenomeIndex):
-        """(rows, bits) of the kmer bucket table, from the `.btrows`
-        sidecar next to a loaded index.npz when it matches (the same
-        sidecar file the JAX package writes), else placed and cached."""
-        sp = getattr(gi, "source_path", None)
-        side = f"{sp}.btrows.E{MAX_HITS_PER_SEED}.npz" if sp else None
-        if side and os.path.exists(side):
-            try:
-                with np.load(side, allow_pickle=False) as z:
-                    if int(z["n_entries"]) == len(gi.kmer_keys):
-                        return z["rows"], int(z["bits"])
-            except (OSError, KeyError, ValueError):
-                pass  # stale/corrupt sidecar: rebuild below
-        rows, bits = BucketTable.build_rows(gi.kmer_keys, gi.kmer_pos,
-                                            entries=MAX_HITS_PER_SEED,
-                                            fields=2)
-        if side:
-            try:
-                tmp = side + ".tmp.npz"
-                np.savez(tmp, rows=rows, bits=bits,
-                         n_entries=len(gi.kmer_keys))
-                os.replace(tmp, side)
-            except OSError:
-                pass  # cache write is best-effort
-        return rows, bits
-
-    @staticmethod
     def host_arrays(gi: GenomeIndex):
         """(arrays, meta): the numpy tables and static fields a DeviceIndex
         is made of, built from a GenomeIndex exactly as the JAX package
@@ -116,7 +88,9 @@ class DeviceIndex:
         from ..params import get as _param
         ov_max = int(_param("overlap_rows_max_text")
                      or OVERLAP_ROWS_MAX_TEXT)
-        rows, bits = DeviceIndex._kmer_rows_cached(gi)
+        rows, bits = BucketTable.build_rows(gi.kmer_keys, gi.kmer_pos,
+                                            entries=MAX_HITS_PER_SEED,
+                                            fields=2)
         arrays = dict(
             text_rows=gi.packed_rows(),
             kmer_rows=rows,
@@ -155,7 +129,7 @@ class DeviceIndex:
         (`pack_text_rows_torch`), the overlapped rows
         (`overlap_rows_torch`, for texts up to the overlap limit) and the
         kmer bucket rows (`BucketTable.build_rows_torch`) built there.
-        No `.btrows` sidecar is read or written.  `lap(name)`, if given,
+        `lap(name)`, if given,
         is called after each step: "upload_s", "text_rows_s",
         "overlap_rows_s", "kmer_rows_s"."""
         assert len(gi.text) < 2**32, "u32 position space: text must be <4Gb"

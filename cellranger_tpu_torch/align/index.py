@@ -32,7 +32,6 @@ below, which stay as their plain versions.
 from __future__ import annotations
 
 import json
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -87,10 +86,6 @@ class GenomeIndex:
     sampling: str = "every"   # "every" or "minimizer"
     minimizer_w: int = 0      # winnowing window when sampling="minimizer"
     pos_mode: str = "strand31"  # "strand31" (exact) or "parity" (>=2^31 text)
-    # set by load(): where this index came from, so DeviceIndex.from_host
-    # can sidecar-cache the placed bucket-table rows (the placement is an
-    # argsort over every kmer entry — ~13min host time at GRCh38 scale)
-    source_path: str | None = None
 
     def packed_rows(self):
         """Genome text as 128-byte HBM rows: [NR+2, 32] uint32, columns
@@ -317,7 +312,6 @@ class GenomeIndex:
             kmer_keys=z["kmer_keys"], kmer_pos=z["kmer_pos"],
             sampling=str(z["sampling"]), minimizer_w=int(z["minimizer_w"]),
             pos_mode=str(z["pos_mode"]),
-            source_path=os.path.abspath(path),
         )
 
 

@@ -1548,6 +1548,12 @@ HUMAN_UMI_LEN = 12
 # 2-base deletion, a repeat position intergenic at every copy
 HUMAN_KINDS = ("exon", "junction", "deletion", "repeat")
 HUMAN_SHARES = (0.70, 0.10, 0.05, 0.15)
+# build_grch38_run(repeats=True) adds two kinds (testing/repeats.py): a
+# read inside the repeat copy planted in a '+' gene's exon 2, and a read
+# of exon 1 of a '+' gene with a paralog (multi-gene, so not counted,
+# where its bases equal those of a twin in another gene)
+REPEAT_KINDS = HUMAN_KINDS + ("exon_repeat", "paralog")
+REPEAT_SHARES = (0.55, 0.09, 0.05, 0.11, 0.12, 0.08)
 HUMAN_DELETION = 2
 HUMAN_JUNCTION_MIN_SIDE = 20    # bases of a junction read on either exon
 HUMAN_DELETION_AT = (25, 36)    # read offsets of the deletion
@@ -1590,8 +1596,7 @@ def shift_index(gi, offset: int):
         sj_contig_start=gi.sj_contig_start + offset,
         sj_donor_end=gi.sj_donor_end + offset,
         sj_acceptor_start=gi.sj_acceptor_start + offset,
-        kmer_pos=(gi.kmer_pos.astype(np.int64) + offset).astype(np.uint32),
-        source_path=None)
+        kmer_pos=(gi.kmer_pos.astype(np.int64) + offset).astype(np.uint32))
 
 
 def padded_text_rows(gi, offset: int) -> np.ndarray:
@@ -1736,8 +1741,11 @@ def human_run_inputs(tmp: str, n_reads: int = 1_000_000, *,
     Returns paths, `expected` (total reads, molecules, confidently mapped
     reads, molecules per gene: the repeat molecules map at MAPQ < 255 and
     are never counted), each read's kind, molecule, gene (-1 on the
-    repeat) and ASCII cDNA (`read_kind`, `read_mol`, `read_gene`, `cdna`,
-    in FASTQ order), the genome's chr1 codes (`codes`) and layout
+    repeat), whether it is counted, text start (-1 for a spliced or
+    deletion read) and ASCII cDNA (`read_kind`, `read_mol`, `read_gene`,
+    `read_counted`, `read_pos`, `cdna`, in FASTQ order; `kinds` names the
+    kinds, `reads_by_kind` counts them), the genome's chr1 codes
+    (`codes`) and layout
     (`gene_start`, exon 1 of each gene in them) for `human_truth_reads`,
     and the host seconds of each part (`timing`)."""
     from ..io.gtf import Transcriptome
@@ -1783,12 +1791,15 @@ def human_run_inputs(tmp: str, n_reads: int = 1_000_000, *,
 
 def _human_reads(tmp: str, rng, seed: int, n_reads: int, codes, gene_start,
                  g_first: int, n_genes: int, spacing: int, repeat_len: int,
-                 n_wl: int, n_cells: int, timing: dict) -> dict:
+                 n_wl: int, n_cells: int, timing: dict, plan=None) -> dict:
     """The whitelist (drawn from `rng`) and the reads (seed `seed`) of a
     human-layout run, written under tmp: genes g_first.. lie off chr1's
     repeat, gene g's exon 1 starts at codes[gene_start[g]], the repeat's
     copies start at codes[0] with the genes of chr1 every `spacing`
-    bases.  Returns the run's fields of `human_run_inputs`."""
+    bases.  `plan` (repeats.plant's, with gene_start in codes'
+    coordinates) draws the exon, junction and deletion reads from the
+    genes no copy touches and adds the REPEAT_KINDS.  Returns the run's
+    fields of `human_run_inputs`."""
     t = time.time()
     wl = _human_whitelist(rng, n_wl)
     wl_path = os.path.join(tmp, "wl.txt")
@@ -1808,18 +1819,26 @@ def _human_reads(tmp: str, rng, seed: int, n_reads: int, codes, gene_start,
     comp[list(b"ACGT")] = list(b"TGCA")
     rng = np.random.default_rng(seed)
     n_mol = n_reads // E2E_DUP
-    n_kind = [int(n_mol * s) for s in HUMAN_SHARES]
+    kinds, shares = ((HUMAN_KINDS, HUMAN_SHARES) if plan is None
+                     else (REPEAT_KINDS, REPEAT_SHARES))
+    n_kind = [int(n_mol * s) for s in shares]
     n_kind[0] = n_mol - sum(n_kind[1:])
-    kind = np.repeat(np.arange(len(HUMAN_KINDS)), n_kind)
-    plus = np.arange(g_first + (g_first & 1), n_genes, 2)
+    kind = np.repeat(np.arange(len(kinds)), n_kind)
+    ok = (np.arange(n_genes) >= g_first) & (
+        True if plan is None else plan["clean"])
+    plus = np.flatnonzero(ok & (np.arange(n_genes) % 2 == 0))
     cdna = np.empty((n_mol, L), np.uint8)
     gene = np.full(n_mol, -1, np.int64)
+    pos = np.full(n_mol, -1, np.int64)    # an unspliced read's text start
+    counted = kind != HUMAN_KINDS.index("repeat")
     sel = kind == 0                                   # exon 1, '+' gene
     gene[sel] = rng.choice(plus, n_kind[0])
     start = gene_start[gene[sel]] + rng.integers(0, 600 - L - 8, n_kind[0])
     cdna[sel] = bases[codes[start[:, None] + ar]]
+    pos[sel] = start
     sel = kind == 1                                   # exon 1 -> exon 2
-    g = rng.integers(g_first, n_genes, n_kind[1])
+    g = (rng.integers(g_first, n_genes, n_kind[1]) if plan is None
+         else rng.choice(np.flatnonzero(ok), n_kind[1]))
     gene[sel] = g
     m = HUMAN_JUNCTION_MIN_SIDE
     left = rng.integers(m, L - m + 1, n_kind[1])[:, None]
@@ -1839,6 +1858,38 @@ def _human_reads(tmp: str, rng, seed: int, n_reads: int, codes, gene_start,
     sel = kind == 3                        # repeat, intergenic at all copies
     p = rng.choice(_intergenic_repeat_starts(spacing, repeat_len), n_kind[3])
     cdna[sel] = bases[codes[p[:, None] + ar]]
+    pos[sel] = p
+    twin = {}
+    if plan is not None:
+        from .repeats import PARALOG_FLANK
+
+        sel = kind == REPEAT_KINDS.index("exon_repeat")
+        er = plan["exon_repeat"]
+        n = int(sel.sum())
+        c = rng.integers(0, len(er["gene"]), n)
+        gene[sel] = er["gene"][c]
+        p = er["start"][c] + (rng.random(n)
+                              * (er["length"][c] - L + 1)).astype(np.int64)
+        cdna[sel] = bases[codes[p[:, None] + ar]]
+        pos[sel] = p
+        sel = kind == REPEAT_KINDS.index("paralog")
+        pa = plan["paralogs"]
+        n = int(sel.sum())
+        c = rng.integers(0, len(pa["gene"]), n)
+        genic = pa["twin_gene"][c] >= 0
+        side = genic & (rng.random(n) < 0.5)   # the twin gene's own reads
+        g = np.where(side, pa["twin_gene"][c], pa["gene"][c])
+        off = rng.integers(0, 600 - L - 8, n)
+        p = gene_start[g] + off
+        tw = (np.where(side, pa["start"][c], pa["twin_start"][c])
+              + PARALOG_FLANK + off)
+        same = (codes[p[:, None] + ar] == codes[tw[:, None] + ar]).all(1)
+        cdna[sel] = bases[codes[p[:, None] + ar]]
+        pos[sel] = p
+        gene[sel] = np.where(same & genic, -1, g)
+        counted[sel] = ~(same & genic)
+        twin = dict(paralog_twin_identical=int(same.sum()),
+                    paralog_multi_gene=int((same & genic).sum()))
 
     cells = rng.choice(n_wl, n_cells, replace=False)
     cell_idx = rng.integers(0, n_cells, n_mol)
@@ -1857,13 +1908,14 @@ def _human_reads(tmp: str, rng, seed: int, n_reads: int, codes, gene_start,
         [_unpack_barcodes(bc_packed), umi], axis=1), cdna)
     timing["reads_s"] = time.time() - t
 
-    counted = kind != HUMAN_KINDS.index("repeat")
     return dict(
         wl=wl_path, fq1=r1p, fq2=r2p, n_reads=len(cdna), n_wl=n_wl,
         wl_packed=wl, barcode_errors=len(err_rows), read_kind=read_kind,
         read_mol=read_mol, read_gene=gene[read_mol], cdna=cdna,
+        read_counted=counted[read_mol], read_pos=pos[read_mol], kinds=kinds,
         gene_start=gene_start, spacing=spacing, repeat_len=repeat_len,
-        plus_genes=plus, timing=timing,
+        plus_genes=plus, timing=timing, reads_by_kind=dict(zip(
+            kinds, (np.asarray(n_kind) * E2E_DUP).tolist())), **twin,
         expected=dict(
             total_reads=len(cdna), mapped_reads=len(cdna),
             conf_mapped_reads=int(counted.sum()) * E2E_DUP,
@@ -1911,7 +1963,7 @@ def build_grch38_run(tmp: str, n_reads: int = 1_000_000, *,
                      n_genes: int = HUMAN_GENES, n_wl: int = HUMAN_WL,
                      n_cells: int = HUMAN_CELLS, seed: int = 3,
                      device="cuda", sampling: str = "auto",
-                     pos_mode: str = "auto") -> dict:
+                     pos_mode: str = "auto", repeats: bool = False) -> dict:
     """A count run on a reference of GRCh38's shape: the 24 `chroms` of
     seeded random bases (chr1, the first, opens with HUMAN_REPEAT_COPIES
     copies of one repeat_len segment), n_genes two-exon genes spread over
@@ -1919,6 +1971,16 @@ def build_grch38_run(tmp: str, n_reads: int = 1_000_000, *,
     the layout of `_human_gtf` at its own spacing), one annotated
     junction each; then the whitelist, cells and reads of
     `human_run_inputs` (`_human_reads`), truth by construction.
+
+    `repeats` writes GRCh38's structure over the random bases
+    (`testing/repeats.py`: Alu, L1, simple repeats, alpha satellite at
+    the centromeres, segmental duplications, gene paralogs, repeat copies
+    in exon 2, N gaps; copy numbers in proportion to the genome's length);
+    the genes are laid out evenly over what the gaps and centromeres
+    leave, and the reads are of the REPEAT_KINDS in REPEAT_SHARES, the
+    exon, junction and deletion reads from genes no copy touches.  The
+    copies come back as `repeat_plan`, their bases by family as
+    `repeat_bases`.
 
     The index is GenomeIndex.build over the whole genome on `device` (no
     pad, no shift), written uncompressed to ref/index.npz beside
@@ -1928,8 +1990,8 @@ def build_grch38_run(tmp: str, n_reads: int = 1_000_000, *,
     above it.  Returns the fields of `human_run_inputs` (the genome's
     text codes as `codes`, exon 1 of each gene in them as `gene_start`,
     chr1's gene spacing as `spacing`), the index's size and sampling, and
-    the host seconds of each part (`timing`: genome, device build, npz
-    write, whitelist, reads)."""
+    the host seconds of each part (`timing`: genome, repeat model, device
+    build, npz write, whitelist, reads)."""
     from ..align.index import GenomeIndex
     from ..io.gtf import Transcriptome
 
@@ -1939,40 +2001,60 @@ def build_grch38_run(tmp: str, n_reads: int = 1_000_000, *,
     os.makedirs(os.path.join(ref_dir, "genes"), exist_ok=True)
     bases = np.frombuffer(b"ACGT", np.uint8)
     rng = np.random.default_rng(seed)
+    names = [c for c, _ in chroms]
     lens = np.asarray([n for _, n in chroms], np.int64)
     n_per = genes_per_chrom(lens, n_genes)
-    spacing = lens // np.maximum(n_per, 1)
-    assert (spacing[n_per > 0] >= 3600).all(), "genes need 3,400 bases"
     rep_end = HUMAN_REPEAT_COPIES * repeat_len
     assert rep_end <= lens[0]
+    if repeats:
+        from . import repeats as rp
+        local, blocks, spacing = rp.gene_layout(
+            lens, n_per, rp.chrom_blocks(names, lens), floor_first=rep_end)
+        spacing = np.asarray(spacing, np.int64)
+    else:
+        spacing = lens // np.maximum(n_per, 1)
+        assert (spacing[n_per > 0] >= 3600).all(), "genes need 3,400 bases"
+        local = [np.arange(k) * sp + 1000 for k, sp in zip(n_per, spacing)]
     ascii_of = bases[np.arange(256) & 3]      # a random byte's low 2 bits
 
     def draw(n):
-        return ascii_of[np.frombuffer(rng.bytes(n), np.uint8)]
+        return np.frombuffer(rng.bytes(n), np.uint8)
 
-    seqs = {}
+    parts = {}
     for i, (name, n) in enumerate(chroms):
-        if i == 0:
-            seqs[name] = np.concatenate([
-                np.tile(draw(repeat_len), HUMAN_REPEAT_COPIES),
-                draw(n - rep_end)]).tobytes()
-        else:
-            seqs[name] = draw(n).tobytes()
+        x = (np.concatenate([np.tile(draw(repeat_len), HUMAN_REPEAT_COPIES),
+                             draw(n - rep_end)]) if i == 0 else draw(n))
+        parts[name] = x if repeats else ascii_of[x].tobytes()
+    plan = None
+    if repeats:
+        timing["genome_s"] = time.time() - t
+        t = time.time()
+        cs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        codes = np.concatenate(list(parts.values())) & 3
+        del parts
+        plan = rp.plant(codes, cs, blocks, [seed, 13], forbid=[(0, rep_end)],
+                        gene_start=np.concatenate(
+                            [cs[i] + x for i, x in enumerate(local)]))
+        five = np.frombuffer(b"ACGTN", np.uint8)
+        parts = {name: five[codes[a:a + n]].tobytes()
+                 for (name, n), a in zip(chroms, cs)}
+        del codes
+        timing["repeat_model_s"] = time.time() - t
+        t = time.time()
+    seqs = parts
     gtf = os.path.join(ref_dir, "genes", "genes.gtf")
-    local = []
     with open(gtf, "w") as f:
         first = 0
-        for (name, _), k, sp in zip(chroms, n_per, spacing):
-            local.append(np.arange(k) * sp + 1000)
-            _write_genes(f, name, first, local[-1])
+        for (name, _), k, x in zip(chroms, n_per, local):
+            _write_genes(f, name, first, x)
             first += k
     txome = Transcriptome.from_gtf(gtf)
-    timing["genome_s"] = time.time() - t
+    timing["genome_s"] = timing.get("genome_s", 0.0) + time.time() - t
 
     t = time.time()
     gi = GenomeIndex.build(seqs, txome, sampling=sampling,
                            pos_mode=pos_mode, device=device)
-    del seqs
+    del seqs, parts
     timing["device_build_s"] = time.time() - t
 
     t = time.time()
@@ -1984,13 +2066,18 @@ def build_grch38_run(tmp: str, n_reads: int = 1_000_000, *,
         [gi.chrom_starts[i] + x for i, x in enumerate(local)])
     fx = _human_reads(tmp, rng, seed + 1, n_reads, gi.text, gene_start,
                       -(-(rep_end - 1000) // int(spacing[0])), n_genes,
-                      int(spacing[0]), repeat_len, n_wl, n_cells, timing)
-    return dict(
+                      int(spacing[0]), repeat_len, n_wl, n_cells, timing,
+                      plan=plan)
+    out = dict(
         fx, ref=ref_dir, text_len=len(gi.text), genome_len=int(gi.genome_len),
         n_kmers=len(gi.kmer_keys), n_junctions=int(gi.n_junctions),
         sampling=gi.sampling, pos_mode=gi.pos_mode, codes=gi.text, gtf=gtf,
         chrom_names=list(gi.chrom_names), chrom_starts=gi.chrom_starts,
         chr1_start=0)
+    if plan is not None:
+        out.update(repeat_plan=plan, repeat_bases=dict(plan["bases"]),
+                   text_valid=gi.text_valid)
+    return out
 
 
 def e2e_genome(tmp: str, genome_len: int = E2E_GENOME_LEN,
@@ -2008,12 +2095,17 @@ def e2e_genome(tmp: str, genome_len: int = E2E_GENOME_LEN,
 
 
 def index_genome(tmp: str, genome_len: int, n_chroms: int = 4,
-                 n_genes: int = 2000, seed: int = 41):
+                 n_genes: int = 2000, seed: int = 41,
+                 repeats: bool = False):
     """A seeded genome of n_chroms chromosomes, genome_len bases in all,
     with runs of N (each chromosome opens and ends with one, and one of
     1-5,000 N starts in about every 50,000 bases, some across a gene's
     junction flanks) and n_genes two-exon genes, one annotated junction
-    each (GTF at tmp/g.gtf): ({name: bytes}, Transcriptome)."""
+    each (GTF at tmp/g.gtf): ({name: bytes}, Transcriptome).  `repeats`
+    writes the repeat model of `testing/repeats.py` over the random bases
+    first (copy numbers in proportion to genome_len; chromosomes chr1..
+    take the gaps and centromeres of GRCh38's of those names, scaled; no
+    gene is protected), then the N runs."""
     from ..io.gtf import Transcriptome
 
     os.makedirs(tmp, exist_ok=True)
@@ -2021,7 +2113,7 @@ def index_genome(tmp: str, genome_len: int, n_chroms: int = 4,
     bases = np.frombuffer(b"ACGTN", np.uint8)
     lens = genes_per_chrom(np.ones(n_chroms, np.int64), genome_len)
     n_per = genes_per_chrom(lens, n_genes)
-    seqs = {}
+    chroms, n_masks = [], []
     gtf = os.path.join(tmp, "g.gtf")
     with open(gtf, "w") as f:
         first = 0
@@ -2033,14 +2125,26 @@ def index_genome(tmp: str, genome_len: int, n_chroms: int = 4,
             cover = np.zeros(n + 1, np.int64)
             np.add.at(cover, starts, 1)
             np.add.at(cover, ends, -1)
-            codes[np.cumsum(cover[:n]) > 0] = 4
-            codes[:rng.integers(1, 300)] = 4
-            codes[n - rng.integers(1, 300):] = 4
-            seqs[f"chr{c + 1}"] = bases[codes].tobytes()
+            is_n = np.cumsum(cover[:n]) > 0
+            is_n[:rng.integers(1, 300)] = True
+            is_n[n - rng.integers(1, 300):] = True
+            chroms.append(codes)
+            n_masks.append(is_n)
             sp = int(n) // max(int(k), 1)
             assert sp >= 3600 or k == 0, "genes need 3,400 bases"
             _write_genes(f, f"chr{c + 1}", first, np.arange(k) * sp + 1000)
             first += int(k)
+    if repeats:
+        from . import repeats as rp
+        names = [f"chr{c + 1}" for c in range(n_chroms)]
+        whole = np.concatenate(chroms)
+        cs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        rp.plant(whole, cs, rp.chrom_blocks(names, lens), [seed, 13])
+        chroms = [whole[a:a + n] for a, n in zip(cs, lens)]
+    seqs = {}
+    for c, (codes, is_n) in enumerate(zip(chroms, n_masks)):
+        codes[is_n] = 4
+        seqs[f"chr{c + 1}"] = bases[codes].tobytes()
     return seqs, Transcriptome.from_gtf(gtf)
 
 
@@ -2063,6 +2167,43 @@ def human_truth_reads(fx: dict, n: int, seed: int = 7):
         fx["codes"][pos[:, None] + np.arange(L)]]
     true_gene = np.concatenate([np.full(n_rep, -1), gene])
     return reads, true_gene, np.arange(n) < n_rep
+
+
+def repeat_copy_reads(fx: dict, n: int, seed: int = 9):
+    """n error-free reads off the repeat copies of a `build_grch38_run(
+    repeats=True)` fixture, as many from each family (Alu, L1, simple
+    repeats, alpha satellite, segmental duplications, gene paralogs,
+    exon-2 copies, chr1's repeat segment), each inside a copy where the
+    copy is long enough (else over it), half of them reverse-complemented;
+    N where the text is a gap.  Returns (ASCII reads [n, READ_LEN], the
+    family of each)."""
+    L = READ_LEN
+    rng = np.random.default_rng(seed)
+    plan = fx["repeat_plan"]
+    fams = {k: (v["start"], v["length"]) for k, v in plan["copies"].items()}
+    fams["paralog"] = (plan["paralogs"]["start"],
+                       plan["paralogs"]["length"])
+    fams["exon_repeat"] = (plan["exon_repeat"]["start"],
+                           plan["exon_repeat"]["length"])
+    rl = fx["repeat_len"] * HUMAN_REPEAT_COPIES
+    fams["chr1_segment"] = (np.zeros(1, np.int64), np.full(1, rl))
+    names = sorted(fams)
+    fam = np.arange(n) % len(names)
+    pos = np.empty(n, np.int64)
+    for i, name in enumerate(names):
+        st, ln = fams[name]
+        m = fam == i
+        c = rng.integers(0, len(st), int(m.sum()))
+        room = np.maximum(ln[c] - L, 0) + 1
+        pos[m] = st[c] + (rng.random(int(m.sum())) * room).astype(np.int64)
+    pos = np.clip(pos, 0, fx["genome_len"] - L)
+    at = pos[:, None] + np.arange(L)
+    codes = np.where(fx["text_valid"][at], fx["codes"][at], 4)
+    reads = np.frombuffer(b"ACGTN", np.uint8)[codes]
+    rc = rng.random(n) < 0.5
+    comp = np.frombuffer(b"TGCAN", np.uint8)
+    reads[rc] = comp[codes[rc, ::-1]]
+    return reads, np.asarray(names)[fam]
 
 
 def reads_plane(reads: np.ndarray, bc_idx: np.ndarray, umi: np.ndarray):
