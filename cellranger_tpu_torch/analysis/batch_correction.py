@@ -3,8 +3,9 @@ cellranger_tpu/analysis/batch_correction.py, the CORRECT_CHEMISTRY_BATCH
 analog).
 
 The cross-batch neighbor searches run on the device with `lax.top_k`'s
-tie order (graphclust.nearest); pairing and the Gaussian-weighted
-correction vectors are the JAX package's host code (float64 numpy).
+tie order, a block of rows at a time (graphclust.knn_search); pairing
+and the Gaussian-weighted correction vectors are the JAX package's host
+code (float64 numpy).
 """
 
 from __future__ import annotations
@@ -12,14 +13,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .graphclust import nearest, sq_dists
+from .graphclust import knn_search
 
 
 def _cross_knn(a: np.ndarray, b: np.ndarray, k: int, device) -> np.ndarray:
     """indices [len(a), k] of b-rows nearest to each a-row."""
     a_t = torch.from_numpy(np.asarray(a, np.float32)).to(device)
     b_t = torch.from_numpy(np.asarray(b, np.float32)).to(device)
-    idx, _ = nearest(sq_dists(a_t, b_t), min(k, b.shape[0]))
+    idx, _ = knn_search(a_t, b_t, min(k, b.shape[0]))
     return idx.cpu().numpy()
 
 

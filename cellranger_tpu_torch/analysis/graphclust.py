@@ -5,14 +5,28 @@ analog).
 `knn_graph` keeps `lax.top_k`'s order: nearest first, and among equal
 distances the lower index first (identical cells give exact ties).  It is
 a stable ascending sort of each distance row; `torch.topk` promises no
-order among ties.  `default_knn_k`, `louvain` and the label ordering are
-copies of the JAX package's host code, whose module imports jax.
+order among ties.  The search goes a block of rows at a time
+(`knn_search`), so no [n, n] plane is ever held: the block's rows come
+from the byte budget KNN_BLOCK_BYTES.  `default_knn_k`, `louvain` and the
+label ordering are copies of the JAX package's host code, whose module
+imports jax.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+# Bytes of the device that one row of a kNN block keeps alive, per
+# candidate (column of b).  sq_dists' expression holds two float32 planes
+# (the matmul and the difference it feeds: 8); then the distances (4)
+# stay while the stable sort returns float32 values and int64 indices
+# (12) from an int64 iota of the columns (8) and keeps a second buffer of
+# keys and values for its radix passes (12): 36, rounded up.
+KNN_BYTES_PER_PAIR = 40
+# The block's budget: 1,565 rows of a 68,579-cell search, 5,368 of a
+# 20,000-cell one; the standardized matrix of the PCA is gone by then.
+KNN_BLOCK_BYTES = 4 << 30
 
 
 def sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -33,12 +47,40 @@ def nearest(d2: torch.Tensor, k: int):
     return order, torch.gather(d2, 1, order)
 
 
+def knn_block_rows(m: int) -> int:
+    """Rows of a block whose search against m candidates stays within
+    KNN_BLOCK_BYTES (read at call time); raises when one row does not
+    fit."""
+    per_row = max(1, m) * KNN_BYTES_PER_PAIR
+    if per_row > KNN_BLOCK_BYTES:
+        raise ValueError(f"one kNN row of {m} candidates needs {per_row} "
+                         f"bytes, over the budget of {KNN_BLOCK_BYTES}")
+    return KNN_BLOCK_BYTES // per_row
+
+
+def knn_search(a: torch.Tensor, b: torch.Tensor, k: int,
+               exclude_self: bool = False):
+    """(indices int64 [len(a), k], squared dists [len(a), k]) of the k
+    rows of b nearest each row of a, in nearest()'s order, on a's device,
+    a block of knn_block_rows(len(b)) rows of a at a time.  exclude_self:
+    a is b, and each row's own distance is +inf."""
+    n, rows = a.shape[0], knn_block_rows(b.shape[0])
+    idx = torch.empty((n, k), dtype=torch.int64, device=a.device)
+    d = torch.empty((n, k), dtype=a.dtype, device=a.device)
+    for r0 in range(0, n, rows):
+        d2 = sq_dists(a[r0:r0 + rows], b)
+        if exclude_self:
+            r = torch.arange(d2.shape[0], device=a.device)
+            d2[r, r + r0] = float("inf")
+        idx[r0:r0 + rows], d[r0:r0 + rows] = nearest(d2, k)
+        del d2   # before the next block's planes are made
+    return idx, d
+
+
 def knn_graph(x: torch.Tensor, k: int):
     """x [n, d] -> (indices int64 [n, k], squared dists [n, k]) excluding
     self, on x's device."""
-    d2 = sq_dists(x, x)
-    d2.fill_diagonal_(float("inf"))
-    return nearest(d2, k)
+    return knn_search(x, x, k, exclude_self=True)
 
 
 def default_knn_k(n: int) -> int:

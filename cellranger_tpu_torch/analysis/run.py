@@ -32,6 +32,7 @@ from .tsne import run_tsne
 from .umap_tpu import run_umap
 
 KMEANS_RANGE = range(2, 11)  # reference: K=2..10
+MAX_CELLS_TSNE = 20000       # the JAX package's: no embeddings past it
 
 
 def _write_csv(path, header, rows):
@@ -60,7 +61,7 @@ class _Stages:
 
 def run_secondary_analysis(matrix: CountMatrix, out_dir: str,
                            n_components: int = N_COMPONENTS_DEFAULT,
-                           max_cells_tsne: int = 20000,
+                           max_cells_tsne: int = MAX_CELLS_TSNE,
                            skip_embeddings: bool = False,
                            num_features: int = 2000,
                            batch_labels=None, *, device) -> dict:

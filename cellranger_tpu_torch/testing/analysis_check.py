@@ -30,6 +30,14 @@ population centroid in the embedding is its planted population for at
 least MIN_CENTROID_ACC of the cells, and the share of each cell's 10
 nearest neighbors in PCA space that stay among its 10 nearest in the
 embedding is no more than KNN_SLACK below the reference run's.
+
+A kNN result at a size no other package can be run beside is held to
+exact float64 neighbours of seeded rows (`sampled_knn_check`): a slot
+may differ only at a near-tie, two candidates whose exact squared
+distances lie within KNN_TIE_EPS (|x_i|^2 + |x_j|^2) of each other, the
+float32 rounding of |x_i|^2 - 2 x_i.x_j + |x_j|^2 (measured ties between
+the two packages at 2,000 cells: at most 1.9 eps32 of it,
+tests/test_torch_analysis.py).
 """
 
 from __future__ import annotations
@@ -60,6 +68,9 @@ DEVICE_AGREEMENT = 0.98
 TSNE_TOL = {1: 1e-4, 5: 1e-4, 10: 5e-4}
 CALIB_RTOL = 1e-3   # the calibrated P at 2,000 cells (1e-4 up to 1,000)
 UMAP_TOL = {1: 1e-4, 2: 1e-3}
+KNN_TIE_EPS = 4 * float(np.finfo(np.float32).eps)
+# analysis/ files with embeddings, and without past max_cells_tsne
+N_FILES = 16
 EMBEDDINGS = ("tsne/2_components/projection.csv",
               "umap/2_components/projection.csv")
 GRAPH_DERIVED = ("clustering/graphclust/hierarchy.json",
@@ -121,6 +132,72 @@ def knn_preservation(x: np.ndarray, y: np.ndarray, k: int = KNN_K,
     return float(hit.double().mean())
 
 
+def non_tie_slots(a: np.ndarray, b: np.ndarray, ref, got) -> list:
+    """(row, slot) pairs where two kNN results over the same rows of a
+    (ref, got: [len(a), k] indices into b) hold neighbours whose exact
+    squared distances differ by more than a near-tie."""
+    a64, b64 = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    sa, sb = (a64 ** 2).sum(1), (b64 ** 2).sum(1)
+    bad = []
+    for i, c in zip(*np.nonzero(np.asarray(ref) != np.asarray(got))):
+        r, g = ref[i, c], got[i, c]
+        gap = abs(((a64[i] - b64[r]) ** 2).sum()
+                  - ((a64[i] - b64[g]) ** 2).sum())
+        if not gap <= KNN_TIE_EPS * (sa[i] + max(sb[r], sb[g])):
+            bad.append((int(i), int(c)))
+    return bad
+
+
+def sampled_knn_check(a: np.ndarray, b: np.ndarray, idx, rows: int,
+                      seed: int = 0, exclude_self: bool = False
+                      ) -> tuple[list, dict]:
+    """A kNN result idx [len(a), k] (the rows of b nearest each row of a,
+    nearest first, lower index first among ties; exclude_self: a is b and
+    a row is not its own neighbour) against exact float64 neighbours on
+    `rows` seeded rows of a, computed here in numpy.  Returns (the
+    (row, slot) pairs that differ by more than a near-tie or hold the row
+    itself, measured)."""
+    a64, b64 = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    got = np.asarray(idx)
+    k = got.shape[1]
+    pick = np.sort(np.random.default_rng(seed).choice(
+        len(a64), min(rows, len(a64)), replace=False))
+    got = got[pick]
+    ref = np.empty_like(got)
+    for c0 in range(0, len(pick), 16):   # [16, len(b), d] float64 at once
+        p = pick[c0:c0 + 16]
+        d = ((a64[p, None, :] - b64[None, :, :]) ** 2).sum(-1)
+        if exclude_self:
+            d[np.arange(len(p)), p] = np.inf
+        kth = np.partition(d, k - 1, axis=1)[:, k - 1]
+        for j, row in enumerate(d):
+            cand = np.flatnonzero(row <= kth[j])
+            ref[c0 + j] = cand[np.argsort(row[cand], kind="stable")][:k]
+    bad = [(int(pick[i]), c) for i, c in non_tie_slots(a64[pick], b64,
+                                                       ref, got)]
+    if exclude_self:
+        bad = sorted(set(bad) | {(int(pick[i]), int(c)) for i, c in
+                                 zip(*np.nonzero(got == pick[:, None]))})
+    return bad, dict(rows=len(pick), k=k,
+                     slots_differ=int((ref != got).sum()),
+                     non_tie_mismatches=len(bad))
+
+
+def embedding_rule_diffs(files: list[str], n_cells: int,
+                         max_cells_tsne: int) -> list[str]:
+    """The JAX package's rule for analysis/: N_FILES files with t-SNE and
+    UMAP up to max_cells_tsne cells, none of tsne/ or umap/ past it."""
+    want = N_FILES if n_cells <= max_cells_tsne else \
+        N_FILES - len(EMBEDDINGS)
+    embedded = [f for f in files if f.split("/")[0] in ("tsne", "umap")]
+    if len(files) != want or (n_cells > max_cells_tsne and embedded) \
+            or (n_cells <= max_cells_tsne
+                and not set(EMBEDDINGS) <= set(files)):
+        return [f"{n_cells} cells, max_cells_tsne {max_cells_tsne}: "
+                f"analysis/ holds {files}"]
+    return []
+
+
 def label_agreement(a: np.ndarray, b: np.ndarray) -> float:
     """Share of cells whose labels agree after the best one-to-one
     matching of a's clusters to b's."""
@@ -132,6 +209,17 @@ def label_agreement(a: np.ndarray, b: np.ndarray) -> float:
     np.add.at(c, (ia, ib), 1)
     r, cc = linear_sum_assignment(-c)
     return float(c[r, cc].sum() / len(a))
+
+
+def cluster_purity(labels: np.ndarray, truth: np.ndarray) -> float:
+    """Share of cells whose cluster's most common truth label is their
+    own: 1.0 when every cluster lies within one population, however many
+    clusters a population is split into."""
+    _, ic = np.unique(labels, return_inverse=True)
+    _, it = np.unique(truth, return_inverse=True)
+    c = np.zeros((ic.max() + 1, it.max() + 1))
+    np.add.at(c, (ic, it), 1)
+    return float(c.max(1).sum() / len(labels))
 
 
 def rel_err(ref, got) -> float:

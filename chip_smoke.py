@@ -43,12 +43,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
                time, phase split (analysis_reporting apart), memory; the
                three h5 outputs (io/hdf5.py): size and seconds of each
                write, each read back to the arrays that were written
-  e2e_bam      the first 100,000 reads of that fixture count-only and
+  e2e_bam      the first 50,000 reads of that fixture count-only and
                with BAM (stream mode, spill + partition dedup, BAM write):
                every read confidently mapped, the same molecules and MEX
                bytes from both, the BAM write phase on its own, BAM size
-               and record count (a tenth of the reads: the per-record
-               BAM writer takes 170-410 s of host time for 1,000,000)
+               and record count (5% of the reads: the per-record BAM
+               writer takes 170-410 s of host time for 1,000,000)
   overflow     the count-only e2e run with the device molecule state
                capped at 1 << 19 rows, which forces the host flush and the
                partition dedup: the same molecules and MEX bytes as e2e
@@ -99,20 +99,37 @@ Phases, each printing one line; any failure raises and exits non-zero:
                with [samples] on cuda: per-sample outputs present, every
                cell in the sample it was built for
   analysis     secondary analysis of a planted 8-population matrix
-               (10,000 cells x 20,000 genes) on cuda, twice: identical
-               analysis/ bytes, finite embeddings that separate the
-               populations, stage times and peak memory; TF32 must be off
+               (20,000 cells x 20,000 genes, the JAX package's
+               max_cells_tsne) on cuda: 16 files, finite embeddings that
+               separate the populations, stage times, peak memory, ms a
+               t-SNE step and a UMAP epoch; TF32 must be off
   analysis_parity  cuda against cpu at 2,000 cells x 1,000 genes (the
                files, the clusterings of one projection, and the t-SNE/UMAP
                steps over a short horizon) under testing/analysis_check.py's
-               tolerances
+               tolerances; a second cuda run with identical analysis/ bytes
+  analysis_68k the same fixture at 68,579 cells (10x's "Fresh 68k PBMCs",
+               past max_cells_tsne) written as a filtered h5 and analyzed
+               by the CLI's reanalyze on cuda: 14 files, no tsne/ or
+               umap/; graph clusters each within one planted population
+               and k-means 8 agreeing with the populations on at least
+               0.99 of the cells; each cluster's top 10 diff-exp genes
+               among its population's markers; the kNN graph (k = 131)
+               and aggr's cross-batch search (k = 20, the projection's
+               halves) with no mismatch but near-ties against float64
+               neighbours of 1,000 seeded rows, the search's device
+               memory within graphclust.KNN_BLOCK_BYTES; stage and Louvain
+               seconds, h5 write and read seconds, peak device memory and
+               host RSS.  It runs in a child process (phase_beside)
+               beside the phases from vdj_parity to human_scale, so its
+               host seconds and theirs include each other's load on the
+               machine's cores; its line comes after human_scale's
   vdj_parity   run_vdj on the single-end and the paired-end worlds of
                tests/test_vdj.py on cuda and on cpu: every output file
                equal; count_bc_umi_kmers on the rows run_vdj handed it,
                split into blocks of a few hundred kmer rows, equal to the
                pipeline's arrays on both devices
   vdj          a paired-end SCVDJ run (testing/fixtures.build_vdj_run: 5
-               T cells in clonotypes of 2, 2 and 1, 5,000 read pairs a
+               T cells in clonotypes of 2, 2 and 1, 2,000 read pairs a
                cell) through run_vdj on cuda: exactly the fixture's cells,
                clonotypes and each cell's CDR3s; wall, the device-
                synchronized time of count_bc_umi_kmers, the host
@@ -171,9 +188,10 @@ every path's (`pe`: two a batch, one per mate; `mesh` and
 counts; `h5_pipelines`: one a step of each GEM well; `deep`: one a
 step, 611 at 20,000,000 reads; `human_parity`:
 its cuda step, aligner call and truth-probe step and aligner call;
-`rtl`, the V(D)J paths, `mkfastq` and `index_build`: none, no genome
-aligner runs).  The line before the last is the kernel report (JSON); the
-last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+`rtl`, the V(D)J paths, `mkfastq`, `index_build`, `analysis` and
+`analysis_68k`: none, no genome aligner runs).  The line before the
+last is the kernel report (JSON); the last line is {"ok": true,
+"device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -192,10 +210,10 @@ import time
 
 E2E_READS = 1_000_000
 E2E_BATCH = 32768
-# the BAM run takes the first tenth of the e2e reads (they are shuffled):
+# the BAM run takes the first 5% of the e2e reads (they are shuffled):
 # the per-record BAM writer takes 0.17-0.41 ms of host time a record, and
-# the script's time limit is shared with `deep`
-E2E_BAM_READS = 100_000
+# the script's time limit is shared with `deep` and analysis_68k
+E2E_BAM_READS = 50_000
 GOLDEN_BATCH = 4096
 OVERFLOW_STATE_CAP = 1 << 19
 PE_PAIRS = 1_000_000
@@ -272,16 +290,31 @@ INT32_OPS_PER_S = 16.75e12
 # them in one slot: the card's real ceiling for this recurrence is above
 # the rate used here, and the share of the bound reads high by that much.
 SW_OPS_PER_CELL = 12
-# secondary analysis: 10x's public "10k PBMC" scale, under max_cells_tsne
-ANALYSIS_CELLS = 10_000
+# secondary analysis: the JAX package's max_cells_tsne, the largest
+# matrix that gets t-SNE and UMAP
+ANALYSIS_CELLS = 20_000
 ANALYSIS_GENES = 20_000
 ANALYSIS_POPS = 8
+# past max_cells_tsne: the cell count of 10x's "Fresh 68k PBMCs (Donor A)"
+# (Zheng et al. 2017); genes cut from its 32,738 to the fixture's 20,000
+ANALYSIS_68K_CELLS = 68_579
+KNN_CHECK_ROWS = 1_000      # seeded rows held to float64 neighbours
+# analysis_68k runs in a child process beside the V(D)J, mkfastq and human
+# phases: its host Louvain and their host assembly, fixture and matrix
+# gzip overlap on the machine's cores
+ANALYSIS_68K_TIMEOUT_S = 900
+CROSS_KNN_K = 20            # find_mnn_pairs' k in aggr's batch correction
+MIN_TRUTH_AGREEMENT = 0.99
+DIFFEXP_TOP = 10            # top genes by log2 fold change, each a marker
 # cuda against cpu on the 8-population matrix of tests/test_torch_analysis.py
 ANALYSIS_PARITY_CELLS = 2_000
 ANALYSIS_PARITY_GENES = 1_000
-# V(D)J: 10x's recommended depth is 5,000 read pairs a cell; the host
-# assembly takes 10-25 s a cell, so the run is cut in cells, not depth
+# V(D)J: 10x's recommended depth is 5,000 read pairs a cell (vdj_kmers'
+# cells); the host assembly takes 10-25 s a cell at it and grows with the
+# reads, so `vdj` runs the fixture's least cells at 2,000 pairs, cut for
+# the script's time limit when analysis_68k came
 VDJ_CELLS = 5
+VDJ_RUN_PAIRS_PER_CELL = 2_000
 VDJ_PAIRS_PER_CELL = 5_000
 VDJ_PARITY_CHUNK = 500          # kmer rows a block: splits every world
 VDJ_KMER_CELLS = 400            # 2,000,000 pairs, 4,000,000 reads
@@ -1343,6 +1376,38 @@ def multi_run(tmp: str, device: str = "cuda") -> dict:
     return res
 
 
+@contextlib.contextmanager
+def recorded(*targets):
+    """Record every call of each (owner, name) function inside the block:
+    {name: [(seconds, result)]}, the device synchronized at both ends of
+    a call where there is a card."""
+    import torch
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            sync()
+            t = time.time()
+            r = fn(*a, **kw)
+            sync()
+            rec[name].append((time.time() - t, r))
+            return r
+        return timed
+
+    rec = {name: [] for _, name in targets}
+    saved = [(owner, name, vars(owner)[name]) for owner, name in targets]
+    for owner, name, _ in saved:
+        setattr(owner, name, wrap(name, getattr(owner, name)))
+    try:
+        yield rec
+    finally:
+        for owner, name, raw in saved:
+            setattr(owner, name, raw)
+
+
 def analysis_run(mat, out: str, device: str) -> tuple[dict, dict]:
     """run_secondary_analysis of `mat` on `device` -> (its results; wall
     seconds, stage seconds and peak device memory)."""
@@ -1368,29 +1433,33 @@ def _require_fp32_matmuls() -> None:
 
 def analysis(tmp: str, n_cells: int = ANALYSIS_CELLS,
              n_genes: int = ANALYSIS_GENES, dev: str = "cuda") -> dict:
-    """Secondary analysis of a planted-population matrix on `dev`, twice:
-    identical analysis/ bytes, embeddings finite and separating the
-    populations; stage times and peak memory of both runs."""
+    """Secondary analysis of a planted-population matrix on `dev`: 16
+    files, embeddings finite and separating the populations; stage
+    times, peak memory, ms a t-SNE step and a UMAP epoch (its optimizing
+    loops, the device synchronized at both ends, over their steps).  The
+    rerun with identical bytes is analysis_parity's, at its size."""
     import numpy as np
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.analysis import tsne, umap_tpu
     from cellranger_tpu_torch.testing import analysis_check as check
     from cellranger_tpu_torch.testing.fixtures import build_analysis_matrix
 
     _require_fp32_matmuls()
+    sw.LAUNCHES = 0
     t = time.time()
     mat, truth = build_analysis_matrix(n_cells, n_genes, ANALYSIS_POPS,
                                        seed=0)
     rep = dict(cells=n_cells, genes=n_genes, populations=ANALYSIS_POPS,
                fixture_s=time.time() - t)
-    outs = [os.path.join(tmp, f"analysis_{i}") for i in (0, 1)]
-    res, rep["run"] = analysis_run(mat, outs[0], dev)
-    _, rep["rerun"] = analysis_run(mat, outs[1], dev)
-    files = check.analysis_files(outs[0])
-    if len(files) != 16 or check.analysis_files(outs[1]) != files:
+    out = os.path.join(tmp, "analysis")
+    with recorded((tsne, "_tsne_optimize"), (umap_tpu, "_optimize")) as rec:
+        res, rep["run"] = analysis_run(mat, out, dev)
+    rep["tsne_step_ms"] = 1e3 * rec["_tsne_optimize"][0][0] \
+        / tsne.TSNE_MAX_ITER
+    rep["umap_epoch_ms"] = 1e3 * rec["_optimize"][0][0] / umap_tpu.UMAP_EPOCHS
+    files = check.analysis_files(out)
+    if len(files) != check.N_FILES:
         raise AssertionError(f"analysis wrote {files}")
-    differ = [f for f in files if not check.same_bytes(
-        os.path.join(outs[0], f), os.path.join(outs[1], f))]
-    if differ:
-        raise AssertionError(f"two {dev} analysis runs differ: {differ}")
     proj = res["pca"]["transformed_pca_matrix"]
     for k in ("tsne", "umap"):
         y = res[k]
@@ -1406,6 +1475,214 @@ def analysis(tmp: str, n_cells: int = ANALYSIS_CELLS,
     rep["graph_clusters"] = int(len(np.unique(cl["graphclust"])))
     rep["kmeans_8_truth_agreement"] = check.label_agreement(
         cl["kmeans_8_clusters"], truth)
+    rep["sw_launches"] = sw.LAUNCHES
+    return rep
+
+
+def off_marker_genes(de: dict, labels, truth) -> dict:
+    """{graph cluster: genes among its DIFFEXP_TOP by log2 fold change
+    that are not markers of its population (most of its cells')}."""
+    import numpy as np
+    from cellranger_tpu_torch.testing.fixtures import ANALYSIS_MARKERS
+
+    off = {}
+    for c, r in de.items():
+        pop = np.bincount(truth[labels == c]).argmax()
+        top = np.argsort(-np.asarray(r["log2_fold_change"]),
+                         kind="stable")[:DIFFEXP_TOP]
+        off[int(c)] = int((top // ANALYSIS_MARKERS != pop).sum())
+    return off
+
+
+@contextlib.contextmanager
+def phase_beside(name: str, log_dir: str, timeout: float, *args):
+    """Run chip_smoke.<name>(*args) in a child process while the block
+    runs; yields a function that waits for it (at most `timeout` seconds
+    from its start) and returns its report.  The child writes its output
+    to log_dir/<name>.log and is killed if the block leaves first."""
+    code = (f"import json, sys, chip_smoke; r = chip_smoke.{name}("
+            "*json.loads(sys.argv[1])); print('PHASE_RESULT ' + "
+            "json.dumps(r), flush=True)")
+    t0 = time.time()
+    with open(os.path.join(log_dir, f"{name}.log"), "w+b") as log:
+        p = subprocess.Popen(
+            [sys.executable, "-c", code, json.dumps(args)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+            stderr=subprocess.STDOUT)
+
+        def result() -> dict:
+            rc = p.wait(timeout=max(1.0, t0 + timeout - time.time()))
+            log.seek(0)
+            text = log.read().decode(errors="replace")
+            found = [ln for ln in text.splitlines()
+                     if ln.startswith("PHASE_RESULT ")]
+            if rc or not found:
+                raise AssertionError(f"{name} in a child process: exit "
+                                     f"{rc}: {text[-4000:]}")
+            return json.loads(found[-1][len("PHASE_RESULT "):])
+
+        try:
+            yield result
+        finally:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+@contextlib.contextmanager
+def rss_peak():
+    """The largest resident set of this process inside the block, read
+    from /proc/self/statm every 50 ms by a thread: yields a dict whose
+    "bytes" holds it when the block ends."""
+    import threading
+
+    page = os.sysconf("SC_PAGE_SIZE")
+    out, stop = {"bytes": 0}, threading.Event()
+
+    def sample():
+        while True:
+            with open("/proc/self/statm") as f:
+                rss = int(f.read().split()[1]) * page
+            out["bytes"] = max(out["bytes"], rss)
+            if stop.wait(0.05):
+                return
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        th.join()
+
+
+def analysis_68k(tmp: str, n_cells: int = ANALYSIS_68K_CELLS,
+                 n_genes: int = ANALYSIS_GENES, dev: str = "cuda",
+                 check_rows: int = KNN_CHECK_ROWS) -> dict:
+    """The planted 8-population matrix past max_cells_tsne written as a
+    filtered-matrix h5 and analyzed by the CLI's reanalyze on `dev`: the
+    JAX package's file rule (no tsne/, no umap/ past it); graph clusters
+    and k-means 8 against the planted populations; each graph cluster's
+    top diff-exp genes among its population's markers; the kNN graph of
+    the run's projection (the run's k) and _cross_knn (k = CROSS_KNN_K)
+    between its two halves, each against float64 neighbours of
+    check_rows seeded rows, the search's device memory within its
+    budget.  Stage seconds, Louvain's seconds, h5 write and read seconds,
+    peak device memory and host RSS; every check raises."""
+    from cellranger_tpu_torch.align import sw
+
+    _require_fp32_matmuls()
+    t0 = time.time()
+    sw.LAUNCHES = 0
+    with rss_peak() as rss:
+        rep = _analysis_68k(tmp, n_cells, n_genes, dev, check_rows)
+    rep.update(sw_launches=sw.LAUNCHES, peak_host_rss_bytes=rss["bytes"],
+               wall_s=time.time() - t0)
+    diffs = rep.pop("diffs")
+    if diffs:
+        raise AssertionError(f"analysis_68k at {n_cells} cells: {diffs}; "
+                             f"measured {json.dumps(rep)}")
+    return rep
+
+
+def _analysis_68k(tmp: str, n_cells: int, n_genes: int, dev: str,
+                  check_rows: int) -> dict:
+    """analysis_68k's run and checks: (measured, with "diffs")."""
+    import numpy as np
+    import torch
+    from cellranger_tpu_torch.analysis import graphclust
+    from cellranger_tpu_torch.analysis import run as analysis_mod
+    from cellranger_tpu_torch.analysis.batch_correction import _cross_knn
+    from cellranger_tpu_torch.cli import main as cli_main
+    from cellranger_tpu_torch.io.matrix_io import CountMatrix
+    from cellranger_tpu_torch.testing import analysis_check as check
+    from cellranger_tpu_torch.testing.fixtures import build_analysis_matrix
+
+    cuda = torch.device(dev).type == "cuda"
+    t0 = time.time()
+    mat, truth = build_analysis_matrix(n_cells, n_genes, ANALYSIS_POPS,
+                                       seed=0)
+    rep = dict(cells=n_cells, genes=n_genes, populations=ANALYSIS_POPS,
+               nonzeros=int(mat.m.nnz), fixture_s=time.time() - t0)
+    h5 = os.path.join(tmp, "analysis_68k.h5")
+    t = time.time()
+    mat.save_h5(h5)
+    rep.update(h5_write_s=time.time() - t, h5_bytes=os.path.getsize(h5))
+    del mat
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    with recorded((CountMatrix, "load_h5"),
+                  (analysis_mod, "run_secondary_analysis"),
+                  (graphclust, "louvain")) as rec:
+        t = time.time()
+        cli_main(["reanalyze", "--id", "analysis_68k", "--matrix", h5,
+                  "--device", dev, "--output-dir", tmp])
+        rep["reanalyze_s"] = time.time() - t
+    rep["h5_read_s"] = rec["load_h5"][0][0]
+    res = rec["run_secondary_analysis"][0][1]
+    rep["stage_s"] = res["stage_s"]
+    rep["louvain_s"] = rec["louvain"][0][0]
+    rep["peak_device_bytes"] = (torch.cuda.max_memory_allocated()
+                                if cuda else None)
+    files = check.analysis_files(os.path.join(tmp, "analysis_68k", "outs",
+                                              "analysis"))
+    diffs = check.embedding_rule_diffs(files, n_cells,
+                                       analysis_mod.MAX_CELLS_TSNE)
+    rep["analysis_files"] = len(files)
+    cl = res["clusterings"]
+    rep["graph_clusters"] = int(len(np.unique(cl["graphclust"])))
+    # Louvain splits a planted population into several clusters (14 for
+    # 8 here), so graph clusters are held by purity and their one-to-one
+    # agreement with the populations is only reported
+    for key in ("graphclust", "kmeans_8_clusters"):
+        rep[f"{key}_truth_agreement"] = check.label_agreement(cl[key], truth)
+    rep["graphclust_purity"] = check.cluster_purity(cl["graphclust"], truth)
+    for key in ("graphclust_purity", "kmeans_8_clusters_truth_agreement"):
+        if rep[key] < MIN_TRUTH_AGREEMENT:
+            diffs.append(f"{key} {rep[key]:.4f}")
+    off = off_marker_genes(res["diffexp"]["graphclust"], cl["graphclust"],
+                           truth)
+    rep["off_marker_top_genes"] = sum(off.values())
+    if any(off.values()):
+        diffs.append(f"top diff-exp genes off their markers: {off}")
+    # the run's kNN graph again, on its projection, and aggr's cross-batch
+    # search between the projection's halves, against float64
+    proj = res["pca"]["transformed_pca_matrix"].astype(np.float32)
+    x = torch.from_numpy(proj).to(dev)
+    k = min(graphclust.default_knn_k(n_cells), n_cells - 1)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t = time.time()
+    idx, _ = graphclust.knn_graph(x, k)
+    idx = idx.cpu().numpy()
+    rep["knn_s"] = time.time() - t
+    rep["knn_block_rows"] = graphclust.knn_block_rows(n_cells)
+    if cuda:
+        above = rep["knn_peak_bytes"] = torch.cuda.max_memory_allocated() \
+            - base
+        rep["knn_bytes_per_pair"] = above / (
+            min(rep["knn_block_rows"], n_cells) * n_cells)
+        # the budget, and the result's int64 indices and float32 distances
+        if above > graphclust.KNN_BLOCK_BYTES + idx.nbytes * 3 // 2:
+            diffs.append(f"the kNN search took {above} bytes of the card, "
+                         f"over its budget {graphclust.KNN_BLOCK_BYTES}")
+    bad, rep["knn_check"] = check.sampled_knn_check(
+        proj, proj, idx, check_rows, exclude_self=True)
+    if bad:
+        diffs.append(f"knn_graph (k = {k}) differs from float64 at "
+                     f"{bad[:10]}")
+    half = n_cells // 2
+    t = time.time()
+    cidx = _cross_knn(proj[:half], proj[half:], CROSS_KNN_K, dev)
+    rep["cross_knn_s"] = time.time() - t
+    bad, rep["cross_knn_check"] = check.sampled_knn_check(
+        proj[:half], proj[half:], cidx, check_rows)
+    if bad:
+        diffs.append(f"_cross_knn (k = {CROSS_KNN_K}) differs from float64 "
+                     f"at {bad[:10]}")
+    rep["diffs"] = diffs
     return rep
 
 
@@ -1415,7 +1692,8 @@ def analysis_parity(tmp: str, n_cells: int = ANALYSIS_PARITY_CELLS,
     """Secondary analysis on devices[0] against devices[1] under
     testing.analysis_check's tolerances: the analysis/ files, the
     clusterings of one projection on both devices, and the t-SNE and
-    UMAP steps over a short horizon."""
+    UMAP steps over a short horizon; a second run on devices[0] writes
+    identical analysis/ bytes."""
     from cellranger_tpu_torch.testing import analysis_check as check
     from cellranger_tpu_torch.testing.fixtures import build_analysis_matrix
 
@@ -1424,12 +1702,18 @@ def analysis_parity(tmp: str, n_cells: int = ANALYSIS_PARITY_CELLS,
     mat, truth = build_analysis_matrix(n_cells, n_genes, ANALYSIS_POPS,
                                        seed=0)
     rep = dict(cells=n_cells, genes=n_genes, populations=ANALYSIS_POPS)
-    outs = [os.path.join(tmp, f"analysis_parity_{i}") for i in (0, 1)]
+    outs = [os.path.join(tmp, f"analysis_parity_{i}") for i in (0, 1, 2)]
     res, rep[f"run_{ref}"] = analysis_run(mat, outs[0], ref)
     _, rep[f"run_{dev}"] = analysis_run(mat, outs[1], dev)
+    _, rep[f"rerun_{dev}"] = analysis_run(mat, outs[2], dev)
     diffs, rep["files"] = check.compare_analysis(
         outs[0], outs[1], truth, device=dev,
         min_label_agreement=check.DEVICE_AGREEMENT)
+    files = check.analysis_files(outs[1])
+    if check.analysis_files(outs[2]) != files or [
+            f for f in files if not check.same_bytes(
+                os.path.join(outs[1], f), os.path.join(outs[2], f))]:
+        diffs.append(f"two {dev} runs wrote different analysis/ bytes")
     proj = res["pca"]["transformed_pca_matrix"]
     d2, rep["same_projection"] = check.same_projection_labels(proj, ref, dev)
     d3, rep["short_horizon"] = check.short_horizon(proj, ref, dev)
@@ -1568,7 +1852,7 @@ def _pairs(b, u) -> int:
 
 
 def vdj_run(tmp: str, n_cells: int = VDJ_CELLS,
-            pairs_per_cell: int = VDJ_PAIRS_PER_CELL,
+            pairs_per_cell: int = VDJ_RUN_PAIRS_PER_CELL,
             device: str = "cuda") -> dict:
     """A V(D)J run whose cells, clonotypes and CDR3s hold by
     construction, through run_vdj on `device`."""
@@ -2606,41 +2890,49 @@ def main() -> None:
         phase("multi", "cells in the samples they were built for: "
               + json.dumps(g))
 
-        phase("analysis", "two cuda runs identical: "
-              + json.dumps(analysis(tmp)))
-        phase("analysis_parity", "cuda against cpu: "
-              + json.dumps(analysis_parity(tmp)))
+        g = analysis(tmp)
+        launches["analysis"] = g["sw_launches"]
+        phase("analysis", f"{smi}: " + json.dumps(g))
+        phase("analysis_parity", "cuda against cpu, two cuda runs "
+              "identical: " + json.dumps(analysis_parity(tmp)))
 
-        g = vdj_parity(tmp)
-        launches["vdj_parity"] = g["sw_launches"]
-        phase("vdj_parity", "cuda == cpu, every output file; kmers in "
-              "blocks equal: " + json.dumps(g))
-        g = vdj_run(tmp)
-        launches["vdj"] = g["sw_launches"]
-        phase("vdj", "the fixture's cells, clonotypes and CDR3s: "
-              + json.dumps(g))
-        g = vdj_kmers(tmp)
-        launches["vdj_kmers"] = g["sw_launches"]
-        phase("vdj_kmers", json.dumps(g))
-        g = mkfastq_run(tmp)
-        launches["mkfastq"] = g["sw_launches"]
-        phase("mkfastq", "reads per sample as built, classic == CBCL: "
-              + json.dumps(g))
+        with phase_beside("analysis_68k", tmp, ANALYSIS_68K_TIMEOUT_S,
+                          tmp) as analysis_68k_report:
+            g = vdj_parity(tmp)
+            launches["vdj_parity"] = g["sw_launches"]
+            phase("vdj_parity", "cuda == cpu, every output file; kmers in "
+                  "blocks equal: " + json.dumps(g))
+            g = vdj_run(tmp)
+            launches["vdj"] = g["sw_launches"]
+            phase("vdj", "the fixture's cells, clonotypes and CDR3s: "
+                  + json.dumps(g))
+            g = vdj_kmers(tmp)
+            launches["vdj_kmers"] = g["sw_launches"]
+            phase("vdj_kmers", json.dumps(g))
+            g = mkfastq_run(tmp)
+            launches["mkfastq"] = g["sw_launches"]
+            phase("mkfastq", "reads per sample as built, classic == CBCL: "
+                  + json.dumps(g))
 
-        fx = human_fixture(tmp)
-        g = human_parity(fx)
-        launches["human_parity"] = g["sw_launches"]
-        phase("human_parity", f"{smi}: {fx['text_len']}-base text; cuda =="
-              " cpu, every step and aligner output, FASTQ reads and reads "
-              "off every repeat family; the fullest buckets by the JAX "
-              "rule; truth probe: " + json.dumps(dict(
-                  g, fixture_s=fx["timing"],
-                  repeat_bases=fx.get("repeat_bases"),
-                  reads_by_kind=fx["reads_by_kind"])))
-        g = human_scale(fx, os.path.join(tmp, "human_out"))
-        launches["human_scale"] = g["sw_launches"]
-        phase("human_scale", "the fixture's reads counted or lost as the "
-              "reference loses them: " + json.dumps(g))
+            fx = human_fixture(tmp)
+            g = human_parity(fx)
+            launches["human_parity"] = g["sw_launches"]
+            phase("human_parity", f"{smi}: {fx['text_len']}-base text; "
+                  "cuda == cpu, every step and aligner output, FASTQ reads"
+                  " and reads off every repeat family; the fullest buckets"
+                  " by the JAX rule; truth probe: " + json.dumps(dict(
+                      g, fixture_s=fx["timing"],
+                      repeat_bases=fx.get("repeat_bases"),
+                      reads_by_kind=fx["reads_by_kind"])))
+            g = human_scale(fx, os.path.join(tmp, "human_out"))
+            launches["human_scale"] = g["sw_launches"]
+            phase("human_scale", "the fixture's reads counted or lost as "
+                  "the reference loses them: " + json.dumps(g))
+            g = analysis_68k_report()
+        launches["analysis_68k"] = g["sw_launches"]
+        phase("analysis_68k", f"{smi}: reanalyze past max_cells_tsne in a "
+              "child process beside vdj_parity..human_scale, the kNN "
+              "searches held to float64: " + json.dumps(g))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -123,6 +123,11 @@ SCRIPT = textwrap.dedent("""
     rp = chip_smoke.analysis_parity(os.path.join(tmp, "an"), n_cells=160,
                                     n_genes=400, devices=("cpu", "cpu"))
     assert rp["short_horizon"]["tsne_10"] == 0.0, rp
+    # chip_smoke's reanalyze phase past max_cells_tsne, small: the CLI on
+    # an h5 it wrote, the float64 kNN checks, no K1 launch
+    g = chip_smoke.analysis_68k(tmp, n_cells=300, n_genes=400, dev="cpu",
+                                check_rows=100)
+    assert g["sw_launches"] == 0 and g["knn_check"]["rows"] == 100, g
     # chip_smoke's cpu/cpu parity phase runs here too
     chip_smoke.tiny_parity(os.path.join(tmp, "smoke"), devices=("cpu", "cpu"))
     # the golden phases (the h5 files against the h5py-written snapshots),
