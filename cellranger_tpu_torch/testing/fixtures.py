@@ -361,10 +361,11 @@ def _e2e_genome_draw(rng, genome_len: int) -> np.ndarray:
 
 
 def _e2e_reference(tmp: str, rng, genome_len: int, n_genes: int,
-                   n_wl: int, ref: dict | None = None):
+                   n_wl: int | None, ref: dict | None = None):
     """The e2e fixtures' shared inputs: a random genome drawn from `rng`
     (its first draw), `n_genes` two-exon genes alternating strands, the
-    reference package and a whitelist of `n_wl` barcodes (seed 4).  With
+    reference package and a whitelist of `n_wl` barcodes (seed 4; none,
+    and None in its places, when n_wl is None).  With
     `ref` (an earlier fixture's dict over the same genome) the files on
     disk are reused and only the arrays are rebuilt.
     Returns (genome bytes array, gene spacing, whitelist byte matrix,
@@ -375,7 +376,7 @@ def _e2e_reference(tmp: str, rng, genome_len: int, n_genes: int,
     os.makedirs(tmp, exist_ok=True)
     garr = _e2e_genome_draw(rng, genome_len)
     spacing = genome_len // n_genes
-    wl, wl_arr = _e2e_whitelist(n_wl)
+    wl, wl_arr = _e2e_whitelist(n_wl) if n_wl is not None else (None, None)
     if ref is not None:
         return garr, spacing, wl_arr, ref["ref"], ref["wl"]
     write_fasta(os.path.join(tmp, "g.fa"), {"chr1": garr.tobytes()})
@@ -383,6 +384,8 @@ def _e2e_reference(tmp: str, rng, genome_len: int, n_genes: int,
     ref_dir = os.path.join(tmp, "ref")
     ReferencePackage.build(os.path.join(tmp, "g.fa"),
                            os.path.join(tmp, "g.gtf"), ref_dir, device=None)
+    if wl is None:
+        return garr, spacing, None, ref_dir, None
     wl_path = os.path.join(tmp, "wl.txt")
     with open(wl_path, "w") as f:
         f.writelines(w + "\n" for w in wl)
@@ -1641,6 +1644,15 @@ def _human_whitelist(rng, n_wl: int) -> np.ndarray:
     return np.sort(rng.choice(u, n_wl, replace=False))
 
 
+def _write_whitelist(path: str, wl: np.ndarray) -> None:
+    """Packed barcodes -> a whitelist file, one 16-base line each."""
+    lines = np.empty((len(wl), 17), np.uint8)
+    lines[:, :16] = _unpack_barcodes(wl)
+    lines[:, 16] = ord("\n")
+    with open(path, "wb") as f:
+        f.write(lines.tobytes())
+
+
 def _unpack_barcodes(packed: np.ndarray, length: int = 16) -> np.ndarray:
     """Packed barcodes -> [n, length] ASCII bases."""
     from ..ops import encode
@@ -1803,12 +1815,7 @@ def _human_reads(tmp: str, rng, seed: int, n_reads: int, codes, gene_start,
     t = time.time()
     wl = _human_whitelist(rng, n_wl)
     wl_path = os.path.join(tmp, "wl.txt")
-    lines = np.empty((n_wl, 17), np.uint8)
-    lines[:, :16] = _unpack_barcodes(wl)
-    lines[:, 16] = ord("\n")
-    with open(wl_path, "wb") as f:
-        f.write(lines.tobytes())
-    del lines
+    _write_whitelist(wl_path, wl)
     timing["whitelist_s"] = time.time() - t
 
     t = time.time()
@@ -2223,3 +2230,215 @@ def reads_plane(reads: np.ndarray, bc_idx: np.ndarray, umi: np.ndarray):
         rna_nmask=valid, rna2=None, rna2_nmask=None)
     return pack_step_input(get_chemistry("SC3Pv3"), READ_LEN, shim,
                            np.asarray(bc_idx, np.int32))
+
+
+# a CellPlex GEM well (10x's 12-CMO multiplexing kit, 3' v3.1)
+CELLPLEX_TAG_LEN = 15           # CMO301-CMO312's length
+CELLPLEX_TAG_MIN_DIST = 5       # pairwise Hamming distance of the drawn tags
+CELLPLEX_TAG_LEADER = 10        # the pattern's 5PNNNNNNNNNN ahead of the tag
+CELLPLEX_R2_TAIL = b"A" * 46    # R2 after the tag: 71 bases in all
+CELLPLEX_KINDS = ("singlet", "multiplet", "blank")
+CELLPLEX_SHARES = (0.74, 0.24, 0.02)   # ~0.8% multiplets per 1,000 cells
+CELLPLEX_BACKGROUND = 3         # mean tag UMIs of every tag in every barcode
+CELLPLEX_SPREAD = 0.25          # log-normal sigma of a cell's tag signal
+CELLPLEX_GEX_SPREAD = 0.3       # log-normal sigma of a cell's mRNA
+CELLPLEX_TYPES = 8              # cell types, each with its marker genes
+CELLPLEX_MARKER_SHARE = 0.5     # of a cell's GEX molecules on its markers
+
+
+def _cellplex_tags(n_tags: int, rng) -> np.ndarray:
+    """n_tags random CELLPLEX_TAG_LEN-base tags as ASCII rows, every two
+    at least CELLPLEX_TAG_MIN_DIST bases apart."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    tags: list = []
+    while len(tags) < n_tags:
+        t = bases[rng.integers(0, 4, CELLPLEX_TAG_LEN)]
+        if all((t != u).sum() >= CELLPLEX_TAG_MIN_DIST for u in tags):
+            tags.append(t)
+    return np.asarray(tags)
+
+
+def _shuffled_reads(rng, bc_packed, umi, r2, wl, tmp: str, name: str):
+    """One library's reads in a random order, 2% of them with a barcode
+    error that corrects back uniquely (`_human_barcode_errors`), written
+    as tmp/<name>/<name>_S1_L001_R{1,2}_001.fastq."""
+    order = rng.permutation(len(bc_packed))
+    bc_packed, umi, r2 = bc_packed[order], umi[order], r2[order]
+    n_err = len(bc_packed) // 50
+    _human_barcode_errors(
+        bc_packed, rng.choice(len(bc_packed), n_err, replace=False), wl, rng)
+    d = os.path.join(tmp, name)
+    os.makedirs(d, exist_ok=True)
+    _write_fastq_pair(os.path.join(d, f"{name}_S1_L001_R1_001.fastq"),
+                      os.path.join(d, f"{name}_S1_L001_R2_001.fastq"),
+                      np.concatenate([_unpack_barcodes(bc_packed), umi], 1),
+                      r2)
+    return d
+
+
+def build_cellplex_run(tmp: str, n_cells: int = 30_000, n_tags: int = 12,
+                       gex_reads: int = 10_000_000,
+                       cmo_reads: int = 3_000_000, seed: int = 41, *,
+                       n_wl: int = HUMAN_WL,
+                       genome_len: int = E2E_GENOME_LEN,
+                       n_genes: int = E2E_GENES,
+                       n_types: int = CELLPLEX_TYPES) -> dict:
+    """A CellPlex GEM well for `multi`: a Gene Expression library on the
+    e2e genome and genes (seed 11's draw at genome_len) and a Multiplexing
+    Capture library of n_tags drawn CMOs (`_cellplex_tags`, named CMO301..,
+    pattern 5PNNNNNNNNNN(BC) on R2), with a [samples] section mapping one
+    tag to each of n_tags samples and expect-cells n_cells.
+
+    n_cells barcodes of a whitelist of n_wl (`_human_whitelist`) are cells,
+    CELLPLEX_SHARES of them singlets (one tag, balanced over the tags),
+    two-tag multiplets (two distinct tags, twice a singlet's mRNA) and
+    blanks (tags at background only).  Every cell holds Poisson
+    CELLPLEX_BACKGROUND UMIs of every tag; a singlet's own tag adds
+    Poisson(signal x lognormal) more, a multiplet's two tags half that
+    each, where signal makes the tag UMIs cmo_reads in expectation.
+
+    GEX: gex_reads // 2 molecules of 2 reads each (as e2e's, exon 1 of a
+    '+' gene, every read mapped by construction), spread over the cells
+    by a log-normal weight, CELLPLEX_MARKER_SHARE of a cell's molecules on
+    the marker genes of its type (one of n_types, each sample's singlets
+    over the types in turn; a multiplet's two cells' random types half
+    and half), the rest on any '+' gene.  CMO: one read a molecule.
+    Within a cell every two UMIs, of either library, differ in two bases
+    (`_coded_umis`), so every molecule is counted.  2% of each library's
+    reads carry a barcode error that corrects back uniquely.  FASTQs are
+    uncompressed.
+
+    Returns the config and whitelist paths, the read counts, the tags, and
+    the planted truth in cell order: `barcodes` ("<16 bases>-1"), `kind`
+    (index into CELLPLEX_KINDS), `tag1`/`tag2` (tag indices, -1 where
+    none), `cell_type` [n_cells, 2] (a multiplet's two cells; the same
+    type twice elsewhere), `gex_molecules` [n_cells] and `tag_molecules`
+    [n_cells, n_tags]; `built` maps each sample to its planted singlets,
+    `timing` the host seconds of each part."""
+    timing: dict = {}
+    t = time.time()
+    garr, spacing, _, ref_dir, _ = _e2e_reference(
+        tmp, np.random.default_rng(11), genome_len, n_genes, None)
+    timing["reference_s"] = time.time() - t
+
+    t = time.time()
+    rng = np.random.default_rng(seed)
+    wl = _human_whitelist(rng, n_wl)
+    wl_path = os.path.join(tmp, "wl.txt")
+    _write_whitelist(wl_path, wl)
+    cell_bc = wl[rng.choice(n_wl, n_cells, replace=False)]
+    timing["whitelist_s"] = time.time() - t
+
+    t = time.time()
+    n_kind = [round(n_cells * s) for s in CELLPLEX_SHARES[:2]]
+    n_kind.append(n_cells - sum(n_kind))
+    kind = rng.permutation(np.repeat(np.arange(3), n_kind))
+    tag1 = np.full(n_cells, -1, np.int64)
+    tag2 = np.full(n_cells, -1, np.int64)
+    single, multi = kind == 0, kind == 1
+    tag1[single] = rng.permutation(np.arange(n_kind[0]) % n_tags)
+    tag1[multi] = rng.integers(0, n_tags, n_kind[1])
+    tag2[multi] = (tag1[multi] + rng.integers(1, n_tags, n_kind[1])) % n_tags
+    signal = (cmo_reads - n_cells * n_tags * CELLPLEX_BACKGROUND) / (
+        n_kind[0] + n_kind[1])
+    assert signal > 0, "cmo_reads leaves no signal above the background"
+    scale = signal * rng.lognormal(-CELLPLEX_SPREAD ** 2 / 2,
+                                   CELLPLEX_SPREAD, n_cells)   # mean 1
+    tag_mol = rng.poisson(CELLPLEX_BACKGROUND, (n_cells, n_tags))
+    rows = np.flatnonzero(single)
+    tag_mol[rows, tag1[rows]] += rng.poisson(scale[rows])
+    rows = np.flatnonzero(multi)
+    for tag in (tag1, tag2):
+        tag_mol[rows, tag[rows]] += rng.poisson(scale[rows] / 2)
+
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    n_mol = gex_reads // E2E_DUP
+    w = rng.lognormal(0.0, CELLPLEX_GEX_SPREAD, n_cells) * np.where(
+        multi, 2.0, 1.0)
+    cell_of = rng.choice(n_cells, n_mol, p=w / w.sum())
+    # a multiplet's molecules come from its two cells' types in halves; a
+    # sample's singlets take the types in turn, so each sample holds every
+    # type in the same share
+    cell_type = rng.integers(0, n_types, (n_cells, 2))
+    rows = np.flatnonzero(single)
+    by_tag = rows[np.argsort(tag1[rows], kind="stable")]
+    first = np.searchsorted(tag1[by_tag], tag1[by_tag])
+    cell_type[by_tag, 0] = (np.arange(len(by_tag)) - first) % n_types
+    cell_type[~multi, 1] = cell_type[~multi, 0]
+    mtype = cell_type[cell_of, rng.integers(0, 2, n_mol)]
+    n_plus = n_genes // 2                              # '+' strand only
+    n_mark = n_plus // (2 * n_types)
+    gene = 2 * np.where(
+        rng.random(n_mol) < CELLPLEX_MARKER_SHARE,
+        mtype * n_mark + rng.integers(0, n_mark, n_mol),
+        rng.integers(0, n_plus, n_mol))
+    pos = gene * spacing + 1000 + rng.integers(0, 600 - READ_LEN - 8, n_mol)
+    cdna = garr[pos[:, None] + np.arange(READ_LEN)[None, :]]
+    flat = np.repeat(np.arange(n_cells * n_tags), tag_mol.ravel())
+    cmo_cell, cmo_tag = flat // n_tags, flat % n_tags
+    # one UMI draw over both libraries: the dedup keeps one feature of a
+    # (barcode, UMI) across libraries, so no two molecules of a cell may
+    # share a UMI, whichever library they are in
+    umi = bases[_coded_umis(np.concatenate([cell_of, cmo_cell]), 12, rng)]
+    umi, cmo_umi = umi[:n_mol], umi[n_mol:]
+    rep = lambda a: np.repeat(a, E2E_DUP, axis=0)  # noqa: E731
+    gex_dir = _shuffled_reads(rng, rep(cell_bc[cell_of]), rep(umi), rep(cdna),
+                              wl, tmp, "gex")
+    del cdna, umi
+    timing["gex_reads_s"] = time.time() - t
+
+    t = time.time()
+    tags = _cellplex_tags(n_tags, rng)
+    r2 = np.empty((len(flat), CELLPLEX_TAG_LEADER + CELLPLEX_TAG_LEN
+                   + len(CELLPLEX_R2_TAIL)), np.uint8)
+    r2[:, :CELLPLEX_TAG_LEADER] = bases[
+        rng.integers(0, 4, (len(flat), CELLPLEX_TAG_LEADER))]
+    r2[:, CELLPLEX_TAG_LEADER:CELLPLEX_TAG_LEADER + CELLPLEX_TAG_LEN] = \
+        tags[cmo_tag]
+    r2[:, CELLPLEX_TAG_LEADER + CELLPLEX_TAG_LEN:] = np.frombuffer(
+        CELLPLEX_R2_TAIL, np.uint8)
+    cmo_dir = _shuffled_reads(rng, cell_bc[cmo_cell], cmo_umi, r2, wl, tmp,
+                              "cmo")
+    del r2
+    timing["cmo_reads_s"] = time.time() - t
+
+    names = [f"CMO{301 + i}" for i in range(n_tags)]
+    samples = {f"sample{i + 1}": c for i, c in enumerate(names)}
+    fref = os.path.join(tmp, "cmo_features.csv")
+    with open(fref, "w") as f:
+        f.write("id,name,read,pattern,sequence,feature_type\n")
+        for cid, seq in zip(names, tags):
+            f.write(f"{cid},{cid},R2,5P{'N' * CELLPLEX_TAG_LEADER}(BC),"
+                    f"{seq.tobytes().decode()},Multiplexing Capture\n")
+    csv = os.path.join(tmp, "multi.csv")
+    with open(csv, "w") as f:
+        f.write(f"""[gene-expression]
+reference,{ref_dir}
+chemistry,SC3Pv3
+expect-cells,{n_cells}
+
+[feature]
+reference,{fref}
+
+[libraries]
+fastq_id,fastqs,feature_types
+gex,{gex_dir},Gene Expression
+cmo,{cmo_dir},Multiplexing Capture
+
+[samples]
+sample_id,cmo_ids
+""" + "".join(f"{sid},{cid}\n" for sid, cid in samples.items()))
+    barcodes = [b.tobytes().decode() + "-1"
+                for b in _unpack_barcodes(cell_bc)]
+    return dict(
+        csv=csv, wl=wl_path, ref=ref_dir, n_wl=n_wl, n_cells=n_cells,
+        gex_reads=n_mol * E2E_DUP, cmo_reads=len(flat),
+        n_reads=n_mol * E2E_DUP + len(flat),
+        tags={c: s.tobytes().decode() for c, s in zip(names, tags)},
+        samples=samples, barcodes=barcodes, kind=kind, tag1=tag1, tag2=tag2,
+        cell_type=cell_type,
+        gex_molecules=np.bincount(cell_of, minlength=n_cells),
+        tag_molecules=tag_mol, built={
+            sid: int((single & (tag1 == i)).sum())
+            for i, sid in enumerate(samples)},
+        timing=timing)

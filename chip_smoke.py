@@ -96,8 +96,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
                molecule_info their rows; CLI reanalyze of e2e's
                filtered h5: 16 analysis/ files
   multi        run_multi of a Gene Expression + Multiplexing Capture config
-               with [samples] on cuda: per-sample outputs present, every
-               cell in the sample it was built for
+               with [samples] on cuda: per-sample outputs present with 16
+               analysis files and no secondary_analysis_error, every cell
+               in the sample it was built for
   analysis     secondary analysis of a planted 8-population matrix
                (20,000 cells x 20,000 genes, the JAX package's
                max_cells_tsne) on cuda: 16 files, finite embeddings that
@@ -123,6 +124,25 @@ Phases, each printing one line; any failure raises and exits non-zero:
                beside the phases from vdj_parity to human_scale, so its
                host seconds and theirs include each other's load on the
                machine's cores; its line comes after human_scale's
+  cellplex     a CellPlex GEM well at the width users run it (testing/
+               fixtures.build_cellplex_run: 30,000 cells superloaded, 12
+               CMOs and 12 samples, the 6,794,880-barcode whitelist,
+               10,000,000 GEX and ~3,000,000 CMO reads, 74% singlets, 24%
+               two-tag multiplets, 2% blanks) through run_multi on cuda,
+               batch 32768: the JAX package's reads, molecules, cells,
+               MEX digests of the run and of every sample, tag calls,
+               assignments.csv bytes and JIBES' fit within 1e-6
+               (CELLPLEX_EXPECTED); the planted truth's shares, and every
+               barcode's GEX and tag molecules the planted counts; every
+               sample's files, 16 analysis files and no
+               secondary_analysis_error; one K1 launch a GEX step.  Wall
+               seconds split into run_count (its phases, the FB library's
+               pass-2 seconds apart), JIBES, per-sample outs (total,
+               slowest, molecule-info subsets, analyses) and web
+               summaries; peak device memory and host RSS.  It runs in a
+               child process (phase_beside) from index_build to
+               analysis_parity, so its seconds and theirs include each
+               other's load; its line comes after analysis_parity's
   vdj_parity   run_vdj on the single-end and the paired-end worlds of
                tests/test_vdj.py on cuda and on cpu: every output file
                equal; count_bc_umi_kmers on the rows run_vdj handed it,
@@ -188,6 +208,7 @@ every path's (`pe`: two a batch, one per mate; `mesh` and
 counts; `h5_pipelines`: one a step of each GEM well; `deep`: one a
 step, 611 at 20,000,000 reads; `human_parity`:
 its cuda step, aligner call and truth-probe step and aligner call;
+`cellplex`: one a GEX step, 306, and none for the CMO library;
 `rtl`, the V(D)J paths, `mkfastq`, `index_build`, `analysis` and
 `analysis_68k`: none, no genome aligner runs).  The line before the
 last is the kernel report (JSON); the last line is {"ok": true,
@@ -309,6 +330,227 @@ DIFFEXP_TOP = 10            # top genes by log2 fold change, each a marker
 # cuda against cpu on the 8-population matrix of tests/test_torch_analysis.py
 ANALYSIS_PARITY_CELLS = 2_000
 ANALYSIS_PARITY_GENES = 1_000
+# cellplex: a CellPlex GEM well as 10x's 12-CMO example runs it ("30k
+# Mouse E18 Combined Cortex, Hippocampus and Subventricular Zone Cells,
+# Multiplexed, 12 CMOs", Cell Ranger 6.0): 30,000 cells superloaded, one
+# CMO a sample, the 6,794,880-barcode whitelist; depth cut from 10x's
+# 20,000 GEX and 5,000 CMO read pairs a cell for the script's time limit
+CELLPLEX = dict(n_cells=30_000, n_tags=12, gex_reads=10_000_000,
+                cmo_reads=3_000_000)
+CELLPLEX_TIMEOUT_S = 900
+CELLPLEX_TOL = 1e-6         # JIBES' fitted floats against the JAX run's
+# The JAX package's cellplex_outputs for build_cellplex_run(dir,
+# **CELLPLEX), made by `JAX_PLATFORMS=cpu python tests/cellplex_reference.py
+# DIR` (that package's run_multi on the CPU, batch 32768) with
+# cellranger_tpu as of commit de86c14
+CELLPLEX_EXPECTED = {
+    "total_reads": 12_994_270,
+    "total_molecules": 7_994_270,
+    "gex_molecules": 5_000_000,
+    "cmo_molecules": 2_994_270,
+    "estimated_cells": 29_989,
+    "mex_sha256": {
+        "raw_feature_bc_matrix/matrix.mtx.gz":
+            "72f19826e7cf4cfe9cbcc9dc5aaf83c89c4bfbe05934d5611a9e0f1978f76e6e",
+        "raw_feature_bc_matrix/barcodes.tsv.gz":
+            "354138b5eebfbdfdf8518fe76b4e5500101a8d3e58223768b5c9d076b3dca1ba",
+        "raw_feature_bc_matrix/features.tsv.gz":
+            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+        "filtered_feature_bc_matrix/matrix.mtx.gz":
+            "220cad4ddf57347f34609747a8de3c5eca92ef4634e04e253e18c1bf4bc66a2d",
+        "filtered_feature_bc_matrix/barcodes.tsv.gz":
+            "5fe7eae633968388c71bb27552b2dfececab1c41ce1e9fd995b7d6d54b13d0f8",
+        "filtered_feature_bc_matrix/features.tsv.gz":
+            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+    },
+    "assignments_sha256":
+        "6c3a2a777f8cfdaa21eee9c909558d08d11b9659e75c7d3835b4ef677525d318",
+    "tag_call_sha256":
+        "5e4f5bc561963740a91579184d2284c6fbfa72d13c8cbc5a7aef3fcd4d062e3e",
+    "tag_calls": {
+        "Blank": 601,
+        "CMO301": 1866,
+        "CMO302": 1860,
+        "CMO303": 1857,
+        "CMO304": 1863,
+        "CMO305": 1869,
+        "CMO306": 1861,
+        "CMO307": 1859,
+        "CMO308": 1864,
+        "CMO309": 1864,
+        "CMO310": 1868,
+        "CMO311": 1860,
+        "CMO312": 1858,
+        "Multiplet": 7039,
+    },
+    "samples": {
+        "sample1": {
+            "cells": 1866,
+            "mex_sha256": {
+                "matrix.mtx.gz":
+            "8b72fb2b9163af03f5b4188a23bb695d22d2e5a886177e66bf66e5689bd6e029",
+                "barcodes.tsv.gz":
+            "d3dd3e22b29a5a708254ce28a792e1a623f0a7d76f53cd03467c261a64b803b4",
+                "features.tsv.gz":
+            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            },
+        },
+        "sample2": {
+            "cells": 1860,
+            "mex_sha256": {
+                "matrix.mtx.gz":
+            "c0e05779b7280ff37fb8686b496487eae6b2c983243873fc684ef7643051e6ee",
+                "barcodes.tsv.gz":
+            "621436d3b8add1a815284fd63f92a91b558dccb60715cb1231de8ae176f1abcd",
+                "features.tsv.gz":
+            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            },
+        },
+        "sample3": {
+            "cells": 1857,
+            "mex_sha256": {
+                "matrix.mtx.gz":
+            "9ffcf0595a751ae7e1cbc4ee8f64b478510cb52336d1d9002e967f3d56ece0de",
+                "barcodes.tsv.gz":
+            "9eda4fefaf99c407031c997d86d846d0b7dbc57b739d507e44409dde370a0940",
+                "features.tsv.gz":
+            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            },
+        },
+        "sample4": {
+            "cells": 1863,
+            "mex_sha256": {
+                "matrix.mtx.gz":
+            "2c868e78e5e2576b546fa815ba6f74d9efe2c86a52ca7636c02f32938660d620",
+                "barcodes.tsv.gz":
+            "29642a844a8e5ead47486edaa24a4ad37811b3914bdeb8a6ba5a5ca107fb11dc",
+                "features.tsv.gz":
+            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            },
+        },
+        "sample5": {
+            "cells": 1869,
+            "mex_sha256": {
+                "matrix.mtx.gz":
+            "e21e11ce1286c10218031778dbe979a43b8509fd4f49db690c9ee395697447c6",
+                "barcodes.tsv.gz":
+            "fc8c4b0389bd45d7a0e934356541ecf529b7c96d298bd909ba3f21ff388d35cc",
+                "features.tsv.gz":
+            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            },
+        },
+        "sample6": {
+            "cells": 1861,
+            "mex_sha256": {
+                "matrix.mtx.gz":
+            "e493e1e62c8da51f3c34ef0111b8c98cdc0ee98ecc03edbcb2457d7790c7259d",
+                "barcodes.tsv.gz":
+            "5380b38b3df48057626c2a1a6b3b13348353319c63429733e00c089dbda19807",
+                "features.tsv.gz":
+            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            },
+        },
+        "sample7": {
+            "cells": 1859,
+            "mex_sha256": {
+                "matrix.mtx.gz":
+            "0576f641ceb3704d4f40b14f45108d49836b5fb63b83a42bebd0032af316c047",
+                "barcodes.tsv.gz":
+            "599918b01664900bfa7a837cde5009d79077152ab26a1354112a4cf6d153ec3f",
+                "features.tsv.gz":
+            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            },
+        },
+        "sample8": {
+            "cells": 1864,
+            "mex_sha256": {
+                "matrix.mtx.gz":
+            "47045c5201e696821fd29de5c8dc7c902fcb7d0ffa6696b99c64d2fb0081878d",
+                "barcodes.tsv.gz":
+            "f7d12a97a35098d3d30f68bbe31dc7d8569859228f1fae420015f173f9eeb98d",
+                "features.tsv.gz":
+            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            },
+        },
+        "sample9": {
+            "cells": 1864,
+            "mex_sha256": {
+                "matrix.mtx.gz":
+            "1519371557603c209ac206588ee9719e5ca2f0f90346bda7454e8b84b39bbc11",
+                "barcodes.tsv.gz":
+            "d1595c256a45e0e1e1ab59bcf868ce007a9eb7e151fe4e53952da7aba7aa506a",
+                "features.tsv.gz":
+            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            },
+        },
+        "sample10": {
+            "cells": 1868,
+            "mex_sha256": {
+                "matrix.mtx.gz":
+            "a35e60e95020245794fbef60b83f7f1ba1bc6589a7beed398809296c88004e3f",
+                "barcodes.tsv.gz":
+            "019e8df2dd15bead523f68e4fe4dd7df51ad7e883ac45363c4dce6e6cad48853",
+                "features.tsv.gz":
+            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            },
+        },
+        "sample11": {
+            "cells": 1860,
+            "mex_sha256": {
+                "matrix.mtx.gz":
+            "e66111277eaa7c9d0477419be15ddb82ea1828d0edc62b1a2bac7d20305d627d",
+                "barcodes.tsv.gz":
+            "42f765b75c10fe1d9d7d21b65abfc16a94ae0f20c77af0e89e47b4f9b52e148f",
+                "features.tsv.gz":
+            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            },
+        },
+        "sample12": {
+            "cells": 1858,
+            "mex_sha256": {
+                "matrix.mtx.gz":
+            "780b147133e09b3f615eb09e7329614254a9518c665be6af1bee5c09a91d5a02",
+                "barcodes.tsv.gz":
+            "f2a775475d2b36ddf460a87242fa7dd71fe6c7fc895176d7506f1bb3eba1176d",
+                "features.tsv.gz":
+            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            },
+        },
+    },
+    "jibes": {
+        "n_iters": 4,
+        "converged": True,
+        "posterior_sum": 29794.3672389878,
+        "posterior_min": 0.4344153770245217,
+        "background": [
+            0.5581986508189429, 0.5543470801439849, 0.5553286067963022,
+            0.5577304456152535, 0.5569376061693029, 0.5575079961889426,
+            0.5544314716090794, 0.5569083003765419, 0.5546466087806312,
+            0.5562576737301357, 0.5546378765227942, 0.5562149391081349,
+        ],
+        "foreground": [
+            1.154428336507158, 1.167824066348111, 1.1625317838123472,
+            1.160083539195548, 1.1569698377744864, 1.1580150827118254,
+            1.1665092014662304, 1.1647361394471443, 1.1643640879957065,
+            1.1627163616043896, 1.166143115891145, 1.1657886551689367,
+        ],
+        "std_devs": [
+            0.20820414335643858, 0.2090737809396412, 0.20907969253113629,
+            0.2092806229993721, 0.20848865305528114, 0.20825934095229953,
+            0.20868932960961073, 0.20770803708940244, 0.2072949294631568,
+            0.20899719056212573, 0.20820435718298433, 0.20780223454125674,
+        ],
+    },
+    "truth": {
+        "singlets_own_sample": 0.9995045045045045,
+        "multiplets_called_multiplet": 0.9776388888888888,
+        "blanks_called_blank": 1.0,
+        "barcodes_off_planted_molecules": 0,
+        "stray_barcodes": 0,
+    },
+    "off_planted": [],
+}
+
 # V(D)J: 10x's recommended depth is 5,000 read pairs a cell (vdj_kmers'
 # cells); the host assembly takes 10-25 s a cell at it and grows with the
 # reads, so `vdj` runs the fixture's least cells at 2,000 pairs, cut for
@@ -1340,9 +1582,9 @@ def rtl_run(tmp: str, n_reads: int = RTL_READS) -> dict:
 def multi_run(tmp: str, device: str = "cuda") -> dict:
     """run_multi of a Gene Expression + Multiplexing Capture config with a
     [samples] section: every cell lands in the sample it was built for
-    and each sample's outputs are there, its secondary analysis (which
-    the demux writer runs on `device` and whose failure it would only
-    note) with all of its files."""
+    and each sample's outputs are there (sample_out_diffs), its secondary
+    analysis (which the demux writer runs on `device` and whose failure
+    it would only note) with all of its files and no error."""
     from cellranger_tpu_torch.align import sw
     from cellranger_tpu_torch.io.multi_config import run_multi
     from cellranger_tpu_torch.testing import analysis_check as check
@@ -1360,21 +1602,269 @@ def multi_run(tmp: str, device: str = "cuda") -> dict:
                samples=summary["demux"]["samples"], built=fx["built"])
     if res["samples"] != fx["built"] or res["reads"] != fx["n_reads"]:
         raise AssertionError(f"multi: {res}")
+    diffs = sample_out_diffs(os.path.join(out, "demux"), fx["built"])
     for sid, n in fx["built"].items():
-        sdir = os.path.join(out, "demux", "per_sample_outs", sid)
-        for f in ("sample_filtered_feature_bc_matrix/matrix.mtx.gz",
-                  "metrics_summary.json", "web_summary.html"):
-            if not os.path.exists(os.path.join(sdir, f)):
-                raise AssertionError(f"multi: {sid} lacks {f}")
-        with open(os.path.join(sdir, "metrics_summary.json")) as f:
+        with open(os.path.join(out, "demux", "per_sample_outs", sid,
+                               "metrics_summary.json")) as f:
             if json.load(f)["cells"] != n:
-                raise AssertionError(f"multi: {sid} cell count is off")
-        files = check.analysis_files(os.path.join(sdir, "analysis"))
-        if len(files) != 16:
-            raise AssertionError(f"multi: {sid} analysis/ holds {files}")
-    res["analysis_files_per_sample"] = 16
+                diffs.append(f"{sid} cell count is off")
+    if diffs:
+        raise AssertionError(f"multi: {diffs}")
+    res["analysis_files_per_sample"] = check.N_FILES
     return res
 
+
+
+SAMPLE_MEX = "sample_filtered_feature_bc_matrix"
+SAMPLE_FILES = (SAMPLE_MEX + ".h5", "sample_molecule_info.h5",
+                "metrics_summary.json", "web_summary.html") + tuple(
+    os.path.join(SAMPLE_MEX, f)
+    for f in ("matrix.mtx.gz", "barcodes.tsv.gz", "features.tsv.gz"))
+
+
+def sample_out_diffs(demux_dir: str, samples) -> list[str]:
+    """Each sample's outs under demux_dir/per_sample_outs: every file of
+    SAMPLE_FILES, all 16 analysis files, and no secondary_analysis_error
+    (which the demux writer notes in metrics_summary.json and lets
+    pass)."""
+    from cellranger_tpu_torch.testing import analysis_check as check
+
+    diffs = []
+    for sid in samples:
+        sdir = os.path.join(demux_dir, "per_sample_outs", sid)
+        diffs += [f"{sid} lacks {f}" for f in SAMPLE_FILES
+                  if not os.path.exists(os.path.join(sdir, f))]
+        mpath = os.path.join(sdir, "metrics_summary.json")
+        if os.path.exists(mpath):
+            with open(mpath) as f:
+                err = json.load(f).get("secondary_analysis_error")
+            if err is not None:
+                diffs.append(f"{sid}: secondary_analysis_error {err}")
+        n = len(check.analysis_files(os.path.join(sdir, "analysis")))
+        if n != check.N_FILES:
+            diffs.append(f"{sid}: {n} analysis files")
+    return diffs
+
+
+def _sha256(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def cellplex_outputs(fx: dict, out: str, jibes=None) -> dict:
+    """What the cellplex phase holds of a run_multi output directory `out`
+    of the fixture `fx` (testing.fixtures.build_cellplex_run): reads,
+    molecules by library and cells called; sha256 of each decompressed
+    MEX file of the run and of each sample; the tag_call column and the
+    bytes of assignments.csv; with `jibes` (fit_jibes' result) its
+    iterations and fitted floats; and the planted truth read back: the
+    share of planted singlets called to their own sample, of two-tag
+    multiplets called Multiplet and of blanks called Blank, and the
+    barcodes whose GEX or tag molecules in the raw matrix differ from the
+    planted counts (any barcode with molecules that is not a cell counts
+    as one)."""
+    import numpy as np
+    from cellranger_tpu_torch.io.matrix_io import MULTIPLEXING, CountMatrix
+
+    count_dir = os.path.join(out, "count")
+    with open(os.path.join(count_dir, "metrics_summary.json")) as f:
+        m = json.load(f)
+    raw = CountMatrix.load_h5(os.path.join(count_dir,
+                                           "raw_feature_bc_matrix.h5"))
+    defs = raw.features.feature_defs
+    tag = np.asarray([f.feature_type == MULTIPLEXING for f in defs])
+    tag_ids = [defs[i].id for i in np.flatnonzero(tag)]
+    mat = raw.m.tocsr()
+    gex = np.asarray(mat[~tag].sum(0)).ravel()
+    tagm = mat[tag].tocsc()
+    tag_total = np.asarray(tagm.sum(0)).ravel()
+    bcs = np.asarray(raw.barcodes).astype("S")
+    by = (np.arange(len(bcs)) if (bcs[1:] >= bcs[:-1]).all()
+          else np.argsort(bcs, kind="stable"))
+    want = np.asarray(fx["barcodes"]).astype("S")
+    col = by[np.minimum(np.searchsorted(bcs[by], want), len(bcs) - 1)]
+    found = bcs[col] == want
+    # each planted cell's tag molecules, in the fixture's tag order
+    cell_tags = np.zeros((len(want), len(tag_ids)), np.int64)
+    cell_tags[found] = tagm[:, col[found]].toarray().T[
+        :, [tag_ids.index(c) for c in fx["tags"]]]
+    off = ~found
+    off[found] = ((gex[col[found]] != fx["gex_molecules"][found])
+                  | (cell_tags[found] != fx["tag_molecules"][found]).any(1))
+    stray = np.ones(len(bcs), bool)
+    stray[col[found]] = False
+    n_stray = int((stray & ((gex > 0) | (tag_total > 0))).sum())
+    rep = dict(
+        total_reads=m["total_reads"], total_molecules=m["total_molecules"],
+        gex_molecules=int(gex.sum()), cmo_molecules=int(tag_total.sum()),
+        estimated_cells=m["estimated_cells"],
+        mex_sha256=mex_sha256(count_dir))
+
+    demux_dir = os.path.join(out, "demux")
+    with open(os.path.join(demux_dir, "assignments.csv"), "rb") as f:
+        text = f.read()
+    rows = [ln.split(",") for ln in text.decode().splitlines()[1:]]
+    calls = {r[0]: r[1] for r in rows}
+    rep["assignments_sha256"] = _sha256(text)
+    rep["tag_call_sha256"] = _sha256("\n".join(r[1] for r in rows).encode())
+    rep["tag_calls"] = {c: sum(r[1] == c for r in rows)
+                        for c in sorted({r[1] for r in rows})}
+    rep["samples"] = {}
+    for sid in fx["samples"]:
+        sdir = os.path.join(demux_dir, "per_sample_outs", sid)
+        if not os.path.isdir(sdir):
+            continue
+        with open(os.path.join(sdir, "metrics_summary.json")) as f:
+            cells = json.load(f)["cells"]
+        digests = {}
+        for name in ("matrix.mtx.gz", "barcodes.tsv.gz", "features.tsv.gz"):
+            with gzip.open(os.path.join(sdir, SAMPLE_MEX, name), "rb") as f:
+                digests[name] = _sha256(f.read())
+        rep["samples"][sid] = dict(cells=cells, mex_sha256=digests)
+    if jibes is not None:
+        rep["jibes"] = dict(
+            n_iters=int(jibes.n_iters), converged=bool(jibes.converged),
+            posterior_sum=float(np.sum(jibes.posteriors)),
+            posterior_min=float(np.min(jibes.posteriors)),
+            background=[float(x) for x in jibes.background],
+            foreground=[float(x) for x in jibes.foreground],
+            std_devs=[float(x) for x in jibes.std_devs])
+
+    names = list(fx["tags"])
+    call = np.asarray([calls.get(b, "") for b in fx["barcodes"]])
+    kind, tag1 = fx["kind"], fx["tag1"]
+    own = np.asarray([names[t] if t >= 0 else "" for t in tag1])
+    rep["truth"] = dict(
+        singlets_own_sample=float((call == own)[kind == 0].mean()),
+        multiplets_called_multiplet=float(
+            (call == "Multiplet")[kind == 1].mean()),
+        blanks_called_blank=float((call == "Blank")[kind == 2].mean()),
+        barcodes_off_planted_molecules=int(off.sum()),
+        stray_barcodes=n_stray)
+    # (barcode, planted GEX, counted GEX, planted tags, counted tags)
+    rep["off_planted"] = [
+        [fx["barcodes"][i], int(fx["gex_molecules"][i]),
+         int(gex[col[i]]) if found[i] else None,
+         fx["tag_molecules"][i].tolist(),
+         cell_tags[i].tolist() if found[i] else None]
+        for i in np.flatnonzero(off)[:10]]
+    return rep
+
+
+def cellplex_diffs(got: dict, want: dict) -> list[str]:
+    """Keys of cellplex_outputs where got differs from want: JIBES' floats
+    within CELLPLEX_TOL, all else exactly."""
+    diffs = [k for k in sorted(set(got) | set(want))
+             if k != "jibes" and json.dumps(got.get(k), sort_keys=True)
+             != json.dumps(want.get(k), sort_keys=True)]
+    gj, wj = got.get("jibes"), want.get("jibes")
+    if (gj is None) != (wj is None):
+        diffs.append("jibes")
+    elif gj is not None:
+        for k in sorted(set(gj) | set(wj)):
+            a, b = gj.get(k), wj.get(k)
+            if isinstance(b, (float, list)) and not isinstance(b, bool):
+                a_, b_ = (a, b) if isinstance(b, list) else ([a], [b])
+                if a_ is None or len(a_) != len(b_) or any(
+                        abs(x - y) > CELLPLEX_TOL for x, y in zip(a_, b_)):
+                    diffs.append(f"jibes.{k}")
+            elif a != b:
+                diffs.append(f"jibes.{k}")
+    return diffs
+
+
+def cellplex_run(fx: dict, out: str, device: str = "cuda",
+                 expected: dict | None = None) -> dict:
+    """run_multi of a CellPlex fixture on `device` (count, JIBES demux,
+    per-sample outs, web summaries): wall seconds split by stage, K1
+    launches, peak device memory and host RSS, cellplex_outputs and
+    sample_out_diffs; with `expected` (the JAX package's cellplex_outputs
+    of the same fixture) every difference raises.  On the card the step
+    launches K1 once a GEX batch."""
+    import torch
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.analysis import run as analysis_mod
+    from cellranger_tpu_torch.io import molecule_info
+    from cellranger_tpu_torch.io.multi_config import run_multi
+    from cellranger_tpu_torch.pipeline import count, demux, websummary
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sw.LAUNCHES = 0
+    with rss_peak() as rss, recorded(
+            (count, "run_count"), (demux, "fit_jibes"),
+            (demux, "write_sample_outs"),
+            (molecule_info, "subset_molecule_info"),
+            (analysis_mod, "run_secondary_analysis"),
+            (websummary, "build_web_summary")) as rec:
+        t = time.time()
+        run_multi(fx["csv"], out, fx["wl"], batch_size=E2E_BATCH,
+                  device=device)
+        wall = time.time() - t
+    launches = sw.LAUNCHES
+    rep = dict(cells=fx["n_cells"], tags=len(fx["tags"]),
+               whitelist=fx["n_wl"], gex_reads=fx["gex_reads"],
+               cmo_reads=fx["cmo_reads"], wall_s=wall, sw_launches=launches,
+               peak_device_bytes=(torch.cuda.max_memory_allocated()
+                                  if cuda else None),
+               peak_host_rss_bytes=rss["bytes"])
+    with open(os.path.join(out, "count", "_perf.json")) as f:
+        laps = json.load(f)["phases"]
+    phases: dict = {}
+    for ph in laps:
+        phases[ph["name"]] = phases.get(ph["name"], 0.0) + ph["wall_s"]
+    # pass 2 laps once a batch, the GEX library's batches first; the
+    # last lap closes the pass
+    gex_batches = -(-fx["gex_reads"] // E2E_BATCH)
+    pass2 = [ph["wall_s"] for ph in laps
+             if ph["name"] == "pass2_correct_align_annotate"][:-1]
+    fb_s = sum(pass2[gex_batches:])
+    sample_s = [s for s, _ in rec["write_sample_outs"]]
+    rep.update(
+        run_count_s=rec["run_count"][0][0], run_count_phase_s=phases,
+        fb_pass2_s=fb_s, fb_pass2_s_per_million_reads=(
+            fb_s / (fx["cmo_reads"] / 1e6)),
+        jibes_s=rec["fit_jibes"][0][0],
+        jibes_iters=int(rec["fit_jibes"][0][1].n_iters),
+        sample_outs_s=sum(sample_s), slowest_sample_s=max(sample_s),
+        subset_molecule_info_s=sum(s for s, _ in
+                                   rec["subset_molecule_info"]),
+        # the first analysis is the run's, inside run_count
+        sample_analysis_s=sum(s for s, _ in
+                              rec["run_secondary_analysis"][1:]),
+        web_summaries_s=sum(s for s, _ in rec["build_web_summary"]))
+    rep["outputs"] = got = cellplex_outputs(fx, out,
+                                            rec["fit_jibes"][0][1])
+    diffs = sample_out_diffs(os.path.join(out, "demux"), fx["samples"])
+    if cuda and launches != gex_batches:
+        diffs.append(f"{launches} K1 launches for {gex_batches} GEX steps")
+    if expected is not None:
+        diffs += [f"{k} differs from the JAX package's"
+                  for k in cellplex_diffs(got, expected)]
+    if diffs:
+        raise AssertionError(f"cellplex: {diffs}; measured "
+                             f"{json.dumps(rep)}; expected "
+                             f"{json.dumps(expected)}")
+    return rep
+
+
+def cellplex(tmp: str) -> dict:
+    """The cellplex phase: build_cellplex_run at CELLPLEX under tmp, its
+    seconds apart as set-up, then cellplex_run on cuda held to
+    CELLPLEX_EXPECTED; the fixture and outputs are deleted after."""
+    from cellranger_tpu_torch.testing.fixtures import build_cellplex_run
+
+    root = os.path.join(tmp, "cellplex")
+    try:
+        t = time.time()
+        fx = build_cellplex_run(os.path.join(root, "fx"), **CELLPLEX)
+        fixture_s = time.time() - t
+        rep = cellplex_run(fx, os.path.join(root, "out"), "cuda",
+                           CELLPLEX_EXPECTED)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rep.update(fixture_s=fixture_s, fixture_split=fx["timing"])
+    return rep
 
 @contextlib.contextmanager
 def recorded(*targets):
@@ -2794,107 +3284,119 @@ def main() -> None:
     tmp = tempfile.mkdtemp(prefix="crt_smoke_")
     launches = {}
     try:
-        g = index_build(tmp)
-        launches["index_build"] = g["sw_launches"]
-        phase("index_build", f"{smi}: cuda == numpy, every index.npz array "
-              "and the text, overlapped and kmer rows: " + json.dumps(g))
-        s, n_steps = tiny_parity(tmp)
-        phase("tiny_parity", f"cuda == cpu over {n_steps} steps: "
-              f"{s['total_reads']} reads, {s['total_molecules']} molecules")
+        with phase_beside("cellplex", tmp, CELLPLEX_TIMEOUT_S,
+                          tmp) as cellplex_report:
+            g = index_build(tmp)
+            launches["index_build"] = g["sw_launches"]
+            phase("index_build", f"{smi}: cuda == numpy, every index.npz "
+                  "array and the text, overlapped and kmer rows: "
+                  + json.dumps(g))
+            s, n_steps = tiny_parity(tmp)
+            phase("tiny_parity", f"cuda == cpu over {n_steps} steps: "
+                  f"{s['total_reads']} reads, {s['total_molecules']} "
+                  "molecules")
 
-        g = golden(tmp, "e2e")
-        launches["golden_tiny"] = g["sw_launches_cuda"]
-        phase("golden_tiny", "equal to tests/golden/e2e: " + json.dumps(g))
-        g = golden(tmp, "e2e_rich", devices=("cuda", "cpu"))
-        launches["golden_rich"] = g["sw_launches_cuda"]
-        phase("golden_rich", "equal to tests/golden/e2e_rich, cuda BAM == "
-              "cpu BAM: " + json.dumps(g))
+            g = golden(tmp, "e2e")
+            launches["golden_tiny"] = g["sw_launches_cuda"]
+            phase("golden_tiny", "equal to tests/golden/e2e: " + json.dumps(g))
+            g = golden(tmp, "e2e_rich", devices=("cuda", "cpu"))
+            launches["golden_rich"] = g["sw_launches_cuda"]
+            phase("golden_rich", "equal to tests/golden/e2e_rich, cuda BAM == "
+                  "cpu BAM: " + json.dumps(g))
 
-        t0 = time.time()
-        fx = build_e2e_run(os.path.join(tmp, "e2e"), n_reads=E2E_READS)
-        t_fix = time.time() - t0
-        e2e_out = os.path.join(tmp, "e2e_out")
-        with h5_writes() as written:
-            r = count_run(fx, e2e_out, secondary_analysis=True)
-        r["h5"] = h5_read_back(written)
-        if sorted(r["h5"]) != sorted(H5_OUTPUTS):
-            raise AssertionError(f"e2e wrote the h5 files {sorted(r['h5'])}")
-        e2e_summary = r.pop("summary")
-        check_e2e_counts("e2e", r)
-        r["fixture_s"] = t_fix
-        # analysis apart, so the count-only figures stay comparable
-        r["analysis_reporting_s"] = r["phase_s"]["analysis_reporting"]
-        r["count_wall_s"] = r["wall_s"] - r["analysis_reporting_s"]
-        r["analysis_files"] = len(analysis_files(
-            os.path.join(e2e_out, "analysis")))
-        if r["analysis_files"] != 16:
-            raise AssertionError(f"e2e analysis/ has {r['analysis_files']}"
-                                 " files")
-        launches["e2e"] = r["sw_launches"]
-        phase("e2e", json.dumps(r))
+            t0 = time.time()
+            fx = build_e2e_run(os.path.join(tmp, "e2e"), n_reads=E2E_READS)
+            t_fix = time.time() - t0
+            e2e_out = os.path.join(tmp, "e2e_out")
+            with h5_writes() as written:
+                r = count_run(fx, e2e_out, secondary_analysis=True)
+            r["h5"] = h5_read_back(written)
+            if sorted(r["h5"]) != sorted(H5_OUTPUTS):
+                raise AssertionError("e2e wrote the h5 files "
+                                     f"{sorted(r['h5'])}")
+            e2e_summary = r.pop("summary")
+            check_e2e_counts("e2e", r)
+            r["fixture_s"] = t_fix
+            # analysis apart, so the count-only figures stay comparable
+            r["analysis_reporting_s"] = r["phase_s"]["analysis_reporting"]
+            r["count_wall_s"] = r["wall_s"] - r["analysis_reporting_s"]
+            r["analysis_files"] = len(analysis_files(
+                os.path.join(e2e_out, "analysis")))
+            if r["analysis_files"] != 16:
+                raise AssertionError(f"e2e analysis/ has {r['analysis_files']}"
+                                     " files")
+            launches["e2e"] = r["sw_launches"]
+            phase("e2e", json.dumps(r))
 
-        rb = bam_run(fx, tmp)
-        launches["e2e_bam"] = rb["sw_launches"]
-        phase("e2e_bam", json.dumps(rb))
+            rb = bam_run(fx, tmp)
+            launches["e2e_bam"] = rb["sw_launches"]
+            phase("e2e_bam", json.dumps(rb))
 
-        ovf_out = os.path.join(tmp, "overflow_out")
-        ro = overflow_run(fx, ovf_out, e2e_out)
-        check_e2e_counts("overflow", ro)
-        launches["overflow"] = ro["sw_launches"]
-        phase("overflow", f"state cap {OVERFLOW_STATE_CAP}: same molecules "
-              "and MEX bytes as e2e: " + json.dumps(ro))
-        g = dedup_memory()
-        phase("dedup_memory", f"{smi}: " + json.dumps(g))
-        g = deep(tmp)
-        launches["deep"] = g["sw_launches"]
-        phase("deep", f"{g['reads']} reads, the JAX package's molecules and"
-              " MEX bytes, the state flushed at its cap, every dedup call "
-              "within the limit: " + json.dumps(g))
-        g = h5_pipelines(fx, tmp, e2e_out, ovf_out)
-        launches["h5_pipelines"] = g["sw_launches"]
-        phase("h5_pipelines", "aggr, GEM wells and reanalyze through "
-              "io/hdf5.py: " + json.dumps(g))
+            ovf_out = os.path.join(tmp, "overflow_out")
+            ro = overflow_run(fx, ovf_out, e2e_out)
+            check_e2e_counts("overflow", ro)
+            launches["overflow"] = ro["sw_launches"]
+            phase("overflow", f"state cap {OVERFLOW_STATE_CAP}: same "
+                  "molecules and MEX bytes as e2e: " + json.dumps(ro))
+            g = dedup_memory()
+            phase("dedup_memory", f"{smi}: " + json.dumps(g))
+            g = deep(tmp)
+            launches["deep"] = g["sw_launches"]
+            phase("deep", f"{g['reads']} reads, the JAX package's molecules "
+                  "and MEX bytes, the state flushed at its cap, every dedup "
+                  "call within the limit: " + json.dumps(g))
+            g = h5_pipelines(fx, tmp, e2e_out, ovf_out)
+            launches["h5_pipelines"] = g["sw_launches"]
+            phase("h5_pipelines", "aggr, GEM wells and reanalyze through "
+                  "io/hdf5.py: " + json.dumps(g))
 
-        devs = mesh_devices()
-        for path, shard in (("mesh", False), ("mesh_shard_index", True)):
-            rm = mesh_run(fx, os.path.join(tmp, f"{path}_out"), e2e_out,
-                          e2e_summary, devs, shard_index=shard)
-            launches[path] = rm["sw_launches"]
-            phase(path, ("4 distinct cards" if rm["distinct_cards"] > 1
-                         else "cuda:0 four times: the code path, not a "
-                         "multi-GPU speedup") + "; same metrics and MEX "
-                  "bytes as e2e: " + json.dumps(rm))
-        rh = multihost_run(fx, tmp)
-        launches["multihost"] = rh["sw_launches"]
-        phase("multihost", "host 0 == one process on the same lanes: "
-              + json.dumps(rh))
+            devs = mesh_devices()
+            for path, shard in (("mesh", False), ("mesh_shard_index", True)):
+                rm = mesh_run(fx, os.path.join(tmp, f"{path}_out"), e2e_out,
+                              e2e_summary, devs, shard_index=shard)
+                launches[path] = rm["sw_launches"]
+                phase(path, ("4 distinct cards" if rm["distinct_cards"] > 1
+                             else "cuda:0 four times: the code path, not a "
+                             "multi-GPU speedup") + "; same metrics and MEX "
+                      "bytes as e2e: " + json.dumps(rm))
+            rh = multihost_run(fx, tmp)
+            launches["multihost"] = rh["sw_launches"]
+            phase("multihost", "host 0 == one process on the same lanes: "
+                  + json.dumps(rh))
 
-        g = pe_parity(tmp, fx)
-        launches["pe_parity"] = g["sw_launches_cuda"]
-        phase("pe_parity", "cuda == cpu, metrics, MEX and BAM bytes: "
+            g = pe_parity(tmp, fx)
+            launches["pe_parity"] = g["sw_launches_cuda"]
+            phase("pe_parity", "cuda == cpu, metrics, MEX and BAM bytes: "
+                  + json.dumps(g))
+            rp = pe_run(tmp, fx)
+            launches["pe"] = rp["sw_launches"]
+            phase("pe", json.dumps(rp))
+
+            g = rtl_parity(tmp)
+            launches["rtl_parity"] = g["sw_launches"]
+            phase("rtl_parity", "cuda == cpu, metrics, MEX and the probe "
+                  "aligner's five outputs: " + json.dumps(g))
+            rr = rtl_run(tmp)
+            launches["rtl"] = rr["sw_launches"]
+            phase("rtl", json.dumps(rr))
+
+            g = multi_run(tmp)
+            launches["multi"] = g["sw_launches"]
+            phase("multi", "cells in the samples they were built for: "
+                  + json.dumps(g))
+
+            g = analysis(tmp)
+            launches["analysis"] = g["sw_launches"]
+            phase("analysis", f"{smi}: " + json.dumps(g))
+            phase("analysis_parity", "cuda against cpu, two cuda runs "
+                  "identical: " + json.dumps(analysis_parity(tmp)))
+
+            g = cellplex_report()
+        launches["cellplex"] = g["sw_launches"]
+        phase("cellplex", f"{smi}: run_multi of a 12-CMO CellPlex GEM well "
+              "in a child process beside index_build..analysis_parity, "
+              "held to the JAX package's run and the planted truth: "
               + json.dumps(g))
-        rp = pe_run(tmp, fx)
-        launches["pe"] = rp["sw_launches"]
-        phase("pe", json.dumps(rp))
-
-        g = rtl_parity(tmp)
-        launches["rtl_parity"] = g["sw_launches"]
-        phase("rtl_parity", "cuda == cpu, metrics, MEX and the probe "
-              "aligner's five outputs: " + json.dumps(g))
-        rr = rtl_run(tmp)
-        launches["rtl"] = rr["sw_launches"]
-        phase("rtl", json.dumps(rr))
-
-        g = multi_run(tmp)
-        launches["multi"] = g["sw_launches"]
-        phase("multi", "cells in the samples they were built for: "
-              + json.dumps(g))
-
-        g = analysis(tmp)
-        launches["analysis"] = g["sw_launches"]
-        phase("analysis", f"{smi}: " + json.dumps(g))
-        phase("analysis_parity", "cuda against cpu, two cuda runs "
-              "identical: " + json.dumps(analysis_parity(tmp)))
 
         with phase_beside("analysis_68k", tmp, ANALYSIS_68K_TIMEOUT_S,
                           tmp) as analysis_68k_report:
