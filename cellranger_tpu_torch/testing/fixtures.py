@@ -2244,18 +2244,83 @@ CELLPLEX_SPREAD = 0.25          # log-normal sigma of a cell's tag signal
 CELLPLEX_GEX_SPREAD = 0.3       # log-normal sigma of a cell's mRNA
 CELLPLEX_TYPES = 8              # cell types, each with its marker genes
 CELLPLEX_MARKER_SHARE = 0.5     # of a cell's GEX molecules on its markers
+# the TotalSeq-B panel of 10x's "10k PBMCs from a Healthy Donor - Gene
+# Expression and Cell Surface Protein" (pbmc_10k_protein_v3, Cell Ranger
+# 3.0): 14 markers, then 3 isotype controls
+CELLPLEX_AB_PANEL = tuple(f"{a}_TotalSeqB" for a in (
+    "CD3", "CD4", "CD8a", "CD14", "CD15", "CD16", "CD56", "CD19", "CD25",
+    "CD45RA", "CD45RO", "PD-1", "TIGIT", "CD127", "IgG2a_control",
+    "IgG1_control", "IgG2b_control"))
+CELLPLEX_AB_MARKERS = 3         # marker antibodies high in each cell type
+CELLPLEX_AB_SPREAD = 0.25       # log-normal sigma of a cell's protein
+CELLPLEX_AGG_FOLD = 4           # an aggregate's excess on every antibody,
+#                                 in mean singlet antibody signals
 
 
-def _cellplex_tags(n_tags: int, rng) -> np.ndarray:
-    """n_tags random CELLPLEX_TAG_LEN-base tags as ASCII rows, every two
-    at least CELLPLEX_TAG_MIN_DIST bases apart."""
+def _cellplex_tags(n_tags: int, rng, avoid=()) -> np.ndarray:
+    """n_tags random CELLPLEX_TAG_LEN-base tags as ASCII rows, every two,
+    and each and every row of `avoid`, at least CELLPLEX_TAG_MIN_DIST
+    bases apart."""
     bases = np.frombuffer(b"ACGT", np.uint8)
     tags: list = []
     while len(tags) < n_tags:
         t = bases[rng.integers(0, 4, CELLPLEX_TAG_LEN)]
-        if all((t != u).sum() >= CELLPLEX_TAG_MIN_DIST for u in tags):
+        if all((t != u).sum() >= CELLPLEX_TAG_MIN_DIST
+               for u in (*avoid, *tags)):
             tags.append(t)
     return np.asarray(tags)
+
+
+def _feature_r2(seqs: np.ndarray, rng) -> np.ndarray:
+    """R2 rows of a Feature Barcode library, one a molecule: a random
+    CELLPLEX_TAG_LEADER-base leader, the feature's sequence (a row of
+    `seqs`), then CELLPLEX_R2_TAIL."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    r2 = np.empty((len(seqs), CELLPLEX_TAG_LEADER + CELLPLEX_TAG_LEN
+                   + len(CELLPLEX_R2_TAIL)), np.uint8)
+    r2[:, :CELLPLEX_TAG_LEADER] = bases[
+        rng.integers(0, 4, (len(seqs), CELLPLEX_TAG_LEADER))]
+    r2[:, CELLPLEX_TAG_LEADER:CELLPLEX_TAG_LEADER + CELLPLEX_TAG_LEN] = seqs
+    r2[:, CELLPLEX_TAG_LEADER + CELLPLEX_TAG_LEN:] = np.frombuffer(
+        CELLPLEX_R2_TAIL, np.uint8)
+    return r2
+
+
+def _cellplex_antibodies(rng, n_ab: int, ab_reads: int, n_agg: int,
+                         kind: np.ndarray, cell_type: np.ndarray):
+    """The antibody UMIs of a CellPlex well [n_cells, n_ab] and the
+    planted aggregates (cell indices): CELLPLEX_BACKGROUND Poisson UMIs
+    of every antibody in every cell; each cell type's CELLPLEX_AB_MARKERS
+    markers (of the panel's non-isotype antibodies) Poisson(signal x
+    lognormal / markers) more in a cell of that type, a two-tag
+    multiplet's two cells each a singlet's; n_agg singlets are protein
+    aggregates with Poisson(CELLPLEX_AGG_FOLD x signal) more of every
+    antibody, isotypes included.  signal makes the UMIs ab_reads in
+    expectation."""
+    n_cells, n_types = len(kind), int(cell_type.max()) + 1
+    names = CELLPLEX_AB_PANEL[:n_ab]
+    if not n_ab:
+        return names, np.zeros((n_cells, 0), np.int64), np.zeros(0, np.int64)
+    markers = [i for i, a in enumerate(names) if "_control" not in a]
+    agg = np.sort(rng.choice(np.flatnonzero(kind == 0), n_agg,
+                             replace=False))
+    background = n_cells * n_ab * CELLPLEX_BACKGROUND
+    signal = (ab_reads - background) / (
+        n_cells + (kind == 1).sum() + n_agg * n_ab * CELLPLEX_AGG_FOLD)
+    assert signal > 0, "ab_reads leaves no signal above the background"
+    scale = signal / CELLPLEX_AB_MARKERS * rng.lognormal(
+        -CELLPLEX_AB_SPREAD ** 2 / 2, CELLPLEX_AB_SPREAD, n_cells)
+    high = np.zeros((n_types, n_ab), bool)      # each type's markers
+    for t in range(n_types):
+        for j in range(CELLPLEX_AB_MARKERS):
+            high[t, markers[(t * CELLPLEX_AB_MARKERS + j) % len(markers)]] = 1
+    mol = rng.poisson(CELLPLEX_BACKGROUND, (n_cells, n_ab))
+    for side, who in ((0, np.arange(n_cells)),
+                      (1, np.flatnonzero(kind == 1))):
+        mol[who] += rng.poisson(scale[who, None]
+                                * high[cell_type[who, side]])
+    mol[agg] += rng.poisson(CELLPLEX_AGG_FOLD * signal, (n_agg, n_ab))
+    return names, mol, agg
 
 
 def _shuffled_reads(rng, bc_packed, umi, r2, wl, tmp: str, name: str):
@@ -2282,12 +2347,22 @@ def build_cellplex_run(tmp: str, n_cells: int = 30_000, n_tags: int = 12,
                        n_wl: int = HUMAN_WL,
                        genome_len: int = E2E_GENOME_LEN,
                        n_genes: int = E2E_GENES,
-                       n_types: int = CELLPLEX_TYPES) -> dict:
+                       n_types: int = CELLPLEX_TYPES,
+                       n_antibodies: int = 0, ab_reads: int = 0,
+                       n_aggregates: int = 0) -> dict:
     """A CellPlex GEM well for `multi`: a Gene Expression library on the
     e2e genome and genes (seed 11's draw at genome_len) and a Multiplexing
     Capture library of n_tags drawn CMOs (`_cellplex_tags`, named CMO301..,
     pattern 5PNNNNNNNNNN(BC) on R2), with a [samples] section mapping one
-    tag to each of n_tags samples and expect-cells n_cells.
+    tag to each of n_tags samples and expect-cells n_cells.  With
+    n_antibodies, a third library: Antibody Capture of the first
+    n_antibodies of CELLPLEX_AB_PANEL, drawn sequences as far from each
+    other and from the CMOs as the tags are, the CMOs' pattern, in the
+    same feature reference; ab_reads reads, one a molecule, as
+    `_cellplex_antibodies` plants them, n_aggregates of the singlets
+    protein aggregates.  The antibody draws take a generator of their own
+    (seeded (seed, 2)), so the GEX and CMO libraries are the same with or
+    without them.
 
     n_cells barcodes of a whitelist of n_wl (`_human_whitelist`) are cells,
     CELLPLEX_SHARES of them singlets (one tag, balanced over the tags),
@@ -2308,13 +2383,16 @@ def build_cellplex_run(tmp: str, n_cells: int = 30_000, n_tags: int = 12,
     reads carry a barcode error that corrects back uniquely.  FASTQs are
     uncompressed.
 
-    Returns the config and whitelist paths, the read counts, the tags, and
+    Returns the config and whitelist paths, the read counts, the tags, the
+    antibodies (name -> sequence, in the feature reference's order), and
     the planted truth in cell order: `barcodes` ("<16 bases>-1"), `kind`
     (index into CELLPLEX_KINDS), `tag1`/`tag2` (tag indices, -1 where
     none), `cell_type` [n_cells, 2] (a multiplet's two cells; the same
     type twice elsewhere), `gex_molecules` [n_cells] and `tag_molecules`
-    [n_cells, n_tags]; `built` maps each sample to its planted singlets,
-    `timing` the host seconds of each part."""
+    [n_cells, n_tags], `ab_molecules` [n_cells, n_antibodies] and
+    `aggregates` (cell indices); `built` maps each sample to its planted
+    singlets that are not aggregates, `timing` the host seconds of each
+    part."""
     timing: dict = {}
     t = time.time()
     garr, spacing, _, ref_dir, _ = _e2e_reference(
@@ -2376,11 +2454,17 @@ def build_cellplex_run(tmp: str, n_cells: int = 30_000, n_tags: int = 12,
     cdna = garr[pos[:, None] + np.arange(READ_LEN)[None, :]]
     flat = np.repeat(np.arange(n_cells * n_tags), tag_mol.ravel())
     cmo_cell, cmo_tag = flat // n_tags, flat % n_tags
-    # one UMI draw over both libraries: the dedup keeps one feature of a
+    ab_rng = np.random.default_rng((seed, 2))
+    ab_names, ab_mol, aggregates = _cellplex_antibodies(
+        ab_rng, n_antibodies, ab_reads, n_aggregates, kind, cell_type)
+    ab_flat = np.repeat(np.arange(n_cells * n_antibodies), ab_mol.ravel())
+    ab_cell, ab_of = np.divmod(ab_flat, max(n_antibodies, 1))
+    # one UMI draw over every library: the dedup keeps one feature of a
     # (barcode, UMI) across libraries, so no two molecules of a cell may
     # share a UMI, whichever library they are in
-    umi = bases[_coded_umis(np.concatenate([cell_of, cmo_cell]), 12, rng)]
-    umi, cmo_umi = umi[:n_mol], umi[n_mol:]
+    umi = bases[_coded_umis(np.concatenate([cell_of, cmo_cell, ab_cell]),
+                            12, rng)]
+    umi, cmo_umi, ab_umi = np.split(umi, [n_mol, n_mol + len(flat)])
     rep = lambda a: np.repeat(a, E2E_DUP, axis=0)  # noqa: E731
     gex_dir = _shuffled_reads(rng, rep(cell_bc[cell_of]), rep(umi), rep(cdna),
                               wl, tmp, "gex")
@@ -2389,27 +2473,33 @@ def build_cellplex_run(tmp: str, n_cells: int = 30_000, n_tags: int = 12,
 
     t = time.time()
     tags = _cellplex_tags(n_tags, rng)
-    r2 = np.empty((len(flat), CELLPLEX_TAG_LEADER + CELLPLEX_TAG_LEN
-                   + len(CELLPLEX_R2_TAIL)), np.uint8)
-    r2[:, :CELLPLEX_TAG_LEADER] = bases[
-        rng.integers(0, 4, (len(flat), CELLPLEX_TAG_LEADER))]
-    r2[:, CELLPLEX_TAG_LEADER:CELLPLEX_TAG_LEADER + CELLPLEX_TAG_LEN] = \
-        tags[cmo_tag]
-    r2[:, CELLPLEX_TAG_LEADER + CELLPLEX_TAG_LEN:] = np.frombuffer(
-        CELLPLEX_R2_TAIL, np.uint8)
-    cmo_dir = _shuffled_reads(rng, cell_bc[cmo_cell], cmo_umi, r2, wl, tmp,
+    cmo_dir = _shuffled_reads(rng, cell_bc[cmo_cell], cmo_umi,
+                              _feature_r2(tags[cmo_tag], rng), wl, tmp,
                               "cmo")
-    del r2
     timing["cmo_reads_s"] = time.time() - t
+
+    t = time.time()
+    ab_seqs = _cellplex_tags(n_antibodies, ab_rng, avoid=tags)
+    libs = ""
+    if n_antibodies:
+        ab_dir = _shuffled_reads(ab_rng, cell_bc[ab_cell], ab_umi,
+                                 _feature_r2(ab_seqs[ab_of], ab_rng), wl,
+                                 tmp, "ab")
+        libs = f"ab,{ab_dir},Antibody Capture\n"
+    timing["ab_reads_s"] = time.time() - t
 
     names = [f"CMO{301 + i}" for i in range(n_tags)]
     samples = {f"sample{i + 1}": c for i, c in enumerate(names)}
     fref = os.path.join(tmp, "cmo_features.csv")
+    pattern = f"5P{'N' * CELLPLEX_TAG_LEADER}(BC)"
     with open(fref, "w") as f:
         f.write("id,name,read,pattern,sequence,feature_type\n")
-        for cid, seq in zip(names, tags):
-            f.write(f"{cid},{cid},R2,5P{'N' * CELLPLEX_TAG_LEADER}(BC),"
-                    f"{seq.tobytes().decode()},Multiplexing Capture\n")
+        for fid, seq, ftype in (
+                [(c, s, "Multiplexing Capture") for c, s in zip(names, tags)]
+                + [(a, s, "Antibody Capture")
+                   for a, s in zip(ab_names, ab_seqs)]):
+            f.write(f"{fid},{fid},R2,{pattern},{seq.tobytes().decode()},"
+                    f"{ftype}\n")
     csv = os.path.join(tmp, "multi.csv")
     with open(csv, "w") as f:
         f.write(f"""[gene-expression]
@@ -2424,7 +2514,7 @@ reference,{fref}
 fastq_id,fastqs,feature_types
 gex,{gex_dir},Gene Expression
 cmo,{cmo_dir},Multiplexing Capture
-
+{libs}
 [samples]
 sample_id,cmo_ids
 """ + "".join(f"{sid},{cid}\n" for sid, cid in samples.items()))
@@ -2433,12 +2523,16 @@ sample_id,cmo_ids
     return dict(
         csv=csv, wl=wl_path, ref=ref_dir, n_wl=n_wl, n_cells=n_cells,
         gex_reads=n_mol * E2E_DUP, cmo_reads=len(flat),
-        n_reads=n_mol * E2E_DUP + len(flat),
+        ab_reads=len(ab_flat),
+        n_reads=n_mol * E2E_DUP + len(flat) + len(ab_flat),
         tags={c: s.tobytes().decode() for c, s in zip(names, tags)},
+        antibodies={a: s.tobytes().decode()
+                    for a, s in zip(ab_names, ab_seqs)},
         samples=samples, barcodes=barcodes, kind=kind, tag1=tag1, tag2=tag2,
         cell_type=cell_type,
         gex_molecules=np.bincount(cell_of, minlength=n_cells),
-        tag_molecules=tag_mol, built={
-            sid: int((single & (tag1 == i)).sum())
-            for i, sid in enumerate(samples)},
+        tag_molecules=tag_mol, ab_molecules=ab_mol, aggregates=aggregates,
+        built={sid: int((single & (tag1 == i)).sum()
+                        - (tag1[aggregates] == i).sum())
+               for i, sid in enumerate(samples)},
         timing=timing)

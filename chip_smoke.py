@@ -124,20 +124,24 @@ Phases, each printing one line; any failure raises and exits non-zero:
                beside the phases from vdj_parity to human_scale, so its
                host seconds and theirs include each other's load on the
                machine's cores; its line comes after human_scale's
-  cellplex     a CellPlex GEM well at the width users run it (testing/
-               fixtures.build_cellplex_run: 30,000 cells superloaded, 12
-               CMOs and 12 samples, the 6,794,880-barcode whitelist,
-               10,000,000 GEX and ~3,000,000 CMO reads, 74% singlets, 24%
+  cellplex     a CellPlex GEM well with an antibody panel at the width
+               users run it (testing/fixtures.build_cellplex_run: 30,000
+               cells superloaded, 12 CMOs and 12 samples, 17 TotalSeq-B
+               antibodies with 20 planted protein aggregates, the
+               6,794,880-barcode whitelist, 10,000,000 GEX, ~3,000,000
+               CMO and ~3,000,000 antibody reads, 74% singlets, 24%
                two-tag multiplets, 2% blanks) through run_multi on cuda,
                batch 32768: the JAX package's reads, molecules, cells,
                MEX digests of the run and of every sample, tag calls,
-               assignments.csv bytes and JIBES' fit within 1e-6
-               (CELLPLEX_EXPECTED); the planted truth's shares, and every
-               barcode's GEX and tag molecules the planted counts; every
-               sample's files, 16 analysis files and no
-               secondary_analysis_error; one K1 launch a GEX step.  Wall
-               seconds split into run_count (its phases, the FB library's
-               pass-2 seconds apart), JIBES, per-sample outs (total,
+               assignments.csv and aggregate_barcodes.csv bytes and
+               JIBES' fit within 1e-6 (CELLPLEX_EXPECTED); the planted
+               truth's shares, every planted aggregate flagged and none
+               called, and every barcode's GEX, tag and antibody
+               molecules the planted counts; every sample's files, 16
+               analysis files and no secondary_analysis_error; one K1
+               launch a GEX step.  Wall seconds split into run_count (its
+               phases, each Feature Barcode library's pass-2 seconds and
+               the aggregate detection apart), JIBES, per-sample outs (total,
                slowest, molecule-info subsets, analyses) and web
                summaries; peak device memory and host RSS.  It runs in a
                child process (phase_beside) from index_build to
@@ -208,7 +212,8 @@ every path's (`pe`: two a batch, one per mate; `mesh` and
 counts; `h5_pipelines`: one a step of each GEM well; `deep`: one a
 step, 611 at 20,000,000 reads; `human_parity`:
 its cuda step, aligner call and truth-probe step and aligner call;
-`cellplex`: one a GEX step, 306, and none for the CMO library;
+`cellplex`: one a GEX step, 306, and none for the CMO and antibody
+libraries;
 `rtl`, the V(D)J paths, `mkfastq`, `index_build`, `analysis` and
 `analysis_68k`: none, no genome aligner runs).  The line before the
 last is the kernel report (JSON); the last line is {"ok": true,
@@ -333,216 +338,229 @@ ANALYSIS_PARITY_GENES = 1_000
 # cellplex: a CellPlex GEM well as 10x's 12-CMO example runs it ("30k
 # Mouse E18 Combined Cortex, Hippocampus and Subventricular Zone Cells,
 # Multiplexed, 12 CMOs", Cell Ranger 6.0): 30,000 cells superloaded, one
-# CMO a sample, the 6,794,880-barcode whitelist; depth cut from 10x's
-# 20,000 GEX and 5,000 CMO read pairs a cell for the script's time limit
+# CMO a sample, the 6,794,880-barcode whitelist; beside the CMOs, in the
+# same well, the 17 TotalSeq-B antibodies (14 markers, 3 isotype
+# controls) of 10x's "10k PBMCs from a Healthy Donor - Gene Expression
+# and Cell Surface Protein" (pbmc_10k_protein_v3, Cell Ranger 3.0), with
+# 20 planted protein aggregates; depth cut from 10x's 20,000 GEX and
+# 5,000 CMO and 5,000 antibody read pairs a cell for the script's time
+# limit (about 100 antibody reads a cell)
 CELLPLEX = dict(n_cells=30_000, n_tags=12, gex_reads=10_000_000,
-                cmo_reads=3_000_000)
+                cmo_reads=3_000_000, n_antibodies=17, ab_reads=3_000_000,
+                n_aggregates=20)
 CELLPLEX_TIMEOUT_S = 900
 CELLPLEX_TOL = 1e-6         # JIBES' fitted floats against the JAX run's
 # The JAX package's cellplex_outputs for build_cellplex_run(dir,
 # **CELLPLEX), made by `JAX_PLATFORMS=cpu python tests/cellplex_reference.py
 # DIR` (that package's run_multi on the CPU, batch 32768) with
-# cellranger_tpu as of commit de86c14
+# cellranger_tpu as of commit bd8cdd2, on the three-library well (GEX,
+# 12 CMOs, 17 antibodies with 20 planted aggregates)
 CELLPLEX_EXPECTED = {
-    "total_reads": 12_994_270,
-    "total_molecules": 7_994_270,
+    "total_reads": 15_989_753,
+    "total_molecules": 10_989_753,
     "gex_molecules": 5_000_000,
     "cmo_molecules": 2_994_270,
-    "estimated_cells": 29_989,
+    "ab_molecules": 2_995_483,
+    "estimated_cells": 29_969,
     "mex_sha256": {
         "raw_feature_bc_matrix/matrix.mtx.gz":
-            "72f19826e7cf4cfe9cbcc9dc5aaf83c89c4bfbe05934d5611a9e0f1978f76e6e",
+            "4cbb325fa310d5302ec8ac150b365b4c035cc5cf3c6350ea8d709c147cc5bb08",
         "raw_feature_bc_matrix/barcodes.tsv.gz":
             "354138b5eebfbdfdf8518fe76b4e5500101a8d3e58223768b5c9d076b3dca1ba",
         "raw_feature_bc_matrix/features.tsv.gz":
-            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            "5557819f4c01cd2f0d5cfc738ec81ebcc95352511d1f54b32274179f842284a7",
         "filtered_feature_bc_matrix/matrix.mtx.gz":
-            "220cad4ddf57347f34609747a8de3c5eca92ef4634e04e253e18c1bf4bc66a2d",
+            "938f88ae8a7c993aaf2816fad98a0a5e569091e5b4e90abd10d090bfe39df28d",
         "filtered_feature_bc_matrix/barcodes.tsv.gz":
-            "5fe7eae633968388c71bb27552b2dfececab1c41ce1e9fd995b7d6d54b13d0f8",
+            "2cbd7aaf3ee5dce41e85c91bc73ca5d138f1c9e3a4eb3864dc8928be3e4f2728",
         "filtered_feature_bc_matrix/features.tsv.gz":
-            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            "5557819f4c01cd2f0d5cfc738ec81ebcc95352511d1f54b32274179f842284a7",
     },
+    "aggregate_barcodes_sha256":
+        "a0bc4dd81bf39b6fb4dacc6776a9d9ee3c733bdbbc6fc7a9ce6e00a373ff8acd",
+    "number_aggregate_GEMs": 20,
+    "planted_aggregates_flagged": 20,
+    "planted_aggregates_called": 0,
     "assignments_sha256":
-        "6c3a2a777f8cfdaa21eee9c909558d08d11b9659e75c7d3835b4ef677525d318",
+        "d2ac91be5cb4f6685749efbc59d9257f4a4b75578ee07267636ed329de057f6e",
     "tag_call_sha256":
-        "5e4f5bc561963740a91579184d2284c6fbfa72d13c8cbc5a7aef3fcd4d062e3e",
+        "183f3897287744339c646b2dcc472fcc2a1eec9f0464259a0ffc6221466e7f6a",
     "tag_calls": {
         "Blank": 601,
-        "CMO301": 1866,
-        "CMO302": 1860,
-        "CMO303": 1857,
-        "CMO304": 1863,
-        "CMO305": 1869,
-        "CMO306": 1861,
-        "CMO307": 1859,
-        "CMO308": 1864,
+        "CMO301": 1865,
+        "CMO302": 1858,
+        "CMO303": 1855,
+        "CMO304": 1860,
+        "CMO305": 1867,
+        "CMO306": 1860,
+        "CMO307": 1858,
+        "CMO308": 1860,
         "CMO309": 1864,
-        "CMO310": 1868,
-        "CMO311": 1860,
-        "CMO312": 1858,
+        "CMO310": 1866,
+        "CMO311": 1859,
+        "CMO312": 1857,
         "Multiplet": 7039,
     },
     "samples": {
         "sample1": {
-            "cells": 1866,
+            "cells": 1865,
             "mex_sha256": {
                 "matrix.mtx.gz":
-            "8b72fb2b9163af03f5b4188a23bb695d22d2e5a886177e66bf66e5689bd6e029",
+            "5f0487f9449e852216c2b6a850c54cf0f459b64e7d2d541eeff2b6f64db9127e",
                 "barcodes.tsv.gz":
-            "d3dd3e22b29a5a708254ce28a792e1a623f0a7d76f53cd03467c261a64b803b4",
+            "a653e9b968b86a6cbeb6e67d96c837e7dab201911a8679153de9a1f837fe8387",
                 "features.tsv.gz":
-            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            "5557819f4c01cd2f0d5cfc738ec81ebcc95352511d1f54b32274179f842284a7",
             },
         },
         "sample2": {
-            "cells": 1860,
+            "cells": 1858,
             "mex_sha256": {
                 "matrix.mtx.gz":
-            "c0e05779b7280ff37fb8686b496487eae6b2c983243873fc684ef7643051e6ee",
+            "bc8b46ac856b3be3681f62cad41cb7b8756b256105eabf37a4af9087a15c2e81",
                 "barcodes.tsv.gz":
-            "621436d3b8add1a815284fd63f92a91b558dccb60715cb1231de8ae176f1abcd",
+            "a7850f11da56f1acda80d8108265c5beb3c20c0b3f4d6b33f80661ca0245f668",
                 "features.tsv.gz":
-            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            "5557819f4c01cd2f0d5cfc738ec81ebcc95352511d1f54b32274179f842284a7",
             },
         },
         "sample3": {
-            "cells": 1857,
+            "cells": 1855,
             "mex_sha256": {
                 "matrix.mtx.gz":
-            "9ffcf0595a751ae7e1cbc4ee8f64b478510cb52336d1d9002e967f3d56ece0de",
+            "91c13178dac51b214c33db70bf9896f5700a7ebfc1448eea0662c2d6d233566c",
                 "barcodes.tsv.gz":
-            "9eda4fefaf99c407031c997d86d846d0b7dbc57b739d507e44409dde370a0940",
+            "f65613be7221a83c35c76b171ff5784383e468cdb7c83b23e5bb4c401d5642fd",
                 "features.tsv.gz":
-            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            "5557819f4c01cd2f0d5cfc738ec81ebcc95352511d1f54b32274179f842284a7",
             },
         },
         "sample4": {
-            "cells": 1863,
+            "cells": 1860,
             "mex_sha256": {
                 "matrix.mtx.gz":
-            "2c868e78e5e2576b546fa815ba6f74d9efe2c86a52ca7636c02f32938660d620",
+            "86be3688a71e4011843b87e46cb2a2982b8e57c1e78b0143f16c5d8b47779956",
                 "barcodes.tsv.gz":
-            "29642a844a8e5ead47486edaa24a4ad37811b3914bdeb8a6ba5a5ca107fb11dc",
+            "808d3fcb6f800de61521a29b5e8de8c6bb0bdfec5ae801e4e4526d64ff6b69ff",
                 "features.tsv.gz":
-            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            "5557819f4c01cd2f0d5cfc738ec81ebcc95352511d1f54b32274179f842284a7",
             },
         },
         "sample5": {
-            "cells": 1869,
+            "cells": 1867,
             "mex_sha256": {
                 "matrix.mtx.gz":
-            "e21e11ce1286c10218031778dbe979a43b8509fd4f49db690c9ee395697447c6",
+            "c9ebd25bba29f8832db6013885b0126718f28198eea8624446c325b74c520e25",
                 "barcodes.tsv.gz":
-            "fc8c4b0389bd45d7a0e934356541ecf529b7c96d298bd909ba3f21ff388d35cc",
+            "b78215dab17090d20cf002a8dfac7e22e460ce8aeb2074f75df996a648c9cd29",
                 "features.tsv.gz":
-            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            "5557819f4c01cd2f0d5cfc738ec81ebcc95352511d1f54b32274179f842284a7",
             },
         },
         "sample6": {
-            "cells": 1861,
+            "cells": 1860,
             "mex_sha256": {
                 "matrix.mtx.gz":
-            "e493e1e62c8da51f3c34ef0111b8c98cdc0ee98ecc03edbcb2457d7790c7259d",
+            "c34ba348b9a1c59c7b627c8ba58467e9391747c0b87560170705cd0b8ae1f280",
                 "barcodes.tsv.gz":
-            "5380b38b3df48057626c2a1a6b3b13348353319c63429733e00c089dbda19807",
+            "5946e98bb14da0dd0046a1ce4a7fe69622524812890a9063ab049fe64143f738",
                 "features.tsv.gz":
-            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            "5557819f4c01cd2f0d5cfc738ec81ebcc95352511d1f54b32274179f842284a7",
             },
         },
         "sample7": {
-            "cells": 1859,
+            "cells": 1858,
             "mex_sha256": {
                 "matrix.mtx.gz":
-            "0576f641ceb3704d4f40b14f45108d49836b5fb63b83a42bebd0032af316c047",
+            "68cb5b2200247db4c61118d11f6272e8417e9ad9ccc4e8c289cb9b4c84fced88",
                 "barcodes.tsv.gz":
-            "599918b01664900bfa7a837cde5009d79077152ab26a1354112a4cf6d153ec3f",
+            "60065c250806bb9d7a2071dc07ec97c972212f7e82e554a6eaf7475971cffaad",
                 "features.tsv.gz":
-            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            "5557819f4c01cd2f0d5cfc738ec81ebcc95352511d1f54b32274179f842284a7",
             },
         },
         "sample8": {
-            "cells": 1864,
+            "cells": 1860,
             "mex_sha256": {
                 "matrix.mtx.gz":
-            "47045c5201e696821fd29de5c8dc7c902fcb7d0ffa6696b99c64d2fb0081878d",
+            "5a95724943b1601c55fff3c805567d5da4b4c9e2b23872f847283bc8772b8bc0",
                 "barcodes.tsv.gz":
-            "f7d12a97a35098d3d30f68bbe31dc7d8569859228f1fae420015f173f9eeb98d",
+            "a79283bc5388abc2838d32c06b8710212b44e0402114faff140367fc126aa45c",
                 "features.tsv.gz":
-            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            "5557819f4c01cd2f0d5cfc738ec81ebcc95352511d1f54b32274179f842284a7",
             },
         },
         "sample9": {
             "cells": 1864,
             "mex_sha256": {
                 "matrix.mtx.gz":
-            "1519371557603c209ac206588ee9719e5ca2f0f90346bda7454e8b84b39bbc11",
+            "41d31f33ebc67aa7e10d12a048920aaff0e2452546fb99bcda6807b41830637e",
                 "barcodes.tsv.gz":
             "d1595c256a45e0e1e1ab59bcf868ce007a9eb7e151fe4e53952da7aba7aa506a",
                 "features.tsv.gz":
-            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            "5557819f4c01cd2f0d5cfc738ec81ebcc95352511d1f54b32274179f842284a7",
             },
         },
         "sample10": {
-            "cells": 1868,
+            "cells": 1866,
             "mex_sha256": {
                 "matrix.mtx.gz":
-            "a35e60e95020245794fbef60b83f7f1ba1bc6589a7beed398809296c88004e3f",
+            "9f6054554d9fc8bdba47fa8abad2a6020a1400df7e65fb45c6d74dfb79abddc6",
                 "barcodes.tsv.gz":
-            "019e8df2dd15bead523f68e4fe4dd7df51ad7e883ac45363c4dce6e6cad48853",
+            "fb34dd88cf63bf8e6a87264bbc997954da3720bd8d51299c1febb5d0803059c2",
                 "features.tsv.gz":
-            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            "5557819f4c01cd2f0d5cfc738ec81ebcc95352511d1f54b32274179f842284a7",
             },
         },
         "sample11": {
-            "cells": 1860,
+            "cells": 1859,
             "mex_sha256": {
                 "matrix.mtx.gz":
-            "e66111277eaa7c9d0477419be15ddb82ea1828d0edc62b1a2bac7d20305d627d",
+            "48a9938ec9db6973e72e5145dc86ef61c57e17a0c199fb39d4482cea099f3498",
                 "barcodes.tsv.gz":
-            "42f765b75c10fe1d9d7d21b65abfc16a94ae0f20c77af0e89e47b4f9b52e148f",
+            "be7be91c0055a456eceff0bc048da9211fb6222bec24041c28d9db9ddbed3059",
                 "features.tsv.gz":
-            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            "5557819f4c01cd2f0d5cfc738ec81ebcc95352511d1f54b32274179f842284a7",
             },
         },
         "sample12": {
-            "cells": 1858,
+            "cells": 1857,
             "mex_sha256": {
                 "matrix.mtx.gz":
-            "780b147133e09b3f615eb09e7329614254a9518c665be6af1bee5c09a91d5a02",
+            "a7260b1ad5e60846067bf4d75e23ec9c04ccf733cc9e8c58b59c9f2b717b72c6",
                 "barcodes.tsv.gz":
-            "f2a775475d2b36ddf460a87242fa7dd71fe6c7fc895176d7506f1bb3eba1176d",
+            "31ef498a635e4ee7a12f10af8c8ad240945879138ad25b1e5b4e751978661965",
                 "features.tsv.gz":
-            "69fb1d5f7033402536bb29db55ea34d33ff25e60932a5d888717e04aaeb08c3f",
+            "5557819f4c01cd2f0d5cfc738ec81ebcc95352511d1f54b32274179f842284a7",
             },
         },
     },
     "jibes": {
         "n_iters": 4,
         "converged": True,
-        "posterior_sum": 29794.3672389878,
-        "posterior_min": 0.4344153770245217,
+        "posterior_sum": 29774.53153348647,
+        "posterior_min": 0.43410826405481084,
         "background": [
-            0.5581986508189429, 0.5543470801439849, 0.5553286067963022,
-            0.5577304456152535, 0.5569376061693029, 0.5575079961889426,
-            0.5544314716090794, 0.5569083003765419, 0.5546466087806312,
-            0.5562576737301357, 0.5546378765227942, 0.5562149391081349,
+            0.5582200703145672, 0.5544502998003054, 0.5553630167193799,
+            0.5577368408336056, 0.5569377623143424, 0.5575289936236962,
+            0.5543822544061315, 0.5569096343759139, 0.5546645215492161,
+            0.5562662704837655, 0.5546061719870294, 0.5562244349027421,
         ],
         "foreground": [
-            1.154428336507158, 1.167824066348111, 1.1625317838123472,
-            1.160083539195548, 1.1569698377744864, 1.1580150827118254,
-            1.1665092014662304, 1.1647361394471443, 1.1643640879957065,
-            1.1627163616043896, 1.166143115891145, 1.1657886551689367,
+            1.1543653138067436, 1.1676326145242324, 1.1624070144739957,
+            1.1599525151524022, 1.1569361352239773, 1.157952793924751,
+            1.166541759132465, 1.1646796791725609, 1.1643443347015796,
+            1.162549822249865, 1.1661128665385814, 1.1657195367911617,
         ],
         "std_devs": [
-            0.20820414335643858, 0.2090737809396412, 0.20907969253113629,
-            0.2092806229993721, 0.20848865305528114, 0.20825934095229953,
-            0.20868932960961073, 0.20770803708940244, 0.2072949294631568,
-            0.20899719056212573, 0.20820435718298433, 0.20780223454125674,
+            0.20813282012097364, 0.20901846165755483, 0.20907935701764246,
+            0.20925070869900178, 0.20850396894883333, 0.20823013783087296,
+            0.20869815385285184, 0.2076837019600896, 0.20728633169084654,
+            0.2090387029501537, 0.2082265588947461, 0.20779667576420527,
         ],
     },
     "truth": {
-        "singlets_own_sample": 0.9995045045045045,
+        "singlets_own_sample": 0.9995040577096483,
         "multiplets_called_multiplet": 0.9776388888888888,
         "blanks_called_blank": 1.0,
         "barcodes_off_planted_molecules": 0,
@@ -1656,14 +1674,19 @@ def cellplex_outputs(fx: dict, out: str, jibes=None) -> dict:
     molecules by library and cells called; sha256 of each decompressed
     MEX file of the run and of each sample; the tag_call column and the
     bytes of assignments.csv; with `jibes` (fit_jibes' result) its
-    iterations and fitted floats; and the planted truth read back: the
-    share of planted singlets called to their own sample, of two-tag
-    multiplets called Multiplet and of blanks called Blank, and the
-    barcodes whose GEX or tag molecules in the raw matrix differ from the
+    iterations and fitted floats; the bytes of aggregate_barcodes.csv
+    (None where the run wrote none), the aggregates the run counted, and
+    how many of the planted aggregates it flagged and called as cells;
+    and the planted truth read back: the share of planted singlets that
+    are not aggregates called to their own sample, of two-tag multiplets
+    called Multiplet and of blanks called Blank, and the barcodes whose
+    GEX, tag or antibody molecules in the raw matrix differ from the
     planted counts (any barcode with molecules that is not a cell counts
     as one)."""
     import numpy as np
-    from cellranger_tpu_torch.io.matrix_io import MULTIPLEXING, CountMatrix
+    from cellranger_tpu_torch.io.matrix_io import (ANTIBODY_CAPTURE,
+                                                   GENE_EXPRESSION,
+                                                   MULTIPLEXING, CountMatrix)
 
     count_dir = os.path.join(out, "count")
     with open(os.path.join(count_dir, "metrics_summary.json")) as f:
@@ -1671,33 +1694,63 @@ def cellplex_outputs(fx: dict, out: str, jibes=None) -> dict:
     raw = CountMatrix.load_h5(os.path.join(count_dir,
                                            "raw_feature_bc_matrix.h5"))
     defs = raw.features.feature_defs
-    tag = np.asarray([f.feature_type == MULTIPLEXING for f in defs])
-    tag_ids = [defs[i].id for i in np.flatnonzero(tag)]
+    types = np.asarray([f.feature_type for f in defs])
     mat = raw.m.tocsr()
-    gex = np.asarray(mat[~tag].sum(0)).ravel()
-    tagm = mat[tag].tocsc()
-    tag_total = np.asarray(tagm.sum(0)).ravel()
+    gex = np.asarray(mat[types == GENE_EXPRESSION].sum(0)).ravel()
+
+    def rows_of(ftype: str, ids) -> tuple:
+        """Each barcode's total molecules of ftype, and the matrix of
+        those rows in the fixture's order `ids` [barcodes, len(ids)]."""
+        rows = np.flatnonzero(types == ftype)
+        own = [defs[i].id for i in rows]
+        sub = mat[rows].tocsc()
+        return (np.asarray(sub.sum(0)).ravel(),
+                sub[[own.index(i) for i in ids]].tocsc())
+
+    tag_total, tagm = rows_of(MULTIPLEXING, fx["tags"])
+    ab_total, abm = rows_of(ANTIBODY_CAPTURE, fx["antibodies"])
     bcs = np.asarray(raw.barcodes).astype("S")
     by = (np.arange(len(bcs)) if (bcs[1:] >= bcs[:-1]).all()
           else np.argsort(bcs, kind="stable"))
     want = np.asarray(fx["barcodes"]).astype("S")
     col = by[np.minimum(np.searchsorted(bcs[by], want), len(bcs) - 1)]
     found = bcs[col] == want
-    # each planted cell's tag molecules, in the fixture's tag order
-    cell_tags = np.zeros((len(want), len(tag_ids)), np.int64)
-    cell_tags[found] = tagm[:, col[found]].toarray().T[
-        :, [tag_ids.index(c) for c in fx["tags"]]]
+    # each planted cell's tag and antibody molecules, in the fixture's
+    # order
+    cell_tags = np.zeros((len(want), len(fx["tags"])), np.int64)
+    cell_tags[found] = tagm[:, col[found]].toarray().T
+    cell_abs = np.zeros((len(want), len(fx["antibodies"])), np.int64)
+    cell_abs[found] = abm[:, col[found]].toarray().T
     off = ~found
     off[found] = ((gex[col[found]] != fx["gex_molecules"][found])
-                  | (cell_tags[found] != fx["tag_molecules"][found]).any(1))
+                  | (cell_tags[found] != fx["tag_molecules"][found]).any(1)
+                  | (cell_abs[found] != fx["ab_molecules"][found]).any(1))
     stray = np.ones(len(bcs), bool)
     stray[col[found]] = False
-    n_stray = int((stray & ((gex > 0) | (tag_total > 0))).sum())
+    n_stray = int((stray & ((gex > 0) | (tag_total > 0)
+                            | (ab_total > 0))).sum())
     rep = dict(
         total_reads=m["total_reads"], total_molecules=m["total_molecules"],
         gex_molecules=int(gex.sum()), cmo_molecules=int(tag_total.sum()),
+        ab_molecules=int(ab_total.sum()),
         estimated_cells=m["estimated_cells"],
         mex_sha256=mex_sha256(count_dir))
+    agg_path = os.path.join(count_dir, "aggregate_barcodes.csv")
+    flagged = set()
+    rep["aggregate_barcodes_sha256"] = None
+    if os.path.exists(agg_path):
+        with open(agg_path, "rb") as f:
+            text = f.read()
+        rep["aggregate_barcodes_sha256"] = _sha256(text)
+        flagged = {ln.split(",")[0]
+                   for ln in text.decode().splitlines()[1:]}
+    with gzip.open(os.path.join(count_dir, "filtered_feature_bc_matrix",
+                                "barcodes.tsv.gz"), "rt") as f:
+        called = set(f.read().split())
+    planted = [fx["barcodes"][i] for i in fx["aggregates"]]
+    rep["number_aggregate_GEMs"] = m.get("number_aggregate_GEMs", 0)
+    rep["planted_aggregates_flagged"] = sum(b in flagged for b in planted)
+    rep["planted_aggregates_called"] = sum(b in called for b in planted)
 
     demux_dir = os.path.join(out, "demux")
     with open(os.path.join(demux_dir, "assignments.csv"), "rb") as f:
@@ -1733,19 +1786,24 @@ def cellplex_outputs(fx: dict, out: str, jibes=None) -> dict:
     call = np.asarray([calls.get(b, "") for b in fx["barcodes"]])
     kind, tag1 = fx["kind"], fx["tag1"]
     own = np.asarray([names[t] if t >= 0 else "" for t in tag1])
+    singlet = kind == 0
+    singlet[fx["aggregates"]] = False
     rep["truth"] = dict(
-        singlets_own_sample=float((call == own)[kind == 0].mean()),
+        singlets_own_sample=float((call == own)[singlet].mean()),
         multiplets_called_multiplet=float(
             (call == "Multiplet")[kind == 1].mean()),
         blanks_called_blank=float((call == "Blank")[kind == 2].mean()),
         barcodes_off_planted_molecules=int(off.sum()),
         stray_barcodes=n_stray)
-    # (barcode, planted GEX, counted GEX, planted tags, counted tags)
+    # (barcode, planted GEX, counted GEX, planted tags, counted tags,
+    # planted antibodies, counted antibodies)
     rep["off_planted"] = [
         [fx["barcodes"][i], int(fx["gex_molecules"][i]),
          int(gex[col[i]]) if found[i] else None,
          fx["tag_molecules"][i].tolist(),
-         cell_tags[i].tolist() if found[i] else None]
+         cell_tags[i].tolist() if found[i] else None,
+         fx["ab_molecules"][i].tolist(),
+         cell_abs[i].tolist() if found[i] else None]
         for i in np.flatnonzero(off)[:10]]
     return rep
 
@@ -1777,8 +1835,9 @@ def cellplex_run(fx: dict, out: str, device: str = "cuda",
     """run_multi of a CellPlex fixture on `device` (count, JIBES demux,
     per-sample outs, web summaries): wall seconds split by stage, K1
     launches, peak device memory and host RSS, cellplex_outputs and
-    sample_out_diffs; with `expected` (the JAX package's cellplex_outputs
-    of the same fixture) every difference raises.  On the card the step
+    sample_out_diffs; a planted aggregate not flagged, or called as a
+    cell, raises; with `expected` (the JAX package's cellplex_outputs of
+    the same fixture) every difference raises.  On the card the step
     launches K1 once a GEX batch."""
     import torch
     from cellranger_tpu_torch.align import sw
@@ -1792,8 +1851,8 @@ def cellplex_run(fx: dict, out: str, device: str = "cuda",
         torch.cuda.reset_peak_memory_stats()
     sw.LAUNCHES = 0
     with rss_peak() as rss, recorded(
-            (count, "run_count"), (demux, "fit_jibes"),
-            (demux, "write_sample_outs"),
+            (count, "run_count"), (count, "_aggregate_barcodes"),
+            (demux, "fit_jibes"), (demux, "write_sample_outs"),
             (molecule_info, "subset_molecule_info"),
             (analysis_mod, "run_secondary_analysis"),
             (websummary, "build_web_summary")) as rec:
@@ -1803,8 +1862,10 @@ def cellplex_run(fx: dict, out: str, device: str = "cuda",
         wall = time.time() - t
     launches = sw.LAUNCHES
     rep = dict(cells=fx["n_cells"], tags=len(fx["tags"]),
-               whitelist=fx["n_wl"], gex_reads=fx["gex_reads"],
-               cmo_reads=fx["cmo_reads"], wall_s=wall, sw_launches=launches,
+               antibodies=len(fx["antibodies"]),
+               aggregates=len(fx["aggregates"]), whitelist=fx["n_wl"],
+               gex_reads=fx["gex_reads"], cmo_reads=fx["cmo_reads"],
+               ab_reads=fx["ab_reads"], wall_s=wall, sw_launches=launches,
                peak_device_bytes=(torch.cuda.max_memory_allocated()
                                   if cuda else None),
                peak_host_rss_bytes=rss["bytes"])
@@ -1813,17 +1874,27 @@ def cellplex_run(fx: dict, out: str, device: str = "cuda",
     phases: dict = {}
     for ph in laps:
         phases[ph["name"]] = phases.get(ph["name"], 0.0) + ph["wall_s"]
-    # pass 2 laps once a batch, the GEX library's batches first; the
-    # last lap closes the pass
-    gex_batches = -(-fx["gex_reads"] // E2E_BATCH)
+    # pass 2 laps once a batch, library by library in [libraries] order
+    # (GEX, CMO, antibodies); the last lap closes the pass
+    gex_batches, cmo_batches, ab_batches = (
+        -(-fx[k] // E2E_BATCH) for k in ("gex_reads", "cmo_reads",
+                                         "ab_reads"))
     pass2 = [ph["wall_s"] for ph in laps
              if ph["name"] == "pass2_correct_align_annotate"][:-1]
-    fb_s = sum(pass2[gex_batches:])
+    if len(pass2) != gex_batches + cmo_batches + ab_batches:
+        raise AssertionError(f"cellplex: {len(pass2)} pass-2 laps for "
+                             f"{gex_batches} + {cmo_batches} + {ab_batches}"
+                             " batches")
+    cmo_s = sum(pass2[gex_batches:gex_batches + cmo_batches])
+    ab_s = sum(pass2[gex_batches + cmo_batches:])
     sample_s = [s for s, _ in rec["write_sample_outs"]]
     rep.update(
         run_count_s=rec["run_count"][0][0], run_count_phase_s=phases,
-        fb_pass2_s=fb_s, fb_pass2_s_per_million_reads=(
-            fb_s / (fx["cmo_reads"] / 1e6)),
+        fb_pass2_s=cmo_s + ab_s, cmo_pass2_s=cmo_s,
+        cmo_pass2_s_per_million_reads=cmo_s / (fx["cmo_reads"] / 1e6),
+        ab_pass2_s=ab_s, ab_pass2_s_per_million_reads=(
+            ab_s / (fx["ab_reads"] / 1e6) if fx["ab_reads"] else None),
+        aggregate_s=sum(s for s, _ in rec["_aggregate_barcodes"]),
         jibes_s=rec["fit_jibes"][0][0],
         jibes_iters=int(rec["fit_jibes"][0][1].n_iters),
         sample_outs_s=sum(sample_s), slowest_sample_s=max(sample_s),
@@ -1836,6 +1907,12 @@ def cellplex_run(fx: dict, out: str, device: str = "cuda",
     rep["outputs"] = got = cellplex_outputs(fx, out,
                                             rec["fit_jibes"][0][1])
     diffs = sample_out_diffs(os.path.join(out, "demux"), fx["samples"])
+    if got["planted_aggregates_flagged"] != len(fx["aggregates"]):
+        diffs.append(f"{got['planted_aggregates_flagged']} of "
+                     f"{len(fx['aggregates'])} planted aggregates flagged")
+    if got["planted_aggregates_called"]:
+        diffs.append(f"{got['planted_aggregates_called']} planted "
+                     "aggregates called as cells")
     if cuda and launches != gex_batches:
         diffs.append(f"{launches} K1 launches for {gex_batches} GEX steps")
     if expected is not None:
@@ -3393,7 +3470,8 @@ def main() -> None:
 
             g = cellplex_report()
         launches["cellplex"] = g["sw_launches"]
-        phase("cellplex", f"{smi}: run_multi of a 12-CMO CellPlex GEM well "
+        phase("cellplex", f"{smi}: run_multi of a CellPlex GEM well, 12 "
+              "CMOs and 17 antibodies, "
               "in a child process beside index_build..analysis_parity, "
               "held to the JAX package's run and the planted truth: "
               + json.dumps(g))

@@ -4,8 +4,9 @@ cellplex_outputs dict that chip_smoke.CELLPLEX_EXPECTED holds.
     JAX_PLATFORMS=cpu python tests/cellplex_reference.py WORK_DIR
 
 builds `build_cellplex_run(WORK_DIR/fx, **chip_smoke.CELLPLEX)` (30,000
-cells, 12 CMOs and 12 samples, the 6,794,880-barcode whitelist, 10,000,000
-GEX and ~3,000,000 CMO reads) with the port's generator, runs the JAX
+cells, 12 CMOs and 12 samples, 17 antibodies with 20 planted aggregates,
+the 6,794,880-barcode whitelist, 10,000,000 GEX, ~3,000,000 CMO and
+~3,000,000 antibody reads) with the port's generator, runs the JAX
 package's run_multi on it with the phase's batch (32768) on the CPU, with
 fit_jibes' result caught, and prints the seconds, peak RSS and stage
 split, and last chip_smoke.cellplex_outputs of the run as one JSON line.

@@ -1,13 +1,18 @@
 """Port parity for `multi` on a CellPlex GEM well, tolerance 0.
 
 `testing.fixtures.build_cellplex_run` at a small size (480 cells, 12 CMOs
-and 12 samples, a 20,000-barcode whitelist, 74% singlets, 24% two-tag
-multiplets, 2% blanks) goes through the JAX package's `run_multi` and
-through chip_smoke's `cellplex_run`, the card's phase, on the cpu (the
-port's `run_multi` with its stage timers).  The two runs are held equal:
+and 12 samples, 17 TotalSeq-B antibodies with 3 planted protein
+aggregates, a 20,000-barcode whitelist, 74% singlets, 24% two-tag
+multiplets, 2% blanks: Gene Expression, Multiplexing Capture and Antibody
+Capture libraries in one GEM well) goes through the JAX package's
+`run_multi` and through chip_smoke's `cellplex_run`, the card's phase, on
+the cpu (the port's `run_multi` with its stage timers).  The two runs are
+held equal:
 
   * the count outputs (MEX, molecule_info.h5 through h5py, CSVs) and the
     run's metrics;
+  * `aggregate_barcodes.csv`, byte for byte, with every planted aggregate
+    in it and none called as a cell;
   * `assignments.csv`, byte for byte, and the demux summary;
   * each sample's MEX bytes, h5 and `sample_molecule_info.h5` (through
     real h5py, `h5_parity_diffs`), `metrics_summary.json`, and its
@@ -15,10 +20,11 @@ port's `run_multi` with its stage timers).  The two runs are held equal:
   * `chip_smoke.cellplex_outputs` of both, which is what the card's phase
     holds against `CELLPLEX_EXPECTED`.
 
-The fixture itself is tested too: its planted tag and GEX molecules read
-back from the FASTQs, and the phase's comparators fail on planted faults.
-So is the rule that made the fixture draw its UMIs over both libraries at
-once: the dedup keeps one feature of a (barcode, UMI) across libraries
+The fixture itself is tested too: its planted tag, antibody and GEX
+molecules read back from the FASTQs, and the phase's comparators fail on
+planted faults.  So is the rule that made the fixture draw its UMIs over
+every library at once: the dedup keeps one feature of a (barcode, UMI)
+across libraries
 (the library sits in the gene column's high bits), so a CMO molecule that
 shares its cell's UMI with a GEX molecule of more reads is dropped, alike
 in both packages.
@@ -26,6 +32,7 @@ in both packages.
 
 import copy
 import filecmp
+import gzip
 import json
 import os
 import shutil
@@ -40,7 +47,8 @@ from cellranger_tpu.ops.dedup import dedup_molecules as jax_dedup
 from cellranger_tpu.pipeline import demux as jax_demux
 from cellranger_tpu_torch.ops.dedup import dedup_molecules
 from cellranger_tpu_torch.pipeline.count import LIB_SHIFT
-from cellranger_tpu_torch.testing.fixtures import (CELLPLEX_KINDS,
+from cellranger_tpu_torch.testing.fixtures import (CELLPLEX_AB_PANEL,
+                                                   CELLPLEX_KINDS,
                                                    CELLPLEX_SHARES,
                                                    CELLPLEX_TAG_LEADER,
                                                    CELLPLEX_TAG_LEN,
@@ -58,8 +66,12 @@ from test_torch_multi import (_same_count_outs, _same_mex,
 # rule reads, are its own type's 9 and one other, not a draw among iid
 # cells (whose 10-NN preservation differed between two runs of either
 # package by up to 0.06 at this size)
+# an antibody library as deep as the CMO library, and 3 aggregates: the
+# detector runs once 5 antibodies reach 1,000 UMIs in all, which the
+# background of 480 cells alone gives every one of the 17
 SMALL = dict(n_cells=480, n_tags=12, gex_reads=160_000, cmo_reads=48_000,
-             n_wl=20_000, genome_len=2_000_000, n_genes=200, n_types=3)
+             n_wl=20_000, genome_len=2_000_000, n_genes=200, n_types=3,
+             n_antibodies=17, ab_reads=48_000, n_aggregates=3)
 SAMPLES = [f"sample{i + 1}" for i in range(SMALL["n_tags"])]
 
 
@@ -84,6 +96,14 @@ def cellplex(tmp_path_factory):
     report = cellplex_run(fx, t_out, "cpu")
     return dict(fx=fx, t_out=t_out, j_out=j_out, want=want, report=report,
                 expected=cellplex_outputs(fx, j_out, rec["fit_jibes"][0][1]))
+
+
+def _feature_of(fx: dict, r2: np.ndarray, seqs: dict) -> np.ndarray:
+    """Index into `seqs` (name -> sequence) of the feature sequence each
+    Feature Barcode R2 row carries after its leader."""
+    of = {s.encode(): i for i, s in enumerate(seqs.values())}
+    return np.asarray([of[bytes(r)] for r in r2[
+        :, CELLPLEX_TAG_LEADER:CELLPLEX_TAG_LEADER + CELLPLEX_TAG_LEN]])
 
 
 def _fastq_rows(path: str, width: int) -> np.ndarray:
@@ -125,8 +145,10 @@ def test_fixture_reads_back_the_planted_truth(cellplex):
     kinds = np.bincount(fx["kind"], minlength=len(CELLPLEX_KINDS))
     assert kinds[:2].tolist() == [round(n * s) for s in CELLPLEX_SHARES[:2]]
     assert kinds.sum() == n
-    built = np.asarray(list(fx["built"].values()))
-    assert built.sum() == kinds[0] and built.max() - built.min() <= 1
+    per_tag = np.bincount(fx["tag1"][fx["kind"] == 0], minlength=T)
+    assert per_tag.sum() == kinds[0] and per_tag.max() - per_tag.min() <= 1
+    agg_tags = np.bincount(fx["tag1"][fx["aggregates"]], minlength=T)
+    assert list(fx["built"].values()) == (per_tag - agg_tags).tolist()
     multi = fx["kind"] == 1
     assert (fx["tag2"][multi] != fx["tag1"][multi]).all()
     assert (fx["tag2"][~multi] == -1).all()
@@ -135,9 +157,7 @@ def test_fixture_reads_back_the_planted_truth(cellplex):
     assert dist[~np.eye(T, dtype=bool)].min() >= CELLPLEX_TAG_MIN_DIST
 
     cell, umi, r2 = _read_back(fx, "cmo", 71)
-    tag_of = {s.encode(): i for i, s in enumerate(fx["tags"].values())}
-    tag = np.asarray([tag_of[bytes(r)] for r in r2[
-        :, CELLPLEX_TAG_LEADER:CELLPLEX_TAG_LEADER + CELLPLEX_TAG_LEN]])
+    tag = _feature_of(fx, r2, fx["tags"])
     got = np.zeros((n, T), np.int64)
     np.add.at(got, (cell, tag), 1)
     assert (got == fx["tag_molecules"]).all()
@@ -149,6 +169,42 @@ def test_fixture_reads_back_the_planted_truth(cellplex):
     mols = np.asarray(sorted(set(zip(cell.tolist(), umi.tolist()))))
     assert (np.bincount(mols[:, 0].astype(np.int64), minlength=n)
             == fx["gex_molecules"]).all()
+
+
+def test_fixture_antibodies_read_back(cellplex):
+    """The antibody library: one read per planted antibody molecule at its
+    cell and antibody, the panel's 17 names, sequences
+    CELLPLEX_TAG_MIN_DIST from each other and from every CMO, every UMI
+    distinct within a cell across all three libraries; the planted
+    aggregates singlets many times any other cell on every antibody,
+    isotype controls included, and out of `built`."""
+    fx = cellplex["fx"]
+    n, A = SMALL["n_cells"], SMALL["n_antibodies"]
+    assert list(fx["antibodies"]) == list(CELLPLEX_AB_PANEL)
+    seqs = np.asarray([list(s.encode()) for s in (
+        *fx["tags"].values(), *fx["antibodies"].values())])
+    dist = (seqs[:, None] != seqs[None, :]).sum(-1)
+    assert dist[~np.eye(len(seqs), dtype=bool)].min() >= \
+        CELLPLEX_TAG_MIN_DIST
+
+    cell, umi, r2 = _read_back(fx, "ab", 71)
+    got = np.zeros((n, A), np.int64)
+    np.add.at(got, (cell, _feature_of(fx, r2, fx["antibodies"])), 1)
+    assert (got == fx["ab_molecules"]).all()
+    assert len(cell) == fx["ab_reads"] == fx["ab_molecules"].sum()
+    seen = set(zip(cell.tolist(), umi.tolist()))
+    for lib in ("cmo", "gex"):
+        c, u, _ = _read_back(fx, lib, 71 if lib == "cmo" else 91)
+        seen_lib = set(zip(c.tolist(), u.tolist()))
+        assert not seen & seen_lib, lib
+        seen |= seen_lib
+
+    agg = fx["aggregates"]
+    assert len(agg) == SMALL["n_aggregates"]
+    assert (fx["kind"][agg] == 0).all()
+    rest = np.delete(fx["ab_molecules"], agg, axis=0)
+    assert (fx["ab_molecules"][agg].min(0) > 2 * rest.max(0)).all()
+    assert sum(fx["built"].values()) == (fx["kind"] == 0).sum() - len(agg)
 
 
 def test_count_outs_match_jax(cellplex):
@@ -201,6 +257,29 @@ def test_sample_outs_match_jax(cellplex, sid):
     _same_sample_analysis(ts, js)
 
 
+def test_aggregates_match_jax(cellplex):
+    """aggregate_barcodes.csv byte for byte the JAX run's; every planted
+    aggregate in it, called a cell by neither package, in no sample."""
+    c = cellplex
+    t_csv, j_csv = (os.path.join(o, "count", "aggregate_barcodes.csv")
+                    for o in (c["t_out"], c["j_out"]))
+    assert filecmp.cmp(t_csv, j_csv, shallow=False)
+    with open(t_csv) as f:
+        flagged = {ln.split(",")[0] for ln in f.read().splitlines()[1:]}
+    planted = {c["fx"]["barcodes"][i] for i in c["fx"]["aggregates"]}
+    assert planted <= flagged
+    for out in (c["t_out"], c["j_out"]):
+        with gzip.open(os.path.join(out, "count", "filtered_feature_bc_matrix",
+                                    "barcodes.tsv.gz"), "rt") as f:
+            assert not planted & set(f.read().split())
+        with open(os.path.join(out, "demux", "assignments.csv")) as f:
+            assert not planted & {ln.split(",")[0] for ln in f}
+    got = c["report"]["outputs"]
+    assert got["number_aggregate_GEMs"] == len(flagged)
+    assert got["planted_aggregates_flagged"] == len(planted)
+    assert got["planted_aggregates_called"] == 0
+
+
 def test_chip_phase_report_matches_jax(cellplex):
     """What the card's phase holds: cellplex_outputs equal to the JAX
     run's (JIBES' floats within CELLPLEX_TOL, all else exactly), every
@@ -218,10 +297,12 @@ def test_chip_phase_report_matches_jax(cellplex):
     assert truth["blanks_called_blank"] >= 0.9
     assert rep["outputs"]["gex_molecules"] == SMALL["gex_reads"] // 2
     assert rep["outputs"]["cmo_molecules"] == cellplex["fx"]["cmo_reads"]
+    assert rep["outputs"]["ab_molecules"] == cellplex["fx"]["ab_reads"]
     assert rep["jibes_iters"] == want["jibes"]["n_iters"]
     for k in ("run_count_s", "jibes_s", "sample_outs_s", "slowest_sample_s",
               "subset_molecule_info_s", "sample_analysis_s",
-              "web_summaries_s", "fb_pass2_s"):
+              "web_summaries_s", "fb_pass2_s", "cmo_pass2_s", "ab_pass2_s",
+              "aggregate_s"):
         assert rep[k] > 0, k
     assert rep["slowest_sample_s"] <= rep["sample_outs_s"] < rep["wall_s"]
     assert rep["peak_host_rss_bytes"] > 0
@@ -249,9 +330,17 @@ def _set(keys: tuple, value):
     (_set(("jibes", "background"), lambda v: v[:5] + [v[5] - 2e-6] + v[6:]),
      True),
     (_set(("jibes", "std_devs"), lambda v: v[:-1] + [v[-1] + 5e-7]), False),
+    (_set(("ab_molecules",), lambda v: v - 1), True),
+    (_set(("aggregate_barcodes_sha256",), lambda v: None), True),
+    (_set(("number_aggregate_GEMs",), lambda v: v + 1), True),
+    (_set(("planted_aggregates_flagged",), lambda v: v - 1), True),
+    (_set(("planted_aggregates_called",), lambda v: v + 1), True),
+    (_set(("truth", "barcodes_off_planted_molecules"), lambda v: v + 1),
+     True),
 ], ids=["mex", "sample_cells", "tag_calls", "truth", "iters",
         "posterior_2e-6", "posterior_5e-7", "background_2e-6",
-        "std_devs_5e-7"])
+        "std_devs_5e-7", "ab_molecules", "aggregate_csv", "aggregate_gems",
+        "aggregates_flagged", "aggregates_called", "off_planted"])
 def test_cellplex_diffs_catch_faults(cellplex, fault, caught):
     """The phase's comparator against planted faults: every field exact
     but JIBES' floats, which may move by CELLPLEX_TOL = 1e-6."""

@@ -252,3 +252,67 @@ def test_run_count_feature_library_without_bam_matches_jax(tmp_path):
     assert sums["torch"]["total_reads"] == fx["n_reads"]
     assert not os.path.exists(os.path.join(outs["torch"],
                                            "possorted_genome_bam.bam"))
+
+
+# a CMO sequence at least 5 bases from each of RICH_AB_SEQS
+SHARED_CMO_SEQ = "GGAAAAATTAAAAAG"
+
+
+def test_antibody_library_counts_a_cmo_sequence_under_the_cmo(tmp_path):
+    """CMOs and TotalSeq-B antibodies share the pattern
+    5PNNNNNNNNNN(BC) on R2, so the feature reference puts both types in
+    one pattern group (one bucket table, one extractor), and every Feature
+    Barcode library's reads are matched against every group, whatever the
+    library's type: an Antibody Capture library's read that carries a
+    CMO's sequence is counted under that CMO.  This is the reference's
+    behaviour, pinned here; both packages' run_count do it alike."""
+    import gzip
+
+    from cellranger_tpu.pipeline import count as jax_count
+    from cellranger_tpu_torch.io.matrix_io import CountMatrix
+    from cellranger_tpu_torch.pipeline import count as tcount
+    from test_torch_count import _compare_runs
+
+    fx = build_rich_run(str(tmp_path / "fx"), n_cells=40)
+    assert all(sum(a != b for a, b in zip(SHARED_CMO_SEQ, s)) >= 5
+               for s in RICH_AB_SEQS)
+    fref = str(tmp_path / "features.csv")
+    with open(fx["feature_ref"]) as f, open(fref, "w") as g:
+        g.write(f.read() + f"CMO301,CMO301,R2,5PNNNNNNNNNN(BC),"
+                f"{SHARED_CMO_SEQ},Multiplexing Capture\n")
+    # the antibody library's reads, then 5 CMO molecules in each of 8 cells
+    rng = np.random.default_rng(3)
+    cmo_reads = [(fx["wl_seqs"][c] + "".join(rng.choice(list("ACGT"), 12)),
+                  "T" * 10 + SHARED_CMO_SEQ + "A" * (91 - 25))
+                 for c in fx["cells"][:8] for _ in range(5)]
+    fqs = []
+    for r, src in enumerate((fx["ab_fq1"], fx["ab_fq2"])):
+        with gzip.open(src, "rt") as f:
+            text = f.read()
+        text += "".join(f"@cmo{i}\n{p[r]}\n+\n{'I' * len(p[r])}\n"
+                        for i, p in enumerate(cmo_reads))
+        fqs.append(str(tmp_path / f"ab_S1_L001_R{r + 1}_001.fastq.gz"))
+        with gzip.open(fqs[-1], "wt") as f:
+            f.write(text)
+
+    outs, sums = {}, {}
+    for name, mod in (("torch", tcount), ("jax", jax_count)):
+        cfg = mod.CountConfig(
+            fastq_pairs=[], reference_path=fx["ref"],
+            whitelist_path=fx["wl"], feature_ref_csv=fref,
+            libraries=[mod.LibraryDef([(fx["fq1"], fx["fq2"])]),
+                       mod.LibraryDef([tuple(fqs)], "Antibody Capture")],
+            chemistry="SC3Pv3", read_len=91, batch_size=1024,
+            checkpoint=False, secondary_analysis=False)
+        outs[name] = str(tmp_path / name)
+        kw = dict(device="cpu") if mod is tcount else {}
+        sums[name] = mod.run_count(cfg, outs[name], **kw)
+    _compare_runs(outs["torch"], outs["jax"], sums["torch"], sums["jax"])
+    assert sums["torch"]["total_reads"] == fx["n_reads"] + len(cmo_reads)
+    raw = CountMatrix.load_h5(os.path.join(outs["torch"],
+                                           "raw_feature_bc_matrix.h5"))
+    ids = [d.id for d in raw.features.feature_defs]
+    per_feature = np.asarray(raw.m.sum(1)).ravel()
+    assert per_feature[ids.index("CMO301")] == len(cmo_reads)
+    assert [per_feature[ids.index(f"AB{i}")] for i in range(4)] == \
+        fx["ab_truth"].sum(1).tolist()

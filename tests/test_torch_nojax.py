@@ -11,9 +11,9 @@ analysis on a planted-population matrix, and run chip_smoke's parity,
 golden (the h5 files against the h5py-written snapshots), overflow,
 h5_pipelines (aggr over two runs' molecule_info.h5, two GEM wells, CLI
 reanalyze), analysis, paired-end (a tiny SC5P-PE count with BAM), probe
-(a tiny MFRP-RNA count), multi, cellplex (a 240-cell well of 12 CMOs),
-V(D)J (the tests' worlds, and the kmer
-spectrum of a tiny run), mkfastq and index_build (the torch index build
+(a tiny MFRP-RNA count), multi, cellplex (a 240-cell well of 12 CMOs
+and 17 antibodies), V(D)J (the tests' worlds, and the kmer spectrum of a
+tiny run), mkfastq and index_build (the torch index build
 against the numpy one) phases with the CPU as the device.
 A second, static test walks the port's sources and chip_smoke.py and
 refuses any import of jax, jaxlib, cellranger_tpu or h5py, lazy imports
@@ -167,14 +167,18 @@ SCRIPT = textwrap.dedent("""
     assert g["expected"]["total_molecules"] > 0 and g["aligner_mapped"], g
     g = chip_smoke.multi_run(os.path.join(tmp, "multi"), device="cpu")
     assert g["samples"] == {"sampleA": 20, "sampleB": 20}, g
-    # the cellplex phase's run and checks on a small 12-CMO well
+    # the cellplex phase's run and checks on a small well of 12 CMOs and
+    # 17 antibodies with 2 planted aggregates
     from cellranger_tpu_torch.testing.fixtures import build_cellplex_run
     fx = build_cellplex_run(os.path.join(tmp, "cellplex"), n_cells=240,
                             gex_reads=80_000, cmo_reads=24_000, n_wl=2_000,
-                            genome_len=400_000, n_genes=40, n_types=2)
+                            genome_len=400_000, n_genes=40, n_types=2,
+                            n_antibodies=17, ab_reads=24_000,
+                            n_aggregates=2)
     g = chip_smoke.cellplex_run(fx, os.path.join(tmp, "cellplex_out"), "cpu")
     assert g["outputs"]["truth"]["barcodes_off_planted_molecules"] == 0, g
     assert len(g["outputs"]["samples"]) == 12, g
+    assert g["outputs"]["planted_aggregates_flagged"] == 2, g
     # V(D)J: the tests' worlds cpu against cpu, kmers in blocks; the kmer
     # spectrum of a tiny build_vdj_run; mkfastq on both BCL layouts
     g = chip_smoke.vdj_parity(os.path.join(tmp, "vdj"),
