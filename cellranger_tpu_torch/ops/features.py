@@ -17,7 +17,7 @@ import torch
 from ..io.feature_ref import CompiledPattern
 from . import barcode as bcops
 from .bucket_table import BucketTable
-from .encode import pack_codes
+from .tensor_ops import U32_MASK
 
 
 def make_feature_extractor(pattern: CompiledPattern, table: BucketTable,
@@ -70,7 +70,13 @@ def make_feature_extractor(pattern: CompiledPattern, table: BucketTable,
             pc = rna.gather(1, torch.clamp(pli, 0, L - 1))
             for i in np.flatnonzero(fixed_mask):
                 bc_ok = bc_ok & (pc[:, i] == int(pre_fixed[i]))
-        packed = pack_codes(bc_codes, bc_len)
+        # packed inline as the JAX extractor's uint32 word: past 16 bases
+        # the high bits fall off, so a longer feature barcode is matched on
+        # its last 16 bases, as in the reference
+        packed = torch.zeros((B,), dtype=torch.int64, device=rna.device)
+        for i in range(bc_len):
+            packed = ((packed << 2) | bc_codes[:, i].to(torch.int64)) \
+                & U32_MASK
         hit, idx = table.membership(packed)
         _corr_bc, corr_idx, corrected = bcops.correct_barcodes(
             packed, torch.full((B, bc_len), 70, dtype=torch.uint8,

@@ -2327,6 +2327,12 @@ def _shuffled_reads(rng, bc_packed, umi, r2, wl, tmp: str, name: str):
     """One library's reads in a random order, 2% of them with a barcode
     error that corrects back uniquely (`_human_barcode_errors`), written
     as tmp/<name>/<name>_S1_L001_R{1,2}_001.fastq."""
+    return _shuffled_library(rng, bc_packed, umi, r2, wl, tmp, name)[0]
+
+
+def _shuffled_library(rng, bc_packed, umi, r2, wl, tmp: str, name: str):
+    """`_shuffled_reads`, returning (its directory, the order of the reads
+    in the FASTQs: row i of the files is row order[i] of the inputs)."""
     order = rng.permutation(len(bc_packed))
     bc_packed, umi, r2 = bc_packed[order], umi[order], r2[order]
     n_err = len(bc_packed) // 50
@@ -2338,7 +2344,32 @@ def _shuffled_reads(rng, bc_packed, umi, r2, wl, tmp: str, name: str):
                       os.path.join(d, f"{name}_S1_L001_R2_001.fastq"),
                       np.concatenate([_unpack_barcodes(bc_packed), umi], 1),
                       r2)
-    return d
+    return d, order
+
+
+def _typed_gex(rng, garr, spacing: int, n_genes: int, n_types: int,
+               n_cells: int, gex_reads: int, weight, cell_types):
+    """The GEX molecules of a well of typed cells: gex_reads // E2E_DUP
+    molecules spread over the cells by a log-normal weight (times
+    `weight`), CELLPLEX_MARKER_SHARE of each on the marker genes of its
+    cell's type, the rest on any '+' gene, each read from exon 1 of its
+    gene.  cell_types(rng) draws the [n_cells, 2] types (a multiplet's two
+    cells; the same type twice elsewhere) after the molecules' cells.
+    Returns (each molecule's cell, the types, the cDNA rows)."""
+    n_mol = gex_reads // E2E_DUP
+    w = rng.lognormal(0.0, CELLPLEX_GEX_SPREAD, n_cells) * weight
+    cell_of = rng.choice(n_cells, n_mol, p=w / w.sum())
+    cell_type = cell_types(rng)
+    mtype = cell_type[cell_of, rng.integers(0, 2, n_mol)]
+    n_plus = n_genes // 2                              # '+' strand only
+    n_mark = n_plus // (2 * n_types)
+    gene = 2 * np.where(
+        rng.random(n_mol) < CELLPLEX_MARKER_SHARE,
+        mtype * n_mark + rng.integers(0, n_mark, n_mol),
+        rng.integers(0, n_plus, n_mol))
+    pos = gene * spacing + 1000 + rng.integers(0, 600 - READ_LEN - 8, n_mol)
+    cdna = garr[pos[:, None] + np.arange(READ_LEN)[None, :]]
+    return cell_of, cell_type, cdna
 
 
 def build_cellplex_run(tmp: str, n_cells: int = 30_000, n_tags: int = 12,
@@ -2430,28 +2461,23 @@ def build_cellplex_run(tmp: str, n_cells: int = 30_000, n_tags: int = 12,
         tag_mol[rows, tag[rows]] += rng.poisson(scale[rows] / 2)
 
     bases = np.frombuffer(b"ACGT", np.uint8)
-    n_mol = gex_reads // E2E_DUP
-    w = rng.lognormal(0.0, CELLPLEX_GEX_SPREAD, n_cells) * np.where(
-        multi, 2.0, 1.0)
-    cell_of = rng.choice(n_cells, n_mol, p=w / w.sum())
-    # a multiplet's molecules come from its two cells' types in halves; a
-    # sample's singlets take the types in turn, so each sample holds every
-    # type in the same share
-    cell_type = rng.integers(0, n_types, (n_cells, 2))
-    rows = np.flatnonzero(single)
-    by_tag = rows[np.argsort(tag1[rows], kind="stable")]
-    first = np.searchsorted(tag1[by_tag], tag1[by_tag])
-    cell_type[by_tag, 0] = (np.arange(len(by_tag)) - first) % n_types
-    cell_type[~multi, 1] = cell_type[~multi, 0]
-    mtype = cell_type[cell_of, rng.integers(0, 2, n_mol)]
-    n_plus = n_genes // 2                              # '+' strand only
-    n_mark = n_plus // (2 * n_types)
-    gene = 2 * np.where(
-        rng.random(n_mol) < CELLPLEX_MARKER_SHARE,
-        mtype * n_mark + rng.integers(0, n_mark, n_mol),
-        rng.integers(0, n_plus, n_mol))
-    pos = gene * spacing + 1000 + rng.integers(0, 600 - READ_LEN - 8, n_mol)
-    cdna = garr[pos[:, None] + np.arange(READ_LEN)[None, :]]
+
+    def sample_types(rng):
+        # a multiplet's molecules come from its two cells' types in halves;
+        # a sample's singlets take the types in turn, so each sample holds
+        # every type in the same share
+        cell_type = rng.integers(0, n_types, (n_cells, 2))
+        rows = np.flatnonzero(single)
+        by_tag = rows[np.argsort(tag1[rows], kind="stable")]
+        first = np.searchsorted(tag1[by_tag], tag1[by_tag])
+        cell_type[by_tag, 0] = (np.arange(len(by_tag)) - first) % n_types
+        cell_type[~multi, 1] = cell_type[~multi, 0]
+        return cell_type
+
+    cell_of, cell_type, cdna = _typed_gex(
+        rng, garr, spacing, n_genes, n_types, n_cells, gex_reads,
+        np.where(multi, 2.0, 1.0), sample_types)
+    n_mol = len(cell_of)
     flat = np.repeat(np.arange(n_cells * n_tags), tag_mol.ravel())
     cmo_cell, cmo_tag = flat // n_tags, flat % n_tags
     ab_rng = np.random.default_rng((seed, 2))
@@ -2536,3 +2562,318 @@ sample_id,cmo_ids
                         - (tag1[aggregates] == i).sum())
                for i, sid in enumerate(samples)},
         timing=timing)
+
+
+# a Perturb-seq GEM well: CRISPR Guide Capture beside GEX and TotalSeq-B
+# antibodies (ECCITE-seq), 3' v3, guides as a genome-scale screen's
+PERTURB_GUIDE_LEN = 20          # a protospacer
+PERTURB_GUIDE_MIN_DIST = 3      # pairwise Hamming distance of the last 16
+PERTURB_GUIDES_PER_GENE = 2
+# the reverse complement of the optimised SpCas9 scaffold's first 20 bases
+# (GTTTAAGAGCTATGCTGGAA): the read shows it just ahead of the protospacer
+PERTURB_PREFIX = "TTCCAGCATAGCTCTTAAAC"
+# the reverse complement of the U6 promoter's last 23 bases, read after
+# the protospacer
+PERTURB_U6_RC = "CGGTGTTTCGTCCTTTCCACAAG"
+PERTURB_R2_LEN = 91
+PERTURB_MAX_OFFSET = 31         # bases ahead of the prefix: 0-31
+PERTURB_CARRY = (1, 2, 0)       # guides a cell carries, in these shares:
+PERTURB_CARRY_SHARES = (0.70, 0.10, 0.20)
+PERTURB_GUIDE_SPREAD = 1.0      # log-normal sigma of guide representation
+PERTURB_GUIDE_UMIS = 50         # median UMIs of a carried guide
+PERTURB_UMI_SPREAD = 0.3        # log-normal sigma of a carried guide's UMIs
+PERTURB_AMBIENT = 2             # 0..2 ambient UMIs of random guides a cell
+# guide reads: the prefix twice (the second copy before another guide),
+# one substitution in the guide, an N in the prefix; the rest clean
+PERTURB_READ_KINDS = ("clean", "double", "substitution", "n_prefix")
+PERTURB_READ_SHARES = (None, 0.01, 0.02, 0.005)
+PERTURB_AB_LEADER = CELLPLEX_TAG_LEADER   # the antibodies' 5P leader
+
+
+def _perturb_guides(rng, n_guides: int) -> np.ndarray:
+    """n_guides random PERTURB_GUIDE_LEN-base protospacers as ASCII rows,
+    every two at least PERTURB_GUIDE_MIN_DIST apart on their last 16
+    bases (the word both packages match on), so a substitution there
+    corrects back to its own guide alone."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    tails = np.zeros((0, 16), np.uint8)
+    out = []
+    while len(out) < n_guides:
+        for g in bases[rng.integers(0, 4, (n_guides, PERTURB_GUIDE_LEN))]:
+            t = g[-16:]
+            if len(out) == n_guides:
+                break
+            if len(tails) and (tails != t).sum(1).min() \
+                    < PERTURB_GUIDE_MIN_DIST:
+                continue
+            out.append(g)
+            tails = np.concatenate([tails, t[None]])
+    return np.asarray(out)
+
+
+def _perturb_library(rng, n_cells: int, n_guides: int):
+    """The guides each cell carries and their UMIs: PERTURB_CARRY guides
+    in PERTURB_CARRY_SHARES of the cells, drawn by a log-normal
+    representation (a cell's two guides distinct), each
+    Poisson(PERTURB_GUIDE_UMIS x lognormal) UMIs, at least one; plus 0 to
+    PERTURB_AMBIENT ambient UMIs a cell of guides drawn by representation.
+    Returns (carried guide [n_cells, 2], -1 where none; the (cell, guide)
+    pairs with their UMIs, coalesced and sorted)."""
+    n_kind = [round(n_cells * s) for s in PERTURB_CARRY_SHARES[:2]]
+    n_kind.append(n_cells - sum(n_kind))
+    carry = rng.permutation(np.repeat(PERTURB_CARRY, n_kind))
+    rep = rng.lognormal(0.0, PERTURB_GUIDE_SPREAD, n_guides)
+    p = rep / rep.sum()
+    guide = np.full((n_cells, 2), -1, np.int64)
+    one = np.flatnonzero(carry >= 1)
+    guide[one, 0] = rng.choice(n_guides, len(one), p=p)
+    two = np.flatnonzero(carry == 2)
+    guide[two, 1] = rng.choice(n_guides, len(two), p=p)
+    same = two[guide[two, 1] == guide[two, 0]]
+    while len(same):
+        guide[same, 1] = rng.choice(n_guides, len(same), p=p)
+        same = same[guide[same, 1] == guide[same, 0]]
+    cells, cols = np.nonzero(guide >= 0)
+    umis = np.maximum(rng.poisson(PERTURB_GUIDE_UMIS * rng.lognormal(
+        0.0, PERTURB_UMI_SPREAD, len(cells))), 1)
+    n_amb = rng.integers(0, PERTURB_AMBIENT + 1, n_cells)
+    amb_cell = np.repeat(np.arange(n_cells), n_amb)
+    amb_guide = rng.choice(n_guides, len(amb_cell), p=p)
+    key = np.concatenate([cells * n_guides + guide[cells, cols],
+                          amb_cell * n_guides + amb_guide])
+    cnt = np.concatenate([umis, np.ones(len(amb_cell), np.int64)])
+    pairs, inv = np.unique(key, return_inverse=True)
+    return guide, (pairs // n_guides, pairs % n_guides,
+                   np.bincount(inv, weights=cnt).astype(np.int64))
+
+
+def _perturb_r2(rng, guides: np.ndarray, guide: np.ndarray,
+                kind: np.ndarray, ab_seqs: np.ndarray):
+    """Guide R2 rows, PERTURB_R2_LEN bases: random bases, at an offset of
+    0..PERTURB_MAX_OFFSET (0..11 for a doubled prefix) PERTURB_PREFIX and
+    the read's guide, then PERTURB_U6_RC; kind "double" puts the prefix
+    and another guide after the first copy, "substitution" changes one
+    guide base (every position alike), "n_prefix" one prefix base to N.
+    A read whose antibody window (the 15 bases after the 5P leader) lies
+    within one base of an antibody is drawn again, so the antibodies'
+    pattern, searched first, never takes a guide read.  Returns (rows,
+    prefix offsets, substituted positions or -1)."""
+    n, G = len(guide), len(guides)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    pre = np.frombuffer(PERTURB_PREFIX.encode(), np.uint8)
+    u6 = np.frombuffer(PERTURB_U6_RC.encode(), np.uint8)
+    P, L, R = len(pre), PERTURB_GUIDE_LEN, PERTURB_R2_LEN
+    double = kind == PERTURB_READ_KINDS.index("double")
+    sub = kind == PERTURB_READ_KINDS.index("substitution")
+    npre = kind == PERTURB_READ_KINDS.index("n_prefix")
+    # rows drawn wide enough for everything placed, then cut to R bases
+    W = R + 2 * (P + L) + len(u6)
+    r2 = np.empty((n, R), np.uint8)
+    off = np.zeros(n, np.int64)
+    sub_pos = np.where(sub, rng.integers(0, L, n), -1)
+    sub_by = rng.integers(1, 4, n)
+    n_at = rng.integers(0, P, n)
+    decoy = (guide + rng.integers(1, G, n)) % G
+    todo = np.arange(n)
+    while len(todo):
+        t = todo
+        buf = bases[rng.integers(0, 4, (len(t), W), dtype=np.uint8)]
+        off[t] = np.where(double[t], rng.integers(0, R - 2 * (P + L) + 1,
+                                                  len(t)),
+                          rng.integers(0, PERTURB_MAX_OFFSET + 1, len(t)))
+        o = off[t][:, None]
+        rows = np.arange(len(t))[:, None]
+
+        def put(start, seq, sel=slice(None)):
+            buf[rows[sel], start + np.arange(seq.shape[-1])[None, :]] = seq
+
+        g = guides[guide[t]]
+        s = np.flatnonzero(sub[t])
+        code = np.searchsorted(bases, g[s, sub_pos[t[s]]])
+        g[s, sub_pos[t[s]]] = bases[(code + sub_by[t[s]]) % 4]
+        put(o, pre)
+        put(o + P, g)
+        d = double[t]
+        end = o + P + L + np.where(d, P + L, 0)[:, None]
+        put(o[d] + P + L, pre, d)
+        put(o[d] + 2 * P + L, guides[decoy[t[d]]], d)
+        put(end, u6)
+        m = np.flatnonzero(npre[t])
+        buf[m, off[t[m]] + n_at[t[m]]] = ord("N")
+        r2[t] = buf[:, :R]
+        if not len(ab_seqs):
+            break
+        win = r2[t, PERTURB_AB_LEADER:PERTURB_AB_LEADER + ab_seqs.shape[1]]
+        near = np.zeros(len(t), bool)
+        C = 1 << 16
+        for i in range(0, len(t), C):
+            near[i:i + C] = ((win[i:i + C, None] != ab_seqs[None])
+                             .sum(2) <= 1).any(1)
+        todo = t[near]
+    return r2, off, sub_pos
+
+
+def build_perturb_run(tmp: str, n_cells: int = 10_000,
+                      n_target_genes: int = 2_000,
+                      n_nontargeting: int = 100,
+                      gex_reads: int = 10_000_000,
+                      guide_reads: int = 3_000_000,
+                      n_antibodies: int = 17, ab_reads: int = 2_000_000,
+                      seed: int = 43, *, n_wl: int = HUMAN_WL,
+                      genome_len: int = E2E_GENOME_LEN,
+                      n_genes: int = E2E_GENES,
+                      n_types: int = CELLPLEX_TYPES) -> dict:
+    """A Perturb-seq GEM well for `count`: Gene Expression on the e2e genome
+    and genes (`_typed_gex`: n_types cell types with marker genes, drawn
+    per cell), CRISPR Guide Capture of PERTURB_GUIDES_PER_GENE drawn
+    20-base guides for each of n_target_genes genes plus n_nontargeting
+    non-targeting guides (`_perturb_guides`; pattern PERTURB_PREFIX(BC) on
+    R2, unanchored; the feature reference's target_gene_id and
+    target_gene_name columns name the target, or Non-Targeting), and
+    Antibody Capture of the first n_antibodies of CELLPLEX_AB_PANEL
+    (`_cellplex_antibodies`, pattern 5PNNNNNNNNNN(BC), one read a
+    molecule).  The antibody rows come first in the feature reference, so
+    the antibodies' pattern is searched first in every read and the
+    guides' pattern finds the guide: every guide read goes through the
+    count's merge of patterns.
+
+    n_cells barcodes of an n_wl-barcode whitelist are cells; their guides
+    as `_perturb_library` plants them.  Guide reads: guide_reads over the
+    guide molecules, each molecule at least one, the first read of a
+    molecule never an n_prefix read; PERTURB_READ_SHARES of them doubled,
+    substituted or N-prefixed (`_perturb_r2`).  UMIs are drawn once over
+    the three libraries (`_coded_umis`), so no molecule of a cell shares
+    its UMI with another and every planted molecule is counted.  2% of
+    each library's reads carry a barcode error that corrects back.
+
+    Returns the CountConfig inputs (ref, wl, feature_ref, fastq dirs and
+    pairs), the read counts, the guides (id -> sequence, targets) and
+    antibodies (id -> sequence) in the feature reference's order, the
+    planted truth (`barcodes`, `cell_type`, `gex_molecules` [n_cells],
+    `carried` [n_cells, 2] guide indices or -1, `guide_pairs` (cell,
+    guide, UMIs), `ab_molecules` [n_cells, n_antibodies],
+    `shared_umis`, 0 by construction), the guide reads in FASTQ order
+    (`guide_read_kind` index into PERTURB_READ_KINDS, `guide_read_guide`,
+    `guide_read_offset` of the guide, `guide_read_sub_pos` or -1) and
+    `timing`, the host seconds of each part."""
+    timing: dict = {}
+    t = time.time()
+    garr, spacing, _, ref_dir, _ = _e2e_reference(
+        tmp, np.random.default_rng(11), genome_len, n_genes, None)
+    timing["reference_s"] = time.time() - t
+
+    t = time.time()
+    rng = np.random.default_rng(seed)
+    wl = _human_whitelist(rng, n_wl)
+    wl_path = os.path.join(tmp, "wl.txt")
+    _write_whitelist(wl_path, wl)
+    cell_bc = wl[rng.choice(n_wl, n_cells, replace=False)]
+    timing["whitelist_s"] = time.time() - t
+
+    t = time.time()
+    bases = np.frombuffer(b"ACGT", np.uint8)
+
+    def random_types(rng):
+        return np.repeat(rng.integers(0, n_types, n_cells)[:, None], 2, 1)
+
+    cell_of, cell_type, cdna = _typed_gex(
+        rng, garr, spacing, n_genes, n_types, n_cells, gex_reads, 1.0,
+        random_types)
+    n_mol = len(cell_of)
+    n_guides = PERTURB_GUIDES_PER_GENE * n_target_genes + n_nontargeting
+    guides = _perturb_guides(rng, n_guides)
+    carried, (pair_cell, pair_guide, pair_umis) = _perturb_library(
+        rng, n_cells, n_guides)
+    g_cell = np.repeat(pair_cell, pair_umis)
+    g_of = np.repeat(pair_guide, pair_umis)
+    n_gmol = len(g_cell)
+    assert guide_reads >= n_gmol, "fewer guide reads than guide molecules"
+    ab_rng = np.random.default_rng((seed, 2))
+    ab_names, ab_mol, _ = _cellplex_antibodies(
+        ab_rng, n_antibodies, ab_reads, 0, np.zeros(n_cells, np.int64),
+        cell_type)
+    ab_flat = np.repeat(np.arange(n_cells * n_antibodies), ab_mol.ravel())
+    ab_cell, ab_of = np.divmod(ab_flat, max(n_antibodies, 1))
+    umi = bases[_coded_umis(np.concatenate([cell_of, g_cell, ab_cell]),
+                            12, rng)]
+    umi, g_umi, ab_umi = np.split(umi, [n_mol, n_mol + n_gmol])
+    rep = lambda a: np.repeat(a, E2E_DUP, axis=0)  # noqa: E731
+    gex_dir = _shuffled_reads(rng, rep(cell_bc[cell_of]), rep(umi), rep(cdna),
+                              wl, tmp, "gex")
+    del cdna, umi
+    timing["gex_reads_s"] = time.time() - t
+
+    t = time.time()
+    ab_seqs = _cellplex_tags(n_antibodies, ab_rng)
+    # each guide molecule's reads: one, and the rest spread evenly
+    per_mol = 1 + np.bincount(rng.integers(0, n_gmol, guide_reads - n_gmol),
+                              minlength=n_gmol)
+    read_mol = np.repeat(np.arange(n_gmol), per_mol)
+    first = np.r_[0, np.cumsum(per_mol)[:-1]]
+    u = rng.random(guide_reads)
+    kind = np.zeros(guide_reads, np.int64)
+    edge = 0.0
+    for k, share in enumerate(PERTURB_READ_SHARES[1:], 1):
+        kind[(u >= edge) & (u < edge + share)] = k
+        edge += share
+    n_prefix = PERTURB_READ_KINDS.index("n_prefix")
+    kind[first[kind[first] == n_prefix]] = 0
+    r2, off, sub_pos = _perturb_r2(rng, guides, g_of[read_mol], kind,
+                                   ab_seqs)
+    guide_dir, order = _shuffled_library(
+        rng, cell_bc[g_cell[read_mol]], g_umi[read_mol], r2, wl, tmp,
+        "crispr")
+    del r2
+    timing["guide_reads_s"] = time.time() - t
+
+    t = time.time()
+    ab_dir = None
+    if n_antibodies:
+        ab_dir = _shuffled_reads(ab_rng, cell_bc[ab_cell], ab_umi,
+                                 _feature_r2(ab_seqs[ab_of], ab_rng), wl,
+                                 tmp, "ab")
+    timing["ab_reads_s"] = time.time() - t
+
+    targets = [f"TGT{k:04d}" for k in range(n_target_genes)]
+    guide_ids = [f"{g}-{i + 1}" for g in targets
+                 for i in range(PERTURB_GUIDES_PER_GENE)]
+    guide_ids += [f"NT-{k + 1:03d}" for k in range(n_nontargeting)]
+    guide_target = [g for g in targets
+                    for _ in range(PERTURB_GUIDES_PER_GENE)]
+    guide_target += ["Non-Targeting"] * n_nontargeting
+    fref = os.path.join(tmp, "perturb_features.csv")
+    with open(fref, "w") as f:
+        f.write("id,name,read,pattern,sequence,feature_type,"
+                "target_gene_id,target_gene_name\n")
+        ab_pattern = f"5P{'N' * PERTURB_AB_LEADER}(BC)"
+        for a, s in zip(ab_names, ab_seqs):
+            f.write(f"{a},{a},R2,{ab_pattern},{s.tobytes().decode()},"
+                    "Antibody Capture,,\n")
+        for gid, s, tg in zip(guide_ids, guides, guide_target):
+            f.write(f"{gid},{gid},R2,{PERTURB_PREFIX}(BC),"
+                    f"{s.tobytes().decode()},CRISPR Guide Capture,{tg},"
+                    f"{tg}\n")
+    pair = lambda d, n: (os.path.join(d, f"{n}_S1_L001_R1_001.fastq"),  # noqa
+                         os.path.join(d, f"{n}_S1_L001_R2_001.fastq"))
+    libraries = [("Gene Expression", pair(gex_dir, "gex")),
+                 ("CRISPR Guide Capture", pair(guide_dir, "crispr"))]
+    if ab_dir is not None:
+        libraries.append(("Antibody Capture", pair(ab_dir, "ab")))
+    barcodes = [b.tobytes().decode() + "-1"
+                for b in _unpack_barcodes(cell_bc)]
+    return dict(
+        ref=ref_dir, wl=wl_path, feature_ref=fref, libraries=libraries,
+        n_wl=n_wl, n_cells=n_cells, gex_reads=n_mol * E2E_DUP,
+        guide_reads=guide_reads, ab_reads=len(ab_flat),
+        n_reads=n_mol * E2E_DUP + guide_reads + len(ab_flat),
+        guides={i: s.tobytes().decode() for i, s in zip(guide_ids, guides)},
+        guide_targets=guide_target,
+        antibodies={a: s.tobytes().decode()
+                    for a, s in zip(ab_names, ab_seqs)},
+        barcodes=barcodes, cell_type=cell_type,
+        gex_molecules=np.bincount(cell_of, minlength=n_cells),
+        carried=carried, guide_pairs=(pair_cell, pair_guide, pair_umis),
+        ab_molecules=ab_mol, shared_umis=0,
+        guide_read_kind=kind[order], guide_read_guide=g_of[read_mol][order],
+        guide_read_offset=off[order] + len(PERTURB_PREFIX),
+        guide_read_sub_pos=sub_pos[order], timing=timing)

@@ -204,6 +204,31 @@ Phases, each printing one line; any failure raises and exits non-zero:
                fixture's seconds (genome, device build, npz write), the
                reference load's split, each device table's bytes, peak
                device memory, peak host RSS and MemTotal
+  perturb      a Perturb-seq GEM well at a genome-scale screen's width
+               (testing/fixtures.build_perturb_run: 10,000 cells, 4,100
+               drawn 20-base guides, two for each of 2,000 genes and 100
+               non-targeting, behind the unanchored pattern
+               TTCCAGCATAGCTCTTAAAC(BC) at offsets 0-31; 17 TotalSeq-B
+               antibodies, searched first; the 6,794,880-barcode
+               whitelist; 10,000,000 GEX, 3,000,000 guide and ~2,000,000
+               antibody reads; 70% of the cells with one guide, 10% two,
+               20% none) through run_count on cuda, batch 32768, secondary
+               analysis on: the JAX package's reads, usable reads per
+               library, molecules, cells, MEX digests, both
+               crispr_analysis CSVs' bytes, the protospacer fractions and
+               how many guides took call_features' EM branch and how many
+               its fallback (PERTURB_EXPECTED; both above 0); every planted
+               molecule counted and the single-guide cells' calls; each
+               guide read extracted as built (found at its guide and
+               offset, a substitution in the first four bases an exact
+               hit, after them corrected, a doubled prefix at its first
+               copy, an N-prefixed read not extracted) and taken by
+               process_fb's merge of patterns; one K1 launch a GEX step.
+               Wall, run_count's phases, each Feature Barcode library's
+               pass-2 seconds, the feature assignment's seconds, peak
+               device memory and host RSS.  It runs in a child process
+               beside the phases from vdj_parity to human_scale, as
+               analysis_68k does; its line comes after analysis_68k's
 
 Every path resets the SW kernel's launch count before it runs and reads
 it after; the kernel report counts the e2e path's launches and lists
@@ -212,8 +237,8 @@ every path's (`pe`: two a batch, one per mate; `mesh` and
 counts; `h5_pipelines`: one a step of each GEM well; `deep`: one a
 step, 611 at 20,000,000 reads; `human_parity`:
 its cuda step, aligner call and truth-probe step and aligner call;
-`cellplex`: one a GEX step, 306, and none for the CMO and antibody
-libraries;
+`cellplex` and `perturb`: one a GEX step, 306, and none for the CMO,
+guide and antibody libraries;
 `rtl`, the V(D)J paths, `mkfastq`, `index_build`, `analysis` and
 `analysis_68k`: none, no genome aligner runs).  The line before the
 last is the kernel report (JSON); the last line is {"ok": true,
@@ -563,6 +588,64 @@ CELLPLEX_EXPECTED = {
         "singlets_own_sample": 0.9995040577096483,
         "multiplets_called_multiplet": 0.9776388888888888,
         "blanks_called_blank": 1.0,
+        "barcodes_off_planted_molecules": 0,
+        "stray_barcodes": 0,
+    },
+    "off_planted": [],
+}
+
+# Perturb-seq: a genome-scale CRISPR screen's guide library (Replogle et
+# al. 2022, Cell 185:2559, the K562 essential-scale screen: ~2,000 target
+# genes, two protospacers each, plus non-targeting controls) with surface
+# proteins in the same well (ECCITE-seq, Mimitou et al. 2019, Nat Methods
+# 16:409; the 17 TotalSeq-B antibodies of 10x's pbmc_10k_protein_v3), 3'
+# v3 at 10x's standard load of 10,000 cells; 20-base guides behind the
+# unanchored scaffold prefix; depth cut from 10x's 20,000 GEX and 5,000
+# guide and 5,000 antibody read pairs a cell for the script's time limit
+PERTURB = dict(n_cells=10_000, n_target_genes=2_000, n_nontargeting=100,
+               gex_reads=10_000_000, guide_reads=3_000_000,
+               n_antibodies=17, ab_reads=2_000_000)
+PERTURB_TIMEOUT_S = 600
+# The JAX package's perturb_outputs for build_perturb_run(dir, **PERTURB),
+# made by `JAX_PLATFORMS=cpu python tests/perturb_reference.py DIR` (that
+# package's run_count on the CPU, chip_smoke.perturb_config: batch 32768,
+# secondary analysis on) with cellranger_tpu as of commit b1b190b
+PERTURB_EXPECTED = {
+    "total_reads": 14_995_064,
+    "total_molecules": 7_475_337,
+    "usable_reads_by_library": [10000000, 2987468, 1995064],
+    "gex_molecules": 5_000_000,
+    "guide_molecules": 480_273,
+    "ab_molecules": 1_995_064,
+    "estimated_cells": 10_000,
+    "mex_sha256": {
+        "raw_feature_bc_matrix/matrix.mtx.gz":
+            "395134839ae92413d42433e12ca5d221b5f44ab90f61e71d129671aca5e878cb",
+        "raw_feature_bc_matrix/barcodes.tsv.gz":
+            "0f46f2e498b189beacddd00262e640d0d165c33d5660d514b5f594a3d0f3668c",
+        "raw_feature_bc_matrix/features.tsv.gz":
+            "6fc4a73e3f52a650405e83ae86518d259e70a04b6e720330b9b2de433e81d3c2",
+        "filtered_feature_bc_matrix/matrix.mtx.gz":
+            "ca4d0b624b5c8eb9502b850eaf9ea8e5b0b27bbfe9e53e36ee2d2fa9354e7901",
+        "filtered_feature_bc_matrix/barcodes.tsv.gz":
+            "6c29927e7fd5da3f48208977899e858877cb849204c9e31a3aee3fc3a3d0469d",
+        "filtered_feature_bc_matrix/features.tsv.gz":
+            "6fc4a73e3f52a650405e83ae86518d259e70a04b6e720330b9b2de433e81d3c2",
+    },
+    "cells_with_one_protospacer_frac": 0.7,
+    "cells_with_multiple_protospacer_frac": 0.0999,
+    "cells_with_no_protospacer_frac": 0.2001,
+    "protospacer_calls_per_cell_sha256":
+        "3b9713c27576b4fb63ff1932cec1b6417e3af28c1747ee7b744fb359107605ca",
+    "protospacer_calls_summary_sha256":
+        "dd4b35aed48327bf4f39b2d5e5f0ff927ac8ff75b50d64611c1fb4e6a8fa9550",
+    "em_guides": 519,
+    "fallback_guides": 3_581,
+    "truth": {
+        "single_guide_cells": 7_000,
+        "single_guide_cells_called": 7_000,
+        "single_guide_cells_own_guide": 0.9998571428571429,
+        "shared_umi_loss": 0,
         "barcodes_off_planted_molecules": 0,
         "stray_barcodes": 0,
     },
@@ -1668,6 +1751,32 @@ def _sha256(data: bytes) -> str:
     return hashlib.sha256(data).hexdigest()
 
 
+def _feature_rows(mat, defs, types, ftype: str, ids) -> tuple:
+    """Each barcode's total molecules of feature type `ftype` in the raw
+    matrix `mat` (features x barcodes, csr), and the matrix of those rows
+    in the fixture's order `ids` [len(ids), barcodes]."""
+    import numpy as np
+
+    rows = np.flatnonzero(types == ftype)
+    own = {defs[i].id: j for j, i in enumerate(rows)}
+    sub = mat[rows].tocsc()
+    return (np.asarray(sub.sum(0)).ravel(),
+            sub[[own[i] for i in ids]].tocsc())
+
+
+def _planted_columns(barcodes, planted) -> tuple:
+    """The column of each planted barcode ("<16 bases>-1") among a
+    matrix's `barcodes`, and whether it is there."""
+    import numpy as np
+
+    bcs = np.asarray(barcodes).astype("S")
+    by = (np.arange(len(bcs)) if (bcs[1:] >= bcs[:-1]).all()
+          else np.argsort(bcs, kind="stable"))
+    want = np.asarray(planted).astype("S")
+    col = by[np.minimum(np.searchsorted(bcs[by], want), len(bcs) - 1)]
+    return col, bcs[col] == want
+
+
 def cellplex_outputs(fx: dict, out: str, jibes=None) -> dict:
     """What the cellplex phase holds of a run_multi output directory `out`
     of the fixture `fx` (testing.fixtures.build_cellplex_run): reads,
@@ -1697,35 +1806,22 @@ def cellplex_outputs(fx: dict, out: str, jibes=None) -> dict:
     types = np.asarray([f.feature_type for f in defs])
     mat = raw.m.tocsr()
     gex = np.asarray(mat[types == GENE_EXPRESSION].sum(0)).ravel()
-
-    def rows_of(ftype: str, ids) -> tuple:
-        """Each barcode's total molecules of ftype, and the matrix of
-        those rows in the fixture's order `ids` [barcodes, len(ids)]."""
-        rows = np.flatnonzero(types == ftype)
-        own = [defs[i].id for i in rows]
-        sub = mat[rows].tocsc()
-        return (np.asarray(sub.sum(0)).ravel(),
-                sub[[own.index(i) for i in ids]].tocsc())
-
-    tag_total, tagm = rows_of(MULTIPLEXING, fx["tags"])
-    ab_total, abm = rows_of(ANTIBODY_CAPTURE, fx["antibodies"])
-    bcs = np.asarray(raw.barcodes).astype("S")
-    by = (np.arange(len(bcs)) if (bcs[1:] >= bcs[:-1]).all()
-          else np.argsort(bcs, kind="stable"))
-    want = np.asarray(fx["barcodes"]).astype("S")
-    col = by[np.minimum(np.searchsorted(bcs[by], want), len(bcs) - 1)]
-    found = bcs[col] == want
+    tag_total, tagm = _feature_rows(mat, defs, types, MULTIPLEXING,
+                                    fx["tags"])
+    ab_total, abm = _feature_rows(mat, defs, types, ANTIBODY_CAPTURE,
+                                  fx["antibodies"])
+    col, found = _planted_columns(raw.barcodes, fx["barcodes"])
     # each planted cell's tag and antibody molecules, in the fixture's
     # order
-    cell_tags = np.zeros((len(want), len(fx["tags"])), np.int64)
+    cell_tags = np.zeros((len(found), len(fx["tags"])), np.int64)
     cell_tags[found] = tagm[:, col[found]].toarray().T
-    cell_abs = np.zeros((len(want), len(fx["antibodies"])), np.int64)
+    cell_abs = np.zeros((len(found), len(fx["antibodies"])), np.int64)
     cell_abs[found] = abm[:, col[found]].toarray().T
     off = ~found
     off[found] = ((gex[col[found]] != fx["gex_molecules"][found])
                   | (cell_tags[found] != fx["tag_molecules"][found]).any(1)
                   | (cell_abs[found] != fx["ab_molecules"][found]).any(1))
-    stray = np.ones(len(bcs), bool)
+    stray = np.ones(len(raw.barcodes), bool)
     stray[col[found]] = False
     n_stray = int((stray & ((gex > 0) | (tag_total > 0)
                             | (ab_total > 0))).sum())
@@ -1942,6 +2038,345 @@ def cellplex(tmp: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     rep.update(fixture_s=fixture_s, fixture_split=fx["timing"])
     return rep
+
+
+def perturb_outputs(fx: dict, out: str, fits=None) -> dict:
+    """What the perturb phase holds of a run_count output directory `out`
+    of the fixture `fx` (testing.fixtures.build_perturb_run): reads,
+    usable reads by library (molecule_info.h5's read counts), molecules by
+    feature type, cells called, sha256 of each decompressed MEX file and
+    of crispr_analysis/protospacer_calls_per_cell.csv and
+    protospacer_calls_summary.csv, the cells_with_{one,multiple,no}_
+    protospacer_frac metrics; with `fits` (the results of call_features'
+    two-Gaussian fits, one per guide that took the EM branch) how many
+    guides took the EM branch and how many the MIN_UMI fallback; and the
+    planted truth read back: the share of single-guide cells that are
+    called and called with exactly their guide, the planted molecules
+    that the run lost (`shared_umi_loss`, the fixture's `shared_umis`
+    where it counts every molecule), and the barcodes whose GEX, guide or
+    antibody molecules in the raw matrix differ from the planted counts
+    (any barcode with molecules that is not a planted cell counts as
+    one)."""
+    import numpy as np
+    import scipy.sparse as sp
+    from cellranger_tpu_torch.io import hdf5
+    from cellranger_tpu_torch.io.matrix_io import (ANTIBODY_CAPTURE,
+                                                   GENE_EXPRESSION,
+                                                   CountMatrix)
+
+    with open(os.path.join(out, "metrics_summary.json")) as f:
+        m = json.load(f)
+    raw = CountMatrix.load_h5(os.path.join(out, "raw_feature_bc_matrix.h5"))
+    defs = raw.features.feature_defs
+    types = np.asarray([d.feature_type for d in defs])
+    mat = raw.m.tocsr()
+    gex = np.asarray(mat[types == GENE_EXPRESSION].sum(0)).ravel()
+    guide_total, guidem = _feature_rows(mat, defs, types,
+                                        "CRISPR Guide Capture", fx["guides"])
+    ab_total, abm = _feature_rows(mat, defs, types, ANTIBODY_CAPTURE,
+                                  fx["antibodies"])
+    col, found = _planted_columns(raw.barcodes, fx["barcodes"])
+    n, G = len(found), len(fx["guides"])
+    pc, pg, pu = fx["guide_pairs"]
+    planted = sp.csr_matrix((pu, (pc, pg)), shape=(n, G))
+    # each planted cell's guide molecules, in the fixture's order
+    cell_guides = sp.csr_matrix(guidem[:, col].T.multiply(found[:, None]))
+    cell_abs = np.zeros((n, len(fx["antibodies"])), np.int64)
+    cell_abs[found] = abm[:, col[found]].toarray().T
+    guide_off = np.asarray((cell_guides != planted).sum(1)).ravel() > 0
+    off = ~found | guide_off
+    off[found] |= ((gex[col[found]] != fx["gex_molecules"][found])
+                   | (cell_abs[found] != fx["ab_molecules"][found]).any(1))
+    stray = np.ones(len(raw.barcodes), bool)
+    stray[col[found]] = False
+    n_stray = int((stray & ((gex > 0) | (guide_total > 0)
+                            | (ab_total > 0))).sum())
+    planted_total = (int(fx["gex_molecules"].sum()) + int(pu.sum())
+                     + int(fx["ab_molecules"].sum()))
+    counted = (int(gex[col[found]].sum()) + int(cell_guides.sum())
+               + int(cell_abs.sum()))
+    with hdf5.File(os.path.join(out, "molecule_info.h5"), "r") as f:
+        lib = f["library_idx"][:].astype(np.int64)
+        reads = f["count"][:].astype(np.int64)
+    rep = dict(
+        total_reads=m["total_reads"], total_molecules=m["total_molecules"],
+        usable_reads_by_library=np.bincount(
+            lib, weights=reads, minlength=len(fx["libraries"]))
+        .astype(np.int64).tolist(),
+        gex_molecules=int(gex.sum()), guide_molecules=int(guide_total.sum()),
+        ab_molecules=int(ab_total.sum()),
+        estimated_cells=m["estimated_cells"], mex_sha256=mex_sha256(out))
+    for k in ("one", "multiple", "no"):
+        key = f"cells_with_{k}_protospacer_frac"
+        rep[key] = m[key]
+    text = {}
+    for name in ("protospacer_calls_per_cell", "protospacer_calls_summary"):
+        with open(os.path.join(out, "crispr_analysis", name + ".csv"),
+                  "rb") as f:
+            text[name] = f.read()
+        rep[name + "_sha256"] = _sha256(text[name])
+    calls = {r.split(",")[0]: r.split(",")[2] for r in
+             text["protospacer_calls_per_cell"].decode().splitlines()[1:]}
+    if fits is not None:
+        rep["em_guides"] = sum(float(mu[1] - mu[0]) >= 1e-6
+                               for mu, _, _ in fits)
+        rep["fallback_guides"] = G - rep["em_guides"]
+    with gzip.open(os.path.join(out, "filtered_feature_bc_matrix",
+                                "barcodes.tsv.gz"), "rt") as f:
+        called = set(f.read().split())
+    ids = list(fx["guides"])
+    single = np.flatnonzero((fx["carried"][:, 0] >= 0)
+                            & (fx["carried"][:, 1] < 0))
+    rep["truth"] = dict(
+        single_guide_cells=len(single),
+        single_guide_cells_called=sum(fx["barcodes"][i] in called
+                                      for i in single),
+        single_guide_cells_own_guide=float(np.mean([
+            calls.get(fx["barcodes"][i]) == ids[fx["carried"][i, 0]]
+            for i in single])),
+        shared_umi_loss=planted_total - counted,
+        barcodes_off_planted_molecules=int(off.sum()),
+        stray_barcodes=n_stray)
+    rep["off_planted"] = [
+        [fx["barcodes"][i], int(fx["gex_molecules"][i]),
+         int(gex[col[i]]) if found[i] else None,
+         planted[i].nnz, cell_guides[i].nnz,
+         fx["ab_molecules"][i].tolist(),
+         cell_abs[i].tolist() if found[i] else None]
+        for i in np.flatnonzero(off)[:10]]
+    return rep
+
+
+def perturb_diffs(got: dict, want: dict) -> list[str]:
+    """Keys of perturb_outputs where got differs from want (all exact)."""
+    return [k for k in sorted(set(got) | set(want))
+            if json.dumps(got.get(k), sort_keys=True)
+            != json.dumps(want.get(k), sort_keys=True)]
+
+
+@contextlib.contextmanager
+def extractor_calls():
+    """Record every call of the Feature Barcode extractors that run_count
+    builds inside the block: yields a list of (pattern, outputs as numpy)
+    in call order (process_fb calls each pattern in the feature
+    reference's order, batch by batch, library by library)."""
+    from cellranger_tpu_torch.pipeline import count
+
+    made = count.make_feature_extractor
+    calls: list = []
+
+    def make(pattern, *a, **kw):
+        extract = made(pattern, *a, **kw)
+
+        def kept(rna, nmask, rna_len):
+            fo = extract(rna, nmask, rna_len)
+            calls.append((pattern, {k: v.cpu().numpy()
+                                    for k, v in fo.items()}))
+            return fo
+        return kept
+
+    count.make_feature_extractor = make
+    try:
+        yield calls
+    finally:
+        count.make_feature_extractor = made
+
+
+def perturb_reads(fx: dict, calls: list, batch_size: int = E2E_BATCH
+                  ) -> dict:
+    """The guide library's reads through the extractors, read for read
+    against the fixture's construction (`calls` of extractor_calls over a
+    run whose libraries are GEX, guides, antibodies, in that order, and
+    whose feature reference lists the antibodies first): each count
+    {"got", "built"}.  found: every read but the N-prefixed, each at its
+    guide's feature and offset; head_substitutions_exact: a substitution
+    in the first bases that the 16-base word drops, found and not
+    corrected; tail_substitutions_corrected; double_prefix_first_copy: a
+    doubled prefix found at its first copy, with its own guide;
+    n_prefix_not_extracted; merged: reads whose feature the guides'
+    pattern, second, took from the antibodies' in process_fb's merge of
+    patterns (every found read).  ab_library_merged: the same count over
+    the antibody library, where the guides' pattern finds nothing."""
+    import numpy as np
+    from cellranger_tpu_torch.testing.fixtures import (PERTURB_GUIDE_LEN,
+                                                       PERTURB_READ_KINDS)
+
+    def library(first: int, n_reads: int) -> tuple:
+        """Both patterns' outputs over a library's reads, batch by batch
+        from call `first`; -> (antibody pattern's, guide pattern's, the
+        next call)."""
+        n_batches = -(-n_reads // batch_size)
+        pats = [[], []]
+        for b in range(n_batches):
+            n = min(batch_size, n_reads - b * batch_size)
+            for j in range(2):
+                pats[j].append({k: v[:n] for k, v in
+                                calls[first + 2 * b + j][1].items()})
+        cat = [{k: np.concatenate([x[k] for x in p]) for k in p[0]}
+               for p in pats]
+        return cat[0], cat[1], first + 2 * n_batches
+
+    if {p.bc_len for p, _ in calls[:2]} != {15, PERTURB_GUIDE_LEN}:
+        raise AssertionError("perturb: the first calls are not the two "
+                             "patterns")
+    ab, g, nxt = library(0, fx["guide_reads"])
+    ab2, g2, nxt = library(nxt, fx["ab_reads"])
+    if nxt != len(calls):
+        raise AssertionError(f"perturb: {len(calls)} extractor calls, "
+                             f"{nxt} expected")
+    kind = np.asarray(PERTURB_READ_KINDS)[fx["guide_read_kind"]]
+    pos = fx["guide_read_sub_pos"]
+    n_ab = len(fx["antibodies"])
+    own = (g["feature"] == n_ab + fx["guide_read_guide"]) \
+        & (g["offset"] == fx["guide_read_offset"])
+    head = (kind == "substitution") & (pos >= 0) \
+        & (pos < PERTURB_GUIDE_LEN - 16)
+    tail = (kind == "substitution") & (pos >= PERTURB_GUIDE_LEN - 16)
+    npre = kind == "n_prefix"
+    merged = lambda a, b: int(((b["found"] & ~a["found"])  # noqa: E731
+                               | (b["extracted"] & ~a["extracted"])).sum())
+    return dict(
+        found=dict(got=int((g["found"] & own).sum()),
+                   built=int((~npre).sum())),
+        found_any=dict(got=int(g["found"].sum()), built=int((~npre).sum())),
+        head_substitutions_exact=dict(
+            got=int((g["found"] & own & ~g["corrected"])[head].sum()),
+            built=int(head.sum())),
+        tail_substitutions_corrected=dict(
+            got=int((g["found"] & own & g["corrected"])[tail].sum()),
+            built=int(tail.sum())),
+        corrected=dict(got=int(g["corrected"].sum()), built=int(tail.sum())),
+        double_prefix_first_copy=dict(
+            got=int((g["found"] & own)[kind == "double"].sum()),
+            built=int((kind == "double").sum())),
+        n_prefix_not_extracted=dict(got=int((~g["extracted"])[npre].sum()),
+                                    built=int(npre.sum())),
+        antibody_pattern_found=dict(got=int(ab["found"].sum()), built=0),
+        merged=dict(got=merged(ab, g), built=int((~npre).sum())),
+        ab_library_merged=dict(got=merged(ab2, g2), built=0),
+        ab_library_found=dict(got=int(ab2["found"].sum()),
+                              built=fx["ab_reads"]))
+
+
+def perturb_run(fx: dict, out: str, device: str = "cuda",
+                expected: dict | None = None, batch_size: int = E2E_BATCH,
+                secondary_analysis: bool = True) -> dict:
+    """run_count of a Perturb-seq fixture on `device` (GEX, CRISPR Guide
+    Capture and Antibody Capture libraries, secondary analysis on): wall
+    seconds and run_count's phases with each Feature Barcode library's
+    pass-2 seconds and the feature assignment apart, K1 launches (one a
+    GEX step on the card), peak device memory and host RSS,
+    perturb_outputs (with the two-Gaussian fits caught) and perturb_reads;
+    any read count off its construction, a planted barcode off its
+    molecules, a call_features branch never taken or, with `expected`
+    (the JAX package's perturb_outputs of the same fixture), any
+    difference raises."""
+    import torch
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.analysis import feature_assigner
+    from cellranger_tpu_torch.pipeline import count
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    cfg = perturb_config(fx, count, batch_size,
+                         secondary_analysis=secondary_analysis)
+    sw.LAUNCHES = 0
+    with rss_peak() as rss, extractor_calls() as calls, recorded(
+            (feature_assigner, "run_feature_assignment"),
+            (feature_assigner, "_fit_two_gaussians")) as rec:
+        t = time.time()
+        count.run_count(cfg, out, device=device)
+        wall = time.time() - t
+    launches = sw.LAUNCHES
+    with open(os.path.join(out, "_perf.json")) as f:
+        laps = json.load(f)["phases"]
+    phases: dict = {}
+    for ph in laps:
+        phases[ph["name"]] = phases.get(ph["name"], 0.0) + ph["wall_s"]
+    gex_b, guide_b, ab_b = (-(-fx[k] // batch_size) for k in (
+        "gex_reads", "guide_reads", "ab_reads"))
+    pass2 = [ph["wall_s"] for ph in laps
+             if ph["name"] == "pass2_correct_align_annotate"][:-1]
+    if len(pass2) != gex_b + guide_b + ab_b:
+        raise AssertionError(f"perturb: {len(pass2)} pass-2 laps for "
+                             f"{gex_b} + {guide_b} + {ab_b} batches")
+    crispr_s = sum(pass2[gex_b:gex_b + guide_b])
+    ab_s = sum(pass2[gex_b + guide_b:])
+    rep = dict(
+        cells=fx["n_cells"], guides=len(fx["guides"]),
+        antibodies=len(fx["antibodies"]), whitelist=fx["n_wl"],
+        gex_reads=fx["gex_reads"], guide_reads=fx["guide_reads"],
+        ab_reads=fx["ab_reads"], wall_s=wall, sw_launches=launches,
+        run_count_phase_s=phases, crispr_pass2_s=crispr_s,
+        crispr_pass2_s_per_million_reads=crispr_s / (fx["guide_reads"]
+                                                     / 1e6),
+        ab_pass2_s=ab_s, ab_pass2_s_per_million_reads=(
+            ab_s / (fx["ab_reads"] / 1e6) if fx["ab_reads"] else None),
+        feature_assignment_s=sum(s for s, _ in
+                                 rec["run_feature_assignment"]),
+        peak_device_bytes=(torch.cuda.max_memory_allocated()
+                           if cuda else None),
+        peak_host_rss_bytes=rss["bytes"])
+    rep["reads"] = reads = perturb_reads(fx, calls, batch_size)
+    rep["outputs"] = got = perturb_outputs(
+        fx, out, [r for _, r in rec["_fit_two_gaussians"]])
+    diffs = [f"{k}: {v['got']} of {v['built']}" for k, v in reads.items()
+             if v["got"] != v["built"]]
+    truth = got["truth"]
+    if truth["barcodes_off_planted_molecules"] or truth["stray_barcodes"]:
+        diffs.append(f"{truth['barcodes_off_planted_molecules']} barcodes "
+                     f"off their planted molecules, {truth['stray_barcodes']}"
+                     " stray")
+    if truth["shared_umi_loss"] != fx["shared_umis"]:
+        diffs.append(f"{truth['shared_umi_loss']} molecules lost")
+    if not (got["em_guides"] and got["fallback_guides"]):
+        diffs.append(f"call_features: {got['em_guides']} EM and "
+                     f"{got['fallback_guides']} fallback guides")
+    if cuda and launches != gex_b:
+        diffs.append(f"{launches} K1 launches for {gex_b} GEX steps")
+    if expected is not None:
+        diffs += [f"{k} differs from the JAX package's"
+                  for k in perturb_diffs(got, expected)]
+    if diffs:
+        raise AssertionError(f"perturb: {diffs}; measured "
+                             f"{json.dumps(rep)}; expected "
+                             f"{json.dumps(expected)}")
+    return rep
+
+
+def perturb_config(fx: dict, count, batch_size: int = E2E_BATCH,
+                   secondary_analysis: bool = True):
+    """The CountConfig of a build_perturb_run fixture for a package's
+    count module: its three libraries, its cells expected."""
+    return count.CountConfig(
+        fastq_pairs=[], reference_path=fx["ref"], whitelist_path=fx["wl"],
+        feature_ref_csv=fx["feature_ref"],
+        libraries=[count.LibraryDef([pair], t)
+                   for t, pair in fx["libraries"]],
+        chemistry="SC3Pv3", read_len=91, batch_size=batch_size,
+        recovered_cells=fx["n_cells"], checkpoint=False,
+        secondary_analysis=secondary_analysis)
+
+
+def perturb(tmp: str) -> dict:
+    """The perturb phase: build_perturb_run at PERTURB under tmp, its
+    seconds apart as set-up, then perturb_run on cuda held to
+    PERTURB_EXPECTED; the fixture and outputs are deleted after."""
+    from cellranger_tpu_torch.testing.fixtures import build_perturb_run
+
+    root = os.path.join(tmp, "perturb")
+    try:
+        t = time.time()
+        fx = build_perturb_run(os.path.join(root, "fx"), **PERTURB)
+        fixture_s = time.time() - t
+        rep = perturb_run(fx, os.path.join(root, "out"), "cuda",
+                          PERTURB_EXPECTED)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rep.update(fixture_s=fixture_s, fixture_split=fx["timing"])
+    return rep
+
 
 @contextlib.contextmanager
 def recorded(*targets):
@@ -3477,7 +3912,9 @@ def main() -> None:
               + json.dumps(g))
 
         with phase_beside("analysis_68k", tmp, ANALYSIS_68K_TIMEOUT_S,
-                          tmp) as analysis_68k_report:
+                          tmp) as analysis_68k_report, phase_beside(
+                              "perturb", tmp, PERTURB_TIMEOUT_S,
+                              tmp) as perturb_report:
             g = vdj_parity(tmp)
             launches["vdj_parity"] = g["sw_launches"]
             phase("vdj_parity", "cuda == cpu, every output file; kmers in "
@@ -3509,10 +3946,17 @@ def main() -> None:
             phase("human_scale", "the fixture's reads counted or lost as "
                   "the reference loses them: " + json.dumps(g))
             g = analysis_68k_report()
-        launches["analysis_68k"] = g["sw_launches"]
-        phase("analysis_68k", f"{smi}: reanalyze past max_cells_tsne in a "
-              "child process beside vdj_parity..human_scale, the kNN "
-              "searches held to float64: " + json.dumps(g))
+            launches["analysis_68k"] = g["sw_launches"]
+            phase("analysis_68k", f"{smi}: reanalyze past max_cells_tsne "
+                  "in a child process beside vdj_parity..human_scale, the "
+                  "kNN searches held to float64: " + json.dumps(g))
+            g = perturb_report()
+        launches["perturb"] = g["sw_launches"]
+        phase("perturb", f"{smi}: run_count of a Perturb-seq GEM well, "
+              "4,100 twenty-base guides and 17 antibodies, in a child "
+              "process beside vdj_parity..human_scale, held to the JAX "
+              "package's run, the planted truth and each guide read's "
+              "construction: " + json.dumps(g))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

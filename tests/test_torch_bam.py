@@ -163,15 +163,21 @@ def test_cli_count_bam(tmp_path, capsys):
     assert '"total_reads"' in capsys.readouterr().out
 
 
-def _write_crispr_library(tmp_path, fx, seed=5):
+CRISPR_SEQS = ["ACGTACGTACGTACG", "TTTTGGGGCCCCAAA", "GACGACGACGACGAC",
+               "CTCTCTCTCTCTCTC"]
+# 20-base protospacers, as real guides are: matched on their last 16 bases
+CRISPR_SEQS_20 = ["GTCAACGTACGTACGTACGA", "CAGTTTTTGGGGCCCCAAAC",
+                  "AGCTGACGACGACGACGACG", "TGCACTCTCTCTCTCTCTCA"]
+
+
+def _write_crispr_library(tmp_path, fx, seed=5, seqs=CRISPR_SEQS):
     """A CRISPR Guide Capture library with one R1 pattern and one R2
     pattern: guides 0/1 sit in R1 after bc + umi + a fixed anchor, guides
     2/3 at a fixed offset in R2; some reads carry both."""
     import gzip
     import numpy as np
 
-    seqs = ["ACGTACGTACGTACG", "TTTTGGGGCCCCAAA", "GACGACGACGACGAC",
-            "CTCTCTCTCTCTCTC"]
+    g = len(seqs[0])
     fcsv = str(tmp_path / "guides.csv")
     with open(fcsv, "w") as f:
         f.write("id,name,read,pattern,sequence,feature_type\n")
@@ -191,26 +197,26 @@ def _write_crispr_library(tmp_path, fx, seed=5):
             for u in range(24):
                 umi = rand(12)
                 r1 = bc + umi + rand(4) + "TTGCTAGGACC" + seqs[ci % 2]
-                r2 = "T" * 10 + seqs[2 + ci % 2] + rand(46)
+                r2 = "T" * 10 + seqs[2 + ci % 2] + rand(61 - g)
                 if u % 3 == 0:      # R1 guide only
                     r2 = rand(71)
                 elif u % 3 == 1:    # R2 guide only
-                    r1 = bc + umi + rand(30)
+                    r1 = bc + umi + rand(15 + g)
                 f1.write(f"@c{n}\n{r1}\n+\n{'F' * len(r1)}\n")
                 f2.write(f"@c{n}\n{r2}\n+\n{'F' * len(r2)}\n")
                 n += 1
     return fcsv, r1p, r2p
 
 
-def test_crispr_two_pattern_bam_run_matches_jax(tmp_path):
-    """R1 and R2 feature patterns in one library (the R1-remainder view,
-    one feature per read across patterns), CRISPR feature assignment and
-    the feature BAM tags, against the JAX package's run_count."""
+def _crispr_two_pattern_run(tmp_path, seqs):
+    """Both packages' run_count with BAM on the rich fixture and a CRISPR
+    library of `seqs` (`_write_crispr_library`): outputs, BAM and the
+    protospacer calls held equal; returns the port's BAM records."""
     from cellranger_tpu.pipeline import count as jax_count
     from test_torch_count import _compare_runs
 
     fx = build_rich_run(str(tmp_path / "fx"), n_cells=40)
-    fcsv, r1p, r2p = _write_crispr_library(tmp_path, fx)
+    fcsv, r1p, r2p = _write_crispr_library(tmp_path, fx, seqs=seqs)
     outs, sums = {}, {}
     for name, mod in (("torch", tcount), ("jax", jax_count)):
         cfg = mod.CountConfig(
@@ -234,3 +240,24 @@ def test_crispr_two_pattern_bam_run_matches_jax(tmp_path):
                                        "possorted_genome_bam.bam"))
     fx_tags = {r["tags"].get("fx") for r in recs}
     assert {"GUIDE0", "GUIDE1", "GUIDE2", "GUIDE3"} <= fx_tags
+    return recs
+
+
+def test_crispr_two_pattern_bam_run_matches_jax(tmp_path):
+    """R1 and R2 feature patterns in one library (the R1-remainder view,
+    one feature per read across patterns), CRISPR feature assignment and
+    the feature BAM tags, against the JAX package's run_count."""
+    _crispr_two_pattern_run(tmp_path, CRISPR_SEQS)
+
+
+def test_crispr_two_pattern_bam_run_20_base_guides_matches_jax(tmp_path):
+    """The same run with 20-base guides: the port extracts them (it
+    refused more than 16 bases before), both packages match them on their
+    last 16 bases, and the `fb` tag, the matched sequence unpacked at 20
+    bases from its 16-base word, leads with AAAA in both BAMs; `fr`, the
+    bases read, is the whole guide."""
+    recs = _crispr_two_pattern_run(tmp_path, CRISPR_SEQS_20)
+    fb = {r["tags"]["fb"] for r in recs if "fb" in r["tags"]}
+    assert fb == {"AAAA" + s[4:] for s in CRISPR_SEQS_20}
+    fr = {r["tags"]["fr"] for r in recs if "fb" in r["tags"]}
+    assert set(CRISPR_SEQS_20) <= fr

@@ -3,8 +3,9 @@ the exact bucket table with its count column (`build_exact`,
 `with_counts`, `membership3`), the device posterior barcode correction
 (`correct_barcodes`) and the feature extractor (`make_feature_extractor`)
 for anchored-5', anchored-3' and unanchored patterns and on the antibody
-library of the rich fixture.  Same numpy inputs to both packages;
-tolerance 0.
+library of the rich fixture, and Feature Barcodes of 17-24 bases (CRISPR
+protospacers), which both packages match on their last 16 bases.  Same
+numpy inputs to both packages; tolerance 0.
 """
 
 import os
@@ -316,3 +317,177 @@ def test_antibody_library_counts_a_cmo_sequence_under_the_cmo(tmp_path):
     assert per_feature[ids.index("CMO301")] == len(cmo_reads)
     assert [per_feature[ids.index(f"AB{i}")] for i in range(4)] == \
         fx["ab_truth"].sum(1).tolist()
+
+
+# Feature Barcodes longer than 16 bases (CRISPR protospacers are 19-20):
+# both packages pack the barcode into a uint32 word, so the first bc_len -
+# 16 bases fall off and a guide is matched on its last 16 bases
+GUIDE_PREFIX = "TTCCAGCATAGCTCTTAAAC"   # the SpCas9 scaffold's 5' end, rc
+GUIDE_KINDS = ("clean", "substitution", "double", "n_prefix", "random",
+               "short")
+
+
+def _long_guides(bc_len, n=24, seed=7):
+    """n random guides of bc_len bases, their last 16 bases at least 3
+    apart, so that a substitution there corrects back uniquely."""
+    rng = np.random.default_rng(seed)
+    out = []
+    while len(out) < n:
+        g = "".join(rng.choice(list("ACGT"), bc_len))
+        if all(sum(a != b for a, b in zip(g[-16:], h[-16:])) >= 3
+               for h in out):
+            out.append(g)
+    return out
+
+
+def _guide_csv(tmp_path, guides, pattern):
+    p = tmp_path / "guides.csv"
+    with open(p, "w") as f:
+        f.write("id,name,read,pattern,sequence,feature_type\n")
+        for i, g in enumerate(guides):
+            f.write(f"G{i},g{i},R2,{pattern},{g},CRISPR Guide Capture\n")
+    return str(p)
+
+
+def _guide_reads(guides, prefix, anchored, read_len, seed, B=480):
+    """Reads of each GUIDE_KINDS in turn: a guide after `prefix` (at an
+    offset of 0-31 bases when unanchored), with one substitution at each
+    guide position in turn, with the prefix twice (the second copy before
+    another guide), with an N in the prefix, a random read, a read cut
+    short.  -> (rna, nmask, rna_len, kind, substituted position or -1)."""
+    rng = np.random.default_rng(seed)
+    bc_len = len(guides[0])
+    rand = lambda n: "".join(rng.choice(list("ACGT"), n))  # noqa: E731
+    rna = np.zeros((B, read_len), np.uint8)
+    nm = np.zeros((B, read_len), bool)
+    ln = np.zeros(B, np.int32)
+    kinds = np.arange(B) % len(GUIDE_KINDS)
+    sub_pos = np.full(B, -1)
+    for i in range(B):
+        kind = GUIDE_KINDS[kinds[i]]
+        g = guides[i % len(guides)]
+        if kind == "substitution":
+            p = sub_pos[i] = (i // len(GUIDE_KINDS)) % bc_len
+            g = g[:p] + "ACGT"[("ACGT".index(g[p]) + 1 + i % 3) % 4] \
+                + g[p + 1:]
+        pre = prefix
+        if kind == "n_prefix":
+            j = int(rng.integers(len(pre)))
+            pre = pre[:j] + "N" + pre[j + 1:]
+        body = pre + g
+        if kind == "double":
+            body += prefix + guides[(i + 1) % len(guides)]
+        room = read_len - len(body)
+        lead = "" if anchored else rand(int(rng.integers(0, min(32, room)
+                                                         + 1)))
+        r = lead + body
+        if kind == "random":
+            r = rand(read_len)
+        r += rand(read_len - len(r))
+        if kind == "short":
+            r = r[:len(lead) + len(pre) + bc_len - 3]
+        c, v = encode.encode_str(r)
+        rna[i, :len(c)], nm[i, :len(c)], ln[i] = c, v, len(c)
+    return rna, nm, ln, kinds, sub_pos
+
+
+@pytest.mark.parametrize("anchored", [False, True],
+                         ids=["unanchored", "5P"])
+@pytest.mark.parametrize("bc_len", [16, 17, 19, 20, 24])
+def test_long_feature_barcode_extractor_matches_jax(tmp_path, bc_len,
+                                                    anchored):
+    """Guides of 16-24 bases behind the unanchored guide prefix (at offsets
+    0-31, twice in some reads, with an N in some) and behind a 5P leader:
+    every extractor output equal to the JAX package's, a substitution at
+    every guide position included.  A substitution in the first bc_len -
+    16 bases is an exact hit on the last 16; one in the last 16 is
+    corrected; the first copy of a doubled prefix wins."""
+    guides = _long_guides(bc_len)
+    prefix = "NNNNNNNNNN" if anchored else GUIDE_PREFIX
+    pattern = (f"5P{prefix}(BC)" if anchored else f"{prefix}(BC)")
+    read_len = 100
+    (jex, tex), = _extractors(_guide_csv(tmp_path, guides, pattern),
+                              read_len)
+    read_prefix = "ACGTTGCAAC" if anchored else prefix
+    rna, nm, ln, kinds, sub_pos = _guide_reads(
+        guides, read_prefix, anchored, read_len, seed=bc_len)
+    got = {k: v.numpy() for k, v in _compare(jex, tex, rna, nm, ln).items()}
+    kind = np.asarray(GUIDE_KINDS)[kinds]
+    own = np.arange(len(kinds)) % len(guides)
+    sure = np.isin(kind, ("clean", "substitution", "double"))
+    assert got["found"][sure].all()
+    assert (got["seq_idx"][sure] >= 0).all()
+    assert not got["found"][np.isin(kind, ("short",))].any()
+    # the feature index is the guide's row in the CSV
+    assert (got["feature"][sure] == own[sure]).all()
+    sub = kind == "substitution"
+    head = sub & (sub_pos < bc_len - 16)
+    assert set(sub_pos[sub]) == set(range(bc_len))
+    assert not got["corrected"][head].any()
+    assert got["corrected"][sub & ~head].all()
+    assert not got["corrected"][np.isin(kind, ("clean", "double"))].any()
+    if not anchored:
+        assert not got["extracted"][kind == "n_prefix"].any()
+        starts = np.asarray([bytes(encode.decode_codes(r[:n])).find(
+            prefix.encode()) for r, n in zip(rna, ln)])
+        assert (got["offset"][sure] == starts[sure] + len(prefix)).all()
+
+
+def test_long_feature_barcode_words_in_the_table(tmp_path):
+    """The feature reference's words of 17-24-base sequences are their last
+    16 bases, in both packages; the exact tables built over them answer
+    membership alike for the members, for each 20-base read word and for
+    words off the table."""
+    for bc_len in (17, 19, 20, 24):
+        guides = _long_guides(bc_len)
+        csv = _guide_csv(tmp_path, guides, f"{GUIDE_PREFIX}(BC)")
+        (_, (js, _)), = JaxFeatureRef.from_csv(csv).pattern_groups.items()
+        (_, (ts, _)), = FeatureBarcodeReference.from_csv(
+            csv).pattern_groups.items()
+        np.testing.assert_array_equal(ts, js)
+        last16 = sorted(int(encode.pack_codes_np(
+            encode.encode_str(g[-16:])[0], 16)) for g in guides)
+        assert ts.tolist() == last16
+        jt, tt = _tables(ts, np.ones(len(ts), np.int64))
+        rng = np.random.default_rng(bc_len)
+        q = np.concatenate([ts, rng.integers(0, 1 << 32, 100,
+                                             dtype=np.uint64)
+                            .astype(np.uint32)])
+        want = jt.membership(jnp.asarray(q))
+        got = tt.membership(_t(q))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert got[0].numpy()[:len(ts)].all()
+
+
+def test_correct_barcodes_at_20_bases_matches_jax():
+    """correct_barcodes at length 20 on words that are not in the table.
+    The candidates of the first four positions shift by 32-38 bits: the
+    JAX package's uint32 shift gives 0 there (the candidate is the word
+    itself, not a member), the port's int64 shift a word above 2**32 (no
+    member either), so every output is equal; on a member the two differ
+    in `accepted`, which the extractor masks with the exact hit."""
+    L = 20
+    guides = _long_guides(L, n=200, seed=3)
+    words = np.asarray(sorted({int(encode.pack_codes_np(
+        encode.encode_str(g)[0], L)) & 0xFFFFFFFF for g in guides}),
+        np.uint32)
+    counts = np.random.default_rng(1).integers(0, 50, len(words))
+    jt, tt = _tables(words, counts.astype(np.int64))
+    rng = np.random.default_rng(2)
+    B = 600
+    shifts = 2 * (L - 1 - np.arange(L))
+    pos = rng.integers(4, L, B)         # positions the word holds
+    d = rng.integers(1, 4, B).astype(np.uint64)
+    q = (words[rng.integers(0, len(words), B)].astype(np.uint64)
+         ^ (d << shifts[pos].astype(np.uint64))).astype(np.uint32)
+    q[:60] = rng.integers(0, 1 << 32, 60, dtype=np.uint64).astype(np.uint32)
+    q = q[~np.isin(q, words)]
+    quals = rng.integers(35, 75, (len(q), L)).astype(np.uint8)
+    want = jbc.correct_barcodes(jnp.asarray(q), jnp.asarray(quals), jt, L)
+    got = tbc.correct_barcodes(_t(q), torch.from_numpy(quals), tt, L)
+    np.testing.assert_array_equal(got[0].numpy(),
+                                  np.asarray(want[0]).astype(np.int64))
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert 400 < got[2].numpy().sum() < len(q)

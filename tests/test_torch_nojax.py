@@ -12,8 +12,9 @@ golden (the h5 files against the h5py-written snapshots), overflow,
 h5_pipelines (aggr over two runs' molecule_info.h5, two GEM wells, CLI
 reanalyze), analysis, paired-end (a tiny SC5P-PE count with BAM), probe
 (a tiny MFRP-RNA count), multi, cellplex (a 240-cell well of 12 CMOs
-and 17 antibodies), V(D)J (the tests' worlds, and the kmer spectrum of a
-tiny run), mkfastq and index_build (the torch index build
+and 17 antibodies), perturb (a 200-cell Perturb-seq well of 220
+twenty-base guides and 17 antibodies), V(D)J (the tests' worlds, and
+the kmer spectrum of a tiny run), mkfastq and index_build (the torch index build
 against the numpy one) phases with the CPU as the device.
 A second, static test walks the port's sources and chip_smoke.py and
 refuses any import of jax, jaxlib, cellranger_tpu or h5py, lazy imports
@@ -179,6 +180,19 @@ SCRIPT = textwrap.dedent("""
     assert g["outputs"]["truth"]["barcodes_off_planted_molecules"] == 0, g
     assert len(g["outputs"]["samples"]) == 12, g
     assert g["outputs"]["planted_aggregates_flagged"] == 2, g
+    # the perturb phase's run and checks on a small Perturb-seq well: 220
+    # twenty-base guides behind the unanchored prefix, 17 antibodies
+    from cellranger_tpu_torch.testing.fixtures import build_perturb_run
+    fx = build_perturb_run(os.path.join(tmp, "perturb"), n_cells=200,
+                           n_target_genes=100, n_nontargeting=20,
+                           gex_reads=40_000, guide_reads=16_000,
+                           ab_reads=14_000, n_wl=2_000, genome_len=400_000,
+                           n_genes=40, n_types=2)
+    g = chip_smoke.perturb_run(fx, os.path.join(tmp, "perturb_out"), "cpu",
+                               batch_size=4096)
+    assert g["outputs"]["truth"]["barcodes_off_planted_molecules"] == 0, g
+    assert g["outputs"]["em_guides"] and g["outputs"]["fallback_guides"], g
+    assert g["reads"]["merged"]["got"] == g["reads"]["found"]["got"], g
     # V(D)J: the tests' worlds cpu against cpu, kmers in blocks; the kmer
     # spectrum of a tiny build_vdj_run; mkfastq on both BCL layouts
     g = chip_smoke.vdj_parity(os.path.join(tmp, "vdj"),
