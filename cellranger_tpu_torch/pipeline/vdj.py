@@ -13,14 +13,20 @@ device half runs on -- the whitelist membership and pass-1 histogram
 (ops/barcode.py `whitelist_lookup`, `count_valid_barcodes`), the posterior
 barcode correction (`correct_barcodes`) and the kmer spectrum
 (vdj/assembly.py `count_bc_umi_kmers`) -- and raises rather than move to
-another.  The host half (primer trimming, assembly, annotation,
-clonotypes and every output file) is the original's code.
+another.  The per-barcode host work is batched (vdj/support.py): pass 2
+keeps each barcode's reads as rows of the arrays handed to the kmer
+spectrum, trims primers for a whole batch at once, and the UMI support,
+base qualities and annotation of a barcode's contigs take those rows,
+with the original's results bit for bit.  Graph cleaning, assembly,
+clonotypes and every output file are the original's code.  `LAST_SPLIT`
+holds the seconds of the last run's stages.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,15 +38,21 @@ from ..io.gtf import write_fasta
 from ..io.whitelist import Whitelist
 from ..ops import barcode as bcops
 from ..ops import encode
-from ..vdj.annotate import annotate_contig, group_clonotypes
+from ..vdj import support
+from ..vdj.annotate import group_clonotypes
 from ..vdj.assembly import (BarcodeGraph, all_inner_primers,
-                            assemble_barcode, contig_base_quals,
-                            count_bc_umi_kmers, trim_primer_read,
-                            umi_support, _revcomp_b)
+                            assemble_barcode, count_bc_umi_kmers, _revcomp_b)
 from ..vdj.reference import VdjReference
 
 MIN_UMIS_PER_CONTIG = 2
 from ..params import get as _param
+
+# seconds and counts of the last run_vdj's stages: pass1_s, pass2_s
+# (correction, primer trim, read rows; the kmer spectrum apart), kmers_s,
+# graph_s (graph, cleaning, assembly), support_s, annotation_s, quals_s,
+# outputs_s (clonotypes and every file); barcodes (with a spectrum),
+# contigs (support computed), annotated, alignments
+LAST_SPLIT: dict = {}
 
 
 def _u32(a: np.ndarray, device) -> torch.Tensor:
@@ -71,6 +83,12 @@ def run_vdj(cfg: VdjConfig, out_dir: str, *, device) -> dict:
         wl.sorted_seqs, np.arange(wl.size, dtype=np.uint32), device,
         entries=8, fields=3)
     ref = VdjReference.from_fasta(cfg.vdj_reference_fasta)
+    annotator = support.Annotator(ref)
+    split = dict(pass1_s=0.0, pass2_s=0.0, kmers_s=0.0, graph_s=0.0,
+                 support_s=0.0, annotation_s=0.0, quals_s=0.0,
+                 outputs_s=0.0, barcodes=0, contigs=0, annotated=0)
+    LAST_SPLIT.clear()
+    tick = time.perf_counter()
 
     # pass 1: extract, count valid bcs
     cached = []
@@ -84,12 +102,15 @@ def run_vdj(cfg: VdjConfig, out_dir: str, *, device) -> dict:
             cached.append(b)
 
     # pass 2: correct, trim enrichment primers, collect per-read
-    # (bc_idx, umi, seq, qual).  Primer trimming (process.rs:730-758):
-    # bases 5' of a reverse-complemented inner-primer hit are
-    # primer-derived — masked out of both kmer counting and the pileup.
+    # (bc_idx, umi, seq, qual) as rows.  Primer trimming
+    # (process.rs:730-758): bases 5' of a reverse-complemented
+    # inner-primer hit are primer-derived — masked out of both kmer
+    # counting and the pileup.
+    split["pass1_s"] = time.perf_counter() - tick
+    tick = time.perf_counter()
     primers_rc = [_revcomp_b(p) for p in all_inner_primers()]
     all_bc, all_umi, all_rna, all_nmask = [], [], [], []
-    reads_by_bc: dict[int, list] = {}
+    all_qual, all_start, all_end = [], [], []
     total_reads = valid_bc_reads = trimmed_reads = 0
     wl_table = wl_table.with_counts(wl_counts.cpu().numpy())
     for b in cached:
@@ -103,25 +124,18 @@ def run_vdj(cfg: VdjConfig, out_dir: str, *, device) -> dict:
         total_reads += b.n_reads
         valid_bc_reads += int(bc_ok.sum())
         sel = bc_ok & b.umi_valid
-        nmask_b = b.rna_nmask.copy()
-        for i in np.flatnonzero(sel):
-            seq = encode.decode_codes(b.rna[i][:b.rna_len[i]],
-                                      b.rna_nmask[i][:b.rna_len[i]]).decode()
-            t = trim_primer_read(seq, primers_rc)
-            if t:
-                nmask_b[i, :t] = False
-                seq = seq[t:]
-                trimmed_reads += 1
-                qual = bytes(b.rna_qual[i][t:b.rna_len[i]])
-            else:
-                qual = bytes(b.rna_qual[i][:b.rna_len[i]])
-            rlist = reads_by_bc.setdefault(int(bc_idx[i]), [])
-            if len(rlist) < _VDJ_MAX_READS_PER_BC:
-                rlist.append((int(b.umi_packed[i]), seq, qual))
+        # a read is columns [t, rna_len) of its row: t its trim start
+        t = support.primer_trim_starts(b.rna[sel], b.rna_nmask[sel],
+                                       b.rna_len[sel], primers_rc, device)
+        trimmed_reads += int((t > 0).sum())
+        W = b.rna.shape[1]
         all_bc.append(bc_idx[sel].astype(np.uint32))
         all_umi.append(b.umi_packed[sel].astype(np.uint32))
         all_rna.append(b.rna[sel])
-        all_nmask.append(nmask_b[sel])
+        all_nmask.append(b.rna_nmask[sel] & (np.arange(W) >= t[:, None]))
+        all_qual.append(b.rna_qual[sel])
+        all_start.append(t)
+        all_end.append(b.rna_len[sel].astype(np.int64))
         if b.rna2 is not None:
             # paired-end SCVDJ: mate 2 reads the opposite strand — add its
             # reverse complement so kmers land on the transcript strand
@@ -132,50 +146,65 @@ def run_vdj(cfg: VdjConfig, out_dir: str, *, device) -> dict:
             all_umi.append(b.umi_packed[sel].astype(np.uint32))
             all_rna.append(rc)
             all_nmask.append(rc_mask)
-            for i in np.flatnonzero(sel):
-                seq2 = encode.decode_codes(
-                    (3 - b.rna2[i][:b.rna2_len[i]][::-1]).astype(np.uint8),
-                    b.rna2_nmask[i][:b.rna2_len[i]][::-1]).decode()
-                qual2 = bytes(b.rna2_qual[i][:b.rna2_len[i]][::-1])
-                rlist = reads_by_bc.setdefault(int(bc_idx[i]), [])
-                if len(rlist) < _VDJ_MAX_READS_PER_BC:
-                    rlist.append((int(b.umi_packed[i]), seq2, qual2))
+            # mate 2's read is the last rna2_len columns of its reversed row
+            all_qual.append(b.rna2_qual[sel][:, ::-1])
+            all_start.append(W - b.rna2_len[sel].astype(np.int64))
+            all_end.append(np.full(int(sel.sum()), W, np.int64))
 
+    store = None
     if all_bc and len(np.concatenate(all_bc)):
         bcs = np.concatenate(all_bc)
         umis_arr = np.concatenate(all_umi)
         rna = np.concatenate(all_rna)
         nmask = np.concatenate(all_nmask)
+        del all_rna, all_nmask
+        store = support.ReadStore(
+            bcs, umis_arr, rna, nmask, np.concatenate(all_qual),
+            np.concatenate(all_start), np.concatenate(all_end),
+            _VDJ_MAX_READS_PER_BC)
+        del all_qual
+        split["pass2_s"] = time.perf_counter() - tick
+        tick = time.perf_counter()
         kb, ku, kk, kc = count_bc_umi_kmers(bcs, umis_arr, rna, nmask,
                                             device=device)
+        split["kmers_s"] = time.perf_counter() - tick
     else:
         kb = np.zeros(0, np.uint32)
+        split["pass2_s"] = time.perf_counter() - tick
 
     # host: per-barcode spectra -> contigs -> annotation
     contigs_by_bc = {}
     cells = {}
     contig_rows = []
-    i = 0
-    while i < len(kb):
-        j = i
-        while j < len(kb) and kb[j] == kb[i]:
-            j += 1
+    # each barcode's rows of the spectrum: [i, j)
+    bounds = np.flatnonzero(np.diff(kb.astype(np.int64), prepend=-1,
+                                    append=-1))
+    for i, j in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
         bc = int(kb[i])
+        tick = time.perf_counter()
         # UMI-aware graph + the cleaning suite (ref_free.rs:422-810
         # analogs), then greedy strong-path unitigs over what survives
         graph = BarcodeGraph.from_triples(kk[i:j], ku[i:j], kc[i:j]).clean()
         spectrum = graph.spectrum()
-        i = j
         contigs = assemble_barcode(spectrum)
+        split["barcodes"] += 1
+        t_graph = time.perf_counter()
+        split["graph_s"] += t_graph - tick
         if not contigs:
             continue
-        reads = reads_by_bc.get(bc, [])
+        sup = support.BarcodeSupport(store.reads(bc), device)
+        split["support_s"] += time.perf_counter() - t_graph
         anns = []
         for ci, contig in enumerate(contigs[:10]):
-            umi_support(contig, reads)
+            tick = time.perf_counter()
+            sup.umi_support(contig)
+            split["contigs"] += 1
+            t_sup = time.perf_counter()
+            split["support_s"] += t_sup - tick
             if contig.n_umis < MIN_UMIS_PER_CONTIG:
                 continue
-            ann = annotate_contig(contig.seq, ref)
+            ann = annotator.annotate(contig.seq)
+            split["annotation_s"] += time.perf_counter() - t_sup
             anns.append((contig, ann))
         if not anns:
             continue
@@ -186,6 +215,8 @@ def run_vdj(cfg: VdjConfig, out_dir: str, *, device) -> dict:
         productive = [a for _, a in anns if a.productive]
         if productive:
             cells[bc_str] = [a for _, a in anns]
+        tick = time.perf_counter()
+        split["annotated"] += len(anns)
         for ci, (contig, ann) in enumerate(anns):
             contig_rows.append(dict(
                 barcode=bc_str, contig_id=f"{bc_str}_contig_{ci + 1}",
@@ -199,8 +230,10 @@ def run_vdj(cfg: VdjConfig, out_dir: str, *, device) -> dict:
                 full_length=ann.full_length, productive=ann.productive,
                 is_cell=bc_str in cells,
                 sequence=contig.seq, _ann=ann, _contig=contig,
-                _quals=contig_base_quals(contig.seq, reads)))
+                _quals=sup.contig_base_quals(contig.seq)))
+        split["quals_s"] += time.perf_counter() - tick
 
+    tick = time.perf_counter()
     clonotypes = group_clonotypes(cells)
     clonotype_of_bc = {}
     for c in clonotypes:
@@ -355,4 +388,7 @@ def run_vdj(cfg: VdjConfig, out_dir: str, *, device) -> dict:
         json.dump(summary, f, indent=2, default=float)
     from .websummary import build_web_summary
     build_web_summary(out_dir, cfg.sample_id, pipeline="vdj")
+    split["outputs_s"] = time.perf_counter() - tick
+    split["alignments"] = annotator.alignments
+    LAST_SPLIT.update(split)
     return summary

@@ -392,9 +392,11 @@ def _e2e_reference(tmp: str, rng, genome_len: int, n_genes: int,
     return garr, spacing, wl_arr, ref_dir, wl_path
 
 
-def _fastq_block(seqmat: np.ndarray) -> bytes:
+def _fastq_block(seqmat: np.ndarray, qualmat: np.ndarray | None = None
+                 ) -> bytes:
     """FASTQ text of a [n, w] matrix of base bytes: fixed names, 'F'
-    qualities, uncompressed (generation stays cheap)."""
+    qualities (or the quality bytes `qualmat`, [n, w]), uncompressed
+    (generation stays cheap)."""
     n_, w_ = seqmat.shape
     name = np.frombuffer(b"@readxxxxxxxxxx\n", np.uint8)
     rows = np.empty((n_, len(name) + 2 * w_ + 4), np.uint8)
@@ -404,17 +406,21 @@ def _fastq_block(seqmat: np.ndarray) -> bytes:
     rows[:, o] = ord("\n")
     rows[:, o + 1] = ord("+")
     rows[:, o + 2] = ord("\n")
-    rows[:, o + 3:o + 3 + w_] = ord("F")
+    rows[:, o + 3:o + 3 + w_] = ord("F") if qualmat is None else qualmat
     rows[:, -1] = ord("\n")
     return rows.tobytes()
 
 
-def _write_fastq_pair(r1p: str, r2p: str, r1: np.ndarray, r2: np.ndarray):
+def _write_fastq_pair(r1p: str, r2p: str, r1: np.ndarray, r2: np.ndarray,
+                      q1: np.ndarray | None = None,
+                      q2: np.ndarray | None = None):
     with open(r1p, "wb") as f1, open(r2p, "wb") as f2:
         C = 1 << 19
         for i in range(0, len(r1), C):
-            f1.write(_fastq_block(r1[i:i + C]))
-            f2.write(_fastq_block(r2[i:i + C]))
+            f1.write(_fastq_block(r1[i:i + C],
+                                  None if q1 is None else q1[i:i + C]))
+            f2.write(_fastq_block(r2[i:i + C],
+                                  None if q2 is None else q2[i:i + C]))
 
 
 def build_e2e_run(tmp: str, n_reads: int = 1_000_000) -> dict:
@@ -1089,6 +1095,240 @@ def _vdj_design(n_cells: int, seed: int) -> dict:
                 wl=wl, wl_arr=wl_arr, cell_wl=cell_wl, rng=rng)
 
 
+# A T-cell library at the width users run (build_vdj_run's keywords; see
+# vdj_library_kw): IMGT's functional human TRAV / TRAJ / TRBV / TRBJ gene
+# counts, V genes drawn in families so that a contig's 16-mers reach
+# several V genes as in a real reference, 10x's 737K-august-2016 5'
+# whitelist size, non-cell barcodes of one ambient molecule each, expanded
+# clonotypes, and binned NovaSeq qualities with N at Q2.
+VDJ_IMGT_GENES = {"TRA": (45, 50), "TRB": (48, 13)}   # (V, J) genes a chain
+VDJ_FAMILY_SIZE = (1, 5)            # V genes a family: a founder + 0-4
+VDJ_FAMILY_IDENTITY = (0.85, 0.95)  # a member's identity to its founder
+VDJ_WL_5P = 737_280
+VDJ_BACKGROUND_SHARE = 0.10         # of all read pairs, on non-cell barcodes
+VDJ_BACKGROUND_PER_CELL = 20        # non-cell barcodes a cell
+VDJ_EXPANDED_PER_CELL = 50          # one expanded clonotype per 50 cells
+VDJ_EXPANDED_SIZES = (3, 30)        # its cells, drawn log-uniform
+VDJ_QUAL_BINS = b"#,:F"             # Q2 (the base an N), Q11, Q25, Q37
+VDJ_QUAL_SHARES = (0.002, 0.01, 0.05, 0.938)
+VDJ_PRIMER_EVERY = 2                # every 2nd V gene's UTR carries the
+VDJ_PRIMER_AT = 5                   # reverse complement of an inner primer
+                                    # at this offset, so that mate 1 of
+                                    # its transcripts is primer-trimmed
+VDJ_CDR3_MIN_DIST = 3               # Hamming distance of CDR3s of one V and J
+
+
+def vdj_library_kw(n_cells: int) -> dict:
+    """build_vdj_run's keywords for a T-cell library at the width users
+    run: the IMGT gene counts, 20 non-cell barcodes a cell holding
+    VDJ_BACKGROUND_SHARE of the pairs, the 737,280-barcode whitelist."""
+    return dict(genes=VDJ_IMGT_GENES,
+                background=VDJ_BACKGROUND_PER_CELL * n_cells,
+                n_wl=VDJ_WL_5P)
+
+
+def _vdj_families(n: int, rng) -> list[str]:
+    """n V genes of VDJ_V_LEN bases ending in the Cys codon TGT, drawn in
+    families: a random founder, then members that differ from it at a
+    share of positions drawn from 1 - VDJ_FAMILY_IDENTITY."""
+    out = []
+    while len(out) < n:
+        size = min(int(rng.integers(VDJ_FAMILY_SIZE[0],
+                                    VDJ_FAMILY_SIZE[1] + 1)), n - len(out))
+        founder = rng.integers(0, 4, VDJ_V_LEN - 3)
+        out.append(founder)
+        for _ in range(size - 1):
+            ident = rng.uniform(*VDJ_FAMILY_IDENTITY)
+            m = founder.copy()
+            mut = rng.random(len(m)) >= ident
+            m[mut] = (m[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+            out.append(m)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    return [acgt[g].tobytes().decode() + "TGT" for g in out]
+
+
+def _vdj_design_wide(n_cells: int, seed: int, genes: dict, n_wl: int,
+                     background: int) -> dict:
+    """_vdj_design at a library's width: per chain genes[chain] = (V, J)
+    genes (V in families) and one C gene, the 5' UTR of every
+    VDJ_PRIMER_EVERY-th V gene carrying the reverse complement of one of
+    the human TCR inner primers at VDJ_PRIMER_AT; one expanded clonotype
+    of VDJ_EXPANDED_SIZES cells per VDJ_EXPANDED_PER_CELL cells (at least
+    one) and every other cell its own
+    clonotype, each clonotype a random V and J gene per chain and N/D
+    additions whose CDR3 is at least VDJ_CDR3_MIN_DIST from every other
+    clonotype's of that chain, V and J, and no (K-1)-mer of its
+    transcripts twice; an n_wl-barcode whitelist (packed),
+    the cells' and `background` non-cell barcodes drawn from it."""
+    from ..vdj.assembly import INNER_PRIMERS, K, _revcomp_b
+
+    rng = np.random.default_rng(seed)
+    seg = {}
+    for ci, (chain, (nv, nj)) in enumerate(genes.items()):
+        primer = _revcomp_b(INNER_PRIMERS[("human", "tcr")][ci]).decode()
+        utr = [_rand_nt(VDJ_UTR, rng) for _ in range(nv)]
+        for i in range(0, nv, VDJ_PRIMER_EVERY):
+            utr[i] = (utr[i][:VDJ_PRIMER_AT] + primer
+                      + utr[i][VDJ_PRIMER_AT + len(primer):])
+        seg[chain] = dict(
+            v=_vdj_families(nv, rng),
+            j=["TTT" + "GG" + _rand_nt(1, rng) + "AAA" + "GG"
+               + _rand_nt(1, rng) + _rand_nt(VDJ_J_LEN - 12, rng)
+               for _ in range(nj)],
+            c=_rand_nt(VDJ_C_LEN, rng), utr=utr)
+    lo, hi = VDJ_EXPANDED_SIZES
+    expanded = max(1, n_cells // VDJ_EXPANDED_PER_CELL)
+    sizes = np.exp(rng.uniform(np.log(lo), np.log(hi + 1), expanded))
+    sizes = np.minimum(sizes.astype(np.int64), max(lo, n_cells // 5))
+    if sizes.sum() > n_cells:
+        raise ValueError(f"{expanded} expanded clonotypes need "
+                         f"{sizes.sum()} of {n_cells} cells")
+    sizes = list(sizes) + [1] * int(n_cells - sizes.sum())
+    clono = np.repeat(np.arange(len(sizes)), sizes)
+    def kmers(t):          # (K-1)-mers: the assembly graph's overlaps
+        return [t[i:i + K - 1] for i in range(len(t) - K + 2)]
+
+    tx, cdr3, seen = [], [], {}
+    for _ in range(len(sizes)):
+        per, taken = {}, set()
+        for chain, (nv, nj) in genes.items():
+            s = seg[chain]
+            vi, ji = int(rng.integers(nv)), int(rng.integers(nj))
+            near = seen.setdefault((chain, vi, ji), [])
+            while True:
+                ins = _vdj_insert(chain, rng)
+                nt = "TGT" + ins + s["j"][ji][:3]
+                t = s["utr"][vi] + s["v"][vi] + ins + s["j"][ji] + s["c"]
+                # no 19-mer twice in a cell's transcripts, which would join
+                # them in its assembly graph (the J genes' FGxG motif and
+                # N additions can line up across chains)
+                km = kmers(t)
+                if (all(sum(a != b for a, b in zip(nt, o))
+                        >= VDJ_CDR3_MIN_DIST for o in near)
+                        and len(set(km)) == len(km) and not taken & set(km)):
+                    break
+            near.append(nt)
+            taken.update(km)
+            tx.append(t)
+            per[chain] = (nt, f"{chain}V{vi + 1}", f"{chain}J{ji + 1}")
+        cdr3.append(per)
+    wl = _human_whitelist(rng, n_wl)
+    picks = rng.choice(n_wl, n_cells + background, replace=False)
+    return dict(seg=seg, clono=rng.permutation(clono), tx=tx, cdr3=cdr3,
+                wl_packed=wl, cell_wl=np.sort(picks[:n_cells]),
+                bg_wl=np.sort(picks[n_cells:]), rng=rng)
+
+
+def _vdj_background(d: dict, n_pairs: int):
+    """The non-cell barcodes' pairs: each barcode one molecule of a random
+    cell's TRA or TRB transcript, n_pairs split evenly over them (the
+    first n_pairs % n barcodes one more).  Returns the arrays of
+    _vdj_pairs, barcode index in place of cell."""
+    rng = d["rng"]
+    n = len(d["bg_wl"])
+    n_cells = len(d["clono"])
+    tx = 2 * d["clono"][rng.integers(0, n_cells, n)] + rng.integers(0, 2, n)
+    umi = _coded_umis(np.arange(n), VDJ_UMI_LEN, rng)
+    per = np.full(n, n_pairs // n)
+    per[:n_pairs % n] += 1
+    bgi = np.repeat(np.arange(n), per)
+    p1 = rng.integers(0, VDJ_MATE1_START, len(bgi))
+    end = p1 + rng.integers(VDJ_FRAGMENT[0], VDJ_FRAGMENT[1] + 1, len(bgi))
+    return bgi, umi[bgi], tx[bgi], p1, end
+
+
+def _binned_quals(rng, shape) -> np.ndarray:
+    """Quality bytes [n, w] drawn from VDJ_QUAL_BINS at VDJ_QUAL_SHARES,
+    in blocks of rows (bounds the float draws)."""
+    bins = np.frombuffer(VDJ_QUAL_BINS, np.uint8)
+    edges = np.cumsum(VDJ_QUAL_SHARES)[:-1]
+    out = np.empty(shape, np.uint8)
+    block = 1 << 18
+    for s in range(0, shape[0], block):
+        u = rng.random((min(block, shape[0] - s), shape[1]))
+        out[s:s + block] = bins[np.searchsorted(edges, u, side="right")]
+    return out
+
+
+def _build_vdj_wide(tmp: str, n_cells: int, pairs_per_cell: int, seed: int,
+                    genes: dict, background: int, n_wl: int) -> dict:
+    """build_vdj_run past its defaults (see there)."""
+    from ..io.gtf import write_fasta
+
+    os.makedirs(tmp, exist_ok=True)
+    d = _vdj_design_wide(n_cells, seed, genes, n_wl, background)
+    rng = d["rng"]
+    cell, umi, t, p1, end = _vdj_pairs(d, pairs_per_cell)
+    bc = d["wl_packed"][d["cell_wl"][cell]]
+    n_bg = 0
+    if background:
+        n_bg = int(round(len(cell) * VDJ_BACKGROUND_SHARE
+                         / (1 - VDJ_BACKGROUND_SHARE)))
+        if n_bg < background:
+            raise ValueError(f"{n_bg} background pairs for {background} "
+                             "barcodes")
+        bgi, bumi, bt, bp1, bend = _vdj_background(d, n_bg)
+        order = rng.permutation(len(cell) + n_bg)
+        bc = np.concatenate([bc, d["wl_packed"][d["bg_wl"][bgi]]])[order]
+        umi = np.concatenate([umi, bumi])[order]
+        t = np.concatenate([t, bt])[order]
+        p1 = np.concatenate([p1, bp1])[order]
+        end = np.concatenate([end, bend])[order]
+    fa = os.path.join(tmp, "regions.fa")
+    recs, n = {}, 0
+    for chain in genes:
+        s = d["seg"][chain]
+        for kind, region, seqs in (("V", "L-REGION+V-REGION", s["v"]),
+                                   ("J", "J-REGION", s["j"]),
+                                   ("C", "C-REGION", [s["c"]])):
+            for i, seq in enumerate(seqs):
+                n += 1
+                g = f"{chain}{kind}{i + 1}"
+                recs[f"{n}|{g}|{g}|{g}|{region}|{chain}|None|00"] = \
+                    seq.encode()
+    write_fasta(fa, recs)
+    wl_path = os.path.join(tmp, "wl.txt")
+    _write_whitelist(wl_path, d["wl_packed"])
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    codes = _vdj_mates(d, t, p1, end)
+    P = len(t)
+    mate1 = bases[codes[:P]]
+    mate2 = bases[3 - codes[P:, ::-1]]           # reverse complement
+    del codes
+    _human_barcode_errors(bc, np.arange(0, P, 50), d["wl_packed"], rng)
+    head = np.concatenate([_unpack_barcodes(bc), bases[umi],
+                           np.broadcast_to(np.frombuffer(
+                               VDJ_TSO.encode(), np.uint8), (P, 15))], 1)
+    q1 = np.concatenate([np.full(head.shape, ord("F"), np.uint8),
+                         _binned_quals(rng, mate1.shape)], 1)
+    q2 = _binned_quals(rng, mate2.shape)
+    mate1[q1[:, head.shape[1]:] == ord("#")] = ord("N")
+    mate2[q2 == ord("#")] = ord("N")
+    r1p = os.path.join(tmp, "vdj_S1_L001_R1_001.fastq")
+    r2p = os.path.join(tmp, "vdj_S1_L001_R2_001.fastq")
+    _write_fastq_pair(r1p, r2p, np.concatenate([head, mate1], 1), mate2,
+                      q1, q2)
+    bcs = lambda idx: [b.tobytes().decode() + "-1" for b in
+                       _unpack_barcodes(d["wl_packed"][idx])]
+    cell_bc = bcs(d["cell_wl"])
+    cdr3s, genes_of, clonos = {}, {}, {}
+    for c, b in enumerate(cell_bc):
+        per = d["cdr3"][d["clono"][c]]
+        cdr3s[b] = sorted([ch, per[ch][0]] for ch in per)
+        genes_of[b] = sorted([ch, per[ch][1], per[ch][2]] for ch in per)
+        clonos.setdefault(int(d["clono"][c]), []).append(b)
+    expected = dict(total_reads=P, estimated_cells=n_cells,
+                    n_clonotypes=len(d["cdr3"]), cdr3s=cdr3s,
+                    bc_umi_pairs=n_cells * 2 * VDJ_UMIS_PER_CHAIN
+                    + len(d["bg_wl"]))
+    truth = dict(genes=genes_of,
+                 clonotypes=sorted(sorted(v) for v in clonos.values()),
+                 background=bcs(d["bg_wl"]), background_pairs=n_bg)
+    return dict(fa=fa, wl=wl_path, fq1=r1p, fq2=r2p, n_reads=P,
+                chemistry="SCVDJ", read_len=VDJ_READ_LEN, expected=expected,
+                truth=truth)
+
+
 def _vdj_pairs(d: dict, pairs_per_cell: int):
     """Read pairs of the design `d`, shuffled: each cell holds
     2 x VDJ_UMIS_PER_CHAIN molecules (the first half TRA), every molecule
@@ -1171,7 +1411,8 @@ def vdj_kmer_inputs(n_cells: int, pairs_per_cell: int, seed: int = 37
 
 
 def build_vdj_run(tmp: str, n_cells: int = 5, pairs_per_cell: int = 5000,
-                  seed: int = 37) -> dict:
+                  seed: int = 37, *, genes: dict | None = None,
+                  background: int = 0, n_wl: int = VDJ_WL) -> dict:
     """A paired-end SCVDJ run of T cells whose outcome holds by
     construction.  Reference: TRA and TRB, VDJ_V_GENES V, VDJ_J_GENES J
     and one C gene each (regions.fa).  Cells: clonotypes of 2, 2 and 1
@@ -1185,9 +1426,25 @@ def build_vdj_run(tmp: str, n_cells: int = 5, pairs_per_cell: int = 5000,
     Plain FASTQ with 'F' qualities, a 2,000-barcode whitelist.
 
     Expected (returned): reads, cells, clonotypes, each cell's CDR3
-    nucleotides per chain, distinct (barcode, UMI) pairs."""
+    nucleotides per chain, distinct (barcode, UMI) pairs.
+
+    With `genes` ({chain: (V genes, J genes)}, e.g. VDJ_IMGT_GENES; see
+    vdj_library_kw) the run is drawn at a library's width instead
+    (_vdj_design_wide): V genes in families, a planted inner primer in
+    some 5' UTRs, an expanded clonotype of 3-30 cells per 50 cells,
+    `background` non-cell barcodes holding VDJ_BACKGROUND_SHARE of the
+    pairs, one ambient molecule each, an n_wl-barcode whitelist, binned
+    qualities with N at Q2.  It also returns
+    "truth": each cell's V and J gene per chain, the clonotypes as a
+    partition of the cell barcodes, the non-cell barcodes."""
     from ..io.gtf import write_fasta
 
+    if genes is not None:
+        return _build_vdj_wide(tmp, n_cells, pairs_per_cell, seed, genes,
+                               background, n_wl)
+    if background or n_wl != VDJ_WL:
+        raise ValueError("background and n_wl draw a library's width: "
+                         "give its genes too")
     os.makedirs(tmp, exist_ok=True)
     d = _vdj_design(n_cells, seed)
     cell, umi, t, p1, end = _vdj_pairs(d, pairs_per_cell)

@@ -152,12 +152,35 @@ Phases, each printing one line; any failure raises and exits non-zero:
                equal; count_bc_umi_kmers on the rows run_vdj handed it,
                split into blocks of a few hundred kmer rows, equal to the
                pipeline's arrays on both devices
-  vdj          a paired-end SCVDJ run (testing/fixtures.build_vdj_run: 5
-               T cells in clonotypes of 2, 2 and 1, 2,000 read pairs a
-               cell) through run_vdj on cuda: exactly the fixture's cells,
-               clonotypes and each cell's CDR3s; wall, the device-
-               synchronized time of count_bc_umi_kmers, the host
-               assembly's time, peak memory
+  vdj          a T-cell library at the width users run it
+               (testing/fixtures.build_vdj_run with vdj_library_kw: 1,000
+               cells at 5,000 read pairs a cell, about 20% of them in 20
+               expanded clonotypes; IMGT's functional human TRAV, TRAJ,
+               TRBV and TRBJ gene counts with V genes drawn in families;
+               20,000 non-cell barcodes of one ambient molecule holding 10%
+               of the pairs; the 737,280-barcode 5' whitelist; binned
+               qualities with N at Q2; 5,555,556 pairs) through run_vdj on
+               cuda, batch 32768: exactly the fixture's cells (no non-cell
+               barcode among them), clonotypes as a partition of the
+               cells, each cell's CDR3s and V and J genes per chain;
+               fixture seconds, wall, pass 1, pass 2, the kmer spectrum's
+               device-synchronized seconds, the host assembly split into
+               graph and assembly, support, annotation, quals and
+               clonotypes plus outputs, seconds a cell, local alignments
+               a contig, peak device memory and host RSS.  It runs in a
+               child process beside the phases from index_build to
+               analysis_parity, next to cellplex; its line comes after
+               cellplex's
+  vdj_held     20 cells of the same design (400 non-cell barcodes)
+               through run_vdj on cuda: the sha256 of every output file
+               the JAX package's CPU run's (VDJ_EXPECTED,
+               tests/vdj_reference.py), and the fixture's truth
+  vdj_fast_parity  5 cells at 2,000 pairs of the same design through
+               run_vdj on cuda, every barcode's reads and contigs
+               recorded: each contig's UMI support, base qualities and
+               annotation from vdj/support.py (the batched per-barcode
+               work, the native local alignment) equal to the plain
+               versions' on the barcode's read list; both sides' seconds
   vdj_kmers    count_bc_umi_kmers alone on the reads of a 400-cell run at
                5,000 pairs a cell (4,000,000 reads with mates, made in
                memory): device time, peak memory; the fixture's distinct
@@ -239,10 +262,12 @@ step, 611 at 20,000,000 reads; `human_parity`:
 its cuda step, aligner call and truth-probe step and aligner call;
 `cellplex` and `perturb`: one a GEX step, 306, and none for the CMO,
 guide and antibody libraries;
-`rtl`, the V(D)J paths, `mkfastq`, `index_build`, `analysis` and
-`analysis_68k`: none, no genome aligner runs).  The line before the
-last is the kernel report (JSON); the last line is {"ok": true,
-"device": {...}}.  Imports nothing of JAX.
+`rtl`, the V(D)J paths (`vdj_fast_parity` reads no count), `mkfastq`, `index_build`, `analysis` and
+`analysis_68k`: none, no genome aligner runs).  Before the kernel
+report a `[timeline]` line gives the seconds from the script's start at
+which each phase printed its line.  The line before the last is the
+kernel report (JSON); the last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -652,13 +677,61 @@ PERTURB_EXPECTED = {
     "off_planted": [],
 }
 
-# V(D)J: 10x's recommended depth is 5,000 read pairs a cell (vdj_kmers'
-# cells); the host assembly takes 10-25 s a cell at it and grows with the
-# reads, so `vdj` runs the fixture's least cells at 2,000 pairs, cut for
-# the script's time limit when analysis_68k came
-VDJ_CELLS = 5
-VDJ_RUN_PAIRS_PER_CELL = 2_000
+# V(D)J: a T-cell library at the width users run it
+# (fixtures.vdj_library_kw: IMGT's functional TRAV/TRAJ/TRBV/TRBJ gene
+# counts with V genes in families, 20 non-cell barcodes a cell holding 10%
+# of the pairs, the 737,280-barcode 5' whitelist, one expanded clonotype
+# per 50 cells, binned qualities).  `vdj`: 1,000 cells, the low end of
+# what a 5' GEM well recovers, at 10x's recommended 5,000 read pairs a
+# cell, in a child process; `vdj_held`: 20 cells of the same design, every
+# output file the JAX package's (VDJ_EXPECTED, written by
+# tests/vdj_reference.py); `vdj_fast_parity`: 5 cells at 2,000 pairs, the
+# batched per-barcode work (vdj/support.py) against the plain versions on
+# every contig
+VDJ_CELLS = 1_000
 VDJ_PAIRS_PER_CELL = 5_000
+VDJ_BATCH = 32768
+VDJ_TIMEOUT_S = 900
+VDJ_HELD_CELLS = 20
+VDJ_FAST_PARITY_CELLS = 5
+VDJ_FAST_PARITY_PAIRS = 2_000
+# sha256 of every file the JAX package's run_vdj writes for
+# build_vdj_run(dir, VDJ_HELD_CELLS, VDJ_PAIRS_PER_CELL,
+# **vdj_library_kw(VDJ_HELD_CELLS)) at batch VDJ_BATCH
+VDJ_EXPECTED = {
+    "airr_rearrangement.tsv":
+        "10427c6bfa0cd9dcdab12c3b830464f62ea85fdd87411b3de9a592080b3286de",
+    "all_contig.fasta":
+        "ff6bdcc6217a58b3c6234d152523afd6276e16b96ebb954f191b8ca660c5d8f3",
+    "all_contig.fastq":
+        "1d397ac0ed30fb2c9bf14322c537996277b89ed58e0076bc5c0058d149a7020e",
+    "all_contig_annotations.csv":
+        "f738f6e56cad59c58da898107c322d7536ac4a263da703db75bf4b3671d2b7a1",
+    "all_contig_annotations.json":
+        "1febc31d5260fe23c5f0b76a837edb15ec5cc88d5862ed6d675ed5c0781af257",
+    "cell_barcodes.json":
+        "e1b08c56ddf7091b2febdf3f896983b07e9a4e0f0e8f4eb46a7ae5ef50b67989",
+    "clonotypes.csv":
+        "11620c17b99ebe2fdd2169984819c7e16cfaf756beb919c08cd3ade92e7e6b75",
+    "concat_ref.fasta":
+        "f92da3df001127183c1b483a05ec1d63226e9d6f407d54b75ee910bfd0eb618a",
+    "consensus.fasta":
+        "3905a161a29a00e4703bc4bd8a75be02cf254e845c0b9a4a6fead3bc3b47883e",
+    "consensus_annotations.csv":
+        "03ab7aff367598acd8ee8f0101422ac5b905e013d2830afa85821fcf9c51f8be",
+    "filtered_contig.fasta":
+        "ff6bdcc6217a58b3c6234d152523afd6276e16b96ebb954f191b8ca660c5d8f3",
+    "filtered_contig.fastq":
+        "1d397ac0ed30fb2c9bf14322c537996277b89ed58e0076bc5c0058d149a7020e",
+    "filtered_contig_annotations.csv":
+        "f738f6e56cad59c58da898107c322d7536ac4a263da703db75bf4b3671d2b7a1",
+    "metrics_summary.json":
+        "b6d1d9044f8114646b4f0f48146d3abb30206f65b289cef9c94e0559c356e1af",
+    "vdj_reference/fasta/regions.fa":
+        "37237a3e50ad330357fe52471e54a93f37417b48b3d78e04e669b23121f9fd8b",
+    "web_summary.html":
+        "dc5a0eff2a96bd3975f19ba2bdccddeaf54a9d55e69c768a60c0e7f3586a8f13",
+}
 VDJ_PARITY_CHUNK = 500          # kmer rows a block: splits every world
 VDJ_KMER_CELLS = 400            # 2,000,000 pairs, 4,000,000 reads
 VDJ_KMER_PARITY_READS = 200_000
@@ -705,7 +778,14 @@ HUMAN_LOSS_CAPS = {
 HUMAN_LOSS_SLACK = 8
 
 
+# seconds from the script's start at which each phase printed its line
+# (main prints them as one `[timeline]` line before the kernel report)
+_T0 = time.time()
+TIMELINE: dict = {}
+
+
 def phase(name: str, msg: str) -> None:
+    TIMELINE[name] = round(time.time() - _T0, 1)
     print(f"[{name}] {msg}", flush=True)
 
 
@@ -2853,49 +2933,248 @@ def _pairs(b, u) -> int:
     return len(np.unique((b.astype(np.uint64) << np.uint64(32)) | u))
 
 
+def tree_sha256(root: str) -> dict:
+    """{relative path: sha256} of every file under root."""
+    return {k: _sha256(v) for k, v in sorted(file_tree(root).items())}
+
+
+def _per_barcode_diffs(what: str, got: dict, want: dict) -> list[str]:
+    """One line naming the barcodes (the first 5) whose values differ."""
+    off = sorted(b for b in set(got) | set(want) if got.get(b) != want.get(b))
+    return [f"{what} of {len(off)} barcodes differ: " + "; ".join(
+        f"{b} got {got.get(b)}, expected {want.get(b)}" for b in off[:5])
+            ] if off else []
+
+
+def vdj_truth_diffs(fx: dict, out: str, summary: dict,
+                    bc_umi_pairs: int) -> list[str]:
+    """A V(D)J run's outputs against its fixture's truth: the cells (and
+    no non-cell barcode among them), reads, clonotypes as a partition of
+    the cells, each cell's CDR3 nucleotides and its V and J gene per
+    chain, the (barcode, UMI) pairs of the kmer spectrum."""
+    exp = fx["expected"]
+    got = dict(total_reads=summary["total_reads"],
+               estimated_cells=summary["estimated_cells"],
+               n_clonotypes=summary["n_clonotypes"], cdr3s=_cell_cdr3s(out),
+               bc_umi_pairs=bc_umi_pairs)
+    diffs = [f"{k}: got {got[k]}, expected {v}" for k, v in exp.items()
+             if k != "cdr3s" and got[k] != v]
+    diffs += _per_barcode_diffs("CDR3s", got["cdr3s"], exp["cdr3s"])
+    with open(os.path.join(out, "cell_barcodes.json")) as f:
+        cells = json.load(f)
+    if cells != sorted(exp["cdr3s"]):
+        diffs.append("cell barcodes are not the fixture's")
+    truth = fx.get("truth")
+    if truth is None:
+        return diffs
+    if set(cells) & set(truth["background"]):
+        diffs.append("a non-cell barcode was called a cell")
+    with open(os.path.join(out, "all_contig_annotations.json")) as f:
+        contigs = json.load(f)
+    genes, clono = {}, {}
+    for r in contigs:
+        if not r["is_cell"]:
+            continue
+        clono.setdefault(r["clonotype"], []).append(r["barcode"])
+        if r["productive"]:
+            names = {a["feature"]["region_type"]: a["feature"]["gene_name"]
+                     for a in r["annotations"]}
+            genes.setdefault(r["barcode"], []).append(
+                [r["chain"], names.get("V-REGION"), names.get("J-REGION")])
+    diffs += _per_barcode_diffs(
+        "V and J genes", {b: sorted(v) for b, v in genes.items()},
+        truth["genes"])
+    if sorted(sorted(set(v)) for v in clono.values()) \
+            != truth["clonotypes"]:
+        diffs.append("clonotypes are not the fixture's partition")
+    return diffs
+
+
 def vdj_run(tmp: str, n_cells: int = VDJ_CELLS,
-            pairs_per_cell: int = VDJ_RUN_PAIRS_PER_CELL,
-            device: str = "cuda") -> dict:
-    """A V(D)J run whose cells, clonotypes and CDR3s hold by
-    construction, through run_vdj on `device`."""
+            pairs_per_cell: int = VDJ_PAIRS_PER_CELL, device: str = "cuda",
+            batch_size: int = VDJ_BATCH, keep: bool = False) -> dict:
+    """A T-cell library (fixtures.vdj_library_kw) through run_vdj on
+    `device`, held to the fixture's truth (vdj_truth_diffs).  Reports the
+    fixture's seconds, wall, pass 1 and pass 2 (reads_to_kmers_s), the
+    kmer spectrum's device-synchronized seconds, the host assembly's
+    seconds split into graph and assembly, support, annotation, quals and
+    clonotypes plus outputs, seconds a cell, local alignments a contig,
+    peak device memory and peak host RSS.  The fixture and outputs are
+    deleted after unless `keep`."""
     import torch
     from cellranger_tpu_torch.align import sw
-    from cellranger_tpu_torch.pipeline.vdj import run_vdj
-    from cellranger_tpu_torch.testing.fixtures import build_vdj_run
+    from cellranger_tpu_torch.pipeline import vdj
+    from cellranger_tpu_torch.testing.fixtures import (build_vdj_run,
+                                                       vdj_library_kw)
 
-    t = time.time()
-    fx = build_vdj_run(os.path.join(tmp, "vdj"), n_cells, pairs_per_cell)
-    t_fix = time.time() - t
-    out = os.path.join(tmp, "vdj_out")
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    sw.LAUNCHES = 0
-    with _Recorder(device) as rec:
+    root = os.path.join(tmp, f"vdj_{n_cells}")
+    try:
         t = time.time()
-        s = run_vdj(_vdj_cfg(fx), out, device=device)
-        t_end = time.time()
-    exp = fx["expected"]
-    got = dict(total_reads=s["total_reads"],
-               estimated_cells=s["estimated_cells"],
-               n_clonotypes=s["n_clonotypes"], cdr3s=_cell_cdr3s(out),
-               bc_umi_pairs=_pairs(*rec.calls[0][1][:2]))
-    with open(os.path.join(out, "cell_barcodes.json")) as f:
-        if json.load(f) != sorted(exp["cdr3s"]):
-            raise AssertionError("vdj: cell barcodes are not the fixture's")
-    off = {k: (got[k], v) for k, v in exp.items() if got[k] != v}
-    if off:
-        raise AssertionError(f"vdj: (got, expected) {off}")
+        fx = build_vdj_run(os.path.join(root, "fx"), n_cells, pairs_per_cell,
+                           **vdj_library_kw(n_cells))
+        t_fix = time.time() - t
+        out = os.path.join(root, "out")
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        sw.LAUNCHES = 0
+        with rss_peak() as rss, _Recorder(device) as rec:
+            t = time.time()
+            s = vdj.run_vdj(_vdj_cfg(fx, batch_size=batch_size), out,
+                            device=device)
+            t_end = time.time()
+        split = dict(vdj.LAST_SPLIT)
+        diffs = vdj_truth_diffs(fx, out, s, _pairs(*rec.calls[0][1][:2]))
+        files = tree_sha256(out) if keep else None
+    finally:
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
+    host = t_end - rec.end
+    rep = dict(cells=n_cells, pairs_per_cell=pairs_per_cell,
+               reads=s["total_reads"], clonotypes=s["n_clonotypes"],
+               background_barcodes=len(fx["truth"]["background"]),
+               background_pairs=fx["truth"]["background_pairs"],
+               sw_launches=sw.LAUNCHES, fixture_s=t_fix, wall_s=t_end - t,
+               kmers_s=rec.seconds,
+               reads_to_kmers_s=rec.end - rec.seconds - t,
+               pass1_s=split["pass1_s"], pass2_s=split["pass2_s"],
+               host_assembly_s=host,
+               host_split_s={k: split[k] for k in (
+                   "graph_s", "support_s", "annotation_s", "quals_s",
+                   "outputs_s")},
+               host_s_per_cell=host / n_cells,
+               barcodes_assembled=split["barcodes"],
+               contigs_supported=split["contigs"],
+               contigs_annotated=split["annotated"],
+               alignments=split["alignments"],
+               alignments_per_contig=(split["alignments"]
+                                      / max(split["annotated"], 1)),
+               kmer_rows=len(rec.calls[0][1][0]),
+               peak_mem_bytes=(torch.cuda.max_memory_allocated()
+                               if device == "cuda" else None),
+               peak_host_rss_bytes=rss["bytes"])
+    if files is not None:
+        rep["files"] = files
+    if diffs:
+        raise AssertionError(f"vdj at {n_cells} cells: {diffs}; measured "
+                             f"{json.dumps(rep)}")
     if sw.LAUNCHES:
         raise AssertionError("the V(D)J run launched the SW kernel")
-    return dict(cells=n_cells, pairs_per_cell=pairs_per_cell,
-                reads=s["total_reads"], clonotypes=s["n_clonotypes"],
-                sw_launches=sw.LAUNCHES, fixture_s=t_fix,
-                wall_s=t_end - t, kmers_s=rec.seconds,
-                reads_to_kmers_s=rec.end - rec.seconds - t,
-                host_assembly_s=t_end - rec.end,
-                kmer_rows=len(rec.calls[0][1][0]),
-                peak_mem_bytes=(torch.cuda.max_memory_allocated()
-                                if device == "cuda" else None))
+    return rep
+
+
+def vdj_held(tmp: str, device: str = "cuda") -> dict:
+    """vdj_run of VDJ_HELD_CELLS cells of the same design, every output
+    file's sha256 equal to the JAX package's run (VDJ_EXPECTED)."""
+    rep = vdj_run(tmp, VDJ_HELD_CELLS, VDJ_PAIRS_PER_CELL, device, keep=True)
+    files = rep.pop("files")
+    off = sorted(k for k in set(files) | set(VDJ_EXPECTED)
+                 if files.get(k) != VDJ_EXPECTED.get(k))
+    if off:
+        raise AssertionError(f"vdj_held: files differ from the JAX "
+                             f"package's run: {off}; got {files}")
+    rep["files_equal"] = len(files)
+    return rep
+
+
+def _plain_reads(rd) -> list:
+    """The originals' read list, (umi, seq, qual bytes), of a
+    support.BarcodeReads."""
+    import numpy as np
+
+    out = []
+    for i in range(len(rd.umi)):
+        s, e = int(rd.start[i]), int(rd.end[i])
+        seq = np.frombuffer(b"ACGT", np.uint8)[rd.codes[i, s:e] & 3]
+        seq[~rd.valid[i, s:e]] = ord("N")
+        out.append((int(rd.umi[i]), seq.tobytes().decode(),
+                    bytes(rd.qual[i, s:s + int(rd.qlen[i])])))
+    return out
+
+
+def vdj_fast_parity(tmp: str, n_cells: int = VDJ_FAST_PARITY_CELLS,
+                    pairs_per_cell: int = VDJ_FAST_PARITY_PAIRS,
+                    device: str = "cuda") -> dict:
+    """A small library through run_vdj on `device`, every barcode's reads
+    and contigs recorded: each contig's UMI support (n_umis, n_reads),
+    base qualities (also of the contigs the run drops for support, taken
+    after it) and annotation (every field) from vdj/support.py equal to
+    the plain versions' (vdj/assembly.py umi_support, contig_base_quals,
+    vdj/annotate.py annotate_contig) on the barcode's read list.  Both
+    sides' seconds over what the run computed."""
+    import numpy as np
+    from cellranger_tpu_torch.pipeline import vdj
+    from cellranger_tpu_torch.testing.fixtures import (build_vdj_run,
+                                                       vdj_library_kw)
+    from cellranger_tpu_torch.vdj import assembly, support
+    from cellranger_tpu_torch.vdj.annotate import annotate_contig
+    from cellranger_tpu_torch.vdj.reference import VdjReference
+
+    got: list = []
+
+    class Support(support.BarcodeSupport):
+        def umi_support(self, contig, min_frac=0.5):
+            super().umi_support(contig, min_frac)
+            got.append([self.reads, contig.seq,
+                        (contig.n_umis, contig.n_reads), None, None])
+
+        def contig_base_quals(self, contig_seq):
+            q = super().contig_base_quals(contig_seq)
+            hit, = [g for g in got if g[0] is self.reads
+                    and g[1] == contig_seq]
+            hit[3] = q
+            return q
+
+    class Annotator(support.Annotator):
+        def annotate(self, contig):
+            a = super().annotate(contig)
+            got[-1][4] = a
+            return a
+
+    root = os.path.join(tmp, "vdj_fast_parity")
+    saved = support.BarcodeSupport, support.Annotator
+    support.BarcodeSupport, support.Annotator = Support, Annotator
+    try:
+        fx = build_vdj_run(os.path.join(root, "fx"), n_cells, pairs_per_cell,
+                           **vdj_library_kw(n_cells))
+        vdj.run_vdj(_vdj_cfg(fx, batch_size=VDJ_BATCH),
+                    os.path.join(root, "out"), device=device)
+    finally:
+        support.BarcodeSupport, support.Annotator = saved
+    split = dict(vdj.LAST_SPLIT)
+    ref = VdjReference.from_fasta(fx["fa"])
+    shutil.rmtree(root, ignore_errors=True)
+    diffs, plain = [], dict(support_s=0.0, annotation_s=0.0, quals_s=0.0)
+    for rd, seq, sup, quals, ann in got:
+        reads = _plain_reads(rd)
+        t = time.time()
+        c = assembly.Contig(seq, 0)
+        assembly.umi_support(c, reads)
+        plain["support_s"] += time.time() - t
+        if (c.n_umis, c.n_reads) != sup:
+            diffs.append(f"support {(c.n_umis, c.n_reads)} != {sup}")
+        t = time.time()
+        q = assembly.contig_base_quals(seq, reads)
+        if quals is None:
+            quals = support.BarcodeSupport(rd, device).contig_base_quals(seq)
+        else:
+            plain["quals_s"] += time.time() - t
+        if q.dtype != quals.dtype or not np.array_equal(q, quals):
+            diffs.append(f"quals of a {len(seq)}-base contig")
+        if ann is not None:
+            t = time.time()
+            a = annotate_contig(seq, ref)
+            plain["annotation_s"] += time.time() - t
+            if a != ann:
+                diffs.append(f"annotation {a} != {ann}")
+    rep = dict(cells=n_cells, pairs_per_cell=pairs_per_cell,
+               contigs=len(got),
+               quals_in_run=sum(g[3] is not None for g in got),
+               annotations_compared=sum(g[4] is not None for g in got),
+               alignments=split["alignments"],
+               new_s={k: split[k] for k in plain}, plain_s=plain)
+    if diffs or not rep["quals_in_run"]:
+        raise AssertionError(f"vdj_fast_parity: {diffs[:10]}; {rep}")
+    return rep
 
 
 def vdj_kmers(tmp: str, n_cells: int = VDJ_KMER_CELLS,
@@ -3797,7 +4076,9 @@ def main() -> None:
     launches = {}
     try:
         with phase_beside("cellplex", tmp, CELLPLEX_TIMEOUT_S,
-                          tmp) as cellplex_report:
+                          tmp) as cellplex_report, phase_beside(
+                              "vdj_run", tmp, VDJ_TIMEOUT_S,
+                              tmp) as vdj_report:
             g = index_build(tmp)
             launches["index_build"] = g["sw_launches"]
             phase("index_build", f"{smi}: cuda == numpy, every index.npz "
@@ -3904,11 +4185,19 @@ def main() -> None:
                   "identical: " + json.dumps(analysis_parity(tmp)))
 
             g = cellplex_report()
-        launches["cellplex"] = g["sw_launches"]
-        phase("cellplex", f"{smi}: run_multi of a CellPlex GEM well, 12 "
-              "CMOs and 17 antibodies, "
-              "in a child process beside index_build..analysis_parity, "
-              "held to the JAX package's run and the planted truth: "
+            launches["cellplex"] = g["sw_launches"]
+            phase("cellplex", f"{smi}: run_multi of a CellPlex GEM well, 12 "
+                  "CMOs and 17 antibodies, "
+                  "in a child process beside index_build..analysis_parity, "
+                  "held to the JAX package's run and the planted truth: "
+                  + json.dumps(g))
+            g = vdj_report()
+        launches["vdj"] = g["sw_launches"]
+        phase("vdj", f"{smi}: run_vdj of {g['cells']} T cells at "
+              f"{g['pairs_per_cell']} read pairs a cell, the widened "
+              "reference, non-cell barcodes and the 737,280-barcode "
+              "whitelist, in a child process beside "
+              "index_build..analysis_parity, held to the fixture's truth: "
               + json.dumps(g))
 
         with phase_beside("analysis_68k", tmp, ANALYSIS_68K_TIMEOUT_S,
@@ -3919,10 +4208,13 @@ def main() -> None:
             launches["vdj_parity"] = g["sw_launches"]
             phase("vdj_parity", "cuda == cpu, every output file; kmers in "
                   "blocks equal: " + json.dumps(g))
-            g = vdj_run(tmp)
-            launches["vdj"] = g["sw_launches"]
-            phase("vdj", "the fixture's cells, clonotypes and CDR3s: "
-                  + json.dumps(g))
+            g = vdj_held(tmp)
+            launches["vdj_held"] = g["sw_launches"]
+            phase("vdj_held", f"{smi}: every output file the JAX package's "
+                  "and the fixture's truth: " + json.dumps(g))
+            g = vdj_fast_parity(tmp)
+            phase("vdj_fast_parity", "vdj/support.py == the plain versions "
+                  "on every contig: " + json.dumps(g))
             g = vdj_kmers(tmp)
             launches["vdj_kmers"] = g["sw_launches"]
             phase("vdj_kmers", json.dumps(g))
@@ -3960,6 +4252,7 @@ def main() -> None:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    phase("timeline", json.dumps(TIMELINE))
     print(json.dumps({"kernels": [{
         "name": "banded_sw", "route": "cuda",
         "source": "cellranger_tpu_torch/csrc/sw.cu",

@@ -202,6 +202,13 @@ SCRIPT = textwrap.dedent("""
                              pairs_per_cell=100, parity_reads=300,
                              devices=("cpu", "cpu"))
     assert g["bc_umi_pairs"] == 200 and g["reads"] == 1000, g
+    # the batched per-barcode work (vdj/support.py, the native local
+    # alignment) against the plain versions, and a tiny library run
+    g = chip_smoke.vdj_fast_parity(os.path.join(tmp, "vdjf"), n_cells=5,
+                                   pairs_per_cell=200, device="cpu")
+    assert g["annotations_compared"] == 10, g
+    g = chip_smoke.vdj_run(os.path.join(tmp, "vdjr"), 5, 200, "cpu")
+    assert g["cells"] == 5 and g["background_barcodes"] == 100, g
     g = chip_smoke.mkfastq_run(os.path.join(tmp, "bcl"), n_clusters=400)
     assert g["samples"]["A"] == 180 and g["fastqs"] == 9, g
     # the index build on the device (here the cpu) against the numpy build
