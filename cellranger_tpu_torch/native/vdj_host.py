@@ -2,52 +2,25 @@
 bound via ctypes: the annotation's local alignment and the base-quality
 pileup's sums.
 
-Built at first use with g++ into the git-ignored `build/native/` beside
-the FASTQ reader's library, and rebuilt when the hash of its source and
-flags changes (the stamp scheme of native/__init__.py).  Unlike the FASTQ
-reader, which has a Python fallback, a failed build or load raises: the
+Built at first use by native/build.py; a failed build or load raises: the
 V(D)J pipeline has no other version of these on its path.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 
 import numpy as np
 
-from . import BUILD_DIR
+from . import BUILD_DIR, build
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     "vdj_host.cpp")
 _LIB_PATH = os.path.join(BUILD_DIR, "libvdj_host.so")
-_FLAGS = ["-O2", "-shared", "-fPIC"]
 _lock = threading.Lock()
 _lib = None
-
-
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
-    return h.hexdigest()
-
-
-def _build(digest: str) -> None:
-    """Compile the library under BUILD_DIR; raises with the compiler's
-    output when g++ fails."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{_LIB_PATH}.{os.getpid()}.tmp"
-    res = subprocess.run(["g++", *_FLAGS, _SRC, "-o", tmp],
-                         capture_output=True, text=True, timeout=120)
-    if res.returncode:
-        raise RuntimeError(f"g++ failed to build {_SRC}: {res.stderr}")
-    os.replace(tmp, _LIB_PATH)
-    with open(_LIB_PATH + ".sha256", "w") as f:
-        f.write(digest)
 
 
 def get_lib():
@@ -56,15 +29,7 @@ def get_lib():
     with _lock:
         if _lib is not None:
             return _lib
-        digest = _digest()
-        try:
-            with open(_LIB_PATH + ".sha256") as f:
-                fresh = f.read().strip() == digest
-        except OSError:
-            fresh = False
-        if not (fresh and os.path.exists(_LIB_PATH)):
-            _build(digest)
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = build.load(_SRC, _LIB_PATH, BUILD_DIR)
         lib.crt_local_align.restype = ctypes.c_int
         lib.crt_local_align.argtypes = [
             ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_int,

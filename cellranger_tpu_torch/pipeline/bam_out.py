@@ -2,9 +2,12 @@
 analog (lib/rust/cr_lib/src/stages/write_pos_bam.rs), without the
 samtools-cat subprocess: per-batch alignment arrays are bucketed into
 genome-position bands on disk (pipeline/spill.BamSpool) as they stream off
-the device, and the final write loads one band at a time, sorts it, and
-streams it through the pure-python BGZF writer.  Peak RAM is O(one band),
-not O(run) — the per-chunk-BAM + samtools-cat structure re-expressed.
+the device, and the final write loads one band at a time, sorts it,
+encodes its records in bulk (native/bam_host.py) and streams them through
+a BGZF writer that compresses on threads and builds the .bai from arrays
+(io/bam_fast.py).  Peak RAM is O(one band), not O(run), beside the
+index's 40 bytes a record — the per-chunk-BAM + samtools-cat structure
+re-expressed.
 
 Tag semantics (cr_bam/src/bam_tags.rs): CR/CY always; CB only when the
 barcode is on the whitelist (possibly corrected); UR/UY always; UB for valid
@@ -13,12 +16,17 @@ last-partition-only fallback is gone); GX/GN + RE on mapped reads; xf flags
 mark conf-mapped / UMI-count / dup reads.
 
 Copied from cellranger_tpu/pipeline/bam_out.py, which reaches jax through
-its encode and GenomeIndex imports; this copy imports the port's.  The
-BGZF writer, the spool and the raw-triple join are verbatim copies of the
-JAX package's jax-free modules, so the bytes written are the same.
+its encode and GenomeIndex imports; this copy imports the port's.  That
+package's write, one record at a time through `_write_rows` and the
+verbatim copy of its pure-python BGZF writer, stays here as `write_plain`,
+the plain version `write` is held to byte for byte.
 """
 
 from __future__ import annotations
+
+import itertools
+import os
+import time
 
 import numpy as np
 
@@ -28,13 +36,23 @@ from ..io.bam import (
     FLAG_REVERSE, FLAG_SECOND_MATE, FLAG_SECONDARY, FLAG_UNMAPPED,
     XF_CONF_FEATURE, XF_CONF_MAPPED, XF_GENE_DISCORDANT, XF_LOW_SUPPORT_UMI,
     XF_UMI_COUNT)
+from ..io.bam_fast import BgzfBamWriter
 from ..io.bam_index import IndexingBamWriter as BamWriter
 from ..io.gtf import Transcriptome
 from .spill import BamSpool, lex3_join_np
 from ..align.index import GenomeIndex
+from ..native import bam_host
 from ..ops import encode
 
 REGION_CHARS = {0: "E", 1: "I", 2: "N"}
+
+# the last `write`'s split: seconds of spool load (load, join, sort),
+# representatives (selection and each band's join), encode (waiting for
+# the native encoder's threads), write (handing buffers to the BGZF writer
+# and closing it; of it compress_wait, waiting for its threads, and index);
+# compress_cpu (the compression threads' own seconds); and the threads of
+# each pool, records, stream bytes, blocks, the spool's bytes on disk
+LAST_SPLIT: dict = {}
 
 _CHUNK_KEYS = ("rna", "rna_qual", "rna_len", "nmask", "bc_packed", "bc_qual",
                "umi_packed", "umi_valid", "umi_qual", "pos", "mapq", "strand",
@@ -318,67 +336,131 @@ class BamCollector:
         self._spool_rep_sidecar(band, chunk, n)
         self.n_reads += n
 
+    def _header(self) -> tuple:
+        """(reference names, lengths, @RG line) of the BAM's header."""
+        gi = self.gi
+        rg_header = f"@RG\tID:{self.read_group}\tSM:{self.read_group}\n"
+        return (gi.chrom_names, list(np.diff(gi.chrom_starts).astype(int)),
+                rg_header)
+
+    def _load_band(self, band: int, views: tuple):
+        """One band's columns (this spool's chunks, then each sibling
+        directory's) with each record's corrected UMI and low-support
+        flag from the raw-triple views; None for an empty band."""
+        rb, rg, ru, rc, rl = views
+        chunks = list(self.spool.iter_band(band))
+        for d in self.sibling_dirs:
+            chunks.extend(BamSpool.iter_dir_band(d, band))
+        if not chunks:
+            return None
+        cat = concat_chunks(chunks)
+        # corrected-UMI / low-support join against the raw-triple views
+        gl = cat.get("gene_lib", cat["gene"]).astype(np.uint32)
+        if len(rb):
+            jidx, jfound = lex3_join_np(
+                rb, rg, ru, cat["bc_idx"].astype(np.uint32),
+                gl, cat["umi_packed"])
+            corr_umi = np.where(jfound, rc[jidx],
+                                cat["umi_packed"].astype(np.uint32))
+            low_sup = jfound & rl[jidx]
+        else:
+            corr_umi = cat["umi_packed"].astype(np.uint32)
+            low_sup = np.zeros(len(corr_umi), bool)
+        return cat, corr_umi, low_sup
+
     def write(self, path: str, raw_views: dict, bc_len: int, umi_len: int,
               gem_group: int = 1):
-        """raw_views: concatenated dedup raw-triple views across ALL dedup
-        partitions (raw_bc/raw_gene/raw_umi/raw_corr_umi/raw_low arrays of
-        distinct conf-mapped triples)."""
-        gi, txome = self.gi, self.txome
-        ref_lens = list(np.diff(gi.chrom_starts).astype(int))
-        rg_header = f"@RG\tID:{self.read_group}\tSM:{self.read_group}\n"
-        w = BamWriter(path, gi.chrom_names, ref_lens,
-                      extra_header=rg_header)
+        """The position-sorted BAM and its .bai.  raw_views: concatenated
+        dedup raw-triple views across ALL dedup partitions
+        (raw_bc/raw_gene/raw_umi/raw_corr_umi/raw_low arrays of distinct
+        conf-mapped triples).
+
+        Each band's records are encoded in bulk by the native encoder
+        (native/bam_host.py) and written by io/bam_fast.py's writer, whose
+        threads compress one buffer's blocks while the next is encoded;
+        the bytes are those of `write_plain`.  LAST_SPLIT holds the
+        seconds of the parts and the sizes."""
+        LAST_SPLIT.clear()
+        split = dict(spool_load_s=0.0, representatives_s=0.0, encode_s=0.0,
+                     write_s=0.0, spool_bytes=sum(
+                         e.stat().st_size
+                         for d in [self.spool.dir, *self.sibling_dirs]
+                         for e in os.scandir(d) if e.is_file()))
+        w = BgzfBamWriter(path, *self._header())
+        # half the cores encode, while all of them compress
+        encode_threads = max(1, w.threads // 2)
+        records = 0
+        if self.n_reads or self.sibling_dirs:
+            views = _raw_views(raw_views)
+            t = time.perf_counter()
+            winners = self._select_representatives(*views)
+            split["representatives_s"] += time.perf_counter() - t
+            self._build_tx_tables()
+            tables = bam_host.run_tables(
+                self.read_group, gem_group, bc_len, umi_len,
+                [g_.id for g_ in self.txome.genes],
+                [g_.name for g_ in self.txome.genes], self._gene_txs,
+                winners)
+            for band in range(self.n_bands + 1):
+                t = time.perf_counter()
+                r = self._load_band(band, views)
+                if r is None:
+                    continue
+                cat, corr_umi, low_sup = r
+                # a spool without the column holds no secondary record, as
+                # `_write_rows` reads it
+                cat.setdefault("secondary", np.zeros(len(corr_umi), bool))
+                order = np.argsort(cat["sort_key"], kind="stable")
+                t1 = time.perf_counter()
+                split["spool_load_s"] += t1 - t
+                win_idx = _winner_rows(winners, cat, corr_umi, low_sup)
+                t2 = time.perf_counter()
+                split["representatives_s"] += t2 - t1
+                parts = bam_host.encode_band(tables, cat, corr_umi, low_sup,
+                                             win_idx, order, encode_threads)
+                while True:
+                    t = time.perf_counter()
+                    recs = next(parts, None)
+                    t1 = time.perf_counter()
+                    split["encode_s"] += t1 - t
+                    if recs is None:
+                        break
+                    w.write_records(*recs)
+                    split["write_s"] += time.perf_counter() - t1
+                records += len(order)
+        t = time.perf_counter()
+        w.close()
+        split["write_s"] += time.perf_counter() - t
+        self.spool.close()
+        LAST_SPLIT.update(
+            split, compress_wait_s=w.wait_s, compress_cpu_s=w.compress_cpu_s,
+            index_s=w.index_s, threads=w.threads,
+            encode_threads=encode_threads, records=records,
+            stream_bytes=w._stream, blocks=len(w._block_at) - 1)
+
+    def write_plain(self, path: str, raw_views: dict, bc_len: int,
+                    umi_len: int, gem_group: int = 1):
+        """The plain version of `write`: every record through `_write_rows`
+        and io/bam_index.py's IndexingBamWriter, one at a time.  Tests and
+        chip_smoke.py hold `write` to it; the run does not call it.  The
+        spool stays open (a test writes it again with `write`)."""
+        w = BamWriter(path, *self._header())
         if self.n_reads == 0 and not self.sibling_dirs:
             w.close()
-            self.spool.close()
             return
-        gene_ids = [g_.id for g_ in txome.genes]
-        gene_names = [g_.name for g_ in txome.genes]
+        gene_ids = [g_.id for g_ in self.txome.genes]
+        gene_names = [g_.name for g_ in self.txome.genes]
         self._gene_ids = gene_ids
         self._build_tx_tables()
-        rb = np.asarray(raw_views.get("raw_bc", np.zeros(0, np.uint32)))
-        rg = np.asarray(raw_views.get("raw_gene", np.zeros(0, np.uint32)))
-        ru = np.asarray(raw_views.get("raw_umi", np.zeros(0, np.uint32)))
-        rc = np.asarray(raw_views.get("raw_corr_umi", np.zeros(0, np.uint32)))
-        rl = np.asarray(raw_views.get("raw_low", np.zeros(0, bool)))
-
-        def load_band(band):
-            chunks = list(self.spool.iter_band(band))
-            for d in self.sibling_dirs:
-                chunks.extend(BamSpool.iter_dir_band(d, band))
-            if not chunks:
-                return None
-            cat = {k: (np.concatenate([c[k] for c in chunks])
-                       if isinstance(chunks[0][k], np.ndarray)
-                       else sum((c[k] for c in chunks), []))
-                   for k in chunks[0]}
-            # corrected-UMI / low-support join against the raw-triple views
-            gl = cat.get("gene_lib", cat["gene"]).astype(np.uint32)
-            if len(rb):
-                jidx, jfound = lex3_join_np(
-                    rb, rg, ru, cat["bc_idx"].astype(np.uint32),
-                    gl, cat["umi_packed"])
-                corr_umi = np.where(jfound, rc[jidx],
-                                    cat["umi_packed"].astype(np.uint32))
-                low_sup = jfound & rl[jidx]
-            else:
-                corr_umi = cat["umi_packed"].astype(np.uint32)
-                low_sup = np.zeros(len(corr_umi), bool)
-            return cat, corr_umi, low_sup
-
+        views = _raw_views(raw_views)
         # ---- pass A: the UMI_COUNT representative of each molecule is the
         # read with min (raw UMI, utype, qname) among its conf-mapped reads
         # (mark_dups.rs:110-114 UmiSelectKey orders Txomic < NonTxomic
         # before the qname tie-break; :252-265 rekeyed to the min raw UMI
-        # correcting into the molecule; mate-1 records only).  Reads the
-        # lightweight sidecar spool, not the full bands; per-band winner
-        # selection is one lexsort + group-first, merged across bands by a
-        # second lexsort (was: per-read Python dict loop over a second
-        # full-band deserialize).
-        rep = self._select_representatives(rb, rg, ru, rc, rl)
-
+        # correcting into the molecule; mate-1 records only).
+        rep = self._rep_dict(self._select_representatives(*views))
         for band in range(self.n_bands + 1):
-            r = load_band(band)
+            r = self._load_band(band, views)
             if r is None:
                 continue
             cat, corr_umi, low_sup = r
@@ -386,15 +468,26 @@ class BamCollector:
             self._write_rows(w, cat, order, corr_umi, low_sup, rep,
                              gene_ids, gene_names, bc_len, umi_len, gem_group)
         w.close()
-        self.spool.close()
 
     @staticmethod
     def _rep_key(bc: int, gl: int, cu: int) -> int:
         return (bc << 64) | (gl << 32) | cu
 
-    def _select_representatives(self, rb, rg, ru, rc, rl) -> dict:
-        """Per-molecule UMI_COUNT winner: packed (bc,gene_lib,corr_umi) key
-        -> hash of the winning (raw_umi, not_txomic, qname) candidate."""
+    @classmethod
+    def _rep_dict(cls, winners) -> dict:
+        """The plain version's winners: packed (bc, gene_lib, corr_umi)
+        key -> hash of the winning (raw_umi, not_txomic, qname)."""
+        bc, gl, cu, um, ntxo, nm = winners
+        return {cls._rep_key(int(bc[i]), int(gl[i]), int(cu[i])):
+                hash((int(um[i]), int(ntxo[i]), bytes(nm[i])))
+                for i in range(len(bc))}
+
+    def _select_representatives(self, rb, rg, ru, rc, rl) -> tuple:
+        """Per-molecule UMI_COUNT winner, from the sidecar spool (not the
+        full bands): per band one lexsort + group-first, merged across
+        bands by a second lexsort.  Returns the winners as arrays (bc,
+        gene_lib, corr_umi, raw_umi, not_txomic, qname), sorted by
+        (bc, gene_lib, corr_umi), one row a molecule."""
         winners: list[tuple] = []
         for band in range(self.n_bands + 1):
             chunks = list(self.spool.iter_rep(band))
@@ -428,7 +521,8 @@ class BamCollector:
             winners.append(tuple(x[first]
                                  for x in (bc, gl, cu, um, ntxo, nm)))
         if not winners:
-            return {}
+            return (np.zeros(0, np.uint32),) * 4 + (np.zeros(0, np.uint8),
+                                                    np.zeros(0, "S1"))
         width = max(w[5].dtype.itemsize for w in winners)
         bc, gl, cu, um, ntxo = (np.concatenate([w[j] for w in winners])
                                 for j in range(5))
@@ -439,11 +533,7 @@ class BamCollector:
         first = np.ones(len(bc), bool)
         first[1:] = ((bc[1:] != bc[:-1]) | (gl[1:] != gl[:-1])
                      | (cu[1:] != cu[:-1]))
-        rep: dict = {}
-        for i in np.flatnonzero(first):
-            rep[self._rep_key(int(bc[i]), int(gl[i]), int(cu[i]))] = hash(
-                (int(um[i]), int(ntxo[i]), bytes(nm[i])))
-        return rep
+        return tuple(x[first] for x in (bc, gl, cu, um, ntxo, nm))
 
     def _build_tx_tables(self):
         """Per-gene transcript projection tables: gene index -> list of
@@ -517,6 +607,8 @@ class BamCollector:
 
     def _write_rows(self, w, cat, order, corr_umi_arr, low_arr, rep,
                     gene_ids, gene_names, bc_len, umi_len, gem_group):
+        """The plain version of the native encoder: each record's fields,
+        tags and write_record call in Python, one record at a time."""
         mapped = cat["mapped"].astype(bool)
         sec_col = cat.get("secondary")
         secondary = (np.asarray(sec_col).astype(bool) if sec_col is not None
@@ -686,3 +778,40 @@ class BamCollector:
                            int(cat["mapq"][i]), cig, seq, qual,
                            tags + [("xf", "i", xf)],
                            next_ref=mate_ref, next_pos=mate_pos, tlen=tlen)
+
+
+def _raw_views(raw_views: dict) -> tuple:
+    """(raw_bc, raw_gene, raw_umi, raw_corr_umi, raw_low) arrays."""
+    return tuple(np.asarray(raw_views.get(k, np.zeros(0, dt))) for k, dt in (
+        ("raw_bc", np.uint32), ("raw_gene", np.uint32), ("raw_umi", np.uint32),
+        ("raw_corr_umi", np.uint32), ("raw_low", bool)))
+
+
+def concat_chunks(chunks: list[dict]) -> dict:
+    """One dict of the chunks' columns, in chunk order: arrays
+    concatenated, lists joined in linear time.  Each chunk gives up its
+    columns as they are joined, so a band is held about once."""
+    cat = {}
+    for k in list(chunks[0]):
+        parts = [c.pop(k) for c in chunks]
+        cat[k] = (np.concatenate(parts) if isinstance(parts[0], np.ndarray)
+                  else list(itertools.chain.from_iterable(parts)))
+    return cat
+
+
+def _winner_rows(winners: tuple, cat: dict, corr_umi, low_sup) -> np.ndarray:
+    """Each record's molecule among the winners of
+    `_select_representatives` (-1: none), for the records the UMI_COUNT
+    test reaches (conf_ok, not low-support): an exact join on (bc_idx,
+    gene_lib, corr_umi).  The encoder then compares (raw UMI, not_txomic,
+    qname) exactly; the plain version compares Python hash() values of
+    those tuples, so the two differ only on a 64-bit hash collision."""
+    rows = np.full(len(corr_umi), -1, np.int64)
+    need = np.flatnonzero(np.asarray(cat["conf_ok"]).astype(bool) & ~low_sup)
+    if len(winners[0]) and len(need):
+        idx, found = lex3_join_np(
+            winners[0], winners[1], winners[2],
+            np.asarray(cat["bc_idx"])[need],
+            np.asarray(cat["gene_lib"])[need], corr_umi[need])
+        rows[need[found]] = idx[found]
+    return rows

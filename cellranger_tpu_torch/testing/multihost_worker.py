@@ -59,9 +59,12 @@ def free_port() -> int:
 
 
 def launch(cfg: dict, out_dir: str, n_procs: int, device: str = "cpu",
-           timeout: float = 300.0, env: dict | None = None) -> list[dict]:
+           timeout: float = 300.0, env: dict | None = None,
+           module: str | None = None) -> list[dict]:
     """Run one worker per host id 0..n_procs-1 on this machine, joined
-    over a free local port, on `cfg` (CountConfig fields) and `out_dir`.
+    over a free local port, on `cfg` (CountConfig fields) and `out_dir`;
+    the worker is `python -m module` (default: this module), run from the
+    repository's root.
     Every process is killed when the run exceeds `timeout` seconds (then
     TimeoutError) or when this function leaves early.  Returns, in host
     order, dict(rc, out: the last stdout line's JSON or None, stderr
@@ -84,8 +87,8 @@ def launch(cfg: dict, out_dir: str, n_procs: int, device: str = "cpu",
             se = open(os.path.join(out_dir, f"_host{pid}.err"), "w+b")
             logs.append((so, se))
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", __spec__.name, cfg_path, out_dir,
-                 "--device", device],
+                [sys.executable, "-m", module or __spec__.name, cfg_path,
+                 out_dir, "--device", device],
                 cwd=root, env=penv, stdout=so, stderr=se))
         deadline = time.time() + timeout
         while any(p.poll() is None for p in procs):

@@ -43,12 +43,21 @@ Phases, each printing one line; any failure raises and exits non-zero:
                time, phase split (analysis_reporting apart), memory; the
                three h5 outputs (io/hdf5.py): size and seconds of each
                write, each read back to the arrays that were written
-  e2e_bam      the first 50,000 reads of that fixture count-only and
-               with BAM (stream mode, spill + partition dedup, BAM write):
-               every read confidently mapped, the same molecules and MEX
-               bytes from both, the BAM write phase on its own, BAM size
-               and record count (5% of the reads: the per-record BAM
-               writer takes 170-410 s of host time for 1,000,000)
+  e2e_bam      the whole 1M-read fixture with BAM (stream mode, spill +
+               partition dedup, the BAM writer: native record encoder,
+               BGZF on threads, an index built from arrays): every read
+               confidently mapped, the molecules and MEX bytes of e2e's
+               count-only run, a record at least for every read, the
+               decompressed BAM's sha256 and record count the JAX
+               package's (BAM_EXPECTED), and its .bai equal to what the
+               copy's _write_bai builds from the records as laid out in
+               the file; wall, bam_write and its split
+               (pipeline.bam_out.LAST_SPLIT), records a second, bytes,
+               peak host RSS and device memory
+  bam_held     the first 50,000 reads with BAM, each BAM write made twice
+               from one spool, by the plain writer (bam_out.write_plain:
+               a record at a time through io/bam_index.py) and by the
+               run's: .bam and .bai byte-equal; both writers' seconds
   overflow     the count-only e2e run with the device molecule state
                capped at 1 << 19 rows, which forces the host flush and the
                partition dedup: the same molecules and MEX bytes as e2e
@@ -286,10 +295,22 @@ import time
 
 E2E_READS = 1_000_000
 E2E_BATCH = 32768
-# the BAM run takes the first 5% of the e2e reads (they are shuffled):
-# the per-record BAM writer takes 0.17-0.41 ms of host time a record, and
-# the script's time limit is shared with `deep` and analysis_68k
-E2E_BAM_READS = 50_000
+# the BAM run takes the whole e2e fixture: its writer encodes records in
+# bulk and compresses on threads (the per-record writer took 0.17-0.41 ms
+# a record, so the run had been cut to 50,000 reads)
+E2E_BAM_READS = E2E_READS
+# bam_held: the reads written by both writers (the plain one is the slow one)
+BAM_HELD_READS = 50_000
+# The JAX package's BAM for build_e2e_run(dir, E2E_BAM_READS) at batch
+# E2E_BATCH, made by `JAX_PLATFORMS=cpu python tests/bam_reference.py DIR`
+# (that package's run_count on the CPU with BAM, no checkpoint, no
+# secondary analysis) with cellranger_tpu as of commit 4d72afc: the sha256
+# of the decompressed BGZF payload and the record count.  The compressed
+# bytes and the index depend on the machine's zlib and are not held.
+BAM_EXPECTED = dict(
+    payload_sha256=(
+        "e7c36f042b5176b41d46396811da7bc53168c9b5520289f136b7a7307fd40a50"),
+    records=1_000_558)
 GOLDEN_BATCH = 4096
 OVERFLOW_STATE_CAP = 1 << 19
 PE_PAIRS = 1_000_000
@@ -1264,30 +1285,194 @@ def first_reads(fx: dict, n_reads: int, out_dir: str) -> dict:
     return cut
 
 
-def bam_run(fx: dict, tmp: str, n_reads: int = E2E_BAM_READS,
-            batch_size: int = E2E_BATCH) -> dict:
-    """The first n_reads reads of the e2e fixture count-only, then with
-    BAM (stream mode, spill, partition dedup, BAM writer): every read
-    confidently mapped, the same molecules and MEX bytes from both, a BAM
-    record at least for every read."""
-    fxb = first_reads(fx, n_reads, os.path.join(tmp, "e2e_bam_fq"))
-    ref_out = os.path.join(tmp, "e2e_bam_ref_out")
-    ref = count_run(fxb, ref_out, batch_size=batch_size)
-    bam_out = os.path.join(tmp, "e2e_bam_out")
-    rb = count_run(fxb, bam_out, batch_size=batch_size, write_bam=True)
+def bam_payload(path: str) -> dict:
+    """sha256 of a BAM's decompressed BGZF payload, and its records."""
+    with gzip.open(path, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    return dict(payload_sha256=digest, records=bam_records(path))
+
+
+def bam_index_records(path: str) -> tuple[int, list[tuple]]:
+    """The BAM's reference count, and (ref_id, pos, end, voffset start,
+    voffset end) of each record with ref_id >= 0, rebuilt from the BAM as laid out in the file: its BGZF
+    blocks' file offsets and sizes (every block but the last full, 60,000
+    bytes: a position p of the stream is block p // 60,000, the convention
+    of a writer that flushes full blocks) and each record's CIGAR."""
+    import struct
+    import zlib
+    with open(path, "rb") as f:
+        raw = f.read()
+    starts, sizes, parts = [], [], []
+    off = 0
+    while off < len(raw):
+        bsize = struct.unpack_from("<H", raw, off + 16)[0] + 1
+        isize = struct.unpack_from("<I", raw, off + bsize - 4)[0]
+        starts.append(off)
+        sizes.append(isize)
+        parts.append(zlib.decompress(raw[off + 18:off + bsize - 8], -15))
+        off += bsize
+    data = b"".join(parts)
+    block = 60000
+    full = [s for s in sizes if s]
+    if any(s != block for s in full[:-1]):
+        raise AssertionError(f"{path}: a BGZF block other than the last "
+                             "is not 60,000 bytes")
+    voff = lambda p: (starts[p // block] << 16) | (p % block)  # noqa: E731
+    off = 8 + struct.unpack_from("<i", data, 4)[0]
+    n_ref = struct.unpack_from("<i", data, off)[0]
+    off += 4
+    for _ in range(n_ref):
+        off += 8 + struct.unpack_from("<i", data, off)[0]
+    recs = []
+    while off < len(data):
+        size = struct.unpack_from("<i", data, off)[0]
+        ref_id, pos, l_rn, _, _, n_cig = struct.unpack_from("<iiBBHH", data,
+                                                            off + 4)
+        if ref_id >= 0:
+            cig = struct.unpack_from(f"<{n_cig}I", data, off + 36 + l_rn)
+            rlen = sum(v >> 4 for v in cig if v & 0xF in (0, 2, 3))
+            recs.append((ref_id, pos, pos + (rlen or 1), voff(off),
+                         voff(off + 4 + size)))
+        off += 4 + size
+    return n_ref, recs
+
+
+def bam_index_check(path: str, tmp: str) -> dict:
+    """The run's .bai against the one the copy's IndexingBamWriter
+    _write_bai writes from bam_index_records(path)."""
+    from cellranger_tpu_torch.io.bam_index import IndexingBamWriter
+
+    t = time.time()
+    plain = IndexingBamWriter.__new__(IndexingBamWriter)
+    plain._n_ref, plain._records = bam_index_records(path)
+    plain._vpath = os.path.join(tmp, "rebuilt.bai")
+    plain._write_bai()
+    with open(plain._vpath, "rb") as fa, open(path + ".bai", "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError(f"{path}.bai differs from the index of "
+                                 "its records")
+    return dict(indexed_records=len(plain._records),
+                bai_bytes=os.path.getsize(path + ".bai"),
+                check_s=time.time() - t)
+
+
+def bam_run(fx: dict, tmp: str, ref_molecules: int, ref_mex: dict,
+            n_reads: int | None = None, device: str = "cuda",
+            batch_size: int = E2E_BATCH,
+            expected: dict | None = BAM_EXPECTED) -> dict:
+    """The first n_reads reads of the e2e fixture (all of them by default)
+    with BAM (stream mode, spill, partition dedup, BAM writer): every read
+    confidently mapped, the molecules (ref_molecules) and MEX digests
+    (ref_mex, of `mex_sha256`) of the count-only run, a BAM record at
+    least for every read; the decompressed BAM and its record count
+    `expected` (the JAX package's); the .bai that of the records as laid
+    out in the file.  Reports wall, bam_write and its split (spool bytes
+    on disk included), BAM bytes, peak host RSS and device memory.
+
+    The BAM writer at `deep`'s depth is this function on deep's fixture,
+    held to DEEP_EXPECTED (about 10 minutes at 20,000,000 reads on one
+    H100's host; not a phase of main):
+
+        python3 -c "import chip_smoke as c, json, tempfile;
+        from cellranger_tpu_torch import kernels;
+        from cellranger_tpu_torch.testing.fixtures import build_e2e_run;
+        kernels.build(); t = tempfile.mkdtemp(); e = c.DEEP_EXPECTED;
+        fx = build_e2e_run(t + '/fx', e['total_reads']);
+        print(json.dumps(c.bam_run(fx, t, e['total_molecules'],
+                                   e['mex_sha256'], expected=None)))"
+    """
+    import torch
+    from cellranger_tpu_torch.pipeline import bam_out
+
+    n_reads = n_reads or fx["n_reads"]
+    if n_reads < fx["n_reads"]:
+        fx = first_reads(fx, n_reads, os.path.join(tmp, "e2e_bam_fq"))
+    bam_out_dir = os.path.join(tmp, "e2e_bam_out")
+    with rss_peak() as rss:
+        rb = count_run(fx, bam_out_dir, device, batch_size, write_bam=True)
     rb.pop("summary")
-    check_e2e_counts("e2e_bam", rb, n_reads, ref["total_molecules"])
-    diffs = _mex_diffs(bam_out, ref_out)
-    if diffs:
-        raise AssertionError(f"e2e_bam MEX differs from count-only: {diffs}")
-    bam = os.path.join(bam_out, "possorted_genome_bam.bam")
-    rb["bam_bytes"] = os.path.getsize(bam)
-    rb["bam_records"] = bam_records(bam)
-    if rb["bam_records"] < n_reads:
-        raise AssertionError(f"e2e_bam wrote {rb['bam_records']} records "
+    check_e2e_counts("e2e_bam", rb, n_reads, ref_molecules,
+                     per_step=int(device == "cuda"))
+    if mex_sha256(bam_out_dir) != ref_mex:
+        raise AssertionError("e2e_bam MEX differs from count-only")
+    bam = os.path.join(bam_out_dir, "possorted_genome_bam.bam")
+    split = dict(bam_out.LAST_SPLIT)
+    rb.update(bam_payload(bam), bam_bytes=os.path.getsize(bam),
+              bam_write_s=rb["phase_s"]["bam_write"], bam_split=split,
+              peak_host_rss_bytes=rss["bytes"],
+              device=(torch.cuda.get_device_name(0) if device == "cuda"
+                      else device))
+    rb["records_per_s"] = rb["records"] / rb["bam_write_s"]
+    rb["stream_bytes_per_record"] = split["stream_bytes"] / rb["records"]
+    rb["bam_bytes_per_record"] = rb["bam_bytes"] / rb["records"]
+    if rb["records"] < n_reads or split["records"] != rb["records"]:
+        raise AssertionError(f"e2e_bam wrote {rb['records']} records "
                              f"for {n_reads} reads")
-    rb["count_only_wall_s"] = ref["wall_s"]
+    if expected is not None:
+        got = {k: rb[k] for k in expected}
+        if got != expected:
+            raise AssertionError(f"e2e_bam BAM {got} is not the JAX "
+                                 f"package's {expected}")
+    rb["index"] = bam_index_check(bam, tmp)
     return rb
+
+
+@contextlib.contextmanager
+def plain_beside(record: list | None = None):
+    """Every BamCollector.write in the block first writes its spool through
+    the plain writer (BamCollector.write_plain) to <path>.plain and
+    <path>.plain.bai, then writes <path> as the run does; the seconds of
+    both go into `record`."""
+    from cellranger_tpu_torch.pipeline import bam_out
+
+    real = bam_out.BamCollector.write
+
+    def both(self, path, *a, **kw):
+        t = time.perf_counter()
+        self.write_plain(path + ".plain", *a, **kw)
+        t1 = time.perf_counter()
+        real(self, path, *a, **kw)
+        if record is not None:
+            record.append(dict(plain_s=t1 - t,
+                               new_s=time.perf_counter() - t1))
+
+    bam_out.BamCollector.write = both
+    try:
+        yield
+    finally:
+        bam_out.BamCollector.write = real
+
+
+def plain_diffs(out: str) -> list[str]:
+    """Files of out's BAM and index that differ from the plain writer's."""
+    bam = os.path.join(out, "possorted_genome_bam.bam")
+    diffs = []
+    for a, b in ((bam, bam + ".plain"), (bam + ".bai", bam + ".plain.bai")):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                diffs.append(os.path.basename(a))
+    return diffs
+
+
+def bam_held(fx: dict, tmp: str, n_reads: int = BAM_HELD_READS,
+             device: str = "cuda", batch_size: int = E2E_BATCH) -> dict:
+    """The first n_reads reads of the e2e fixture with BAM, the BAM write
+    made by the plain writer and by the run's from one spool, in one
+    process (one zlib): .bam and .bai byte-equal."""
+    cut = first_reads(fx, n_reads, os.path.join(tmp, "bam_held_fq"))
+    out = os.path.join(tmp, "bam_held_out")
+    seconds: list = []
+    with plain_beside(seconds):
+        r = count_run(cut, out, device, batch_size, write_bam=True)
+    diffs = plain_diffs(out)
+    if diffs:
+        raise AssertionError(f"bam_held: {diffs} differ from the plain "
+                             "writer's")
+    bam = os.path.join(out, "possorted_genome_bam.bam")
+    return dict(reads=r["reads"], sw_launches=r["sw_launches"],
+                records=bam_records(bam), bam_bytes=os.path.getsize(bam),
+                plain_write_s=seconds[0]["plain_s"],
+                write_s=seconds[0]["new_s"])
 
 
 def overflow_run(fx: dict, out: str, ref_out: str, device: str = "cuda",
@@ -4121,9 +4306,15 @@ def main() -> None:
             launches["e2e"] = r["sw_launches"]
             phase("e2e", json.dumps(r))
 
-            rb = bam_run(fx, tmp)
+            rb = bam_run(fx, tmp, r["total_molecules"], mex_sha256(e2e_out),
+                         n_reads=E2E_BAM_READS)
             launches["e2e_bam"] = rb["sw_launches"]
-            phase("e2e_bam", json.dumps(rb))
+            phase("e2e_bam", f"{smi}: the JAX package's BAM payload and "
+                  "records, the index of its records: " + json.dumps(rb))
+            g = bam_held(fx, tmp)
+            launches["bam_held"] = g["sw_launches"]
+            phase("bam_held", "the run's .bam and .bai == the plain "
+                  "writer's: " + json.dumps(g))
 
             ovf_out = os.path.join(tmp, "overflow_out")
             ro = overflow_run(fx, ovf_out, e2e_out)

@@ -9,6 +9,7 @@ outputs written and read back to what was written) and on a mesh of two
 CPU entries (with and without the kmer table sharded), run secondary
 analysis on a planted-population matrix, and run chip_smoke's parity,
 golden (the h5 files against the h5py-written snapshots), overflow,
+the BAM writer against its plain version (bam_held),
 h5_pipelines (aggr over two runs' molecule_info.h5, two GEM wells, CLI
 reanalyze), analysis, paired-end (a tiny SC5P-PE count with BAM), probe
 (a tiny MFRP-RNA count), multi, cellplex (a 240-cell well of 12 CMOs
@@ -47,6 +48,8 @@ SCRIPT = textwrap.dedent("""
     import cellranger_tpu_torch
     import cellranger_tpu_torch.pipeline.count as count
     import cellranger_tpu_torch.pipeline.bam_out
+    import cellranger_tpu_torch.io.bam_fast
+    import cellranger_tpu_torch.native.bam_host
     import cellranger_tpu_torch.io.feature_ref
     import cellranger_tpu_torch.ops.features
     import cellranger_tpu_torch.parallel.molecule_state
@@ -154,6 +157,11 @@ SCRIPT = textwrap.dedent("""
     rc = chip_smoke.count_run(cut, os.path.join(tmp, "cut_out"),
                               device="cpu", batch_size=256)
     assert rc["reads"] == 500 and 0 < rc["total_molecules"] <= 500, rc
+    # the BAM phase's held write: the native encoder and the threaded
+    # BGZF writer against the plain writer, byte for byte
+    g = chip_smoke.bam_held(fx, os.path.join(tmp, "held"), n_reads=500,
+                            device="cpu", batch_size=256)
+    assert g["records"] == 500, g
     # a tiny SC5P-PE count with BAM and a tiny MFRP-RNA count, each held to
     # its fixture's counts; then multi with sample demux, which reads the
     # count run's filtered h5 through io/hdf5.py
