@@ -1289,25 +1289,8 @@ def _build_vdj_wide(tmp: str, n_cells: int, pairs_per_cell: int, seed: int,
     write_fasta(fa, recs)
     wl_path = os.path.join(tmp, "wl.txt")
     _write_whitelist(wl_path, d["wl_packed"])
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    codes = _vdj_mates(d, t, p1, end)
+    r1p, r2p = _write_vdj_fastqs(tmp, d, bc, umi, t, p1, end)
     P = len(t)
-    mate1 = bases[codes[:P]]
-    mate2 = bases[3 - codes[P:, ::-1]]           # reverse complement
-    del codes
-    _human_barcode_errors(bc, np.arange(0, P, 50), d["wl_packed"], rng)
-    head = np.concatenate([_unpack_barcodes(bc), bases[umi],
-                           np.broadcast_to(np.frombuffer(
-                               VDJ_TSO.encode(), np.uint8), (P, 15))], 1)
-    q1 = np.concatenate([np.full(head.shape, ord("F"), np.uint8),
-                         _binned_quals(rng, mate1.shape)], 1)
-    q2 = _binned_quals(rng, mate2.shape)
-    mate1[q1[:, head.shape[1]:] == ord("#")] = ord("N")
-    mate2[q2 == ord("#")] = ord("N")
-    r1p = os.path.join(tmp, "vdj_S1_L001_R1_001.fastq")
-    r2p = os.path.join(tmp, "vdj_S1_L001_R2_001.fastq")
-    _write_fastq_pair(r1p, r2p, np.concatenate([head, mate1], 1), mate2,
-                      q1, q2)
     bcs = lambda idx: [b.tobytes().decode() + "-1" for b in
                        _unpack_barcodes(d["wl_packed"][idx])]
     cell_bc = bcs(d["cell_wl"])
@@ -1327,6 +1310,34 @@ def _build_vdj_wide(tmp: str, n_cells: int, pairs_per_cell: int, seed: int,
     return dict(fa=fa, wl=wl_path, fq1=r1p, fq2=r2p, n_reads=P,
                 chemistry="SCVDJ", read_len=VDJ_READ_LEN, expected=expected,
                 truth=truth)
+
+
+def _write_vdj_fastqs(tmp: str, d: dict, bc, umi, t, p1, end):
+    """The read pairs (packed barcode, UMI codes, transcript of d["tx"],
+    mate-1 start, mate-2 end) as SCVDJ FASTQs: one barcode in 50 with a
+    correctable error, R1 = barcode + UMI + TSO + mate 1, binned
+    qualities with N at Q2.  Returns the R1 and R2 paths."""
+    rng = d["rng"]
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    codes = _vdj_mates(d, t, p1, end)
+    P = len(t)
+    mate1 = bases[codes[:P]]
+    mate2 = bases[3 - codes[P:, ::-1]]           # reverse complement
+    del codes
+    _human_barcode_errors(bc, np.arange(0, P, 50), d["wl_packed"], rng)
+    head = np.concatenate([_unpack_barcodes(bc), bases[umi],
+                           np.broadcast_to(np.frombuffer(
+                               VDJ_TSO.encode(), np.uint8), (P, 15))], 1)
+    q1 = np.concatenate([np.full(head.shape, ord("F"), np.uint8),
+                         _binned_quals(rng, mate1.shape)], 1)
+    q2 = _binned_quals(rng, mate2.shape)
+    mate1[q1[:, head.shape[1]:] == ord("#")] = ord("N")
+    mate2[q2 == ord("#")] = ord("N")
+    r1p = os.path.join(tmp, "vdj_S1_L001_R1_001.fastq")
+    r2p = os.path.join(tmp, "vdj_S1_L001_R2_001.fastq")
+    _write_fastq_pair(r1p, r2p, np.concatenate([head, mate1], 1), mate2,
+                      q1, q2)
+    return r1p, r2p
 
 
 def _vdj_pairs(d: dict, pairs_per_cell: int):
@@ -1479,6 +1490,679 @@ def build_vdj_run(tmp: str, n_cells: int = 5, pairs_per_cell: int = 5000,
     return dict(fa=fa, wl=wl_path, fq1=r1p, fq2=r2p, n_reads=len(bc),
                 chemistry="SCVDJ", read_len=VDJ_READ_LEN,
                 expected=_vdj_expected(d, len(bc)))
+
+
+# ---------------------------------------------------------------------------
+# A B-cell V(D)J library (build_vdj_b_run)
+# ---------------------------------------------------------------------------
+
+# IMGT's functional human gene counts (IMGT Repertoire (IG and TR), "Gene
+# tables" of the human IGH, IGK and IGL loci, functional genes): (V, J)
+# genes a chain, and the IGHD genes
+VDJ_B_GENES = {"IGH": (40, 6), "IGK": (35, 5), "IGL": (30, 5)}
+VDJ_B_IGHD = 23
+VDJ_B_D_LEN = (15, 31)              # IGHD genes run 11-37 bases
+VDJ_B_D_TRIM = 4                    # bases trimmed off either end: 0-4
+# the J motif's first codon and its x: IGHJ W-G-Q-G, IGKJ F-G-Q-G, IGLJ
+# F-G-G-G (TTT or TTC for F)
+VDJ_B_J_MOTIF = {"IGH": ("TGG", "CAG"), "IGK": ("TT", "CAA"),
+                 "IGL": ("TT", "GGA")}
+VDJ_B_CDR3_AA = {"IGH": (10, 25), "IGK": (8, 12), "IGL": (8, 12)}
+# constant genes: the nine heavy isotypes, IGKC and the four functional
+# IGLC genes (IGLJ i splices to IGLC i % 4); IGHG1-4, IGHA1-2 and the IGLC
+# genes are near copies of a founder each, as in the real loci
+VDJ_B_CONSTANTS = {
+    "IGH": ("IGHM", "IGHD", "IGHG1", "IGHG2", "IGHG3", "IGHG4", "IGHA1",
+            "IGHA2", "IGHE"),
+    "IGK": ("IGKC",),
+    "IGL": ("IGLC1", "IGLC2", "IGLC3", "IGLC7")}
+VDJ_B_C_FAMILIES = (("IGHG1", "IGHG2", "IGHG3", "IGHG4"),
+                    ("IGHA1", "IGHA2"), VDJ_B_CONSTANTS["IGL"])
+VDJ_B_C_IDENTITY = (0.90, 0.95)     # a near copy's identity to its founder
+VDJ_B_C_LEN = 260
+VDJ_B_C_HEAD = 60                   # any two constant genes of a chain
+VDJ_B_C_HEAD_DIFF = 5               # differ in 5 of their first 60 bases
+VDJ_B_KINDS = {"naive": 0.60, "memory": 0.38, "plasma": 0.02}
+VDJ_B_KAPPA = 0.60                  # cells with IGK, the rest IGL
+VDJ_B_ISOTYPES = {
+    "naive": {"IGHM": 0.7, "IGHD": 0.3},
+    "memory": {"IGHM": 0.30, "IGHG1": 0.25, "IGHG2": 0.15, "IGHG3": 0.05,
+               "IGHG4": 0.03, "IGHA1": 0.15, "IGHA2": 0.07},
+    "plasma": {"IGHG1": 0.6, "IGHA1": 0.4}}
+VDJ_B_NAIVE_SUBS = (0, 1)           # V substitutions of a naive cell
+VDJ_B_SHM = {"memory": (0.02, 0.08), "plasma": (0.04, 0.08)}  # of V bases
+VDJ_B_SHM_MARGIN = 20               # substitutions at V bases [20, 280)
+VDJ_B_FAMILY_PER_CELL = 100         # one expanded family per 100 cells
+VDJ_B_FAMILY_SIZES = (3, 15)
+VDJ_B_TRUNK = (4, 12)               # V substitutions a family shares
+VDJ_B_PRIVATE = (0, 6)              # a family cell's own on top
+VDJ_B_PLASMA_FOLD = 20              # a plasma cell's molecules and pairs
+VDJ_B_PAIRS_PER_CELL = 4000
+VDJ_B_FRAGMENT = (150, 600)         # mate-2 end past mate 1's start: the
+                                    # contigs reach 60 bases into C
+VDJ_B_SEED = 41
+VDJ_B_ATTEMPTS = 2000               # draws of a clone before giving up
+VDJ_B_REDRAWS = 50                  # mutation draws on one clone's chains
+
+
+def vdj_b_library_kw(n_cells: int) -> dict:
+    """build_vdj_b_run's keywords for a B-cell library at the width users
+    run: 20 non-cell barcodes a cell holding VDJ_BACKGROUND_SHARE of the
+    pairs, the 737,280-barcode whitelist."""
+    return dict(background=VDJ_BACKGROUND_PER_CELL * n_cells,
+                n_wl=VDJ_WL_5P)
+
+
+def _vdj_b_constants(rng) -> dict:
+    """{chain: {name: sequence}}: VDJ_B_C_LEN random bases a gene, the
+    members of a VDJ_B_C_FAMILIES family drawn from its founder at
+    VDJ_B_C_IDENTITY, each redrawn until it differs from every earlier
+    gene of its chain in VDJ_B_C_HEAD_DIFF of the first VDJ_B_C_HEAD."""
+    family = {g: f for f in VDJ_B_C_FAMILIES for g in f}
+    founders = {f: rng.integers(0, 4, VDJ_B_C_LEN) for f in VDJ_B_C_FAMILIES}
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    out = {}
+    for chain, names in VDJ_B_CONSTANTS.items():
+        genes = {}
+        for g in names:
+            for _ in range(VDJ_B_ATTEMPTS):
+                if g in family:
+                    s = founders[family[g]].copy()
+                    mut = rng.random(len(s)) >= rng.uniform(*VDJ_B_C_IDENTITY)
+                    s[mut] = (s[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+                else:
+                    s = rng.integers(0, 4, VDJ_B_C_LEN)
+                if all((s[:VDJ_B_C_HEAD] != o[:VDJ_B_C_HEAD]).sum()
+                       >= VDJ_B_C_HEAD_DIFF for o in genes.values()):
+                    break
+            else:
+                raise ValueError(f"no {g} apart from the other constants")
+            genes[g] = s
+        out[chain] = {g: acgt[s].tobytes().decode() for g, s in genes.items()}
+    return out
+
+
+def _vdj_b_reference(rng) -> dict:
+    """The IGH, IGK and IGL segments: per chain V genes in families
+    (_vdj_families), every VDJ_PRIMER_EVERY-th 5' UTR carrying the reverse
+    complement of a human BCR inner primer at VDJ_PRIMER_AT (the seven in
+    turn), each UTR drawn so that the alignment of UTR + V to V starts at
+    V's first base, J genes opening with the chain's VDJ_B_J_MOTIF, the constant
+    genes (_vdj_b_constants) and, for IGH, VDJ_B_IGHD D genes."""
+    from ..vdj.assembly import INNER_PRIMERS, _revcomp_b
+
+    from ..native.vdj_host import local_align
+
+    primers = [_revcomp_b(p).decode()
+               for p in INNER_PRIMERS[("human", "bcr")]]
+    seg, k = {}, 0
+    for chain, (nv, nj) in VDJ_B_GENES.items():
+        v = _vdj_families(nv, rng)
+        utr = []
+        for i in range(nv):
+            p = ""
+            if i % VDJ_PRIMER_EVERY == 0:
+                p = primers[k % len(primers)]
+                k += 1
+            # the local alignment's traceback of UTR + V against V must
+            # start at V's first base: where the UTR's last bases match
+            # V's first, it climbs into the UTR and SegmentHit.variants
+            # walks the V off by as many bases (ROADMAP.md, "Found in
+            # the reference")
+            for _ in range(VDJ_B_ATTEMPTS):
+                u = _rand_nt(VDJ_UTR, rng)
+                u = u[:VDJ_PRIMER_AT] + p + u[VDJ_PRIMER_AT + len(p):]
+                _, cs, _, ss, _ = local_align(u + v[i], v[i])
+                if (cs, ss) == (VDJ_UTR, 0):
+                    break
+            else:
+                raise ValueError(f"no 5' UTR for {chain}V{i + 1}")
+            utr.append(u)
+        first, x = VDJ_B_J_MOTIF[chain]
+        j = []
+        for _ in range(nj):
+            f = first if len(first) == 3 else first + "TC"[rng.integers(2)]
+            j.append(f + "GG" + _rand_nt(1, rng) + x + "GG"
+                     + _rand_nt(1, rng) + _rand_nt(VDJ_J_LEN - 12, rng))
+        seg[chain] = dict(v=v, j=j, utr=utr)
+    seg["IGH"]["d"] = [_rand_nt(int(rng.integers(VDJ_B_D_LEN[0],
+                                                 VDJ_B_D_LEN[1] + 1)), rng)
+                       for _ in range(VDJ_B_IGHD)]
+    for chain, genes in _vdj_b_constants(rng).items():
+        seg[chain]["c"] = genes
+    return seg
+
+
+def _vdj_b_plan(n_cells: int, rng, families) -> list[dict]:
+    """The clones of a drawn library: VDJ_B_KINDS' shares of naive, memory
+    and plasma cells (at least one plasma cell); expanded families of
+    `families` cells (None: one of VDJ_B_FAMILY_SIZES cells per
+    VDJ_B_FAMILY_PER_CELL cells, at least one, none larger than its share
+    of the memory and plasma cells) drawn among the memory and
+    plasma cells, family k with a CDR3 subclone of a third of its cells
+    when k % 3 == 0 and a class-switched third when k % 3 == 1; every
+    other cell a clone of its own.  See _vdj_b_design for a clone's keys."""
+    n_plasma = max(1, int(round(VDJ_B_KINDS["plasma"] * n_cells)))
+    n_memory = int(round(VDJ_B_KINDS["memory"] * n_cells))
+    n_naive = n_cells - n_plasma - n_memory
+    if n_naive < 0:
+        raise ValueError(f"{n_cells} cells are too few for a B library")
+    pool = rng.permutation(["memory"] * n_memory
+                           + ["plasma"] * n_plasma).tolist()
+    if families is None:
+        lo, hi = VDJ_B_FAMILY_SIZES
+        n_fam = max(1, n_cells // VDJ_B_FAMILY_PER_CELL)
+        families = np.minimum(rng.integers(lo, hi + 1, n_fam),
+                              max(lo, len(pool) // n_fam)).tolist()
+    if sum(families) > len(pool):
+        raise ValueError(f"families of {sum(families)} cells among "
+                         f"{len(pool)} memory and plasma cells")
+    plan = []
+    for k, size in enumerate(families):
+        kinds, pool = pool[:size], pool[size:]
+        plan.append(dict(kinds=kinds,
+                         sub=max(1, size // 3) if k % 3 == 0 else 0,
+                         switch=max(1, size // 3) if k % 3 == 1 else 0))
+    return plan + [dict(kinds=[k]) for k in pool + ["naive"] * n_naive]
+
+
+def _cdr3_ok(mid: str, j: str) -> bool:
+    """A CDR3 of TGT + mid + the J motif's first codon: no stop codon in
+    frame and no Cys codon in any frame from the V end into the J (so the
+    V-end Cys stays the last anchor before the motif)."""
+    from ..vdj.annotate import translate
+
+    s = "GT" + mid + j[:3]
+    return (len(mid) % 3 == 0 and "*" not in translate(mid)
+            and "TGT" not in s and "TGC" not in s)
+
+
+def _vdj_b_mid(chain: str, seg: dict, ji: int, rng) -> str:
+    """The CDR3's bases between the V-end Cys codon and the J motif: for
+    IGH N1 + an IGHD gene trimmed VDJ_B_D_TRIM bases at most at either end
+    + N2, for IGK and IGL N additions; VDJ_B_CDR3_AA[chain] codons with
+    the Cys and the motif's first codon, redrawn until _cdr3_ok."""
+    lo, hi = VDJ_B_CDR3_AA[chain]
+    for _ in range(VDJ_B_ATTEMPTS):
+        n = 3 * int(rng.integers(lo, hi + 1)) - 6
+        if chain == "IGH":
+            d = seg["d"][int(rng.integers(len(seg["d"])))]
+            a, b = rng.integers(0, VDJ_B_D_TRIM + 1, 2)
+            d = d[a:len(d) - b][:n]
+            n1 = int(rng.integers(0, n - len(d) + 1))
+            mid = _rand_nt(n1, rng) + d + _rand_nt(n - len(d) - n1, rng)
+        else:
+            mid = _rand_nt(n, rng)
+        if _cdr3_ok(mid, seg["j"][ji]):
+            return mid
+    raise ValueError(f"no {chain} CDR3 drawn")
+
+
+def _one_nt_off(mid: str, j: str, rng) -> str:
+    """mid with one base substituted, still _cdr3_ok."""
+    for _ in range(VDJ_B_ATTEMPTS):
+        i = int(rng.integers(len(mid)))
+        b = "ACGT"[("ACGT".index(mid[i]) + int(rng.integers(1, 4))) % 4]
+        out = mid[:i] + b + mid[i + 1:]
+        if _cdr3_ok(out, j):
+            return out
+    raise ValueError("no one-base variant of a CDR3")
+
+
+def _draw_subs(v: str, n: int, rng, avoid=()) -> dict:
+    """n substitutions {V position: base} at V bases
+    [VDJ_B_SHM_MARGIN, len - VDJ_B_SHM_MARGIN) outside `avoid`, each base
+    another than the germline's."""
+    free = np.setdiff1d(np.arange(VDJ_B_SHM_MARGIN,
+                                  len(v) - VDJ_B_SHM_MARGIN),
+                        np.fromiter(avoid, np.int64, len(avoid)))
+    pos = np.sort(rng.choice(free, n, replace=False))
+    shift = rng.integers(1, 4, n)
+    return {int(p): "ACGT"[("ACGT".index(v[p]) + int(s)) % 4]
+            for p, s in zip(pos, shift)}
+
+
+def _mutated(v: str, subs: dict) -> str:
+    s = list(v)
+    for p, b in subs.items():
+        s[p] = b
+    return "".join(s)
+
+
+def _draw_isotype(kind: str, rng, but: str | None = None) -> str:
+    """A heavy constant gene at VDJ_B_ISOTYPES[kind]'s shares, `but` out."""
+    w = {g: p for g, p in VDJ_B_ISOTYPES[kind].items() if g != but}
+    p = np.array(list(w.values()))
+    return str(rng.choice(list(w), p=p / p.sum()))
+
+
+def _vdj_b_subs(spec: dict, kinds: list, chains: dict, seg: dict, rng,
+                partner: list | None) -> list[dict]:
+    """A clone's V substitutions, per cell {chain: {position: base}} (see
+    _vdj_b_design); with `partner` (a "same" clone's first cell's) each
+    of its positions with a third base."""
+    multi = len(kinds) > 1
+    trunk = {}
+    for chain, (vi, _, _) in chains.items():
+        n = spec.get("trunk")
+        if n is None:
+            n = (int(rng.integers(VDJ_B_TRUNK[0], VDJ_B_TRUNK[1] + 1))
+                 if multi and "naive" not in kinds else 0)
+        trunk[chain] = _draw_subs(seg[chain]["v"][vi], n, rng)
+    out = []
+    for kind in kinds:
+        per = {}
+        for chain, (vi, _, _) in chains.items():
+            v = seg[chain]["v"][vi]
+            if partner is not None:
+                per[chain] = {p: str(rng.choice([x for x in "ACGT"
+                                                 if x not in (v[p], b)]))
+                              for p, b in partner[chain].items()}
+                continue
+            n = spec.get("private")
+            if n is None and kind == "naive":
+                n = int(rng.integers(VDJ_B_NAIVE_SUBS[0],
+                                     VDJ_B_NAIVE_SUBS[1] + 1))
+            elif n is None:
+                total = int(round(rng.uniform(*VDJ_B_SHM[kind]) * len(v)))
+                n = (total if not multi else
+                     int(rng.integers(VDJ_B_PRIVATE[0], VDJ_B_PRIVATE[1] + 1))
+                     if kind == "memory" else
+                     max(total - len(trunk[chain]), 0))
+            per[chain] = {**trunk[chain],
+                          **_draw_subs(v, n, rng, avoid=trunk[chain])}
+        out.append(per)
+    return out
+
+
+def _subclone_joins(main: list, sub: list) -> bool:
+    """Whether group_clonotypes joins a CDR3 subclone one nucleotide off
+    to its clone: each side's heavy V evidence (its cells' substitutions,
+    united) by the shared-mutation model where both carry
+    JOIN_MIN_MUTATIONS, else the frequency gate on their cells."""
+    from ..vdj.annotate import (JOIN_LOG10_P_MAX, JOIN_MIN_MUTATIONS,
+                                shared_mutation_join_log10p)
+
+    ea, eb = frozenset().union(*main), frozenset().union(*sub)
+    if min(len(ea), len(eb)) >= JOIN_MIN_MUTATIONS:
+        return shared_mutation_join_log10p(ea, eb, 1) <= JOIN_LOG10_P_MAX
+    return min(len(main), len(sub)) <= max(1, max(len(main), len(sub)) // 4)
+
+
+def _vdj_b_records(seg: dict) -> dict:
+    """regions.fa's records {header: sequence}: per chain its V, D (IGH),
+    J and C genes, named IGHV1.., IGHD1.., IGHJ1.. and the constants'."""
+    recs, n = {}, 0
+    for chain in VDJ_B_GENES:
+        s = seg[chain]
+        parts = [("L-REGION+V-REGION",
+                  [(f"{chain}V{i + 1}", x) for i, x in enumerate(s["v"])]),
+                 ("D-REGION",
+                  [(f"{chain}D{i + 1}", x) for i, x in enumerate(s.get(
+                      "d", ()))]),
+                 ("J-REGION",
+                  [(f"{chain}J{i + 1}", x) for i, x in enumerate(s["j"])]),
+                 ("C-REGION", list(s["c"].items()))]
+        for region, genes in parts:
+            for g, x in genes:
+                n += 1
+                recs[f"{n}|{g}|{g}|{g}|{region}|{chain}|None|00"] = x
+    return recs
+
+
+def _vdj_b_annotation(annotator, seq: str, want: dict):
+    """The annotation of a planted transcript's `seq` when it is what the
+    design wants -- chain, V, J and C gene, CDR3 nucleotides, productive,
+    the V's somatic variants (SegmentHit.variants) exactly the planted
+    substitutions, and every other V gene sharing a 16-mer scoring below
+    the planted one under the local alignment -- else None."""
+    from ..native.vdj_host import local_align
+    from ..vdj.annotate import _kmers
+
+    a = annotator.annotate(seq)
+    name = lambda h: h.segment.gene_name if h is not None else None
+    if not (a.productive and a.chain == want["chain"]
+            and (name(a.v), name(a.j), name(a.c), a.cdr3_nt)
+            == (want["v"], want["j"], want["c"], want["nt"])
+            and a.v.variants(seq) == frozenset(want["subs"].items())):
+        return None
+    segs, seqs, index = annotator.regions["V"]
+    for i in sorted({i for km in _kmers(seq) for i in index.get(km, ())}):
+        if segs[i].gene_name != want["v"] \
+                and local_align(seq, seqs[i])[0] >= a.v.score:
+            return None
+    return a
+
+
+def _vdj_b_design(n_cells: int, n_wl: int, background: int,
+                  families=None, plan=None) -> dict:
+    """Segments, clones and cells of a B-cell library.  A clone (`plan`,
+    else _vdj_b_plan) is a dict: "kinds", its cells' kinds; "sub", how
+    many of its last cells carry a heavy CDR3 one nucleotide off the
+    others'; "switch", how many of its memory cells take another isotype
+    than the clone's; optional "trunk" and "private", the substitutions
+    shared by its cells and a cell's own on each chain (drawn: a clone of
+    several cells shares VDJ_B_TRUNK, each adding VDJ_B_PRIVATE, a plasma
+    cell enough to reach VDJ_B_SHM; a single cell VDJ_B_SHM of its V
+    bases, a naive cell VDJ_B_NAIVE_SUBS); "near", (an earlier clone,
+    "IGH" or "light"): that chain's V, J and CDR3 of that clone, taken
+    with one nucleotide off; "same", an
+    earlier clone whose chains it takes whole, its cells substituted at
+    that clone's first cell's positions with other bases.
+
+    Each clone takes a heavy chain and, VDJ_B_KAPPA of them, an IGK else
+    an IGL chain, a random V and J each; its CDR3s differ from every
+    other clone's of a (chain, V, J, length) bucket in at least
+    max(1, length // 10) + 2 bases (a near or same partner apart).  A
+    cell's transcripts are UTR + V with its substitutions + CDR3 + J + C,
+    no (K-1)-mer twice in them.  Each transcript is annotated as the
+    pipeline annotates a contig (vdj/support.py Annotator, to 60 bases
+    into C) and the clone's mutations are redrawn until _vdj_b_annotation
+    holds for every cell and a CDR3 subclone's join holds: by the shared
+    mutations where both sides carry JOIN_MIN_MUTATIONS, else by the
+    frequency gate.  Last, group_clonotypes of those annotations must
+    give the clones as its partition."""
+    from ..vdj import annotate
+    from ..vdj.assembly import INNER_PRIMERS, K, _revcomp_b
+    from ..vdj.reference import REGION_MAP, Segment, VdjReference
+    from ..vdj.support import Annotator
+
+    rng = np.random.default_rng(VDJ_B_SEED)
+    seg = _vdj_b_reference(rng)
+    plan = _vdj_b_plan(n_cells, rng, families) if plan is None else plan
+    if sum(len(c["kinds"]) for c in plan) != n_cells:
+        raise ValueError(f"the plan holds other than {n_cells} cells")
+    recs = _vdj_b_records(seg)
+    fields = [h.split("|") for h in recs]
+    annotator = Annotator(VdjReference(
+        [Segment(f[0], f[3], REGION_MAP[f[4]], f[5], s.encode())
+         for f, s in zip(fields, recs.values())]))
+    primers = [_revcomp_b(p).decode() for v in INNER_PRIMERS.values()
+               for p in v]
+    seen: dict = {}
+    clones, cells, anns = [], [], {}
+    lv = len(seg["IGH"]["v"][0])
+
+    def bucket_ok(chain, vi, ji, mid, partner):
+        """mid's CDR3 at least max(1, length // 10) + 2 bases from every
+        other clone's of its bucket (the CDR3s share TGT and the J's
+        first codon, so their middles' distance is theirs)."""
+        mm = max(1, (len(mid) + 6) // 10) + 2
+        return all(sum(a != b for a, b in zip(mid, o)) >= mm
+                   for c, o in seen.get((chain, vi, ji, len(mid)), ())
+                   if c != partner)
+
+    def kmers(t):
+        return [t[i:i + K - 1] for i in range(len(t) - K + 2)]
+
+    def draw_chains(spec, ci):
+        """(chains {chain: (V, J, CDR3 middle)}, the subclone's heavy
+        middle or None), each CDR3 apart in its bucket."""
+        if "same" in spec:
+            return dict(clones[spec["same"]]["chains"]), None
+        partner, on = spec.get("near", (None, None))
+        light = "IGK" if rng.random() < VDJ_B_KAPPA else "IGL"
+        if on == "light":
+            light = [c for c in clones[partner]["chains"] if c != "IGH"][0]
+        chains = {}
+        for chain in ("IGH", light):
+            nv, nj = VDJ_B_GENES[chain]
+            near = partner if (chain == "IGH") == (on == "IGH") else None
+            for _ in range(VDJ_B_ATTEMPTS):
+                if near is None:
+                    vi, ji = int(rng.integers(nv)), int(rng.integers(nj))
+                    mid = _vdj_b_mid(chain, seg[chain], ji, rng)
+                else:
+                    vi, ji, mid = clones[near]["chains"][chain]
+                    mid = _one_nt_off(mid, seg[chain]["j"][ji], rng)
+                if bucket_ok(chain, vi, ji, mid, near):
+                    break
+            else:
+                raise ValueError(f"clone {ci}: no {chain} CDR3 apart")
+            chains[chain] = (vi, ji, mid)
+        if not spec.get("sub"):
+            return chains, None
+        hv, hj, hmid = chains["IGH"]
+        for _ in range(VDJ_B_ATTEMPTS):
+            sub = _one_nt_off(hmid, seg["IGH"]["j"][hj], rng)
+            if bucket_ok("IGH", hv, hj, sub, ci):
+                return chains, sub
+        raise ValueError(f"clone {ci}: no subclone CDR3 apart")
+
+    def draw_isotypes(spec, kinds):
+        """The clone's isotype, a plasma cell's IgG1 or IgA1, a switched
+        share of its memory cells another memory isotype."""
+        main_kind = ("plasma" if set(kinds) == {"plasma"} else
+                     "naive" if "naive" in kinds else "memory")
+        iso = _draw_isotype(main_kind, rng)
+        isos = [iso if k != "plasma" or iso in VDJ_B_ISOTYPES["plasma"]
+                else _draw_isotype("plasma", rng) for k in kinds]
+        memory = [i for i, k in enumerate(kinds) if k == "memory"]
+        for i in memory[:spec.get("switch", 0)]:
+            isos[i] = _draw_isotype("memory", rng, but=iso)
+        return isos
+
+    def transcripts(spec, kinds, chains, sub, isos):
+        """Per cell its two transcripts and (wanted, annotation) pairs
+        under newly drawn mutations, or None where a check fails."""
+        subs = _vdj_b_subs(spec, kinds, chains, seg, rng, None if
+                           "same" not in spec else
+                           clones[spec["same"]]["subs0"])
+        if sub is not None:
+            ev = [frozenset(s["IGH"].items()) for s in subs]
+            n = spec["sub"]
+            if not _subclone_joins(ev[:-n], ev[-n:]):
+                return None
+        out = []
+        for i, kind in enumerate(kinds):
+            taken, cell = set(), []
+            for chain, (vi, ji, mid) in chains.items():
+                if chain == "IGH" and sub is not None \
+                        and i >= len(kinds) - spec["sub"]:
+                    mid = sub
+                s = seg[chain]
+                c = isos[i] if chain == "IGH" else list(
+                    s["c"])[ji % len(s["c"])]
+                t = (s["utr"][vi] + _mutated(s["v"][vi], subs[i][chain])
+                     + mid + s["j"][ji] + s["c"][c])
+                km = kmers(t)
+                if (len(set(km)) != len(km) or taken & set(km)
+                        or not all(t.find(p) in (-1, VDJ_PRIMER_AT)
+                                   and t.find(p, VDJ_PRIMER_AT + 1) < 0
+                                   for p in primers)):
+                    return None
+                taken.update(km)
+                want = dict(chain=chain, v=f"{chain}V{vi + 1}",
+                            j=f"{chain}J{ji + 1}", c=c,
+                            nt="TGT" + mid + s["j"][ji][:3],
+                            subs=subs[i][chain])
+                c_at = VDJ_UTR + lv + len(mid) + VDJ_J_LEN
+                a = _vdj_b_annotation(annotator, t[:c_at + VDJ_B_C_HEAD],
+                                      want)
+                if a is None:
+                    return None
+                cell.append((t, want, a))
+            out.append(cell)
+        return out, subs
+
+    for ci, spec in enumerate(plan):
+        kinds = list(spec["kinds"])
+        for _ in range(VDJ_B_ATTEMPTS // VDJ_B_REDRAWS):
+            chains, sub = draw_chains(spec, ci)
+            isos = draw_isotypes(spec, kinds)
+            for _ in range(VDJ_B_REDRAWS):
+                drawn = transcripts(spec, kinds, chains, sub, isos)
+                if drawn is not None:
+                    break
+            if drawn is not None:
+                break
+        else:
+            raise ValueError(f"clone {ci} ({spec}): no draw holds")
+        drawn, subs = drawn
+        clone = dict(chains=chains, cells=[], subs0=subs[0])
+        for kind, cell in zip(kinds, drawn):
+            anns[str(len(cells))] = [a for _, _, a in cell]
+            clone["cells"].append(len(cells))
+            cells.append(dict(clone=ci, kind=kind, tx=[t for t, _, _ in cell],
+                              want=[w for _, w, _ in cell]))
+        for chain, (vi, ji, mid) in chains.items():
+            seen.setdefault((chain, vi, ji, len(mid)), []).append((ci, mid))
+        if sub is not None:
+            seen[("IGH", *chains["IGH"][:2], len(sub))].append((ci, sub))
+        clones.append(clone)
+    got = sorted(sorted(c["barcodes"], key=int)
+                 for c in annotate.group_clonotypes(anns))
+    want = sorted([str(i) for i in c["cells"]] for c in clones)
+    if sorted(got) != sorted(want):
+        raise ValueError("group_clonotypes of the planted annotations "
+                         "does not give the planned clones")
+    wl = _human_whitelist(rng, n_wl)
+    picks = rng.choice(n_wl, n_cells + background, replace=False)
+    return dict(seg=seg, recs=recs, clones=clones, cells=cells,
+                tx=[t for c in cells for t in c["tx"]],
+                slot=rng.permutation(n_cells), wl_packed=wl,
+                cell_wl=np.sort(picks[:n_cells]),
+                bg_wl=np.sort(picks[n_cells:]), rng=rng)
+
+
+def _vdj_b_pairs(d: dict, pairs_per_cell: int, plasma_pairs: int):
+    """Read pairs of the B design `d`, shuffled: a cell holds
+    2 x VDJ_UMIS_PER_CHAIN molecules (a plasma cell VDJ_B_PLASMA_FOLD
+    times as many and plasma_pairs pairs), the first half of them its
+    heavy transcript, every molecule at least one pair.  Mate 1 starts
+    in the first VDJ_MATE1_START bases; mate 2 ends VDJ_B_FRAGMENT bases
+    after mate 1's start.  Returns the arrays of _vdj_pairs."""
+    rng = d["rng"]
+    plasma = np.array([c["kind"] == "plasma" for c in d["cells"]])
+    n_mol = 2 * VDJ_UMIS_PER_CHAIN * np.where(plasma, VDJ_B_PLASMA_FOLD, 1)
+    pairs = np.where(plasma, plasma_pairs, pairs_per_cell)
+    if (pairs < n_mol).any():
+        raise ValueError(f"{pairs.min()} pairs cannot cover a cell's "
+                         "molecules")
+    short = min(len(t) for t in d["tx"])
+    if VDJ_MATE1_START - 1 + VDJ_B_FRAGMENT[1] > short:
+        raise ValueError(f"a {short}-base transcript is shorter than a "
+                         "fragment")
+    first = np.r_[0, np.cumsum(n_mol)[:-1]]
+    mol_cell = np.repeat(np.arange(len(n_mol)), n_mol)
+    mol_umi = _coded_umis(mol_cell, VDJ_UMI_LEN, rng)
+    rank = np.arange(len(mol_cell)) - first[mol_cell]
+    mol_tx = 2 * mol_cell + (rank >= n_mol[mol_cell] // 2)
+    extra_cell = np.repeat(np.arange(len(n_mol)), pairs - n_mol)
+    mol = np.concatenate([np.arange(len(mol_cell)), first[extra_cell] + (
+        rng.random(len(extra_cell)) * n_mol[extra_cell]).astype(np.int64)])
+    mol = mol[rng.permutation(len(mol))]
+    p1 = rng.integers(0, VDJ_MATE1_START, len(mol))
+    end = p1 + rng.integers(VDJ_B_FRAGMENT[0], VDJ_B_FRAGMENT[1] + 1,
+                            len(mol))
+    return mol_cell[mol], mol_umi[mol], mol_tx[mol], p1, end
+
+
+def build_vdj_b_run(tmp: str, n_cells: int = 12,
+                    pairs_per_cell: int = VDJ_B_PAIRS_PER_CELL, *,
+                    background: int = 0,
+                    n_wl: int = VDJ_WL_5P, plasma_pairs: int | None = None,
+                    families=None, plan=None) -> dict:
+    """A paired-end SCVDJ run of B cells whose outcome holds by
+    construction (_vdj_b_design).  Reference (regions.fa): IGH, IGK and
+    IGL at IMGT's functional human gene counts (VDJ_B_GENES, V genes in
+    families), the 23 IGHD genes as D-REGION, IGHJ genes opening with
+    W-G-x-G and IGKJ / IGLJ genes with F-G-x-G, the nine heavy isotypes,
+    IGKC and four IGLC genes, near copies where the loci have them, and
+    the seven human BCR inner primers planted in every second 5' UTR.
+    Cells: VDJ_B_KINDS' shares of naive (IgM or IgD, 0-1 V substitution),
+    memory (IgM, IgG1-4 or IgA1-2, 2-8% of V bases substituted) and plasma
+    cells (IgG1 or IgA1, 4-8%, VDJ_B_PLASMA_FOLD times the molecules, at
+    plasma_pairs pairs, default VDJ_B_PLASMA_FOLD x pairs_per_cell); one
+    heavy and one light transcript each, IGK in VDJ_B_KAPPA of the clones,
+    heavy CDR3s of 10-25 codons (N1 + a trimmed IGHD + N2), light of 8-12;
+    one expanded family of 3-15 memory and plasma cells per 100 cells
+    (`families`: their sizes instead) sharing VDJ_B_TRUNK V substitutions,
+    a third of the families with a one-nucleotide CDR3 subclone and a
+    third with class-switched cells (`plan` gives the clones instead).
+    `background` non-cell barcodes hold VDJ_BACKGROUND_SHARE of the pairs,
+    one ambient molecule each from a plasma cell's transcripts; an
+    n_wl-barcode whitelist, binned qualities with N at Q2, mates laid out
+    as build_vdj_run's with the fragment to VDJ_B_FRAGMENT.
+
+    Returns the paths, "expected" (as build_vdj_run's) and "truth": each
+    cell's V and J genes per chain ("genes") and C gene ("c_genes"), the
+    clonotypes as a partition of the cell barcodes (each family one,
+    its subclones included), the non-cell barcodes, each cell's kind,
+    the cells of CDR3 subclones and of class switches, and per plasma
+    barcode its rows (two a pair), its pairs' indices in the FASTQs and
+    their packed UMIs in that order."""
+    from ..io.gtf import write_fasta
+    from ..ops.encode import pack_codes_np
+
+    os.makedirs(tmp, exist_ok=True)
+    d = _vdj_b_design(n_cells, n_wl, background, families, plan)
+    rng = d["rng"]
+    if plasma_pairs is None:
+        plasma_pairs = VDJ_B_PLASMA_FOLD * pairs_per_cell
+    cell, umi, t, p1, end = _vdj_b_pairs(d, pairs_per_cell, plasma_pairs)
+    cell_wl = d["cell_wl"][d["slot"]]               # cell -> whitelist index
+    bc = d["wl_packed"][cell_wl[cell]]
+    n_bg = 0
+    plasma = [i for i, c in enumerate(d["cells"]) if c["kind"] == "plasma"]
+    if background:
+        n_bg = int(round(len(cell) * VDJ_BACKGROUND_SHARE
+                         / (1 - VDJ_BACKGROUND_SHARE)))
+        if n_bg < background:
+            raise ValueError(f"{n_bg} background pairs for {background} "
+                             "barcodes")
+        # transcripts 2i and 2i + 1 are cell i's: the ambient molecules
+        # come from the plasma cells'
+        bgi, bumi, bt, bp1, bend = _vdj_background(
+            dict(rng=rng, bg_wl=d["bg_wl"], clono=np.array(plasma)), n_bg)
+        order = rng.permutation(len(cell) + n_bg)
+        bc = np.concatenate([bc, d["wl_packed"][d["bg_wl"][bgi]]])[order]
+        cell = np.concatenate([cell, np.full(n_bg, -1)])[order]
+        umi = np.concatenate([umi, bumi])[order]
+        t = np.concatenate([t, bt])[order]
+        p1 = np.concatenate([p1, bp1])[order]
+        end = np.concatenate([end, bend])[order]
+    fa = os.path.join(tmp, "regions.fa")
+    write_fasta(fa, {h: s.encode() for h, s in d["recs"].items()})
+    wl_path = os.path.join(tmp, "wl.txt")
+    _write_whitelist(wl_path, d["wl_packed"])
+    r1p, r2p = _write_vdj_fastqs(tmp, d, bc, umi, t, p1, end)
+    P = len(t)
+    bcs = lambda idx: [b.tobytes().decode() + "-1" for b in
+                       _unpack_barcodes(d["wl_packed"][idx])]
+    cell_bc = bcs(cell_wl)
+    cdr3s, genes, c_genes, kinds = {}, {}, {}, {}
+    for i, c in enumerate(d["cells"]):
+        b = cell_bc[i]
+        cdr3s[b] = sorted([w["chain"], w["nt"]] for w in c["want"])
+        genes[b] = sorted([w["chain"], w["v"], w["j"]] for w in c["want"])
+        c_genes[b] = sorted([w["chain"], w["c"]] for w in c["want"])
+        kinds[b] = c["kind"]
+    clonotypes = sorted(sorted(cell_bc[i] for i in c["cells"])
+                        for c in d["clones"])
+    heavy = {b: dict(cdr3s[b])["IGH"] for b in cell_bc}
+    iso = {b: dict(c_genes[b])["IGH"] for b in cell_bc}
+    subclones = [cl for cl in clonotypes if len({heavy[b] for b in cl}) > 1]
+    switched = [cl for cl in clonotypes if len({iso[b] for b in cl}) > 1]
+    plasma_truth = {}
+    for i in plasma:
+        at = np.flatnonzero(cell == i)
+        plasma_truth[cell_bc[i]] = dict(
+            rows=2 * len(at), pairs=at,
+            umi=pack_codes_np(umi[at], VDJ_UMI_LEN))
+    n_mol = sum(2 * VDJ_UMIS_PER_CHAIN * (VDJ_B_PLASMA_FOLD
+                                          if c["kind"] == "plasma" else 1)
+                for c in d["cells"])
+    expected = dict(total_reads=P, estimated_cells=n_cells,
+                    n_clonotypes=len(d["clones"]), cdr3s=cdr3s,
+                    bc_umi_pairs=n_mol + len(d["bg_wl"]))
+    truth = dict(genes=genes, c_genes=c_genes, clonotypes=clonotypes,
+                 background=bcs(d["bg_wl"]), background_pairs=n_bg,
+                 kinds=kinds, subclones=subclones, switched=switched,
+                 plasma=plasma_truth)
+    return dict(fa=fa, wl=wl_path, fq1=r1p, fq2=r2p, n_reads=P,
+                chemistry="SCVDJ", read_len=VDJ_READ_LEN, expected=expected,
+                truth=truth)
 
 
 # ---------------------------------------------------------------------------

@@ -162,21 +162,55 @@ Phases, each printing one line; any failure raises and exits non-zero:
                split into blocks of a few hundred kmer rows, equal to the
                pipeline's arrays on both devices
   vdj          a T-cell library at the width users run it
-               (testing/fixtures.build_vdj_run with vdj_library_kw: 1,000
-               cells at 5,000 read pairs a cell, about 20% of them in 20
-               expanded clonotypes; IMGT's functional human TRAV, TRAJ,
-               TRBV and TRBJ gene counts with V genes drawn in families;
-               20,000 non-cell barcodes of one ambient molecule holding 10%
-               of the pairs; the 737,280-barcode 5' whitelist; binned
-               qualities with N at Q2; 5,555,556 pairs) through run_vdj on
-               cuda, batch 32768: exactly the fixture's cells (no non-cell
-               barcode among them), clonotypes as a partition of the
-               cells, each cell's CDR3s and V and J genes per chain;
-               fixture seconds, wall, pass 1, pass 2, the kmer spectrum's
-               device-synchronized seconds, the host assembly split into
-               graph and assembly, support, annotation, quals and
-               clonotypes plus outputs, seconds a cell, local alignments
-               a contig, peak device memory and host RSS.  It runs in a
+               (testing/fixtures.build_vdj_run with vdj_library_kw: 500
+               cells at 5,000 read pairs a cell, cut from 1,000 to make
+               room for vdj_b; expanded clonotypes; IMGT's functional
+               human TRAV, TRAJ, TRBV and TRBJ gene counts with V genes
+               drawn in families; 10,000 non-cell barcodes of one ambient
+               molecule holding 10% of the pairs; the 737,280-barcode 5'
+               whitelist; binned qualities with N at Q2; 2,777,778 pairs)
+               through run_vdj on cuda, batch 32768: exactly the
+               fixture's cells (no non-cell barcode among them),
+               clonotypes as a partition of the cells, each cell's CDR3s
+               and V and J genes per chain; fixture seconds, wall, pass 1,
+               pass 2, the kmer spectrum's device-synchronized seconds,
+               the host assembly split into graph and assembly, support,
+               annotation, quals and clonotypes plus outputs, seconds a
+               cell, local alignments a contig, peak device memory and
+               host RSS.  It runs in a child process beside the phases
+               from vdj_parity to human_scale, next to analysis_68k and
+               perturb, and vdj_b_held after it in that process; both
+               lines come after perturb's
+  vdj_b_held   12 B cells of vdj_b's design, one a plasma cell at 45,000
+               pairs (90,000 rows, past the real 80,000-row cap), a
+               3-cell family with a CDR3 subclone, 240 non-cell barcodes
+               (98,889 pairs) through run_vdj on cuda: the sha256 of
+               every output file the JAX package's CPU run's
+               (VDJ_B_EXPECTED, tests/vdj_b_reference.py), and the
+               fixture's truth as vdj_b holds it
+  vdj_b        a B-cell library at the width users run it
+               (testing/fixtures.build_vdj_b_run with vdj_b_library_kw:
+               1,000 cells at 4,000 read pairs a cell; IGH, IGK and IGL at
+               IMGT's functional human gene counts with V genes in
+               families, the 23 IGHD genes, nine heavy isotypes, IGKC and
+               four IGLC genes, near copies where the loci have them, the
+               seven human BCR inner primers; 60% naive, 38% memory with
+               2-8% of V bases substituted, 2% plasma cells, IgG1 or
+               IgA1, at 20 times a cell's molecules and 80,000 pairs, so
+               160,000 rows, twice the cap; 10 expanded families sharing
+               trunk mutations, with CDR3 subclones and class switches;
+               20,000 non-cell barcodes of one ambient molecule from a
+               plasma cell; the 737,280-barcode whitelist) through
+               run_vdj on cuda, batch 32768: the cells (no non-cell
+               barcode among them), each cell's CDR3s and V, J and C
+               gene per chain, the clonotypes as the fixture's partition
+               (each family one, its subclones included) and every plasma
+               barcode's support built from exactly its first 80,000 rows
+               in the original's order (vdj_b_truth_diffs); vdj's
+               figures, and the clonotypes joined across a subclone, the
+               plasma rows, the heaviest barcode's spectrum rows, reads,
+               graph and support seconds, and host seconds a cell for
+               the plasma cells and the others apart.  It runs in a
                child process beside the phases from index_build to
                analysis_parity, next to cellplex; its line comes after
                cellplex's
@@ -709,10 +743,14 @@ PERTURB_EXPECTED = {
 # tests/vdj_reference.py); `vdj_fast_parity`: 5 cells at 2,000 pairs, the
 # batched per-barcode work (vdj/support.py) against the plain versions on
 # every contig
-VDJ_CELLS = 1_000
+# cut from 1,000 T cells to make room on the card for vdj_b, which runs
+# the same code at more depth a cell: 1,000 T cells (25 GB of the card)
+# beside the human phases, perturb and analysis_68k would leave too
+# little of its 80 GB
+VDJ_CELLS = 500
 VDJ_PAIRS_PER_CELL = 5_000
 VDJ_BATCH = 32768
-VDJ_TIMEOUT_S = 900
+VDJ_TIMEOUT_S = 900             # vdj and vdj_b_held in one child
 VDJ_HELD_CELLS = 20
 VDJ_FAST_PARITY_CELLS = 5
 VDJ_FAST_PARITY_PAIRS = 2_000
@@ -752,6 +790,48 @@ VDJ_EXPECTED = {
         "37237a3e50ad330357fe52471e54a93f37417b48b3d78e04e669b23121f9fd8b",
     "web_summary.html":
         "dc5a0eff2a96bd3975f19ba2bdccddeaf54a9d55e69c768a60c0e7f3586a8f13",
+}
+VDJ_B_CELLS = 1_000
+VDJ_B_TIMEOUT_S = 900
+VDJ_B_PAIRS_PER_CELL = 4_000     # a plasma cell 20 x: 160,000 rows
+VDJ_B_HELD_CELLS = 12
+VDJ_B_HELD_PLASMA_PAIRS = 45_000  # 90,000 rows, past the 80,000 cap
+VDJ_B_HELD_FAMILIES = (3,)
+# the JAX package's run_vdj on the vdj_b_held build, on the CPU
+# (tests/vdj_b_reference.py): {file: sha256}
+VDJ_B_EXPECTED = {
+    "airr_rearrangement.tsv":
+        "f4378d1fbaabcfd8289e961b999d853b21c1d9982b217bd4da53605bf77d68e6",
+    "all_contig.fasta":
+        "63596089eaf33f064f86b78af8210dfe271c73f2a2bc5df52b1165d8377dcaee",
+    "all_contig.fastq":
+        "b64f95c1deb962d1868d0d32cd46f5dd6ec0ff36e59b956952abaf44a7376519",
+    "all_contig_annotations.csv":
+        "441506f4a49067d6932e1b95d1581a7ca049e800e306b53eaeceb466eb92b5b8",
+    "all_contig_annotations.json":
+        "f0644ed6768b2634259615b0626344b2d9f092b27033086ed0d7ba1d2d3325f7",
+    "cell_barcodes.json":
+        "177e1579bb4741ca0aeb7eb83d77afe9d14a2e76d3c7ead4001337a7aeee62b5",
+    "clonotypes.csv":
+        "1c2c059f5b9ff479906c33b6cf01db885d3b7e312b94e0ea98fb825bc1039375",
+    "concat_ref.fasta":
+        "60d910de5c8b5e0aa0ad5d5bea202ea433c9045b9b2805fc99ff409526da6ba0",
+    "consensus.fasta":
+        "de1277a54d0e0ffc72a58bac5bfbde013fb6deb8f82051bf1769053548c12f28",
+    "consensus_annotations.csv":
+        "20912a2fe1200d10f9ead325558b2ad90f9e77443335e493ab761bed997e568d",
+    "filtered_contig.fasta":
+        "63596089eaf33f064f86b78af8210dfe271c73f2a2bc5df52b1165d8377dcaee",
+    "filtered_contig.fastq":
+        "b64f95c1deb962d1868d0d32cd46f5dd6ec0ff36e59b956952abaf44a7376519",
+    "filtered_contig_annotations.csv":
+        "441506f4a49067d6932e1b95d1581a7ca049e800e306b53eaeceb466eb92b5b8",
+    "metrics_summary.json":
+        "5c723721c45f41c6059df3032ece3fb06e30497a8a86e9b7a3eeaba553423c39",
+    "vdj_reference/fasta/regions.fa":
+        "8a07f0a2c9cc9210a186ccee1b6831dca023f8e67d6a331f6d668815629aa21c",
+    "web_summary.html":
+        "57c1977acba811851761d513617e9420ca2d4ba7ea310a77b2560c721dcb99ab",
 }
 VDJ_PARITY_CHUNK = 500          # kmer rows a block: splits every world
 VDJ_KMER_CELLS = 400            # 2,000,000 pairs, 4,000,000 reads
@@ -3261,6 +3341,277 @@ def vdj_held(tmp: str, device: str = "cuda") -> dict:
     return rep
 
 
+def _expected_rows(plasma: dict, batch_size: int, cap: int):
+    """The packed UMIs of a barcode's first `cap` rows in the original's
+    order: per batch of batch_size pairs its pairs' mate-1 rows, then
+    their mate-2 rows (plasma: the fixture's "pairs" indices, ascending,
+    and their "umi")."""
+    import numpy as np
+
+    batch = plasma["pairs"] // batch_size
+    cut = np.flatnonzero(np.diff(batch)) + 1
+    return np.concatenate([np.concatenate([u, u]) for u in np.split(
+        plasma["umi"], cut)])[:cap]
+
+
+def _barcode_names(wl_path: str, idx) -> list[str]:
+    """The names run_vdj gives whitelist indices: "<16 bases>-1"."""
+    import numpy as np
+    from cellranger_tpu_torch.io.whitelist import Whitelist
+    from cellranger_tpu_torch.ops import encode
+
+    wl = Whitelist.load(wl_path)
+    codes = encode.unpack_np(np.asarray(wl.sorted_seqs)[list(idx)],
+                             wl.length)
+    return [encode.decode_codes(c).decode() + "-1" for c in codes]
+
+
+def vdj_b_truth_diffs(fx: dict, out: str, summary: dict, bc_umi_pairs: int,
+                      rows: dict | None = None,
+                      batch_size: int = VDJ_BATCH,
+                      cap: int | None = None) -> list[str]:
+    """vdj_truth_diffs of a B-cell run (fixtures.build_vdj_b_run), and
+    each cell's C gene per chain; with `rows` ({whitelist index: packed
+    UMIs of the rows the port's support was built from}) every plasma
+    barcode's rows exactly its first `cap` (default
+    vdj_max_reads_per_barcode) in the original's order at batch_size."""
+    import numpy as np
+    from cellranger_tpu_torch import params
+
+    diffs = vdj_truth_diffs(fx, out, summary, bc_umi_pairs)
+    with open(os.path.join(out, "all_contig_annotations.json")) as f:
+        contigs = json.load(f)
+    c_genes: dict = {}
+    for r in contigs:
+        if r["is_cell"] and r["productive"]:
+            names = {a["feature"]["region_type"]: a["feature"]["gene_name"]
+                     for a in r["annotations"]}
+            c_genes.setdefault(r["barcode"], []).append(
+                [r["chain"], names.get("C-REGION")])
+    diffs += _per_barcode_diffs("C genes",
+                                {b: sorted(v) for b, v in c_genes.items()},
+                                fx["truth"]["c_genes"])
+    if rows is None:
+        return diffs
+    cap = int(params.get("vdj_max_reads_per_barcode")) if cap is None \
+        else cap
+    name = dict(zip(_barcode_names(fx["wl"], rows), rows))
+    for b, p in sorted(fx["truth"]["plasma"].items()):
+        got = rows.get(name.get(b))
+        want = _expected_rows(p, batch_size, cap)
+        if got is None or not np.array_equal(got, want):
+            diffs.append(f"plasma barcode {b}: support built from "
+                         f"{None if got is None else len(got)} rows, not "
+                         f"its first {len(want)} of {p['rows']}")
+    return diffs
+
+
+@contextlib.contextmanager
+def vdj_barcode_clock(keep_rows: int = 0):
+    """Per barcode of a run_vdj inside the block (pipeline/vdj.py's host
+    loop, in whitelist order): the seconds from its graph's start to its
+    contigs (graph), of its support (the BarcodeSupport's K-mers and UMI
+    support) and to the next barcode's start or the clonotypes (host);
+    and {whitelist index: packed UMIs} of the rows each barcode's support
+    was built from, kept where a barcode has more than `keep_rows`.
+    Yields a dict with lists "graph_s", "host_s", "spectrum_rows", and
+    {index: value} dicts "support_s", "reads", "rows"."""
+    import numpy as np
+    from cellranger_tpu_torch.pipeline import vdj
+    from cellranger_tpu_torch.vdj import support
+
+    out = dict(graph_s=[], host_s=[], spectrum_rows=[], support_s={},
+               reads={}, rows={})
+    starts, cur = [], {}
+    real_graph, real_asm = vdj.BarcodeGraph, vdj.assemble_barcode
+    real_group = vdj.group_clonotypes
+
+    class Graph:
+        @staticmethod
+        def from_triples(kmers, umis, counts):
+            starts.append(time.perf_counter())
+            out["spectrum_rows"].append(len(kmers))
+            return real_graph.from_triples(kmers, umis, counts)
+
+    def assemble(spectrum):
+        c = real_asm(spectrum)
+        out["graph_s"].append(time.perf_counter() - starts[-1])
+        return c
+
+    class Store(support.ReadStore):
+        def reads(self, bc):
+            rd = super().reads(bc)
+            cur["bc"] = bc
+            out["reads"][bc] = len(rd.umi)
+            if len(rd.umi) > keep_rows:
+                out["rows"][bc] = rd.umi.copy()
+            return rd
+
+    class Support(support.BarcodeSupport):
+        def __init__(self, *a, **kw):
+            t = time.perf_counter()
+            super().__init__(*a, **kw)
+            self._bc = cur["bc"]
+            out["support_s"][self._bc] = time.perf_counter() - t
+
+        def umi_support(self, *a, **kw):
+            t = time.perf_counter()
+            super().umi_support(*a, **kw)
+            out["support_s"][self._bc] += time.perf_counter() - t
+
+    def group(*a, **kw):
+        starts.append(time.perf_counter())
+        return real_group(*a, **kw)
+
+    saved = support.ReadStore, support.BarcodeSupport
+    vdj.BarcodeGraph, vdj.assemble_barcode = Graph, assemble
+    vdj.group_clonotypes = group
+    support.ReadStore, support.BarcodeSupport = Store, Support
+    try:
+        yield out
+    finally:
+        vdj.BarcodeGraph, vdj.assemble_barcode = real_graph, real_asm
+        vdj.group_clonotypes = real_group
+        support.ReadStore, support.BarcodeSupport = saved
+        out["host_s"] = list(np.diff(starts)) if len(starts) > 1 else []
+
+
+def vdj_b_run(tmp: str, n_cells: int = VDJ_B_CELLS,
+              pairs_per_cell: int = VDJ_B_PAIRS_PER_CELL,
+              device: str = "cuda", plasma_pairs: int | None = None,
+              families=None, keep: bool = False) -> dict:
+    """A B-cell library (fixtures.build_vdj_b_run with vdj_b_library_kw)
+    through run_vdj on `device`, held to the fixture's truth
+    (vdj_b_truth_diffs: cells, CDR3s, V, J and C genes, the clonotype
+    partition, every plasma barcode's support from its first
+    vdj_max_reads_per_barcode rows).  Reports what vdj_run reports, and
+    the clonotypes joined across a CDR3 subclone or a class switch, the
+    plasma barcodes and their rows, the heaviest barcode's spectrum
+    rows, reads, graph and support seconds, and host seconds a cell for
+    the plasma cells and the other cells apart."""
+    import numpy as np
+    import torch
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.pipeline import vdj
+    from cellranger_tpu_torch.testing.fixtures import (build_vdj_b_run,
+                                                       vdj_b_library_kw)
+
+    root = os.path.join(tmp, f"vdj_b_{n_cells}")
+    try:
+        t = time.time()
+        fx = build_vdj_b_run(os.path.join(root, "fx"), n_cells,
+                             pairs_per_cell, plasma_pairs=plasma_pairs,
+                             families=families, **vdj_b_library_kw(n_cells))
+        t_fix = time.time() - t
+        out = os.path.join(root, "out")
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        sw.LAUNCHES = 0
+        with rss_peak() as rss, _Recorder(device) as rec, \
+                vdj_barcode_clock(keep_rows=2 * pairs_per_cell) as clock:
+            t = time.time()
+            s = vdj.run_vdj(_vdj_cfg(fx, batch_size=VDJ_BATCH), out,
+                            device=device)
+            t_end = time.time()
+        split = dict(vdj.LAST_SPLIT)
+        kb = rec.calls[0][1][0]
+        diffs = vdj_b_truth_diffs(fx, out, s, _pairs(*rec.calls[0][1][:2]),
+                                  rows=clock["rows"])
+        files = tree_sha256(out) if keep else None
+        order = np.unique(kb).tolist()          # the host loop's barcodes
+        names = _barcode_names(fx["wl"], order)
+    finally:
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
+    truth = fx["truth"]
+    host = dict(zip(names, clock["host_s"]))
+    plasma = sorted(truth["plasma"])
+    other = sorted(set(truth["kinds"]) - set(plasma))
+    k = int(np.argmax(clock["spectrum_rows"]))
+    heavy = order[k]
+    t_host = t_end - rec.end
+    rep = dict(cells=n_cells, pairs_per_cell=pairs_per_cell,
+               reads=s["total_reads"], clonotypes=s["n_clonotypes"],
+               kinds={x: list(truth["kinds"].values()).count(x)
+                      for x in ("naive", "memory", "plasma")},
+               families=sum(len(c) > 1 for c in truth["clonotypes"]),
+               joined_across_cdr3_subclone=len(truth["subclones"]),
+               joined_across_class_switch=len(truth["switched"]),
+               background_barcodes=len(truth["background"]),
+               background_pairs=truth["background_pairs"],
+               plasma_cells=len(plasma),
+               plasma_rows={b: truth["plasma"][b]["rows"] for b in plasma},
+               plasma_support_rows=sorted({clock["reads"].get(bc) for bc, n
+                                           in zip(order, names)
+                                           if n in truth["plasma"]}),
+               sw_launches=sw.LAUNCHES, fixture_s=t_fix, wall_s=t_end - t,
+               kmers_s=rec.seconds,
+               reads_to_kmers_s=rec.end - rec.seconds - t,
+               pass1_s=split["pass1_s"], pass2_s=split["pass2_s"],
+               host_assembly_s=t_host,
+               host_split_s={x: split[x] for x in (
+                   "graph_s", "support_s", "annotation_s", "quals_s",
+                   "outputs_s")},
+               host_s_per_cell=t_host / n_cells,
+               host_s_per_plasma_cell=(sum(host.get(b, 0.0) for b in plasma)
+                                       / len(plasma)),
+               host_s_per_other_cell=(sum(host.get(b, 0.0) for b in other)
+                                      / len(other)),
+               host_s_background=sum(v for b, v in host.items()
+                                     if b not in truth["kinds"]),
+               heaviest_barcode=dict(
+                   barcode=names[k], plasma=names[k] in truth["plasma"],
+                   spectrum_rows=clock["spectrum_rows"][k],
+                   reads=clock["reads"].get(heavy),
+                   graph_s=clock["graph_s"][k],
+                   support_s=clock["support_s"].get(heavy),
+                   host_s=clock["host_s"][k]),
+               barcodes_assembled=split["barcodes"],
+               contigs_supported=split["contigs"],
+               contigs_annotated=split["annotated"],
+               alignments=split["alignments"],
+               alignments_per_contig=(split["alignments"]
+                                      / max(split["annotated"], 1)),
+               kmer_rows=len(kb),
+               peak_mem_bytes=(torch.cuda.max_memory_allocated()
+                               if device == "cuda" else None),
+               peak_host_rss_bytes=rss["bytes"])
+    if files is not None:
+        rep["files"] = files
+    if diffs:
+        raise AssertionError(f"vdj_b at {n_cells} cells: {diffs}; measured "
+                             f"{json.dumps(rep)}")
+    if sw.LAUNCHES:
+        raise AssertionError("the V(D)J run launched the SW kernel")
+    return rep
+
+
+def vdj_t_and_held(tmp: str, device: str = "cuda") -> dict:
+    """The vdj and vdj_b_held phases, one after the other (a child process
+    beside vdj_parity..human_scale): their reports."""
+    return dict(vdj=vdj_run(tmp, device=device),
+                vdj_b_held=vdj_b_held(tmp, device))
+
+
+def vdj_b_held(tmp: str, device: str = "cuda") -> dict:
+    """vdj_b_run of VDJ_B_HELD_CELLS cells of the same design, one plasma
+    cell at VDJ_B_HELD_PLASMA_PAIRS pairs (past the real read cap) and a
+    family of VDJ_B_HELD_FAMILIES cells with a CDR3 subclone: every
+    output file's sha256 equal to the JAX package's run (VDJ_B_EXPECTED,
+    tests/vdj_b_reference.py)."""
+    rep = vdj_b_run(tmp, VDJ_B_HELD_CELLS, VDJ_B_PAIRS_PER_CELL, device,
+                    plasma_pairs=VDJ_B_HELD_PLASMA_PAIRS,
+                    families=VDJ_B_HELD_FAMILIES, keep=True)
+    files = rep.pop("files")
+    off = sorted(k for k in set(files) | set(VDJ_B_EXPECTED)
+                 if files.get(k) != VDJ_B_EXPECTED.get(k))
+    if off:
+        raise AssertionError(f"vdj_b_held: files differ from the JAX "
+                             f"package's run: {off}; got {files}")
+    rep["files_equal"] = len(files)
+    return rep
+
+
 def _plain_reads(rd) -> list:
     """The originals' read list, (umi, seq, qual bytes), of a
     support.BarcodeReads."""
@@ -4262,8 +4613,8 @@ def main() -> None:
     try:
         with phase_beside("cellplex", tmp, CELLPLEX_TIMEOUT_S,
                           tmp) as cellplex_report, phase_beside(
-                              "vdj_run", tmp, VDJ_TIMEOUT_S,
-                              tmp) as vdj_report:
+                              "vdj_b_run", tmp, VDJ_B_TIMEOUT_S,
+                              tmp) as vdj_b_report:
             g = index_build(tmp)
             launches["index_build"] = g["sw_launches"]
             phase("index_build", f"{smi}: cuda == numpy, every index.npz "
@@ -4382,19 +4733,20 @@ def main() -> None:
                   "in a child process beside index_build..analysis_parity, "
                   "held to the JAX package's run and the planted truth: "
                   + json.dumps(g))
-            g = vdj_report()
-        launches["vdj"] = g["sw_launches"]
-        phase("vdj", f"{smi}: run_vdj of {g['cells']} T cells at "
-              f"{g['pairs_per_cell']} read pairs a cell, the widened "
-              "reference, non-cell barcodes and the 737,280-barcode "
-              "whitelist, in a child process beside "
-              "index_build..analysis_parity, held to the fixture's truth: "
-              + json.dumps(g))
+            g = vdj_b_report()
+        launches["vdj_b"] = g["sw_launches"]
+        phase("vdj_b", f"{smi}: run_vdj of {g['cells']} B cells (IGH with "
+              "IGK or IGL, isotypes, somatic hypermutation, "
+              f"{g['plasma_cells']} plasma cells past the 80,000-row cap) "
+              "in a child process beside index_build..analysis_parity, "
+              "held to the fixture's truth: " + json.dumps(g))
 
         with phase_beside("analysis_68k", tmp, ANALYSIS_68K_TIMEOUT_S,
                           tmp) as analysis_68k_report, phase_beside(
                               "perturb", tmp, PERTURB_TIMEOUT_S,
-                              tmp) as perturb_report:
+                              tmp) as perturb_report, phase_beside(
+                              "vdj_t_and_held", tmp, VDJ_TIMEOUT_S,
+                              tmp) as vdj_report:
             g = vdj_parity(tmp)
             launches["vdj_parity"] = g["sw_launches"]
             phase("vdj_parity", "cuda == cpu, every output file; kmers in "
@@ -4434,12 +4786,27 @@ def main() -> None:
                   "in a child process beside vdj_parity..human_scale, the "
                   "kNN searches held to float64: " + json.dumps(g))
             g = perturb_report()
-        launches["perturb"] = g["sw_launches"]
-        phase("perturb", f"{smi}: run_count of a Perturb-seq GEM well, "
-              "4,100 twenty-base guides and 17 antibodies, in a child "
-              "process beside vdj_parity..human_scale, held to the JAX "
-              "package's run, the planted truth and each guide read's "
-              "construction: " + json.dumps(g))
+            launches["perturb"] = g["sw_launches"]
+            phase("perturb", f"{smi}: run_count of a Perturb-seq GEM well, "
+                  "4,100 twenty-base guides and 17 antibodies, in a child "
+                  "process beside vdj_parity..human_scale, held to the JAX "
+                  "package's run, the planted truth and each guide read's "
+                  "construction: " + json.dumps(g))
+            chain = vdj_report()
+        g = chain["vdj"]
+        launches["vdj"] = g["sw_launches"]
+        phase("vdj", f"{smi}: run_vdj of {g['cells']} T cells at "
+              f"{g['pairs_per_cell']} read pairs a cell, the widened "
+              "reference, non-cell barcodes and the 737,280-barcode "
+              "whitelist, in a child process beside "
+              "vdj_parity..human_scale, held to the fixture's truth: "
+              + json.dumps(g))
+        g = chain["vdj_b_held"]
+        launches["vdj_b_held"] = g["sw_launches"]
+        phase("vdj_b_held", f"{smi}: {g['cells']} B cells, a plasma cell "
+              "past the 80,000-row cap, in the same child process after "
+              "vdj: every output file the JAX package's and the fixture's "
+              "truth: " + json.dumps(g))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -217,6 +217,12 @@ SCRIPT = textwrap.dedent("""
     assert g["annotations_compared"] == 10, g
     g = chip_smoke.vdj_run(os.path.join(tmp, "vdjr"), 5, 200, "cpu")
     assert g["cells"] == 5 and g["background_barcodes"] == 100, g
+    # a tiny B-cell library: isotypes, SHM, a plasma cell, a family with
+    # a CDR3 subclone, held to its truth by vdj_b_truth_diffs
+    g = chip_smoke.vdj_b_run(os.path.join(tmp, "vdjb"), 12, 100, "cpu",
+                             plasma_pairs=2_000, families=(3,))
+    assert g["plasma_cells"] == 1 and g["plasma_support_rows"] == [4000], g
+    assert g["joined_across_cdr3_subclone"] == 1, g
     g = chip_smoke.mkfastq_run(os.path.join(tmp, "bcl"), n_clusters=400)
     assert g["samples"]["A"] == 180 and g["fastqs"] == 9, g
     # the index build on the device (here the cpu) against the numpy build
