@@ -14,19 +14,27 @@ device half runs on -- the whitelist membership and pass-1 histogram
 barcode correction (`correct_barcodes`) and the kmer spectrum
 (vdj/assembly.py `count_bc_umi_kmers`) -- and raises rather than move to
 another.  The per-barcode host work is batched (vdj/support.py): pass 2
-keeps each barcode's reads as rows of the arrays handed to the kmer
-spectrum, trims primers for a whole batch at once, and the UMI support,
+reads the FASTQs again and writes each read once, into rows of the
+arrays handed to the kmer spectrum, so the host holds one copy of the
+reads; it trims primers for a whole batch at once, and the UMI support,
 base qualities and annotation of a barcode's contigs take those rows,
-with the original's results bit for bit.  Graph cleaning, assembly,
-clonotypes and every output file are the original's code.  `LAST_SPLIT`
-holds the seconds of the last run's stages.
+with the original's results bit for bit.  A barcode whose rows (the first vdj_max_reads_per_barcode)
+hold fewer than MIN_UMIS_PER_CONTIG distinct UMIs can keep no contig, so
+its graph is never built.  Graph cleaning and assembly, the original's
+code, run in a pool of `spawn` worker processes, a task of barcodes at a
+time; this process takes their contigs in barcode order and does the
+support, annotation and base qualities meanwhile.  Clonotypes and every
+output file are the original's code.  `LAST_SPLIT` holds the seconds of
+the last run's stages.
 """
 
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import time
+from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -40,8 +48,8 @@ from ..ops import barcode as bcops
 from ..ops import encode
 from ..vdj import support
 from ..vdj.annotate import group_clonotypes
-from ..vdj.assembly import (BarcodeGraph, all_inner_primers,
-                            assemble_barcode, count_bc_umi_kmers, _revcomp_b)
+from ..vdj.assembly import (_assemble_spectra, all_inner_primers,
+                            count_bc_umi_kmers, _revcomp_b)
 from ..vdj.reference import VdjReference
 
 MIN_UMIS_PER_CONTIG = 2
@@ -49,10 +57,47 @@ from ..params import get as _param
 
 # seconds and counts of the last run_vdj's stages: pass1_s, pass2_s
 # (correction, primer trim, read rows; the kmer spectrum apart), kmers_s,
-# graph_s (graph, cleaning, assembly), support_s, annotation_s, quals_s,
-# outputs_s (clonotypes and every file); barcodes (with a spectrum),
-# contigs (support computed), annotated, alignments
+# skip_s (the distinct UMIs of every barcode), graph_s (graph, cleaning,
+# assembly, summed over the workers), graph_wait_s (this process waiting
+# for them), support_s, annotation_s, quals_s, outputs_s (clonotypes and
+# every file); barcodes (graphs built), barcodes_skipped (too few UMIs),
+# graph_workers, contigs (support computed), annotated, alignments;
+# kmer_blocks, kmer_block_rows_max and kmer_block_ranks_max of the
+# spectrum; by_barcode: per barcode assembled, in order, its whitelist
+# index, spectrum rows, graph seconds (in its worker) and this process's
+# seconds on it
 LAST_SPLIT: dict = {}
+
+# graph and assembly worker processes; None: one a CPU this process may
+# run on
+GRAPH_WORKERS: int | None = None
+GRAPH_TASK_ROWS = 1 << 17       # spectrum rows sent to a worker at once, about
+
+
+def _graph_tasks(bounds: np.ndarray, keep: np.ndarray) -> list:
+    """The kept barcodes (indices into bounds[:-1]) in order, cut into
+    runs of about GRAPH_TASK_ROWS spectrum rows, at least one barcode a
+    run."""
+    tasks, cur, rows = [], [], 0
+    for b in np.flatnonzero(keep).tolist():
+        n = int(bounds[b + 1] - bounds[b])
+        if cur and rows + n > GRAPH_TASK_ROWS:
+            tasks.append(cur)
+            cur, rows = [], 0
+        cur.append(b)
+        rows += n
+    return tasks + [cur] if cur else tasks
+
+
+def _in_order(tasks: list, done, split: dict):
+    """(barcode index, (contigs, seconds)) of each task's barcodes as its
+    worker's result arrives, the tasks in order; the wait is added to
+    split["graph_wait_s"]."""
+    for task in tasks:
+        tick = time.perf_counter()
+        assembled = next(done)
+        split["graph_wait_s"] += time.perf_counter() - tick
+        yield from zip(task, assembled)
 
 
 def _u32(a: np.ndarray, device) -> torch.Tensor:
@@ -71,6 +116,29 @@ class VdjConfig:
     sample_id: str = "vdj_sample"
 
 
+def _annotated(contigs: list, store, bc: int, device, annotator,
+               split: dict):
+    """A barcode's contigs from its worker: the UMI support of the first
+    ten and the annotation of those that keep MIN_UMIS_PER_CONTIG UMIs.
+    Returns the barcode's support and [(contig, annotation)]."""
+    tick = time.perf_counter()
+    sup = support.BarcodeSupport(store.reads(bc), device)
+    split["support_s"] += time.perf_counter() - tick
+    anns = []
+    for contig in contigs[:10]:
+        tick = time.perf_counter()
+        sup.umi_support(contig)
+        split["contigs"] += 1
+        t_sup = time.perf_counter()
+        split["support_s"] += t_sup - tick
+        if contig.n_umis < MIN_UMIS_PER_CONTIG:
+            continue
+        ann = annotator.annotate(contig.seq)
+        split["annotation_s"] += time.perf_counter() - t_sup
+        anns.append((contig, ann))
+    return sup, anns
+
+
 def run_vdj(cfg: VdjConfig, out_dir: str, *, device) -> dict:
     os.makedirs(out_dir, exist_ok=True)
     # read the site tunable per RUN (not at import) so a parameters.toml /
@@ -84,36 +152,56 @@ def run_vdj(cfg: VdjConfig, out_dir: str, *, device) -> dict:
         entries=8, fields=3)
     ref = VdjReference.from_fasta(cfg.vdj_reference_fasta)
     annotator = support.Annotator(ref)
-    split = dict(pass1_s=0.0, pass2_s=0.0, kmers_s=0.0, graph_s=0.0,
-                 support_s=0.0, annotation_s=0.0, quals_s=0.0,
-                 outputs_s=0.0, barcodes=0, contigs=0, annotated=0)
+    split = dict(pass1_s=0.0, pass2_s=0.0, kmers_s=0.0, skip_s=0.0,
+                 graph_s=0.0, graph_wait_s=0.0, support_s=0.0,
+                 annotation_s=0.0, quals_s=0.0, outputs_s=0.0, barcodes=0,
+                 barcodes_skipped=0, graph_workers=0, contigs=0, annotated=0,
+                 by_barcode=dict(barcode=[], spectrum_rows=[], graph_s=[],
+                                 host_s=[]))
     LAST_SPLIT.clear()
     tick = time.perf_counter()
 
-    # pass 1: extract, count valid bcs
-    cached = []
-    wl_counts = torch.zeros(wl.size, dtype=torch.int32, device=device)
-    for (r1, r2) in cfg.fastq_pairs:
-        for b in batches_from_fastqs(chem, r1, r2, cfg.batch_size, cfg.read_len):
-            hit, idx = bcops.whitelist_lookup(_u32(b.bc_packed, device),
-                                              wl_table)
-            wl_counts = wl_counts + bcops.count_valid_barcodes(
-                idx, torch.from_numpy(b.slot_valid).to(device), wl.size)
-            cached.append(b)
+    def batches():
+        for (r1, r2) in cfg.fastq_pairs:
+            yield from batches_from_fastqs(chem, r1, r2, cfg.batch_size,
+                                           cfg.read_len)
 
-    # pass 2: correct, trim enrichment primers, collect per-read
-    # (bc_idx, umi, seq, qual) as rows.  Primer trimming
-    # (process.rs:730-758): bases 5' of a reverse-complemented
-    # inner-primer hit are primer-derived — masked out of both kmer
-    # counting and the pileup.
+    # pass 1: extract, count valid bcs and the rows pass 2 may write
+    wl_counts = torch.zeros(wl.size, dtype=torch.int32, device=device)
+    n_rows, W = 0, None
+    for b in batches():
+        hit, idx = bcops.whitelist_lookup(_u32(b.bc_packed, device),
+                                          wl_table)
+        wl_counts = wl_counts + bcops.count_valid_barcodes(
+            idx, torch.from_numpy(b.slot_valid).to(device), wl.size)
+        n_rows += b.n_reads * (1 if b.rna2 is None else 2)
+        if W is not None and b.rna.shape[1] != W:
+            raise ValueError(f"a batch of {b.rna.shape[1]}-column reads "
+                             f"among {W}-column ones")
+        W = b.rna.shape[1]
+
+    # pass 2: the FASTQs read again (a cache of pass 1's batches would be
+    # a second copy of the reads: one batch at a time is held), correct,
+    # trim enrichment primers, write each read's (bc_idx, umi, seq,
+    # nmask, qual, start, end) into one row of arrays sized by pass 1
+    # (trimmed after).  Primer trimming (process.rs:730-758): bases 5' of
+    # a reverse-complemented inner-primer hit are primer-derived — masked
+    # out of both kmer counting and the pileup.
     split["pass1_s"] = time.perf_counter() - tick
     tick = time.perf_counter()
     primers_rc = [_revcomp_b(p) for p in all_inner_primers()]
-    all_bc, all_umi, all_rna, all_nmask = [], [], [], []
-    all_qual, all_start, all_end = [], [], []
     total_reads = valid_bc_reads = trimmed_reads = 0
     wl_table = wl_table.with_counts(wl_counts.cpu().numpy())
-    for b in cached:
+    W = W or 0
+    bcs = np.empty(n_rows, np.uint32)
+    umis_arr = np.empty(n_rows, np.uint32)
+    rna = np.empty((n_rows, W), np.uint8)
+    nmask = np.empty((n_rows, W), bool)
+    qual = np.empty((n_rows, W), np.uint8)
+    start = np.empty(n_rows, np.int64)
+    end = np.empty(n_rows, np.int64)
+    n = 0
+    for b in batches():
         packed = _u32(b.bc_packed, device)
         hit, idx = bcops.whitelist_lookup(packed, wl_table)
         corr_bc, corr_idx, corrected = bcops.correct_barcodes(
@@ -124,114 +212,124 @@ def run_vdj(cfg: VdjConfig, out_dir: str, *, device) -> dict:
         total_reads += b.n_reads
         valid_bc_reads += int(bc_ok.sum())
         sel = bc_ok & b.umi_valid
+        m = int(sel.sum())
         # a read is columns [t, rna_len) of its row: t its trim start
         t = support.primer_trim_starts(b.rna[sel], b.rna_nmask[sel],
                                        b.rna_len[sel], primers_rc, device)
         trimmed_reads += int((t > 0).sum())
-        W = b.rna.shape[1]
-        all_bc.append(bc_idx[sel].astype(np.uint32))
-        all_umi.append(b.umi_packed[sel].astype(np.uint32))
-        all_rna.append(b.rna[sel])
-        all_nmask.append(b.rna_nmask[sel] & (np.arange(W) >= t[:, None]))
-        all_qual.append(b.rna_qual[sel])
-        all_start.append(t)
-        all_end.append(b.rna_len[sel].astype(np.int64))
+        rows = slice(n, n + m)
+        bcs[rows] = bc_idx[sel]
+        umis_arr[rows] = b.umi_packed[sel]
+        rna[rows] = b.rna[sel]
+        nmask[rows] = b.rna_nmask[sel] & (np.arange(W) >= t[:, None])
+        qual[rows] = b.rna_qual[sel]
+        start[rows] = t
+        end[rows] = b.rna_len[sel]
+        n += m
         if b.rna2 is not None:
             # paired-end SCVDJ: mate 2 reads the opposite strand — add its
             # reverse complement so kmers land on the transcript strand
             # (process.rs "double end case" assembles both mates)
-            rc = (3 - b.rna2[sel][:, ::-1]).astype(np.uint8)
-            rc_mask = b.rna2_nmask[sel][:, ::-1]
-            all_bc.append(bc_idx[sel].astype(np.uint32))
-            all_umi.append(b.umi_packed[sel].astype(np.uint32))
-            all_rna.append(rc)
-            all_nmask.append(rc_mask)
+            rows = slice(n, n + m)
+            bcs[rows] = bc_idx[sel]
+            umis_arr[rows] = b.umi_packed[sel]
+            rna[rows] = 3 - b.rna2[sel][:, ::-1]
+            nmask[rows] = b.rna2_nmask[sel][:, ::-1]
             # mate 2's read is the last rna2_len columns of its reversed row
-            all_qual.append(b.rna2_qual[sel][:, ::-1])
-            all_start.append(W - b.rna2_len[sel].astype(np.int64))
-            all_end.append(np.full(int(sel.sum()), W, np.int64))
+            qual[rows] = b.rna2_qual[sel][:, ::-1]
+            start[rows] = W - b.rna2_len[sel]
+            end[rows] = W
+            n += m
+    bcs, umis_arr, rna, nmask = bcs[:n], umis_arr[:n], rna[:n], nmask[:n]
 
     store = None
-    if all_bc and len(np.concatenate(all_bc)):
-        bcs = np.concatenate(all_bc)
-        umis_arr = np.concatenate(all_umi)
-        rna = np.concatenate(all_rna)
-        nmask = np.concatenate(all_nmask)
-        del all_rna, all_nmask
-        store = support.ReadStore(
-            bcs, umis_arr, rna, nmask, np.concatenate(all_qual),
-            np.concatenate(all_start), np.concatenate(all_end),
-            _VDJ_MAX_READS_PER_BC)
-        del all_qual
+    if n:
+        store = support.ReadStore(bcs, umis_arr, rna, nmask, qual[:n],
+                                  start[:n], end[:n], _VDJ_MAX_READS_PER_BC)
         split["pass2_s"] = time.perf_counter() - tick
         tick = time.perf_counter()
+        spec = {}
         kb, ku, kk, kc = count_bc_umi_kmers(bcs, umis_arr, rna, nmask,
-                                            device=device)
-        split["kmers_s"] = time.perf_counter() - tick
+                                            device=device, stats=spec)
+        split.update(kmers_s=time.perf_counter() - tick,
+                     kmer_blocks=spec["blocks"],
+                     kmer_block_rows_max=spec["largest_block_rows"],
+                     kmer_block_ranks_max=spec["largest_block_ranks"])
     else:
         kb = np.zeros(0, np.uint32)
         split["pass2_s"] = time.perf_counter() - tick
+    del qual, start, end
 
     # host: per-barcode spectra -> contigs -> annotation
     contigs_by_bc = {}
     cells = {}
     contig_rows = []
-    # each barcode's rows of the spectrum: [i, j)
+    # each barcode's rows of the spectrum: [bounds[b], bounds[b + 1])
     bounds = np.flatnonzero(np.diff(kb.astype(np.int64), prepend=-1,
                                     append=-1))
-    for i, j in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
-        bc = int(kb[i])
-        tick = time.perf_counter()
-        # UMI-aware graph + the cleaning suite (ref_free.rs:422-810
-        # analogs), then greedy strong-path unitigs over what survives
-        graph = BarcodeGraph.from_triples(kk[i:j], ku[i:j], kc[i:j]).clean()
-        spectrum = graph.spectrum()
-        contigs = assemble_barcode(spectrum)
-        split["barcodes"] += 1
-        t_graph = time.perf_counter()
-        split["graph_s"] += t_graph - tick
-        if not contigs:
-            continue
-        sup = support.BarcodeSupport(store.reads(bc), device)
-        split["support_s"] += time.perf_counter() - t_graph
-        anns = []
-        for ci, contig in enumerate(contigs[:10]):
-            tick = time.perf_counter()
-            sup.umi_support(contig)
-            split["contigs"] += 1
-            t_sup = time.perf_counter()
-            split["support_s"] += t_sup - tick
-            if contig.n_umis < MIN_UMIS_PER_CONTIG:
-                continue
-            ann = annotator.annotate(contig.seq)
-            split["annotation_s"] += time.perf_counter() - t_sup
-            anns.append((contig, ann))
-        if not anns:
-            continue
-        bc_str = encode.decode_codes(
-            encode.unpack_np(np.uint32(wl.sorted_seqs[bc]), wl.length)
-        ).decode() + "-1"
-        contigs_by_bc[bc_str] = anns
-        productive = [a for _, a in anns if a.productive]
-        if productive:
-            cells[bc_str] = [a for _, a in anns]
-        tick = time.perf_counter()
-        split["annotated"] += len(anns)
-        for ci, (contig, ann) in enumerate(anns):
-            contig_rows.append(dict(
-                barcode=bc_str, contig_id=f"{bc_str}_contig_{ci + 1}",
-                length=len(contig.seq), umis=contig.n_umis,
-                reads=contig.n_reads,
-                chain=ann.chain or "None",
-                v_gene=ann.v.segment.gene_name if ann.v else "None",
-                j_gene=ann.j.segment.gene_name if ann.j else "None",
-                c_gene=ann.c.segment.gene_name if ann.c else "None",
-                cdr3=ann.cdr3_aa or "None", cdr3_nt=ann.cdr3_nt or "None",
-                full_length=ann.full_length, productive=ann.productive,
-                is_cell=bc_str in cells,
-                sequence=contig.seq, _ann=ann, _contig=contig,
-                _quals=sup.contig_base_quals(contig.seq)))
-        split["quals_s"] += time.perf_counter() - tick
+    tick = time.perf_counter()
+    keep = np.zeros(len(bounds) - 1, bool)
+    if len(keep):
+        # a contig needs MIN_UMIS_PER_CONTIG distinct UMIs among the rows
+        # its support is given: skip a barcode whose rows hold fewer
+        ubc, n_umi = store.distinct_umis(device)
+        keep = n_umi[np.searchsorted(ubc, kb[bounds[:-1]])] \
+            >= MIN_UMIS_PER_CONTIG
+    split["barcodes_skipped"] = int((~keep).sum())
+    split["skip_s"] = time.perf_counter() - tick
+    tasks = _graph_tasks(bounds, keep)
+    n_workers = min(GRAPH_WORKERS or len(os.sched_getaffinity(0)),
+                    len(tasks))
+    split["graph_workers"] = n_workers
+    by_bc = split["by_barcode"]
+    pool = (ProcessPoolExecutor(n_workers, multiprocessing.get_context(
+        "spawn")) if tasks else None)
+    try:
+        done = iter(pool.map(_assemble_spectra, [
+            [(kk[bounds[b]:bounds[b + 1]], ku[bounds[b]:bounds[b + 1]],
+              kc[bounds[b]:bounds[b + 1]]) for b in task] for task in tasks])
+            if tasks else ())
+        for b, (contigs, graph_s) in _in_order(tasks, done, split):
+            bc = int(kb[bounds[b]])
+            t_bc = time.perf_counter()
+            split["barcodes"] += 1
+            split["graph_s"] += graph_s
+            by_bc["barcode"].append(bc)
+            by_bc["spectrum_rows"].append(int(bounds[b + 1] - bounds[b]))
+            by_bc["graph_s"].append(graph_s)
+            anns = []
+            if contigs:
+                sup, anns = _annotated(contigs, store, bc, device,
+                                       annotator, split)
+            if anns:
+                bc_str = encode.decode_codes(encode.unpack_np(
+                    np.uint32(wl.sorted_seqs[bc]), wl.length)
+                ).decode() + "-1"
+                contigs_by_bc[bc_str] = anns
+                if any(a.productive for _, a in anns):
+                    cells[bc_str] = [a for _, a in anns]
+                tick = time.perf_counter()
+                split["annotated"] += len(anns)
+                for ci, (contig, ann) in enumerate(anns):
+                    contig_rows.append(dict(
+                        barcode=bc_str, contig_id=f"{bc_str}_contig_{ci + 1}",
+                        length=len(contig.seq), umis=contig.n_umis,
+                        reads=contig.n_reads,
+                        chain=ann.chain or "None",
+                        v_gene=ann.v.segment.gene_name if ann.v else "None",
+                        j_gene=ann.j.segment.gene_name if ann.j else "None",
+                        c_gene=ann.c.segment.gene_name if ann.c else "None",
+                        cdr3=ann.cdr3_aa or "None",
+                        cdr3_nt=ann.cdr3_nt or "None",
+                        full_length=ann.full_length, productive=ann.productive,
+                        is_cell=bc_str in cells,
+                        sequence=contig.seq, _ann=ann, _contig=contig,
+                        _quals=sup.contig_base_quals(contig.seq)))
+                split["quals_s"] += time.perf_counter() - tick
+            by_bc["host_s"].append(time.perf_counter() - t_bc)
+    finally:
+        if pool is not None:
+            pool.shutdown(cancel_futures=True)
 
     tick = time.perf_counter()
     clonotypes = group_clonotypes(cells)

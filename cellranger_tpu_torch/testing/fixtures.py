@@ -1312,31 +1312,51 @@ def _build_vdj_wide(tmp: str, n_cells: int, pairs_per_cell: int, seed: int,
                 truth=truth)
 
 
+VDJ_WRITE_BLOCK = 1 << 18       # read pairs made and written at once
+
+
+def _advanced(rng, n: int):
+    """A generator that starts where `rng` will be after n float64 draws
+    (each takes one step of its PCG64)."""
+    bg = np.random.PCG64()
+    bg.state = rng.bit_generator.state
+    return np.random.Generator(bg.advance(n))
+
+
 def _write_vdj_fastqs(tmp: str, d: dict, bc, umi, t, p1, end):
     """The read pairs (packed barcode, UMI codes, transcript of d["tx"],
     mate-1 start, mate-2 end) as SCVDJ FASTQs: one barcode in 50 with a
     correctable error, R1 = barcode + UMI + TSO + mate 1, binned
-    qualities with N at Q2.  Returns the R1 and R2 paths."""
+    qualities with N at Q2.  The bases, qualities and text are made
+    VDJ_WRITE_BLOCK pairs at a time; the qualities are those of one draw
+    of every mate 1's, then every mate 2's, whatever the blocks.  Returns
+    the R1 and R2 paths."""
     rng = d["rng"]
     bases = np.frombuffer(b"ACGT", np.uint8)
-    codes = _vdj_mates(d, t, p1, end)
     P = len(t)
-    mate1 = bases[codes[:P]]
-    mate2 = bases[3 - codes[P:, ::-1]]           # reverse complement
-    del codes
     _human_barcode_errors(bc, np.arange(0, P, 50), d["wl_packed"], rng)
-    head = np.concatenate([_unpack_barcodes(bc), bases[umi],
-                           np.broadcast_to(np.frombuffer(
-                               VDJ_TSO.encode(), np.uint8), (P, 15))], 1)
-    q1 = np.concatenate([np.full(head.shape, ord("F"), np.uint8),
-                         _binned_quals(rng, mate1.shape)], 1)
-    q2 = _binned_quals(rng, mate2.shape)
-    mate1[q1[:, head.shape[1]:] == ord("#")] = ord("N")
-    mate2[q2 == ord("#")] = ord("N")
+    rng2 = _advanced(rng, P * VDJ_READ_LEN)      # where mate 2's draws begin
+    codes = _vdj_tx_codes(d)
+    tso = np.frombuffer(VDJ_TSO.encode(), np.uint8)
+    ar = np.arange(VDJ_READ_LEN, dtype=np.int32)
     r1p = os.path.join(tmp, "vdj_S1_L001_R1_001.fastq")
     r2p = os.path.join(tmp, "vdj_S1_L001_R2_001.fastq")
-    _write_fastq_pair(r1p, r2p, np.concatenate([head, mate1], 1), mate2,
-                      q1, q2)
+    with open(r1p, "wb") as f1, open(r2p, "wb") as f2:
+        for s in range(0, P, VDJ_WRITE_BLOCK):
+            e = min(P, s + VDJ_WRITE_BLOCK)
+            mate1 = bases[codes[t[s:e, None], p1[s:e, None] + ar]]
+            mate2 = bases[3 - codes[t[s:e, None], (end[s:e] - VDJ_READ_LEN)
+                                    [:, None] + ar][:, ::-1]]  # reverse
+            head = np.concatenate([_unpack_barcodes(bc[s:e]), bases[umi[s:e]],
+                                   np.broadcast_to(tso, (e - s, len(tso)))],
+                                  1)
+            q1 = np.concatenate([np.full(head.shape, ord("F"), np.uint8),
+                                 _binned_quals(rng, mate1.shape)], 1)
+            q2 = _binned_quals(rng2, mate2.shape)
+            mate1[q1[:, head.shape[1]:] == ord("#")] = ord("N")
+            mate2[q2 == ord("#")] = ord("N")
+            f1.write(_fastq_block(np.concatenate([head, mate1], 1), q1))
+            f2.write(_fastq_block(mate2, q2))
     return r1p, r2p
 
 
@@ -1378,15 +1398,21 @@ def _vdj_expected(d: dict, n_pairs: int) -> dict:
                 bc_umi_pairs=n_cells * 2 * VDJ_UMIS_PER_CHAIN)
 
 
-def _vdj_mates(d: dict, t, p1, end) -> np.ndarray:
-    """Base codes [2P, 120] on the transcript strand: the P mate-1 reads,
-    then the P fragment ends that mate 2 reads in reverse complement."""
+def _vdj_tx_codes(d: dict) -> np.ndarray:
+    """The base codes of d["tx"], a transcript a row, zero-padded."""
     L = max(len(s) for s in d["tx"])
     codes = np.zeros((len(d["tx"]), L), np.uint8)
     lut = np.zeros(256, np.uint8)
     lut[list(b"ACGT")] = [0, 1, 2, 3]
     for i, s in enumerate(d["tx"]):
         codes[i, :len(s)] = lut[np.frombuffer(s.encode(), np.uint8)]
+    return codes
+
+
+def _vdj_mates(d: dict, t, p1, end) -> np.ndarray:
+    """Base codes [2P, 120] on the transcript strand: the P mate-1 reads,
+    then the P fragment ends that mate 2 reads in reverse complement."""
+    codes = _vdj_tx_codes(d)
     P = len(t)
     out = np.empty((2 * P, VDJ_READ_LEN), np.uint8)
     ar = np.arange(VDJ_READ_LEN, dtype=np.int32)

@@ -12,22 +12,26 @@ k = 20 like the reference (process.rs:610 hyperbase k=20).
 Port of cellranger_tpu/vdj/assembly.py.  The device half
 (`_rolling_kmers_2w`, `count_bc_kmers`, `count_bc_umi_kmers`) is plain
 torch on the device it is given; everything else is the original's code,
-unchanged.  A kmer's two u32 words (hi = leading 4 bases, lo = trailing
-16) join into one 40-bit value, and the (barcode[, UMI]) columns of a
-read become its dense rank among the run's distinct values, so the sort
-key of a kmer row is one int64, rank << 40 | kmer, whose order is the
-original's unsigned (barcode, [UMI,] hi, lo) order.  Reads are taken in
-blocks of about `chunk` kmer rows; each block is sorted and counted on the
-device and the partial counts are merged there again, so the outputs equal
-the original's whatever the blocks.
+unchanged.  torch is imported inside the device half only, so a process
+that runs the host half alone (pipeline/vdj.py's graph workers, through
+`_assemble_spectra`) never loads it.  A kmer's two u32 words (hi =
+leading 4 bases, lo = trailing 16) join into one 40-bit value, and the
+(barcode[, UMI]) columns of a read become its dense rank among the run's
+distinct values, so the sort key of a kmer row is one int64, rank << 40
+| kmer, whose order is the original's unsigned (barcode, [UMI,] hi, lo)
+order.  The reads are taken in rank order, in blocks of about `chunk`
+kmer rows cut only between ranks, so no key falls in two blocks: each
+block is sorted and counted on the device and its counts, final, go to
+the host as it ends.  The card holds one block at a time, whatever the
+run's size, and the outputs equal the original's whatever the blocks.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
 K = 20
 K_HI = K - 16          # leading bases in the hi key word
@@ -39,6 +43,8 @@ MASK = np.uint64((1 << (2 * K)) - 1)
 def _rolling_kmers_2w(rna, nmask, *, device):
     """Rolling K=20-mers as (hi, lo) u32 words (int64) + validity
     [B, L-K+1], computed on `device`."""
+    import torch
+
     from ..align.aligner import _rolling_kmers, _window_valid
     rna = torch.as_tensor(rna).to(device)
     nmask = torch.as_tensor(nmask).to(device)
@@ -58,6 +64,8 @@ DEFAULT_CHUNK = 1 << 26                 # kmer rows sorted at once
 def _sort_count(key: torch.Tensor, cnt: torch.Tensor | None):
     """Distinct keys, ascending, and the number of rows (or the sum of
     `cnt`) behind each."""
+    import torch
+
     from ..ops.tensor_ops import first_of_run, seg_ids, segment_sum
     key, order = torch.sort(key)
     new = first_of_run(key)
@@ -66,67 +74,102 @@ def _sort_count(key: torch.Tensor, cnt: torch.Tensor | None):
 
 
 def _kmer_spectrum(cols: list, rna: np.ndarray, nmask: np.ndarray,
-                   chunk: int, device):
+                   chunk: int, device, stats: dict | None = None):
     """Distinct (cols..., kmer) rows over every valid K-mer of every read,
     in the unsigned order of those columns, with the number of K-mer
-    occurrences behind each.  cols: u32 arrays [N] (barcode[, UMI]).
-    Returns host arrays: each column uint32, kmer uint64, count int32."""
-    from ..ops.tensor_ops import first_of_run, lexsort, seg_ids
+    occurrences behind each.  cols: one or two u32 arrays [N] (barcode[,
+    UMI]).  The reads go in the order of their columns' rank, a block at
+    a time: whole ranks, at most RANKS_PER_KEY of them, holding at most
+    `chunk` K-mer windows unless one rank alone holds more.  `stats`, if
+    given, receives the blocks, the largest block's kmer rows and its
+    ranks.  Returns host arrays: each column uint32, kmer uint64, count
+    int32."""
+    import torch
+
+    from ..ops.tensor_ops import first_of_run
     N, L = rna.shape
     nk = L - K + 1
-    c = [torch.from_numpy(np.asarray(x).astype(np.int64)).to(device)
-         for x in cols]
-    perm = lexsort(*c)
-    new = first_of_run(*[x[perm] for x in c])
-    rank = torch.empty_like(perm)
-    rank[perm] = seg_ids(new)
-    distinct = [x[perm][new] for x in c]
-    n_rank = int(new.sum())
+    if not 1 <= len(cols) <= 2:
+        raise ValueError(f"{len(cols)} key columns: one or two")
+    # the columns of a read as one u64, its top bit flipped so that int64
+    # order is the unsigned order
+    key = np.zeros(N, np.uint64)
+    for x in cols:
+        key = (key << np.uint64(32)) | np.asarray(x).astype(np.uint64)
+    key ^= np.uint64(1 << 63)
+    skey, perm = torch.sort(torch.from_numpy(key.view(np.int64)).to(device))
+    del key
+    new = first_of_run(skey)
+    distinct = skey[new].cpu().numpy().view(np.uint64) ^ np.uint64(1 << 63)
+    # reads of rank r: perm[bounds[r]:bounds[r + 1]]
+    bounds = np.append(torch.nonzero(new)[:, 0].cpu().numpy(), N)
+    perm = perm.cpu().numpy()
+    del skey, new
+    n_rank = len(distinct)
+    values = [((distinct >> np.uint64(32 * (len(cols) - 1 - i)))
+               & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+              for i in range(len(cols))]
     rows_per_block = max(1, chunk // max(nk, 1))
-    groups = [(0, np.arange(N))]
-    if n_rank > RANKS_PER_KEY:
-        # a kmer key holds ranks below 2^23: one pass per range of ranks,
-        # the passes in rank order
-        rank_host = rank.cpu().numpy()
-        groups = [(g0, np.flatnonzero((rank_host >= g0)
-                                      & (rank_host < g0 + RANKS_PER_KEY)))
-                  for g0 in range(0, n_rank, RANKS_PER_KEY)]
-    ranks, kmers, counts = [], [], []
-    for g0, rows in groups:
-        parts = []
-        for s in range(0, len(rows), rows_per_block):
-            r = rows[s:s + rows_per_block]
-            hi, lo, ok = _rolling_kmers_2w(rna[r], nmask[r], device=device)
-            rk = rank[torch.from_numpy(r).to(device)] - g0
-            key = ((rk[:, None] << KMER_BITS) | (hi << 32) | lo)[ok]
-            if key.numel():
-                parts.append(_sort_count(key, None))
-        if len(parts) > 1:
-            # a block boundary may split a run of equal keys: merge the
-            # partial counts again
-            parts = [_sort_count(torch.cat([k for k, _ in parts]),
-                                 torch.cat([n for _, n in parts]))]
-        for k, n in parts:
-            ranks.append((k >> KMER_BITS) + g0)
-            kmers.append(k & KMER_MASK)
-            counts.append(n)
-    if not counts:
-        return ([np.zeros(0, np.uint32) for _ in cols]
-                + [np.zeros(0, np.uint64), np.zeros(0, np.int32)])
-    r = torch.cat(ranks)
-    return ([d[r].cpu().numpy().astype(np.uint32) for d in distinct]
-            + [torch.cat(kmers).cpu().numpy().astype(np.uint64),
-               torch.cat(counts).cpu().numpy().astype(np.int32)])
+    parts = [[] for _ in range(len(cols) + 2)]
+    n_blocks = largest = largest_ranks = 0
+    r0 = 0
+    while r0 < n_rank:
+        r1 = int(np.searchsorted(bounds, bounds[r0] + rows_per_block,
+                                 side="right")) - 1
+        r1 = min(max(r1, r0 + 1), r0 + RANKS_PER_KEY, n_rank)
+        r = perm[bounds[r0]:bounds[r1]]
+        hi, lo, ok = _rolling_kmers_2w(rna[r], nmask[r], device=device)
+        rk = torch.from_numpy(np.repeat(np.arange(r1 - r0),
+                                        np.diff(bounds[r0:r1 + 1]))).to(device)
+        key = ((rk[:, None] << KMER_BITS) | (hi << 32) | lo)[ok]
+        del hi, lo, ok, rk
+        n_blocks += 1
+        if key.numel() > largest:
+            largest, largest_ranks = key.numel(), r1 - r0
+        if key.numel():
+            k, n = _sort_count(key, None)
+            del key
+            rank = (k >> KMER_BITS).cpu().numpy() + r0
+            for i, v in enumerate(values):
+                parts[i].append(v[rank])
+            parts[-2].append((k & KMER_MASK).cpu().numpy().view(np.uint64))
+            parts[-1].append(n.cpu().numpy().astype(np.int32))
+        r0 = r1
+    if stats is not None:
+        stats.update(blocks=n_blocks, largest_block_rows=largest,
+                     largest_block_ranks=largest_ranks)
+    dtypes = [np.uint32] * len(cols) + [np.uint64, np.int32]
+    out = []
+    for p, dt in zip(parts, dtypes):
+        # column by column, each column's parts freed as it is joined
+        out.append(np.concatenate(p) if p else np.zeros(0, dt))
+        p.clear()
+    return out
 
 
 def count_bc_kmers(bc: np.ndarray, rna: np.ndarray, nmask: np.ndarray,
-                   chunk: int = DEFAULT_CHUNK, *, device):
+                   chunk: int = DEFAULT_CHUNK, *, device,
+                   stats: dict | None = None):
     """Device: distinct (barcode, kmer) counts over all reads.
 
     bc uint32 [N], rna uint8 [N, L]. Returns (bc, kmer uint64, count)
-    host arrays, sorted by (bc, kmer).
+    host arrays, sorted by (bc, kmer).  `stats`: see _kmer_spectrum.
     """
-    return tuple(_kmer_spectrum([bc], rna, nmask, chunk, device))
+    return tuple(_kmer_spectrum([bc], rna, nmask, chunk, device, stats))
+
+
+def _assemble_spectra(spectra: list) -> list:
+    """A graph worker's task: per barcode's (kmers, UMIs, counts)
+    spectrum, its UMI-aware graph and the cleaning suite (ref_free.rs:
+    422-810 analogs), then greedy strong-path unitigs over what survives:
+    (contigs, seconds) a barcode."""
+    out = []
+    for kk, ku, kc in spectra:
+        t = time.perf_counter()
+        graph = BarcodeGraph.from_triples(kk, ku, kc).clean()
+        out.append((assemble_barcode(graph.spectrum()),
+                    time.perf_counter() - t))
+    return out
 
 
 @dataclass
@@ -450,11 +493,12 @@ class BarcodeGraph:
 
 def count_bc_umi_kmers(bc: np.ndarray, umi: np.ndarray, rna: np.ndarray,
                        nmask: np.ndarray, chunk: int = DEFAULT_CHUNK, *,
-                       device):
+                       device, stats: dict | None = None):
     """Device: distinct (barcode, umi, kmer) read counts over all reads,
     sorted by (barcode, umi, kmer): bc uint32, umi uint32, kmer uint64,
-    count int32 host arrays."""
-    return tuple(_kmer_spectrum([bc, umi], rna, nmask, chunk, device))
+    count int32 host arrays.  `stats`: see _kmer_spectrum."""
+    return tuple(_kmer_spectrum([bc, umi], rna, nmask, chunk, device,
+                                stats))
 
 
 # ---------------------------------------------------------------------------

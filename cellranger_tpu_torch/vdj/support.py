@@ -100,6 +100,7 @@ class ReadStore:
     [start[r], end[r]) of rna[r], its qualities at the same columns."""
 
     def __init__(self, bc, umi, rna, nmask, qual, start, end, cap: int):
+        self._bc = bc
         self.umi, self.rna, self.nmask, self.qual = umi, rna, nmask, qual
         self.start, self.end, self.cap = start, end, cap
         self.order = np.argsort(bc, kind="stable")
@@ -109,6 +110,22 @@ class ReadStore:
         sizes = np.diff(np.r_[first, len(sb)])
         self.index = dict(zip(sb[first].tolist(),
                               zip(first.tolist(), sizes.tolist())))
+        self._first, self._sizes = first, sizes
+
+    def distinct_umis(self, device) -> tuple[np.ndarray, np.ndarray]:
+        """Every barcode, ascending, and the distinct UMIs among the rows
+        `reads` gives it (its first `cap`), counted on `device`."""
+        pos = np.arange(len(self.order)) - np.repeat(self._first,
+                                                     self._sizes)
+        rows = self.order[pos < self.cap]
+        # a row's (barcode, UMI) as one u64, its top bit flipped so that
+        # int64 order is the unsigned order
+        key = ((self._bc[rows].astype(np.uint64) << np.uint64(32))
+               | self.umi[rows].astype(np.uint64)) ^ np.uint64(1 << 63)
+        pairs = torch.unique(torch.from_numpy(key.view(np.int64)).to(device))
+        bc, n = torch.unique_consecutive(pairs >> 32, return_counts=True)
+        return ((bc.cpu().numpy() ^ (1 << 31)).astype(np.uint32),
+                n.cpu().numpy())
 
     def reads(self, bc: int) -> BarcodeReads:
         s, n = self.index.get(bc, (0, 0))

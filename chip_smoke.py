@@ -162,22 +162,25 @@ Phases, each printing one line; any failure raises and exits non-zero:
                split into blocks of a few hundred kmer rows, equal to the
                pipeline's arrays on both devices
   vdj          a T-cell library at the width users run it
-               (testing/fixtures.build_vdj_run with vdj_library_kw: 500
-               cells at 5,000 read pairs a cell, cut from 1,000 to make
-               room for vdj_b; expanded clonotypes; IMGT's functional
-               human TRAV, TRAJ, TRBV and TRBJ gene counts with V genes
-               drawn in families; 10,000 non-cell barcodes of one ambient
-               molecule holding 10% of the pairs; the 737,280-barcode 5'
-               whitelist; binned qualities with N at Q2; 2,777,778 pairs)
+               (testing/fixtures.build_vdj_run with vdj_library_kw: 1,000
+               cells at 5,000 read pairs a cell; expanded clonotypes;
+               IMGT's functional human TRAV, TRAJ, TRBV and TRBJ gene
+               counts with V genes drawn in families; 20,000 non-cell
+               barcodes of one ambient molecule holding 10% of the pairs;
+               the 737,280-barcode 5' whitelist; binned qualities with N
+               at Q2; 5,555,556 pairs)
                through run_vdj on cuda, batch 32768: exactly the
                fixture's cells (no non-cell barcode among them),
                clonotypes as a partition of the cells, each cell's CDR3s
                and V and J genes per chain; fixture seconds, wall, pass 1,
                pass 2, the kmer spectrum's device-synchronized seconds,
-               the host assembly split into graph and assembly, support,
+               its blocks and largest block, the host assembly split into
+               graph and assembly (in the worker processes), support,
                annotation, quals and clonotypes plus outputs, seconds a
-               cell, local alignments a contig, peak device memory and
-               host RSS.  It runs in a child process beside the phases
+               cell, the barcodes assembled and those skipped for too
+               few UMIs, local alignments a contig, peak device memory,
+               host RSS and MemTotal.  It runs in a
+               child process beside the phases
                from vdj_parity to human_scale, next to analysis_68k and
                perturb, and vdj_b_held after it in that process; both
                lines come after perturb's
@@ -209,7 +212,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
                in the original's order (vdj_b_truth_diffs); vdj's
                figures, and the clonotypes joined across a subclone, the
                plasma rows, the heaviest barcode's spectrum rows, reads,
-               graph and support seconds, and host seconds a cell for
+               graph and support seconds, and host seconds a cell (its
+               graph in a worker and this process's seconds on it) for
                the plasma cells and the others apart.  It runs in a
                child process beside the phases from index_build to
                analysis_parity, next to cellplex; its line comes after
@@ -226,10 +230,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
                versions' on the barcode's read list; both sides' seconds
   vdj_kmers    count_bc_umi_kmers alone on the reads of a 400-cell run at
                5,000 pairs a cell (4,000,000 reads with mates, made in
-               memory): device time, peak memory; the fixture's distinct
-               (barcode, UMI) pairs, counts summing to the valid 20-mers,
-               keys strictly increasing; the first 200,000 reads give
-               equal arrays on cuda and on cpu
+               memory): device time, the spectrum's blocks and largest
+               block, peak memory; the fixture's distinct (barcode, UMI)
+               pairs, counts summing to the valid 20-mers, keys strictly
+               increasing; the first 200,000 reads give equal arrays on
+               cuda in blocks of about 2**20 kmer rows, on cuda in one
+               block and on cpu
   mkfastq      a lane of 200,000 clusters in the classic and in the CBCL
                BCL layout through run_mkfastq: reads per sample as built,
                equal decompressed FASTQs from both layouts
@@ -742,12 +748,13 @@ PERTURB_EXPECTED = {
 # output file the JAX package's (VDJ_EXPECTED, written by
 # tests/vdj_reference.py); `vdj_fast_parity`: 5 cells at 2,000 pairs, the
 # batched per-barcode work (vdj/support.py) against the plain versions on
-# every contig
-# cut from 1,000 T cells to make room on the card for vdj_b, which runs
-# the same code at more depth a cell: 1,000 T cells (25 GB of the card)
-# beside the human phases, perturb and analysis_68k would leave too
-# little of its 80 GB
-VDJ_CELLS = 500
+# every contig.  The kmer spectrum holds one block of about 2**26 kmer
+# rows on the card at a time, so a V(D)J run's device peak no longer
+# grows with its cells (on an H100: 3.5 GB at 1,000 T or B cells and 5.5
+# GB at 10,000 T cells, against 25.17 and 37.15 GB at 1,000 before):
+# beside it the human phases, perturb (12.7) and analysis_68k (4.0)
+# leave room for 1,000 T cells again
+VDJ_CELLS = 1_000
 VDJ_PAIRS_PER_CELL = 5_000
 VDJ_BATCH = 32768
 VDJ_TIMEOUT_S = 900             # vdj and vdj_b_held in one child
@@ -836,6 +843,7 @@ VDJ_B_EXPECTED = {
 VDJ_PARITY_CHUNK = 500          # kmer rows a block: splits every world
 VDJ_KMER_CELLS = 400            # 2,000,000 pairs, 4,000,000 reads
 VDJ_KMER_PARITY_READS = 200_000
+VDJ_KMER_PARITY_CHUNK = 1 << 20  # kmer rows a block of the parity reads
 MKFASTQ_CLUSTERS = 200_000
 MESH_ENTRIES = 4
 MULTIHOST_PROCS = 2
@@ -3255,17 +3263,40 @@ def vdj_truth_diffs(fx: dict, out: str, summary: dict,
     return diffs
 
 
+def _vdj_split_report(split: dict) -> dict:
+    """The figures of pipeline.vdj.LAST_SPLIT that vdj_run and vdj_b_run
+    report."""
+    return dict(
+        host_split_s={k: split[k] for k in (
+            "skip_s", "graph_s", "graph_wait_s", "support_s",
+            "annotation_s", "quals_s", "outputs_s")},
+        graph_workers=split["graph_workers"],
+        kmer_blocks=split.get("kmer_blocks"),
+        kmer_block_rows_max=split.get("kmer_block_rows_max"),
+        barcodes_assembled=split["barcodes"],
+        barcodes_skipped=split["barcodes_skipped"],
+        contigs_supported=split["contigs"],
+        contigs_annotated=split["annotated"],
+        alignments=split["alignments"],
+        alignments_per_contig=(split["alignments"]
+                               / max(split["annotated"], 1)))
+
+
 def vdj_run(tmp: str, n_cells: int = VDJ_CELLS,
             pairs_per_cell: int = VDJ_PAIRS_PER_CELL, device: str = "cuda",
             batch_size: int = VDJ_BATCH, keep: bool = False) -> dict:
     """A T-cell library (fixtures.vdj_library_kw) through run_vdj on
     `device`, held to the fixture's truth (vdj_truth_diffs).  Reports the
-    fixture's seconds, wall, pass 1 and pass 2 (reads_to_kmers_s), the
-    kmer spectrum's device-synchronized seconds, the host assembly's
-    seconds split into graph and assembly, support, annotation, quals and
-    clonotypes plus outputs, seconds a cell, local alignments a contig,
-    peak device memory and peak host RSS.  The fixture and outputs are
-    deleted after unless `keep`."""
+    fixture's seconds and peak RSS, wall, pass 1 and pass 2
+    (reads_to_kmers_s), the kmer spectrum's device-synchronized seconds,
+    blocks and largest block, the host assembly's seconds split into
+    graph and assembly (summed over the worker processes, and this
+    process's wait for them), support, annotation, quals and clonotypes
+    plus outputs, seconds a cell, the barcodes assembled and skipped,
+    local alignments a contig, peak device memory, peak host RSS (of
+    this process: the graph workers hold a task's spectrum rows each)
+    and MemTotal.  The fixture and outputs are deleted after unless
+    `keep`."""
     import torch
     from cellranger_tpu_torch.align import sw
     from cellranger_tpu_torch.pipeline import vdj
@@ -3275,8 +3306,9 @@ def vdj_run(tmp: str, n_cells: int = VDJ_CELLS,
     root = os.path.join(tmp, f"vdj_{n_cells}")
     try:
         t = time.time()
-        fx = build_vdj_run(os.path.join(root, "fx"), n_cells, pairs_per_cell,
-                           **vdj_library_kw(n_cells))
+        with rss_peak() as fix_rss:
+            fx = build_vdj_run(os.path.join(root, "fx"), n_cells,
+                               pairs_per_cell, **vdj_library_kw(n_cells))
         t_fix = time.time() - t
         out = os.path.join(root, "out")
         if device == "cuda":
@@ -3298,25 +3330,18 @@ def vdj_run(tmp: str, n_cells: int = VDJ_CELLS,
                reads=s["total_reads"], clonotypes=s["n_clonotypes"],
                background_barcodes=len(fx["truth"]["background"]),
                background_pairs=fx["truth"]["background_pairs"],
-               sw_launches=sw.LAUNCHES, fixture_s=t_fix, wall_s=t_end - t,
+               sw_launches=sw.LAUNCHES, fixture_s=t_fix,
+               fixture_peak_rss_bytes=fix_rss["bytes"], wall_s=t_end - t,
                kmers_s=rec.seconds,
                reads_to_kmers_s=rec.end - rec.seconds - t,
                pass1_s=split["pass1_s"], pass2_s=split["pass2_s"],
-               host_assembly_s=host,
-               host_split_s={k: split[k] for k in (
-                   "graph_s", "support_s", "annotation_s", "quals_s",
-                   "outputs_s")},
+               host_assembly_s=host, **_vdj_split_report(split),
                host_s_per_cell=host / n_cells,
-               barcodes_assembled=split["barcodes"],
-               contigs_supported=split["contigs"],
-               contigs_annotated=split["annotated"],
-               alignments=split["alignments"],
-               alignments_per_contig=(split["alignments"]
-                                      / max(split["annotated"], 1)),
                kmer_rows=len(rec.calls[0][1][0]),
                peak_mem_bytes=(torch.cuda.max_memory_allocated()
                                if device == "cuda" else None),
-               peak_host_rss_bytes=rss["bytes"])
+               peak_host_rss_bytes=rss["bytes"],
+               mem_total_bytes=memory_report(device)["mem_total_bytes"])
     if files is not None:
         rep["files"] = files
     if diffs:
@@ -3408,35 +3433,21 @@ def vdj_b_truth_diffs(fx: dict, out: str, summary: dict, bc_umi_pairs: int,
 
 @contextlib.contextmanager
 def vdj_barcode_clock(keep_rows: int = 0):
-    """Per barcode of a run_vdj inside the block (pipeline/vdj.py's host
-    loop, in whitelist order): the seconds from its graph's start to its
-    contigs (graph), of its support (the BarcodeSupport's K-mers and UMI
-    support) and to the next barcode's start or the clonotypes (host);
-    and {whitelist index: packed UMIs} of the rows each barcode's support
-    was built from, kept where a barcode has more than `keep_rows`.
-    Yields a dict with lists "graph_s", "host_s", "spectrum_rows", and
-    {index: value} dicts "support_s", "reads", "rows"."""
-    import numpy as np
+    """Per barcode assembled by a run_vdj inside the block, in the order
+    pipeline/vdj.py takes them (whitelist order): its whitelist index
+    ("barcode"), spectrum rows, graph seconds (graph, cleaning and
+    assembly, in a worker process) and host seconds (those and this
+    process's seconds on it), from LAST_SPLIT["by_barcode"]; and
+    {whitelist index: value} dicts of the seconds of its support (the
+    BarcodeSupport's K-mers and UMI support), its rows, and the packed
+    UMIs of those rows where it has more than `keep_rows`.  Yields a dict
+    with lists "barcode", "graph_s", "host_s", "spectrum_rows", and
+    dicts "support_s", "reads", "rows"."""
     from cellranger_tpu_torch.pipeline import vdj
     from cellranger_tpu_torch.vdj import support
 
-    out = dict(graph_s=[], host_s=[], spectrum_rows=[], support_s={},
-               reads={}, rows={})
-    starts, cur = [], {}
-    real_graph, real_asm = vdj.BarcodeGraph, vdj.assemble_barcode
-    real_group = vdj.group_clonotypes
-
-    class Graph:
-        @staticmethod
-        def from_triples(kmers, umis, counts):
-            starts.append(time.perf_counter())
-            out["spectrum_rows"].append(len(kmers))
-            return real_graph.from_triples(kmers, umis, counts)
-
-    def assemble(spectrum):
-        c = real_asm(spectrum)
-        out["graph_s"].append(time.perf_counter() - starts[-1])
-        return c
+    out = dict(support_s={}, reads={}, rows={})
+    cur = {}
 
     class Store(support.ReadStore):
         def reads(self, bc):
@@ -3459,21 +3470,18 @@ def vdj_barcode_clock(keep_rows: int = 0):
             super().umi_support(*a, **kw)
             out["support_s"][self._bc] += time.perf_counter() - t
 
-    def group(*a, **kw):
-        starts.append(time.perf_counter())
-        return real_group(*a, **kw)
-
     saved = support.ReadStore, support.BarcodeSupport
-    vdj.BarcodeGraph, vdj.assemble_barcode = Graph, assemble
-    vdj.group_clonotypes = group
     support.ReadStore, support.BarcodeSupport = Store, Support
     try:
         yield out
     finally:
-        vdj.BarcodeGraph, vdj.assemble_barcode = real_graph, real_asm
-        vdj.group_clonotypes = real_group
         support.ReadStore, support.BarcodeSupport = saved
-        out["host_s"] = list(np.diff(starts)) if len(starts) > 1 else []
+        by = vdj.LAST_SPLIT.get("by_barcode", {})
+        out.update(barcode=by.get("barcode", []),
+                   spectrum_rows=by.get("spectrum_rows", []),
+                   graph_s=by.get("graph_s", []),
+                   host_s=[g + h for g, h in zip(by.get("graph_s", []),
+                                                 by.get("host_s", []))])
 
 
 def vdj_b_run(tmp: str, n_cells: int = VDJ_B_CELLS,
@@ -3518,7 +3526,7 @@ def vdj_b_run(tmp: str, n_cells: int = VDJ_B_CELLS,
         diffs = vdj_b_truth_diffs(fx, out, s, _pairs(*rec.calls[0][1][:2]),
                                   rows=clock["rows"])
         files = tree_sha256(out) if keep else None
-        order = np.unique(kb).tolist()          # the host loop's barcodes
+        order = clock["barcode"]                # the barcodes assembled
         names = _barcode_names(fx["wl"], order)
     finally:
         if not keep:
@@ -3548,10 +3556,7 @@ def vdj_b_run(tmp: str, n_cells: int = VDJ_B_CELLS,
                kmers_s=rec.seconds,
                reads_to_kmers_s=rec.end - rec.seconds - t,
                pass1_s=split["pass1_s"], pass2_s=split["pass2_s"],
-               host_assembly_s=t_host,
-               host_split_s={x: split[x] for x in (
-                   "graph_s", "support_s", "annotation_s", "quals_s",
-                   "outputs_s")},
+               host_assembly_s=t_host, **_vdj_split_report(split),
                host_s_per_cell=t_host / n_cells,
                host_s_per_plasma_cell=(sum(host.get(b, 0.0) for b in plasma)
                                        / len(plasma)),
@@ -3566,12 +3571,6 @@ def vdj_b_run(tmp: str, n_cells: int = VDJ_B_CELLS,
                    graph_s=clock["graph_s"][k],
                    support_s=clock["support_s"].get(heavy),
                    host_s=clock["host_s"][k]),
-               barcodes_assembled=split["barcodes"],
-               contigs_supported=split["contigs"],
-               contigs_annotated=split["annotated"],
-               alignments=split["alignments"],
-               alignments_per_contig=(split["alignments"]
-                                      / max(split["annotated"], 1)),
                kmer_rows=len(kb),
                peak_mem_bytes=(torch.cuda.max_memory_allocated()
                                if device == "cuda" else None),
@@ -3719,7 +3718,10 @@ def vdj_kmers(tmp: str, n_cells: int = VDJ_KMER_CELLS,
               devices=("cuda", "cpu")) -> dict:
     """count_bc_umi_kmers alone on the reads of a build_vdj_run(n_cells,
     pairs_per_cell), on devices[0], twice (the first call pays the
-    allocator's growth); its first `parity_reads` reads on both devices."""
+    allocator's growth), its blocks and largest block; its first
+    `parity_reads` reads on devices[0] in blocks of about
+    VDJ_KMER_PARITY_CHUNK kmer rows (a quarter of theirs if fewer), there
+    in one block and on devices[1], equal."""
     import numpy as np
     import torch
     from cellranger_tpu_torch.align import sw
@@ -3739,10 +3741,14 @@ def vdj_kmers(tmp: str, n_cells: int = VDJ_KMER_CELLS,
             torch.cuda.reset_peak_memory_stats()
         sync()
         t = time.time()
-        b, u, k, c = count_bc_umi_kmers(*rows, device=dev)
+        spec = {}
+        b, u, k, c = count_bc_umi_kmers(*rows, device=dev, stats=spec)
         sync()
         secs.append(time.time() - t)
     rep.update(first_s=secs[0], s=secs[1], rows=len(b),
+               blocks=spec["blocks"],
+               largest_block_rows=spec["largest_block_rows"],
+               largest_block_ranks=spec["largest_block_ranks"],
                sw_launches=sw.LAUNCHES,
                peak_mem_bytes=(torch.cuda.max_memory_allocated()
                                if dev == "cuda" else None))
@@ -3757,13 +3763,25 @@ def vdj_kmers(tmp: str, n_cells: int = VDJ_KMER_CELLS,
     if not up.all():
         raise AssertionError("vdj_kmers: keys not strictly increasing")
     head = tuple(a[:parity_reads] for a in rows)
-    _equal_arrays(count_bc_umi_kmers(*head, device=dev),
-                  count_bc_umi_kmers(*head, device=devices[1]),
-                  f"vdj_kmers first {parity_reads} reads, {devices}")
+    blocked, one = {}, {}
+    n_rows = parity_reads * (head[2].shape[1] - 19)
+    want = count_bc_umi_kmers(*head, chunk=min(VDJ_KMER_PARITY_CHUNK,
+                                               n_rows // 4),
+                              device=dev, stats=blocked)
+    for what, got in (
+            (f"in one block on {dev}", count_bc_umi_kmers(
+                *head, chunk=n_rows, device=dev, stats=one)),
+            (f"on {devices[1]}", count_bc_umi_kmers(*head,
+                                                    device=devices[1]))):
+        _equal_arrays(got, want, f"vdj_kmers first {parity_reads} reads in "
+                      f"{blocked['blocks']} blocks on {dev} and {what}")
+    if one["blocks"] != 1 or blocked["blocks"] < 2:
+        raise AssertionError(f"vdj_kmers parity: {blocked['blocks']} and "
+                             f"{one['blocks']} blocks")
     if sw.LAUNCHES:
         raise AssertionError("count_bc_umi_kmers launched the SW kernel")
-    rep.update(parity_reads=parity_reads, bc_umi_pairs=pairs,
-               kmers=x["n_kmers"])
+    rep.update(parity_reads=parity_reads, parity_blocks=blocked["blocks"],
+               bc_umi_pairs=pairs, kmers=x["n_kmers"])
     return rep
 
 

@@ -164,11 +164,12 @@ def test_threaded_copy_differs_only_by_device(rel):
 
 # the device half of vdj/assembly.py (the original's `_join64` joined the
 # kmer words its device sorts returned; the port's sort key holds the
-# joined kmer), and the port's helpers of it
+# joined kmer), and the port's helpers of it and the graph workers' task
 VDJ_DEVICE = {"_rolling_kmers_2w", "_join64", "count_bc_kmers",
               "count_bc_umi_kmers"}
 VDJ_PORT_HELPERS = {"_sort_count", "_kmer_spectrum", "KMER_BITS",
-                    "KMER_MASK", "RANKS_PER_KEY", "DEFAULT_CHUNK"}
+                    "KMER_MASK", "RANKS_PER_KEY", "DEFAULT_CHUNK",
+                    "_assemble_spectra"}
 
 
 def _top_level(text):

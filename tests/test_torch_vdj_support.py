@@ -98,25 +98,52 @@ def test_run_vdj_at_library_width_matches_jax(runs):
                            runs["fx"]["expected"]["bc_umi_pairs"]) == []
     s = runs["split"]
     assert s["annotated"] == 10 and s["alignments"] > 3 * s["annotated"]
-    assert s["barcodes"] == 5 + 100
+    # the 100 non-cell barcodes, one molecule each, need no graph
+    assert (s["barcodes"], s["barcodes_skipped"]) == (5, 100)
+
+
+def _calls(runs):
+    """The JAX run's UMI support calls (reads, contig), each beside the
+    port's call on the same barcode and contig, (rows, contig), or None
+    where the port skipped the barcode: fewer than MIN_UMIS_PER_CONTIG
+    distinct UMIs among its reads, so that no contig can be kept."""
+    port = iter(runs["port"])
+    out = [(None if len({u for u, *_ in reads}) < vdj.MIN_UMIS_PER_CONTIG
+            else next(port), (reads, seq)) for reads, seq in runs["jax"]]
+    assert next(port, None) is None
+    return out
 
 
 def test_read_lists_are_the_originals(runs):
     """Per barcode the rows are the original's reads_by_bc, in order:
-    mate 1 then mate 2 a batch, primer-trimmed, N where masked."""
-    assert len(runs["port"]) == len(runs["jax"]) > 100
-    trimmed = 0
-    for (rd, seq), (reads, jseq) in zip(runs["port"], runs["jax"]):
+    mate 1 then mate 2 a batch, primer-trimmed, N where masked; the
+    port's calls are the JAX run's but on the skipped barcodes, whose
+    contigs the JAX run supports by one UMI at most."""
+    calls = _calls(runs)
+    assert len(calls) > 100 and len(runs["port"]) >= 10
+    trimmed = skipped = 0
+    for port, (reads, jseq) in calls:
+        if port is None:
+            c = jasm.Contig(jseq, 0)
+            jasm.umi_support(c, reads)
+            assert c.n_umis < vdj.MIN_UMIS_PER_CONTIG
+            skipped += 1
+            continue
+        rd, seq = port
         assert seq == jseq
         assert _plain_reads(rd) == reads
         trimmed += int((rd.start > 0).sum())     # every read is 120 bases
-    assert trimmed > 0
+    assert trimmed > 0 and skipped > 50
     assert any("N" in r[1] for reads, _ in runs["jax"] for r in reads)
 
 
 def test_support_and_quals_match_jax_on_every_contig(runs):
+    """Every contig the JAX run supports, with the port's rows of its
+    barcode or, for a skipped barcode, the rows of the JAX run's reads."""
     n_quals = 0
-    for (rd, seq), (reads, _) in zip(runs["port"], runs["jax"]):
+    for port, (reads, seq) in _calls(runs):
+        rd = (support.BarcodeReads.from_tuples(reads) if port is None
+              else port[0])
         sup = support.BarcodeSupport(rd, "cpu")
         c, jc = assembly.Contig(seq, 0), jasm.Contig(seq, 0)
         sup.umi_support(c)
