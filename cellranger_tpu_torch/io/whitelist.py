@@ -48,7 +48,7 @@ class Whitelist:
 
     def index_of(self, packed: np.ndarray) -> np.ndarray:
         """Index into sorted_seqs, or -1 if absent."""
-        idx = np.searchsorted(self.sorted_seqs, packed)
+        idx = encode.sorted_search(self.sorted_seqs, packed)
         idx_c = np.minimum(idx, self.size - 1)
         hit = self.sorted_seqs[idx_c] == packed
         return np.where(hit, idx_c, -1)

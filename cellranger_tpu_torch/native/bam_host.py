@@ -20,6 +20,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from . import BUILD_DIR, build
+from .strings import Strings
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                     "bam_host.cpp")
@@ -137,22 +138,20 @@ class Band:
                                    a.shape[1]))
 
     def strings(self, name: str, items):
-        """items: bytes of each row, as one buffer plus offsets."""
-        off = np.zeros(len(items) + 1, np.int64)
-        np.cumsum(np.fromiter(map(len, items), np.int64, len(items)),
-                  out=off[1:])
-        buf = np.frombuffer(b"".join(items), np.uint8)
-        setattr(self.s, name, _Str(self._arr(buf), self._arr(off)))
+        """items: bytes of each row (a list, or native/strings.py's
+        Strings), as one buffer plus offsets."""
+        items = Strings.of(items)
+        setattr(self.s, name, _Str(self._arr(items.buf, np.uint8),
+                                   self._arr(items.off, np.int64)))
 
     def ints(self, name: str, a):
         setattr(self.s, name, self._arr(a, np.int64))
 
 
 def run_tables(read_group: str, gem_group: int, bc_len: int, umi_len: int,
-               gene_ids, gene_names, gene_txs: dict, winners) -> Band:
+               gene_ids, gene_names, gene_txs: dict) -> Band:
     """The fields of every band of one run: tags, the gene and transcript
-    tables of TX/AN (bam_out.py `_build_tx_tables`), the UMI_COUNT winners
-    (bam_out.py `_select_representatives`)."""
+    tables of TX/AN (bam_out.py `_build_tx_tables`)."""
     t = Band()
     t.strings("read_group", [read_group.encode()])
     t.strings("gem_suffix", [b"-%d" % gem_group])
@@ -171,17 +170,6 @@ def run_tables(read_group: str, gem_group: int, bc_len: int, umi_len: int,
         t.ints(name, np.concatenate(
             [np.asarray(rec[k], np.int64)[:len(rec[3])] for rec in flat]
             + [np.zeros(0, np.int64)]))
-    _, _, _, um, ntxo, nm = winners
-    t.ints("win_umi", um)
-    t.ints("win_ntxo", ntxo)
-    # the winners' names as numpy's bytes scalars give them (trailing
-    # NULs dropped), the form the plain version hashes
-    lens = np.char.str_len(nm).astype(np.int64)
-    rows = np.ascontiguousarray(nm).view(np.uint8).reshape(
-        len(nm), nm.dtype.itemsize)
-    keep = np.arange(rows.shape[1]) < lens[:, None]
-    t.s.win_name = _Str(t._arr(rows[keep]),
-                        t._arr(np.r_[0, np.cumsum(lens)]))
     return t
 
 
@@ -212,15 +200,21 @@ def _encode(lib, b: Band, order: np.ndarray) -> list:
 
 
 def encode_band(tables: Band, cat: dict, corr_umi, low_sup, win_idx,
-                order: np.ndarray, threads: int):
+                order: np.ndarray, threads: int, winners: tuple):
     """Yields (buf, rec_end, ref, pos, end), in order, for the records
     order[...] of the band `cat` (bam_out.py's spooled columns): slices of
-    SLICE_RECORDS records encoded on `threads` threads, a few slices
-    ahead of the consumer."""
+    at most SLICE_RECORDS records, at least one a thread, encoded on
+    `threads` threads, a few slices ahead of the consumer.  winners:
+    the (raw UMI, not_txomic, qname) rows that win_idx points into
+    (bam_out.py `_band_winners`)."""
     lib = get_lib()
     b = Band()
     b.s = _Band.from_buffer_copy(tables.s)
     b._keep = [tables]
+    um, ntxo, names = winners
+    b.ints("win_umi", um)
+    b.ints("win_ntxo", ntxo)
+    b.strings("win_name", names)
     cols = dict(cat, corr_umi=corr_umi, low_sup=low_sup, win_idx=win_idx)
     for k, name in enumerate(SCALAR_COLUMNS):
         b.col(k, cols[name])
@@ -238,8 +232,9 @@ def encode_band(tables: Band, cat: dict, corr_umi, low_sup, win_idx,
     for name in ("names", "fr", "fq", "fb", "fx"):
         b.strings(name, cat[name])
     order = np.ascontiguousarray(order, np.int64)
-    slices = [order[i:i + SLICE_RECORDS]
-              for i in range(0, len(order), SLICE_RECORDS)]
+    # a small band still spreads over every thread
+    step = max(1024, min(SLICE_RECORDS, -(-len(order) // threads)))
+    slices = [order[i:i + step] for i in range(0, len(order), step)]
     with ThreadPoolExecutor(threads) as pool:
         ahead: deque = deque()
         for sl in slices:

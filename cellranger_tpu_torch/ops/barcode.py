@@ -109,10 +109,12 @@ def host_resolve_barcodes(bc_packed, bc_qual, slot_valid, wl_sorted,
     """
     import numpy as np
 
+    from .encode import sorted_search
+
     bc_packed = np.asarray(bc_packed, np.uint32)
     B = len(bc_packed)
     W = len(wl_sorted)
-    idx = np.searchsorted(wl_sorted, bc_packed)
+    idx = sorted_search(wl_sorted, bc_packed)
     idxc = np.minimum(idx, W - 1)
     hit = (wl_sorted[idxc] == bc_packed) & slot_valid
     bc_idx = np.where(hit, idxc, -1).astype(np.int32)
@@ -125,7 +127,7 @@ def host_resolve_barcodes(bc_packed, bc_qual, slot_valid, wl_sorted,
         d = np.arange(1, 4, dtype=np.uint32)
         xor = (d[None, :] << shifts[:, None]).reshape(-1)       # [3L]
         cand = bc_packed[inv, None] ^ xor[None, :]              # [I, 3L]
-        ci = np.searchsorted(wl_sorted, cand)
+        ci = sorted_search(wl_sorted, cand.ravel()).reshape(cand.shape)
         cic = np.minimum(ci, W - 1)
         member = wl_sorted[cic] == cand
         q = np.minimum(np.asarray(bc_qual)[inv], BC_MAX_QV).astype(np.float32)

@@ -107,3 +107,17 @@ def revcomp_packed(packed: torch.Tensor, length: int) -> torch.Tensor:
     for i in range(length):
         out = out | (((x >> (2 * i)) & 3) << (2 * (length - 1 - i)))
     return out
+
+
+def sorted_search(table: np.ndarray, keys: np.ndarray,
+                  side: str = "left") -> np.ndarray:
+    """np.searchsorted(table, keys, side), the keys searched in sorted
+    order: a search of a large table (the 6,794,880-barcode whitelist)
+    walks it once instead of missing the cache at every key."""
+    keys = np.asarray(keys)
+    if keys.ndim != 1 or len(keys) < 2:
+        return np.searchsorted(table, keys, side)
+    order = np.argsort(keys, kind="stable")
+    out = np.empty(len(keys), np.int64)
+    out[order] = np.searchsorted(table, keys[order], side)
+    return out

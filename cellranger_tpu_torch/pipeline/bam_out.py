@@ -1,13 +1,15 @@
 """Position-sorted BAM assembly for the count pipeline — the WRITE_POS_BAM
 analog (lib/rust/cr_lib/src/stages/write_pos_bam.rs), without the
-samtools-cat subprocess: per-batch alignment arrays are bucketed into
-genome-position bands on disk (pipeline/spill.BamSpool) as they stream off
-the device, and the final write loads one band at a time, sorts it,
-encodes its records in bulk (native/bam_host.py) and streams them through
-a BGZF writer that compresses on threads and builds the .bai from arrays
-(io/bam_fast.py).  Peak RAM is O(one band), not O(run), beside the
-index's 40 bytes a record — the per-chunk-BAM + samtools-cat structure
-re-expressed.
+samtools-cat subprocess: per-batch alignment arrays are spooled to disk
+(pipeline/bam_spool.py) as they stream off the device, into bands of
+equal genomic span sized from pass 1's read count; the final write loads
+one band at a time (a band past BAND_RECORDS is spooled again into parts
+cut at its own sort keys, equal keys together), sorts it, encodes its
+records in bulk (native/bam_host.py) and streams them through a BGZF
+writer that compresses on threads and builds the .bai from arrays
+(io/bam_fast.py).  Peak RAM is O(BAND_RECORDS), not O(run) nor O(one
+chromosome), beside the index's 40 bytes a record — the per-chunk-BAM +
+samtools-cat structure re-expressed.
 
 Tag semantics (cr_bam/src/bam_tags.rs): CR/CY always; CB only when the
 barcode is on the whitelist (possibly corrected); UR/UY always; UB for valid
@@ -24,9 +26,10 @@ the plain version `write` is held to byte for byte.
 
 from __future__ import annotations
 
-import itertools
 import os
+import shutil
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -39,20 +42,36 @@ from ..io.bam import (
 from ..io.bam_fast import BgzfBamWriter
 from ..io.bam_index import IndexingBamWriter as BamWriter
 from ..io.gtf import Transcriptome
-from .spill import BamSpool, lex3_join_np
+from .bam_spool import RecordSpool, concat_chunks, group_rows, take_rows
+from .spill import lex3_join_np
 from ..align.index import GenomeIndex
 from ..native import bam_host
+from ..native.strings import Strings
 from ..ops import encode
+from ..ops.encode import sorted_search
 
 REGION_CHARS = {0: "E", 1: "I", 2: "N"}
 
-# the last `write`'s split: seconds of spool load (load, join, sort),
-# representatives (selection and each band's join), encode (waiting for
-# the native encoder's threads), write (handing buffers to the BGZF writer
-# and closing it; of it compress_wait, waiting for its threads, and index);
-# compress_cpu (the compression threads' own seconds); and the threads of
-# each pool, records, stream bytes, blocks, the spool's bytes on disk
+# the last `write`'s split: seconds of spool load (load, join, sort;
+# respool_s of it, the oversized bands spooled again in parts),
+# representatives (each molecule partition's selection and the winners'
+# flags), encode (waiting for the native encoder's threads), write
+# (handing buffers to the BGZF writer and closing it; of it
+# compress_wait, waiting for its threads, and index); compress_cpu (the
+# compression threads' own seconds); the threads of each pool, records,
+# stream bytes, blocks, the spool's bytes on disk; bands, the parts
+# loaded, the rows of the largest (band_rows_max), the rows spooled again
 LAST_SPLIT: dict = {}
+
+# the records `write` holds at once: a band, or a part of one, is
+# loaded, sorted and encoded whole.  Bands are cut at half of it from
+# pass 1's read count (`BamCollector.plan`); a band that outgrows it
+# (reads crowd a locus: chrM, a hot gene) is spooled again in parts cut
+# at its own sort keys.  Read at run time.
+BAND_RECORDS = 1 << 22
+MAX_BANDS = 1024
+REP_THREADS = 4             # molecule partitions flagged at once
+_SRC_SHIFT = 40             # a record's id: source spool << 40 | row
 
 _CHUNK_KEYS = ("rna", "rna_qual", "rna_len", "nmask", "bc_packed", "bc_qual",
                "umi_packed", "umi_valid", "umi_qual", "pos", "mapq", "strand",
@@ -64,30 +83,82 @@ _CHUNK_KEYS_2D = ("gene_list", "anti_list")
 
 
 class BamCollector:
-    """Streams per-batch host arrays into a position-banded disk spool."""
+    """Streams per-batch host arrays into a banded disk spool."""
 
     def __init__(self, gi: GenomeIndex, txome: Transcriptome,
-                 spool_dir: str, n_bands: int = 64,
-                 read_group: str = "sample", fresh: bool = True):
+                 spool_dir: str, read_group: str = "sample",
+                 fresh: bool = True):
         self.gi = gi
         self.txome = txome
-        self.n_bands = n_bands
         self.read_group = read_group
-        self.spool = BamSpool(spool_dir, n_bands, fresh=fresh)
+        self.spool = RecordSpool(spool_dir, fresh=fresh)
         # multihost: other hosts' spool directories, merged at write time
         # (the per-chunk-BAM + samtools-cat structure of write_pos_bam.rs
-        # :65-101, with position bands instead of chunk files)
+        # :65-101, with bands instead of chunk files); every host cuts
+        # the same bands (`plan` takes the run's total read count)
         self.sibling_dirs: list[str] = []
         # sort key = chrom << 33 | genomic pos (33 bits cover any chrom)
-        self._max_key = (len(gi.chrom_names) + 1) << 33
-        self.n_reads = 0
+        self._chrom_starts = np.asarray(gi.chrom_starts, np.int64)
+        meta = self.spool.meta
+        # bands of equal span of the concatenated chromosomes, then the
+        # unmapped band; the UMI_COUNT candidates spool to as many
+        # partitions of (barcode, gene) so a molecule's reads share one;
+        # one band until `plan` cuts them, a sealed spool's own on resume
+        self.n_bands = int(meta.get("n_bands", 1))
+        self.n_records = int(meta.get("n_records", 0))
+        self.n_reads = int(meta.get("n_reads", 0))
+
+    def plan(self, expected_records: int) -> None:
+        """Cut the bands for a run of about expected_records records (from
+        pass 1), each about half of BAND_RECORDS; before any row."""
+        if self.n_records:
+            raise RuntimeError("the bands are cut before the first record")
+        self.n_bands = int(min(MAX_BANDS, max(
+            1, -(-2 * int(expected_records) // BAND_RECORDS))))
+
+    def seal(self) -> None:
+        """Close the spool with its bands and counts (spool.json): a
+        resumed run or host 0 reopens it with fresh=False."""
+        self.spool.seal(dict(n_bands=self.n_bands, n_records=self.n_records,
+                             n_reads=self.n_reads))
+
+    def _band_of(self, key, mapped) -> np.ndarray:
+        """Each record's band: its position along the concatenated
+        chromosomes in n_bands equal spans (monotone in the sort key);
+        unmapped records in band n_bands."""
+        key = np.asarray(key, np.int64)
+        mapped = np.asarray(mapped).astype(bool)
+        starts = self._chrom_starts
+        chrom = np.minimum(key >> 33, len(starts) - 2)
+        lin = starts[np.maximum(chrom, 0)] + (key & ((1 << 33) - 1))
+        span = max(int(starts[-1]), 1)
+        band = np.clip(lin * self.n_bands // span, 0, self.n_bands - 1)
+        return np.where(mapped, band, self.n_bands)
+
+    @staticmethod
+    def _rep_part(bc, gl, parts: int) -> np.ndarray:
+        """A molecule's partition: a hash of (barcode, library gene)."""
+        h = (np.asarray(bc).astype(np.uint64) * np.uint64(2654435761)
+             + np.asarray(gl).astype(np.uint64))
+        return (h % np.uint64(parts)).astype(np.int64)
+
+    def _route(self, chunk: dict, n: int) -> None:
+        """Spool a chunk whose sort keys are set: row ids, bands, the
+        UMI_COUNT-candidate sidecar."""
+        for k in ("names", "fr", "fq", "fb", "fx"):
+            chunk[k] = Strings.of(chunk[k])
+        chunk["rid"] = np.arange(self.n_records, self.n_records + n,
+                                 dtype=np.int64)
+        band = self._band_of(chunk["sort_key"], chunk["mapped"])
+        self.spool.add("band", band, chunk)
+        self._spool_rep_sidecar(band, chunk, n)
+        self.n_records += n
 
     def _sort_keys(self, pos, aln_len, mapped):
         g = self.gi.pos_to_genomic(pos.astype(np.int64),
                                    aln_len.astype(np.int64))
         # unmapped sentinel chrom = chrom_count (fits the 33-bit-shift
-        # layout; _max_key reserves chrom_count+1, and 2**31 would overflow
-        # int64 under the shift)
+        # layout; 2**31 would overflow int64 under the shift)
         key = np.where(mapped, g["chrom"].astype(np.int64),
                        len(self.gi.chrom_names)) * (1 << 33) \
             + np.where(mapped, g["gpos"], 0)
@@ -111,11 +182,7 @@ class BamCollector:
         chunk["g_spliced"] = g["spliced"][:n].astype(bool)
         chunk["g_intron_len"] = g["intron_len"][:n].astype(np.int64)
         chunk["g_donor_off"] = g["donor_off"][:n].astype(np.int64)
-        band = np.minimum((key * self.n_bands) // self._max_key,
-                          self.n_bands - 1)
-        band = np.where(chunk["mapped"].astype(bool), band, self.n_bands)
-        self.spool.add(band.astype(np.int64), chunk)
-        self._spool_rep_sidecar(band, chunk, n)
+        self._route(chunk, n)
         self.n_reads += n
         return chunk
 
@@ -134,14 +201,7 @@ class BamCollector:
             idx = np.flatnonzero(sok[:, j])
             if not len(idx):
                 continue
-            sub = {}
-            for k, v in prim_chunk.items():
-                if isinstance(v, np.ndarray):
-                    sub[k] = v[idx].copy()
-                elif isinstance(v, list):
-                    sub[k] = [v[i] for i in idx]
-                else:
-                    sub[k] = v
+            sub = take_rows(prim_chunk, idx)
             ns = len(idx)
             sub.update(
                 pos=np.asarray(ho["sec_pos"])[:n, j][idx],
@@ -163,7 +223,7 @@ class BamCollector:
                 secondary=np.ones(ns, bool))
             # drop keys _spool_chunk recomputes from pos/aln_len
             for k in ("sort_key", "g_chrom", "g_gpos", "g_spliced",
-                      "g_intron_len", "g_donor_off"):
+                      "g_intron_len", "g_donor_off", "rid"):
                 sub.pop(k, None)
             self._spool_chunk(sub, ns)
             self.n_reads -= ns  # _spool_chunk counted them; keep read count
@@ -179,20 +239,26 @@ class BamCollector:
                 & (np.asarray(chunk["region"]) == 0))
 
     def _spool_rep_sidecar(self, band, chunk, n):
-        """Sidecar of UMI_COUNT-candidate rows (conf-mapped, valid-UMI,
-        mate-1) so the representative pass reads ~30B/read instead of
-        re-deserializing the full record bands."""
-        el = (chunk["conf_ok"].astype(bool) & chunk["umi_valid"].astype(bool)
-              & chunk["umi_rep"].astype(bool))
+        """Sidecar of the UMI_COUNT candidates (conf-mapped, mate-1; the
+        valid-UMI ones compete) in partitions of (barcode, gene), so the
+        representative pass reads ~50B/read instead of re-deserializing
+        the full record bands, and a molecule's reads in one partition;
+        each row carries its record's id and band."""
+        el = (np.asarray(chunk["conf_ok"]).astype(bool)
+              & np.asarray(chunk["umi_rep"]).astype(bool))
         if not el.any():
             return
+        idx = np.flatnonzero(el)
         sub = dict(
-            bc=chunk["bc_idx"][el].astype(np.uint32),
-            gl=chunk["gene_lib"][el].astype(np.uint32),
-            umi=chunk["umi_packed"][el].astype(np.uint32),
-            txo=self._txomic(chunk)[el],
-            names=[chunk["names"][i] for i in np.flatnonzero(el)])
-        self.spool.add_rep(np.asarray(band)[el].astype(np.int64), sub)
+            bc=chunk["bc_idx"][idx].astype(np.uint32),
+            gl=chunk["gene_lib"][idx].astype(np.uint32),
+            umi=chunk["umi_packed"][idx].astype(np.uint32),
+            txo=self._txomic(chunk)[idx],
+            valid=np.asarray(chunk["umi_valid"])[idx].astype(bool),
+            names=Strings.of(chunk["names"]).take(idx),
+            rid=chunk["rid"][idx], band=np.asarray(band)[idx].astype(np.int32))
+        self.spool.add("rep", self._rep_part(sub["bc"], sub["gl"],
+                                             self.n_bands), sub)
 
     def add_batch(self, batch, ho: dict):
         """ho: host-side (numpy) step output dict for this batch.
@@ -226,7 +292,7 @@ class BamCollector:
         chunk["gene_lib"] = take(ho.get("gene_lib", ho.get("gene"))) \
             .astype(np.uint32)
         for k in ("fr", "fq", "fb", "fx"):
-            chunk[k] = [b""] * n
+            chunk[k] = Strings.empty(n)
         paired = "pos2" in ho and getattr(batch, "rna2", None) is not None
         if not paired:
             self._spool_chunk(chunk, n)
@@ -331,9 +397,7 @@ class BamCollector:
         chunk["tlen"] = np.zeros(n, np.int64)
         chunk["umi_rep"] = np.ones(n, bool)
         chunk["secondary"] = np.zeros(n, bool)
-        band = np.full(n, self.n_bands, np.int64)
-        self.spool.add(band, chunk)
-        self._spool_rep_sidecar(band, chunk, n)
+        self._route(chunk, n)
         self.n_reads += n
 
     def _header(self) -> tuple:
@@ -343,14 +407,32 @@ class BamCollector:
         return (gi.chrom_names, list(np.diff(gi.chrom_starts).astype(int)),
                 rg_header)
 
+    def _sources(self) -> list:
+        """This spool, then each sibling host's sealed spool; all cut the
+        same bands."""
+        sources = [self.spool] + [RecordSpool(d, fresh=False)
+                                  for d in self.sibling_dirs]
+        cuts = {int(s_.meta.get("n_bands", self.n_bands)) for s_ in sources}
+        if cuts != {self.n_bands}:
+            raise ValueError(f"the hosts' spools cut {sorted(cuts)} bands, "
+                             f"this one {self.n_bands}")
+        return sources
+
+    def _band_chunks(self, name: str, sources=None):
+        """The chunks of spool file `name` of every source, this spool's
+        first; each record id (`rid`) tagged with its source's index."""
+        for k, src in enumerate(sources or self._sources()):
+            for c in src.iter(name):
+                if "rid" in c:
+                    c["rid"] = c["rid"] | (k << _SRC_SHIFT)
+                yield c
+
     def _load_band(self, band: int, views: tuple):
         """One band's columns (this spool's chunks, then each sibling
         directory's) with each record's corrected UMI and low-support
         flag from the raw-triple views; None for an empty band."""
         rb, rg, ru, rc, rl = views
-        chunks = list(self.spool.iter_band(band))
-        for d in self.sibling_dirs:
-            chunks.extend(BamSpool.iter_dir_band(d, band))
+        chunks = list(self._band_chunks(f"band{band}"))
         if not chunks:
             return None
         cat = concat_chunks(chunks)
@@ -375,52 +457,50 @@ class BamCollector:
         (raw_bc/raw_gene/raw_umi/raw_corr_umi/raw_low arrays of distinct
         conf-mapped triples).
 
-        Each band's records are encoded in bulk by the native encoder
+        The UMI_COUNT winners are chosen a molecule partition at a time
+        and their records' ids filed by band.  Then each band (or each
+        part of one past BAND_RECORDS) is loaded, joined to the views'
+        index, sorted, encoded in bulk by the native encoder
         (native/bam_host.py) and written by io/bam_fast.py's writer, whose
         threads compress one buffer's blocks while the next is encoded;
-        the bytes are those of `write_plain`.  LAST_SPLIT holds the
-        seconds of the parts and the sizes."""
+        the next part loads on a thread meanwhile, so two parts are held
+        at most.  The bytes are those of `write_plain`.  LAST_SPLIT holds
+        the seconds of the parts (the loading thread's among them) and
+        the sizes."""
         LAST_SPLIT.clear()
-        split = dict(spool_load_s=0.0, representatives_s=0.0, encode_s=0.0,
-                     write_s=0.0, spool_bytes=sum(
-                         e.stat().st_size
-                         for d in [self.spool.dir, *self.sibling_dirs]
-                         for e in os.scandir(d) if e.is_file()))
+        budget = max(1, int(BAND_RECORDS))
+        sources = self._sources()
+        split = dict(spool_load_s=0.0, respool_s=0.0, representatives_s=0.0,
+                     encode_s=0.0, write_s=0.0,
+                     spool_bytes=sum(s_.bytes_on_disk() for s_ in sources),
+                     bands=self.n_bands + 1, parts=0, band_rows_max=0,
+                     respooled_rows=0, band_records=budget)
         w = BgzfBamWriter(path, *self._header())
         # half the cores encode, while all of them compress
         encode_threads = max(1, w.threads // 2)
         records = 0
+        work = os.path.join(self.spool.dir, "_write")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
         if self.n_reads or self.sibling_dirs:
-            views = _raw_views(raw_views)
             t = time.perf_counter()
-            winners = self._select_representatives(*views)
+            vindex = _ViewIndex(_raw_views(raw_views))
+            self._file_winners(vindex, work, sources)
             split["representatives_s"] += time.perf_counter() - t
             self._build_tx_tables()
             tables = bam_host.run_tables(
                 self.read_group, gem_group, bc_len, umi_len,
                 [g_.id for g_ in self.txome.genes],
-                [g_.name for g_ in self.txome.genes], self._gene_txs,
-                winners)
-            for band in range(self.n_bands + 1):
-                t = time.perf_counter()
-                r = self._load_band(band, views)
-                if r is None:
-                    continue
-                cat, corr_umi, low_sup = r
-                # a spool without the column holds no secondary record, as
-                # `_write_rows` reads it
-                cat.setdefault("secondary", np.zeros(len(corr_umi), bool))
-                order = np.argsort(cat["sort_key"], kind="stable")
-                t1 = time.perf_counter()
-                split["spool_load_s"] += t1 - t
-                win_idx = _winner_rows(winners, cat, corr_umi, low_sup)
-                t2 = time.perf_counter()
-                split["representatives_s"] += t2 - t1
-                parts = bam_host.encode_band(tables, cat, corr_umi, low_sup,
-                                             win_idx, order, encode_threads)
+                [g_.name for g_ in self.txome.genes], self._gene_txs)
+            for cat, corr_umi, low_sup, win_idx, winners, order in _ahead(
+                    self._prepared_parts(vindex, work, sources, budget,
+                                         split)):
+                recs_of = bam_host.encode_band(
+                    tables, cat, corr_umi, low_sup, win_idx, order,
+                    encode_threads, winners)
                 while True:
                     t = time.perf_counter()
-                    recs = next(parts, None)
+                    recs = next(recs_of, None)
                     t1 = time.perf_counter()
                     split["encode_s"] += t1 - t
                     if recs is None:
@@ -428,6 +508,9 @@ class BamCollector:
                     w.write_records(*recs)
                     split["write_s"] += time.perf_counter() - t1
                 records += len(order)
+                split["parts"] += 1
+                split["band_rows_max"] = max(split["band_rows_max"],
+                                             len(order))
         t = time.perf_counter()
         w.close()
         split["write_s"] += time.perf_counter() - t
@@ -438,12 +521,106 @@ class BamCollector:
             encode_threads=encode_threads, records=records,
             stream_bytes=w._stream, blocks=len(w._block_at) - 1)
 
+    def _prepared_parts(self, vindex, work: str, sources, budget: int,
+                        split: dict):
+        """Each part of each band, in order, ready for the encoder: its
+        columns, corrected UMIs and low-support flags, UMI_COUNT winners
+        and sort order."""
+        for band in range(self.n_bands + 1):
+            rows = sum(s_.rows.get(f"band{band}", 0) for s_ in sources)
+            if not rows:
+                continue
+            won = os.path.join(work, f"win{band}")
+            wins = np.sort(np.fromfile(won, np.int64) if os.path.exists(won)
+                           else np.zeros(0, np.int64))
+            parts = self._band_parts(band, rows, budget, work, sources, split)
+            while True:
+                t = time.perf_counter()
+                chunks = next(parts, None)
+                if chunks is None:
+                    break
+                cat = concat_chunks(chunks)
+                corr_umi, low_sup = vindex.join(cat)
+                # a spool without the column holds no secondary record, as
+                # `_write_rows` reads it
+                cat.setdefault("secondary", np.zeros(len(corr_umi), bool))
+                order = np.argsort(cat["sort_key"], kind="stable")
+                t1 = time.perf_counter()
+                split["spool_load_s"] += t1 - t
+                win_idx, winners = _band_winners(cat, wins)
+                split["representatives_s"] += time.perf_counter() - t1
+                yield cat, corr_umi, low_sup, win_idx, winners, order
+
+    def _band_parts(self, band: int, rows: int, budget: int, work: str,
+                    sources, split: dict):
+        """The chunks of one band, in parts of at most `budget` records:
+        the band whole when it fits; else spooled again into parts cut at
+        its own sort keys (equal keys in one part, each part's records in
+        spool order), a part of one key past the budget given in pieces
+        of spool order, which its sort leaves as they are."""
+        name = f"band{band}"
+        if rows <= budget:
+            yield list(self._band_chunks(name, sources))
+            return
+        t = time.perf_counter()
+        keys, cnt = np.unique(np.concatenate(
+            [c["sort_key"] for c in self._band_chunks(name, sources)]),
+            return_counts=True)
+        part_of = _cut_parts(cnt, budget)
+        parts = RecordSpool(os.path.join(work, name))
+        for c in self._band_chunks(name, sources):
+            parts.add("part", part_of[np.searchsorted(keys, c["sort_key"])],
+                      c)
+        parts.flush()
+        split["respool_s"] += time.perf_counter() - t
+        split["respooled_rows"] += rows
+        single = np.bincount(part_of) == 1     # parts of one sort key
+        try:
+            for p in range(int(part_of[-1]) + 1):
+                n = parts.rows.get(f"part{p}", 0)
+                if n and (n <= budget or not single[p]):
+                    yield list(parts.iter(f"part{p}"))
+                elif n:
+                    yield from _pieces(parts.iter(f"part{p}"), budget)
+        finally:
+            parts.close()
+
+    def _file_winners(self, vindex, work: str, sources) -> None:
+        """The UMI_COUNT flags, a molecule partition of the sidecar at a
+        time on a few threads: the ids of the records whose (raw UMI,
+        not_txomic, qname) equal their molecule's winner's
+        (`_winner_flags`), appended to work/win<band>."""
+        def flagged(p):
+            chunks = list(self._band_chunks(f"rep{p}", sources))
+            if not chunks:
+                return None
+            cat = concat_chunks(chunks)
+            won = np.flatnonzero(_winner_flags(cat, vindex))
+            return cat["band"][won], cat["rid"][won]
+
+        files: dict = {}
+        try:
+            with ThreadPoolExecutor(REP_THREADS) as pool:
+                for res in pool.map(flagged, range(self.n_bands)):
+                    if res is None:
+                        continue
+                    for b, idx in group_rows(res[0]):
+                        f = files.get(b)
+                        if f is None:
+                            f = files[b] = open(
+                                os.path.join(work, f"win{b}"), "ab")
+                        f.write(res[1][idx].tobytes())
+        finally:
+            for f in files.values():
+                f.close()
+
     def write_plain(self, path: str, raw_views: dict, bc_len: int,
                     umi_len: int, gem_group: int = 1):
         """The plain version of `write`: every record through `_write_rows`
-        and io/bam_index.py's IndexingBamWriter, one at a time.  Tests and
-        chip_smoke.py hold `write` to it; the run does not call it.  The
-        spool stays open (a test writes it again with `write`)."""
+        and io/bam_index.py's IndexingBamWriter, one at a time, each band
+        loaded whole.  Tests and chip_smoke.py hold `write` to it; the run
+        does not call it.  The spool stays open (a test writes it again
+        with `write`)."""
         w = BamWriter(path, *self._header())
         if self.n_reads == 0 and not self.sibling_dirs:
             w.close()
@@ -483,23 +660,24 @@ class BamCollector:
                 for i in range(len(bc))}
 
     def _select_representatives(self, rb, rg, ru, rc, rl) -> tuple:
-        """Per-molecule UMI_COUNT winner, from the sidecar spool (not the
-        full bands): per band one lexsort + group-first, merged across
-        bands by a second lexsort.  Returns the winners as arrays (bc,
-        gene_lib, corr_umi, raw_umi, not_txomic, qname), sorted by
-        (bc, gene_lib, corr_umi), one row a molecule."""
+        """The plain version's per-molecule UMI_COUNT winner, from the
+        sidecar spool (not the full bands): per partition one lexsort +
+        group-first, merged across partitions by a second lexsort.
+        Returns the winners as arrays (bc, gene_lib, corr_umi, raw_umi,
+        not_txomic, qname), sorted by (bc, gene_lib, corr_umi), one row
+        a molecule."""
         winners: list[tuple] = []
-        for band in range(self.n_bands + 1):
-            chunks = list(self.spool.iter_rep(band))
-            for d in self.sibling_dirs:
-                chunks.extend(BamSpool.iter_dir_rep(d, band))
+        for part in range(self.n_bands):
+            chunks = list(self._band_chunks(f"rep{part}"))
             if not chunks:
                 continue
-            bc = np.concatenate([c["bc"] for c in chunks])
-            gl = np.concatenate([c["gl"] for c in chunks])
-            um = np.concatenate([c["umi"] for c in chunks])
-            txo = np.concatenate([c["txo"] for c in chunks])
-            names = [n_ for c in chunks for n_ in c["names"]]
+            valid = np.concatenate([c["valid"] for c in chunks])
+            bc = np.concatenate([c["bc"] for c in chunks])[valid]
+            gl = np.concatenate([c["gl"] for c in chunks])[valid]
+            um = np.concatenate([c["umi"] for c in chunks])[valid]
+            txo = np.concatenate([c["txo"] for c in chunks])[valid]
+            names = [n_ for c in chunks for n_ in c["names"].tolist()]
+            names = [n_ for n_, v in zip(names, valid) if v]
             if len(rb):
                 jidx, jfound = lex3_join_np(rb, rg, ru, bc, gl, um)
                 cu = np.where(jfound, rc[jidx], um)
@@ -787,31 +965,154 @@ def _raw_views(raw_views: dict) -> tuple:
         ("raw_corr_umi", np.uint32), ("raw_low", bool)))
 
 
-def concat_chunks(chunks: list[dict]) -> dict:
-    """One dict of the chunks' columns, in chunk order: arrays
-    concatenated, lists joined in linear time.  Each chunk gives up its
-    columns as they are joined, so a band is held about once."""
-    cat = {}
-    for k in list(chunks[0]):
-        parts = [c.pop(k) for c in chunks]
-        cat[k] = (np.concatenate(parts) if isinstance(parts[0], np.ndarray)
-                  else list(itertools.chain.from_iterable(parts)))
-    return cat
+def _ahead(items):
+    """The items of an iterator, each made on a thread while the one
+    before it is used (the next part of the BAM loads while this one is
+    encoded and compressed)."""
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(next, items, None)
+        while True:
+            item = fut.result()
+            if item is None:
+                return
+            fut = pool.submit(next, items, None)
+            yield item
 
 
-def _winner_rows(winners: tuple, cat: dict, corr_umi, low_sup) -> np.ndarray:
-    """Each record's molecule among the winners of
-    `_select_representatives` (-1: none), for the records the UMI_COUNT
-    test reaches (conf_ok, not low-support): an exact join on (bc_idx,
-    gene_lib, corr_umi).  The encoder then compares (raw UMI, not_txomic,
-    qname) exactly; the plain version compares Python hash() values of
-    those tuples, so the two differ only on a 64-bit hash collision."""
-    rows = np.full(len(corr_umi), -1, np.int64)
-    need = np.flatnonzero(np.asarray(cat["conf_ok"]).astype(bool) & ~low_sup)
-    if len(winners[0]) and len(need):
-        idx, found = lex3_join_np(
-            winners[0], winners[1], winners[2],
-            np.asarray(cat["bc_idx"])[need],
-            np.asarray(cat["gene_lib"])[need], corr_umi[need])
-        rows[need[found]] = idx[found]
-    return rows
+def _cut_parts(cnt: np.ndarray, budget: int) -> np.ndarray:
+    """The part of each distinct sort key (cnt: records a key, in key
+    order): runs of keys of at most `budget` records, a part starting
+    where the running count crosses a multiple of budget // 2; a key of
+    more than budget // 2 records is a part alone."""
+    half = max(1, budget // 2)
+    run = (np.cumsum(cnt) - cnt) // half
+    big = cnt > half
+    new = np.ones(len(cnt), bool)
+    new[1:] = (run[1:] != run[:-1]) | big[1:] | big[:-1]
+    return np.cumsum(new) - 1
+
+
+def _pieces(chunks, budget: int):
+    """Lists of chunks of at most `budget` records, in order, a chunk cut
+    where a piece fills."""
+    held, n = [], 0
+    for c in chunks:
+        m, at = len(c["rid"]), 0
+        while at < m:
+            k = min(m - at, budget - n)
+            held.append(c if k == m else take_rows(c, np.arange(at, at + k)))
+            n += k
+            at += k
+            if n == budget:
+                yield held
+                held, n = [], 0
+    if held:
+        yield held
+
+
+class _ViewIndex:
+    """`lex3_join_np` against the whole raw-triple views as one sort of
+    the views and a binary search a query, the same (idx, found) for the
+    views in any order: the join takes, for a query, the view row of
+    largest index among those at or below its triple in (barcode, gene,
+    UMI) order (its running maximum), found when that row is the
+    query's triple.  The views come in dedup-partition order, not
+    sorted, so a part of a band joined to a subset of them would not
+    find what the whole join finds."""
+
+    def __init__(self, views: tuple):
+        self.views = views
+        rb, rg, ru = views[:3]
+        k1 = (rb.astype(np.uint64) << np.uint64(32)) | rg.astype(np.uint64)
+        order = np.lexsort((ru, k1))
+        k1 = k1[order]
+        self.pairs = np.unique(k1)
+        rank = np.searchsorted(self.pairs, k1).astype(np.int64)
+        del k1
+        self.keys = (rank << 32) | ru[order].astype(np.int64)
+        self.last = np.maximum.accumulate(order)
+
+    def lookup(self, qb, qg, qu) -> tuple:
+        """(idx into the views, found) of each query triple (uint32)."""
+        n = len(qb)
+        if not len(self.keys) or not n:
+            return np.zeros(n, np.int64), np.zeros(n, bool)
+        qb, qg, qu = (np.asarray(x).astype(np.uint32) for x in (qb, qg, qu))
+        k1 = (qb.astype(np.uint64) << np.uint64(32)) | qg.astype(np.uint64)
+        r = sorted_search(self.pairs, k1)
+        hit = self.pairs[np.minimum(r, len(self.pairs) - 1)] == k1
+        r = r << 32
+        j = sorted_search(self.keys, np.where(hit, r | qu, r - 1),
+                          "right") - 1
+        cand = np.where(j >= 0, self.last[np.maximum(j, 0)], -1)
+        cc = np.maximum(cand, 0)
+        rb, rg, ru = self.views[:3]
+        found = ((cand >= 0) & (rb[cc] == qb) & (rg[cc] == qg)
+                 & (ru[cc] == qu))
+        return cc, found
+
+    def join(self, cat: dict) -> tuple:
+        """Each record's corrected UMI and low-support flag as
+        `_load_band` gives them, where the record is conf-mapped (the
+        encoder reads them nowhere else); its own UMI and False
+        elsewhere."""
+        umi = np.asarray(cat["umi_packed"]).astype(np.uint32)
+        corr = umi.copy()
+        low = np.zeros(len(umi), bool)
+        conf = np.flatnonzero(np.asarray(cat["conf_ok"]).astype(bool))
+        jidx, jfound = self.lookup(np.asarray(cat["bc_idx"])[conf],
+                                   np.asarray(cat["gene_lib"])[conf],
+                                   umi[conf])
+        corr[conf] = np.where(jfound, self.views[3][jidx], umi[conf])
+        low[conf] = jfound & self.views[4][jidx]
+        return corr, low
+
+
+def _winner_flags(cat: dict, vindex: _ViewIndex) -> np.ndarray:
+    """The sidecar rows (one molecule partition, `cat`) whose record gets
+    UMI_COUNT: not low-support, and (raw UMI, not_txomic, qname) equal to
+    its molecule's winner's, the min of that key among the molecule's
+    valid-UMI rows (the plain version's rep[key] == hash(...), exactly).
+    One lexsort by (molecule, invalid, raw UMI, not_txomic, qname) puts
+    each molecule's winner first, where it has a valid row."""
+    jidx, jfound = vindex.lookup(cat["bc"], cat["gl"], cat["umi"])
+    keep = np.flatnonzero(~(jfound & vindex.views[4][jidx]))
+    out = np.zeros(len(jidx), bool)
+    if not len(keep):
+        return out
+    u64 = lambda a: np.asarray(a)[keep].astype(np.uint64)  # noqa: E731
+    um = u64(cat["umi"])
+    cu = np.where(jfound[keep], vindex.views[3][jidx[keep]].astype(np.uint64),
+                  um)
+    ntxo = u64(~np.asarray(cat["txo"]).astype(bool))
+    mol = (u64(cat["bc"]) << np.uint64(32)) | u64(cat["gl"])
+    sub = (cu << np.uint64(1)) | u64(~np.asarray(cat["valid"]).astype(bool))
+    tie = (um << np.uint64(1)) | ntxo
+    words = cat["names"].take(keep).words()
+    order = np.lexsort([words[:, j] for j in reversed(range(words.shape[1]))]
+                       + [tie, sub, mol])
+    m, c_ = mol[order], cu[order]
+    start = np.ones(len(order), bool)
+    start[1:] = (m[1:] != m[:-1]) | (c_[1:] != c_[:-1])
+    first = order[np.maximum.accumulate(
+        np.where(start, np.arange(len(order)), 0))]
+    won = (((sub[first] & np.uint64(1)) == 0) & (tie[order] == tie[first])
+           & (words[order] == words[first]).all(1))
+    out[keep[order[won]]] = True
+    return out
+
+
+def _band_winners(cat: dict, wins: np.ndarray) -> tuple:
+    """The encoder's UMI_COUNT inputs for a part of a band: each record's
+    row (-1: none) among the part's winners, and those winners' (raw UMI,
+    not_txomic, qname) — the flagged records' own (`wins`: the band's
+    flagged ids, sorted)."""
+    rid = cat["rid"]
+    at = np.minimum(np.searchsorted(wins, rid), max(len(wins) - 1, 0))
+    hit = np.flatnonzero(wins[at] == rid) if len(wins) else \
+        np.zeros(0, np.int64)
+    win_idx = np.full(len(rid), -1, np.int64)
+    win_idx[hit] = np.arange(len(hit))
+    return win_idx, (np.asarray(cat["umi_packed"])[hit].astype(np.int64),
+                     (np.asarray(cat["region"])[hit] != 0).astype(np.int64),
+                     Strings.of(cat["names"]).take(hit))

@@ -1009,7 +1009,7 @@ def run_count(cfg: CountConfig, out_dir: str,
                 # the band spool becomes the journal: seal it and persist
                 # the raw-triple views so a killed BAM run resumes
                 # straight to band merge
-                bam_collector.spool.seal()
+                bam_collector.seal()
                 for k_, v_ in (raw_views or {}).items():
                     save[f"rv_{k_}"] = v_
                 meta.update(bam_spool_sealed=True,
@@ -1093,11 +1093,18 @@ def _count_pass(cfg, chem, whitelist, libraries, gi, didx, ann_idx,
 
     # ---- pass 1: host barcode histogram (the correction prior) ----
     wl_counts = np.zeros(whitelist.size, np.int64)
+    pass1_reads = 0
     for _li, batch in my_batches(barcode_only=True):
         idx = whitelist.index_of(batch.bc_packed[:batch.n_reads])
         np.add.at(wl_counts, idx[idx >= 0], 1)
+        pass1_reads += batch.n_reads
     # every host needs the global prior for pass 2
     wl_counts = dist.allsum_array(wl_counts)
+    if bam_collector is not None:
+        # the BAM spool's bands, the same on every host: from the run's
+        # reads (two records a read pair)
+        total = int(dist.allsum_array(np.array([pass1_reads], np.int64))[0])
+        bam_collector.plan(total * (2 if chem.rna2 is not None else 1))
     perf.lap("pass1_extract_whitelist")
 
     def resolve_bc(batch):
@@ -1462,7 +1469,7 @@ def _hand_off(hosts: Hosts, metrics: CountMetrics, sj_counts: dict, probe,
             json.dump(partial, f)
         os.replace(pj + ".tmp", pj)
     if bam_collector is not None:
-        bam_collector.spool.seal()
+        bam_collector.seal()
     dist.barrier("count-spill")
     if os.environ.get("CRTPU_TEST_DIE_AFTER_PASS2"):
         # test hook: a whole-job crash at the point where every host's

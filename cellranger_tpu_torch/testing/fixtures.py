@@ -2628,7 +2628,11 @@ def _unpack_barcodes(packed: np.ndarray, length: int = 16) -> np.ndarray:
 
 
 def _listed(wl: np.ndarray, packed: np.ndarray) -> np.ndarray:
-    i = np.minimum(np.searchsorted(wl, packed), len(wl) - 1)
+    from ..ops.encode import sorted_search
+
+    packed = np.asarray(packed)
+    i = np.minimum(sorted_search(wl, packed.ravel()).reshape(packed.shape),
+                   len(wl) - 1)
     return wl[i] == packed
 
 
@@ -3844,3 +3848,248 @@ def build_perturb_run(tmp: str, n_cells: int = 10_000,
         guide_read_kind=kind[order], guide_read_guide=g_of[read_mol][order],
         guide_read_offset=off[order] + len(PERTURB_PREFIX),
         guide_read_sub_pos=sub_pos[order], timing=timing)
+
+
+# ---------------------------------------------------------------------------
+# A 3' well at a real depth: 10,000 cells at 10x's 20,000 reads a cell
+# ---------------------------------------------------------------------------
+
+DEPTH_READS = 200_000_000
+DEPTH_CELLS = 10_000
+DEPTH_SEED = 43
+DEPTH_EXTRA_READS = 1.5     # a molecule's reads: 1 + Poisson(1.5)
+DEPTH_HOT_GENE = 246        # a '+' gene with DEPTH_HOT_SHARE of the molecules,
+DEPTH_HOT_SHARE = 0.08      # its reads in exon 1's 592 bases (as chrM's)
+DEPTH_AMBIENT_PER_CELL = 10  # ambient barcodes a cell, 1-5 molecules each
+DEPTH_AMBIENT_MOLECULES = 5  # from the soup: gene of rank k at 1 / k
+DEPTH_LOW_SHARE = 0.2       # cells at DEPTH_LOW_WEIGHT of the others' depth:
+DEPTH_LOW_WEIGHT = 0.07     # under ordmag's cutoff, called by EmptyDrops
+DEPTH_ERROR_SHARE = 0.02    # of the reads; those of cells keep theirs
+DEPTH_LANES = 4
+DEPTH_WRITE_BLOCK = 1 << 20  # reads a worker makes and compresses at once
+DEPTH_UMI_BLOCK = 1 << 20   # molecules of whole barcodes a _coded_umis call
+DEPTH_ERROR_BLOCK = 1 << 19  # barcode errors drawn at once
+DEPTH_NAME = 11             # read names D<10 digits>: the read's number
+
+
+def build_depth_run(tmp: str, n_reads: int = DEPTH_READS,
+                    n_cells: int = DEPTH_CELLS, n_wl: int = HUMAN_WL,
+                    seed: int = DEPTH_SEED, block: int = DEPTH_WRITE_BLOCK,
+                    workers: int | None = None, ref: dict | None = None,
+                    n_ambient: int | None = None,
+                    low_share: float = DEPTH_LOW_SHARE) -> dict:
+    """An SC3Pv3 well whose counts hold by construction, at any depth:
+    n_cells cells drawn from an n_wl-barcode whitelist (`_human_whitelist`;
+    10x's 3M-february-2018 list has 6,794,880), reads from '+'-strand
+    exon 1 of the e2e reference's genes (`_e2e_reference`: 8 Mb, one
+    chromosome, 800 genes; `ref`: an e2e fixture's dict, whose files are
+    reused), 91-base R2, R1 = barcode + 12-base UMI.
+
+    Molecules get 1 + Poisson(1.5) reads, drawn until the reads number
+    exactly n_reads; n_ambient ambient barcodes (DEPTH_AMBIENT_PER_CELL
+    a cell by default) hold 1-5 molecules each from a soup whose genes
+    fall off as 1 / rank (Simple Good-Turing, which estimates
+    EmptyDrops' background, needs such a tail); the cells hold the rest,
+    at one depth but for a low_share of them at DEPTH_LOW_WEIGHT of it;
+    one gene (DEPTH_HOT_GENE) carries DEPTH_HOT_SHARE of the cells'
+    molecules.  So cell calling finds the planted cells exactly where
+    the deep cells hold ten times EmptyDrops' 500 UMIs: ordmag's
+    bootstrap count of the barcodes above its cutoff varies by about
+    sqrt(barcodes) / 10 around the deep cells and the low ones it takes,
+    and EmptyDrops (which needs 90,000 barcodes with a molecule for its
+    background) calls the cells it leaves, whose genes are not the
+    soup's.  Without EmptyDrops (fewer barcodes) only a well of cells
+    alone is called exactly (n_ambient=0, low_share=0).  UMIs come from
+    `_coded_umis` a block of whole barcodes at a time, so no two
+    molecules of a barcode merge; DEPTH_ERROR_SHARE of the reads are
+    drawn for a barcode error, and those of cells keep one where
+    `_human_barcode_errors` leaves it correctable to its own cell (a
+    6.8M-barcode list puts a listed neighbour of a random error in reach
+    of about one read in thirteen).  The reads are shuffled and written
+    as gzipped FASTQs in DEPTH_LANES lanes (<tmp>/fastq/depth_S1_L00k_R*),
+    each a gzip member a block of `block` reads made by one of `workers`
+    spawned processes from the tables in <tmp>/_depth (memory maps), so
+    no process holds the reads; the same reads for any block and worker
+    count.
+
+    Returns the paths, the counts and the truth: `cells` (whitelist
+    indices of the planted cells, sorted) and the molecules sorted by
+    (barcode, gene, UMI) as `mol_bc` (whitelist index), `mol_gene`,
+    `mol_umi` (packed), `mol_reads`; fixture_s."""
+    import multiprocessing as mp
+
+    from ..ops.encode import pack_codes_np
+
+    t0 = time.time()
+    gen = os.path.join(tmp, "_depth")
+    fq_dir = os.path.join(tmp, "fastq")
+    os.makedirs(gen, exist_ok=True)
+    os.makedirs(fq_dir, exist_ok=True)
+    garr, spacing, _, ref_dir, _ = _e2e_reference(
+        tmp, np.random.default_rng(11), E2E_GENOME_LEN, E2E_GENES, None, ref)
+    rng = np.random.default_rng(seed)
+    wl = _human_whitelist(rng, n_wl)
+    wl_path = os.path.join(tmp, "wl.txt")
+    _write_whitelist(wl_path, wl)
+    n_amb = DEPTH_AMBIENT_PER_CELL * n_cells if n_ambient is None \
+        else n_ambient
+    slot_wl = rng.choice(n_wl, n_cells + n_amb, replace=False)
+
+    # molecules: reads each, barcode slot (cells, then ambient), UMI
+    draw = int(n_reads / (1 + DEPTH_EXTRA_READS) * 1.05) + 64
+    counts = (1 + rng.poisson(DEPTH_EXTRA_READS, draw)).astype(np.int32)
+    cs = np.cumsum(counts, dtype=np.int64)
+    n_mol = int(np.searchsorted(cs, n_reads)) + 1
+    if n_mol > draw:
+        raise AssertionError("the draw of molecules fell short of n_reads")
+    counts = counts[:n_mol]
+    counts[-1] -= np.int32(cs[n_mol - 1] - n_reads)
+    del cs
+    amb = rng.integers(1, DEPTH_AMBIENT_MOLECULES + 1, n_amb)
+    if amb.sum() >= n_mol:
+        raise AssertionError("ambient molecules past the reads")
+    weight = np.where(np.arange(n_cells) < n_cells - round(
+        low_share * n_cells), 1.0, DEPTH_LOW_WEIGHT)
+    per_cell = rng.multinomial(n_mol - int(amb.sum()),
+                               weight / weight.sum())
+    slot = np.concatenate([np.repeat(np.arange(n_cells), per_cell),
+                           n_cells + np.repeat(np.arange(n_amb), amb)]
+                          ).astype(np.int32)
+    umi = np.empty(n_mol, np.uint32)
+    a = 0
+    while a < n_mol:
+        b = int(np.searchsorted(slot, slot[min(a + DEPTH_UMI_BLOCK,
+                                               n_mol - 1)], "right"))
+        b = n_mol if a + DEPTH_UMI_BLOCK >= n_mol else b
+        umi[a:b] = pack_codes_np(_coded_umis(slot[a:b] - slot[a], 12, rng),
+                                 12)
+        a = b
+    plus = np.arange(0, E2E_GENES, 2)
+    plus = plus[plus != DEPTH_HOT_GENE]
+    gene = np.where(rng.random(n_mol) < DEPTH_HOT_SHARE, DEPTH_HOT_GENE,
+                    rng.choice(plus, n_mol)).astype(np.int32)
+    soup = slot >= n_cells
+    zipf = 1.0 / np.arange(1, len(plus) + 1)
+    gene[soup] = rng.choice(rng.permutation(plus), int(soup.sum()),
+                            p=zipf / zipf.sum())
+    pos = (gene * spacing + 1000
+           + rng.integers(0, 600 - READ_LEN - 8, n_mol)).astype(np.int32)
+
+    # reads: each molecule's, shuffled; barcode errors on the cells' reads
+    mol_of_read = np.repeat(np.arange(n_mol, dtype=np.int32), counts)
+    rng.shuffle(mol_of_read)
+    slot_bc = wl[slot_wl]
+    rows = np.sort(rng.choice(n_reads, int(n_reads * DEPTH_ERROR_SHARE),
+                              replace=False))
+    rows = rows[slot[mol_of_read[rows]] < n_cells]
+    err_bc = slot_bc[slot[mol_of_read[rows]]]
+    kept = []
+    for e in range(0, len(rows), DEPTH_ERROR_BLOCK):
+        part = err_bc[e:e + DEPTH_ERROR_BLOCK]
+        kept.append(e + _human_barcode_errors(
+            part, np.arange(len(part)), wl, rng))
+    kept = np.concatenate(kept + [np.zeros(0, np.int64)])
+    for name, arr in (("mol_of_read", mol_of_read), ("slot", slot),
+                      ("slot_bc", slot_bc), ("umi", umi), ("pos", pos),
+                      ("gene", gene),
+                      ("err_rows", rows[kept]), ("err_bc", err_bc[kept]),
+                      ("genome", garr)):
+        np.save(os.path.join(gen, name + ".npy"), arr)
+    del mol_of_read
+
+    # the truth: molecules by (whitelist barcode, gene, UMI)
+    counts_cells = int(counts[~soup].sum())
+    mol_bc = slot_wl[slot].astype(np.uint32)
+    order = np.lexsort((umi, gene, mol_bc))
+    truth = dict(mol_bc=mol_bc[order], mol_gene=gene[order].astype(np.uint32),
+                 mol_umi=umi[order], mol_reads=counts[order])
+    del order, mol_bc, gene, pos, umi, slot, counts
+
+    # FASTQs: lanes of blocks, made in spawned workers, written in order
+    lanes = [(k * n_reads // DEPTH_LANES, (k + 1) * n_reads // DEPTH_LANES)
+             for k in range(DEPTH_LANES)]
+    pairs = [tuple(os.path.join(fq_dir, f"depth_S1_L{k + 1:03d}_{r}_001"
+                                ".fastq.gz") for r in ("R1", "R2"))
+             for k in range(DEPTH_LANES)]
+    tasks = [(gen, k, a_, min(a_ + block, hi))
+             for k, (lo, hi) in enumerate(lanes)
+             for a_ in range(lo, hi, block)]
+    workers = min(workers or min(8, os.cpu_count() or 1), len(tasks))
+    files = [(open(p1, "wb"), open(p2, "wb")) for p1, p2 in pairs]
+    try:
+        with mp.get_context("spawn").Pool(workers) as pool:
+            for (_, k, _, _), (z1, z2) in zip(
+                    tasks, pool.imap(_depth_block, tasks)):
+                files[k][0].write(z1)
+                files[k][1].write(z2)
+    finally:
+        for f1, f2 in files:
+            f1.close()
+            f2.close()
+    return dict(
+        ref=ref_dir, wl=wl_path, fastq_dir=fq_dir, pairs=pairs, gen_dir=gen,
+        n_reads=n_reads, n_molecules=n_mol, n_cells=n_cells,
+        n_ambient=n_amb, n_wl=n_wl, hot_gene=DEPTH_HOT_GENE,
+        ambient_reads=int(n_reads - counts_cells),
+        cells=np.sort(slot_wl[:n_cells]).astype(np.int64),
+        n_errors=int(len(kept)), fixture_s=time.time() - t0, **truth)
+
+
+_DEPTH_TABLES: dict = {}
+
+
+def _depth_tables(gen: str) -> dict:
+    """The generator's tables, mapped once a worker process."""
+    if gen not in _DEPTH_TABLES:
+        _DEPTH_TABLES[gen] = {
+            k: np.load(os.path.join(gen, k + ".npy"), mmap_mode="r")
+            for k in ("mol_of_read", "slot", "slot_bc", "umi", "pos",
+                      "err_rows", "err_bc", "genome")}
+    return _DEPTH_TABLES[gen]
+
+
+def depth_reads(gen: str, a: int, b: int) -> dict:
+    """Reads a..b of a `build_depth_run` well as written: molecule, R1's
+    packed barcode (its error in), names, R1 and R2 bases."""
+    t = _depth_tables(gen)
+    mol = np.asarray(t["mol_of_read"][a:b])
+    bc = np.asarray(t["slot_bc"])[np.asarray(t["slot"])[mol]]
+    er = np.asarray(t["err_rows"])
+    lo, hi = np.searchsorted(er, [a, b])
+    bc[er[lo:hi] - a] = np.asarray(t["err_bc"])[lo:hi]
+    umi = np.asarray(t["umi"])[mol]
+    r1 = np.concatenate([_unpack_barcodes(bc), _unpack_barcodes(umi, 12)], 1)
+    r2 = np.asarray(t["genome"])[np.asarray(t["pos"])[mol][:, None]
+                                 + np.arange(READ_LEN)[None, :]]
+    idx = np.arange(a, b, dtype=np.int64)
+    digits = (idx[:, None] // 10 ** np.arange(DEPTH_NAME - 2, -1, -1)) % 10
+    names = np.concatenate([np.full((b - a, 1), ord("D"), np.uint8),
+                            (digits + ord("0")).astype(np.uint8)], 1)
+    return dict(mol=mol, bc=bc, umi=umi, names=names, r1=r1, r2=r2)
+
+
+def _named_fastq(names: np.ndarray, seqmat: np.ndarray) -> bytes:
+    """FASTQ text of [n, w] base bytes with the [n, k] name bytes, 'F'
+    qualities."""
+    n_, w_ = seqmat.shape
+    k = names.shape[1]
+    rows = np.empty((n_, k + 2 * w_ + 6), np.uint8)
+    rows[:, 0] = ord("@")
+    rows[:, 1:k + 1] = names
+    rows[:, k + 1] = ord("\n")
+    rows[:, k + 2:k + 2 + w_] = seqmat
+    o = k + 2 + w_
+    rows[:, o] = ord("\n")
+    rows[:, o + 1] = ord("+")
+    rows[:, o + 2] = ord("\n")
+    rows[:, o + 3:o + 3 + w_] = ord("F")
+    rows[:, -1] = ord("\n")
+    return rows.tobytes()
+
+
+def _depth_block(task) -> tuple[bytes, bytes]:
+    """One block of a lane: (R1, R2) as gzip members (level 1)."""
+    gen, _lane, a, b = task
+    r = depth_reads(gen, a, b)
+    return (gzip.compress(_named_fastq(r["names"], r["r1"]), 1, mtime=0),
+            gzip.compress(_named_fastq(r["names"], r["r2"]), 1, mtime=0))

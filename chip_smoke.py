@@ -402,6 +402,25 @@ DEEP_EXPECTED = dict(
 # (count.DEDUP_BUDGET_BYTES) plus ~1.2 GB of molecule state and merge and
 # ~1.8 GB of e2e's tables and step buffers, with room
 DEEP_PEAK_BYTES = 24e9
+# depth: testing/fixtures.py build_depth_run, a 3' well of 10,000 cells
+# at 10x's 20,000 reads a cell (200M reads), the 3M-february-2018
+# whitelist's 6,794,880 barcodes; alone through `depth_run`
+DEPTH_READS = 200_000_000
+DEPTH_SAMPLE_READS = 100_000      # reads whose CB, UB, GN are held
+DEPTH_SEED_SAMPLE = 47
+DEPTH_PLAIN_INDEX = 1_000_000     # records the plain .bai rebuild takes
+# depth_small in main: the fixture at 2M reads, 50 cells among 100,000
+# ambient barcodes (EmptyDrops needs 90,000 barcodes with a molecule),
+# count-only with the state flushing and with BAM at a band budget the
+# hot gene's band passes; its reads written by 3 workers, as it runs
+# beside other phases
+DEPTH_SMALL = dict(n_reads=2_000_000, n_cells=50, n_ambient=100_000,
+                   n_wl=200_000, workers=3)
+DEPTH_SMALL_BAND_RECORDS = 1 << 16
+DEPTH_SMALL_STATE_CAP = 1 << 18
+DEPTH_SMALL_BUFFER_ROWS = 1 << 17
+# it runs in a child process beside h5_pipelines..analysis_parity
+DEPTH_SMALL_TIMEOUT_S = 600
 # padded rows of the dedup_memory phase, besides the port's limit
 DEDUP_MEMORY_ROWS = (1 << 20, 1 << 22)
 DEDUP_MEMORY_SEED = 5
@@ -994,8 +1013,8 @@ def _count_cfg(fx: dict, batch_size: int, **kw):
                    chemistry="SC3Pv3", read_len=91,
                    reference_path=fx.get("ref")), **kw)
     return CountConfig(
-        fastq_pairs=[(fx["fq1"], fx["fq2"])], whitelist_path=fx["wl"],
-        batch_size=batch_size, **kw)
+        fastq_pairs=fx.get("pairs") or [(fx["fq1"], fx["fq2"])],
+        whitelist_path=fx["wl"], batch_size=batch_size, **kw)
 
 
 def _rtl_kw(fx: dict) -> dict:
@@ -1750,6 +1769,358 @@ def deep(tmp: str, n_reads: int = DEEP_READS,
     if diffs:
         raise AssertionError(f"deep: {diffs}: " + json.dumps(r))
     return r
+
+
+def mem_total() -> int:
+    """MemTotal of this machine, bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemTotal:"):
+                return int(line.split()[1]) * 1024
+    raise AssertionError("no MemTotal in /proc/meminfo")
+
+
+@contextlib.contextmanager
+def disk_peak(path: str):
+    """The most bytes used on path's filesystem inside the block, less
+    those used when it began, read every second by a thread: yields a
+    dict whose "bytes" holds it when the block ends."""
+    import threading
+
+    first = shutil.disk_usage(path).used
+    out, stop = {"bytes": 0}, threading.Event()
+
+    def sample():
+        while True:
+            out["bytes"] = max(out["bytes"],
+                               shutil.disk_usage(path).used - first)
+            if stop.wait(1.0):
+                return
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        th.join()
+
+
+def mex_entries(out: str, sub: str = "raw_feature_bc_matrix"):
+    """(feature, barcode, count) of a MEX matrix, 0-based, as read."""
+    import numpy as np
+
+    with gzip.open(os.path.join(out, sub, "matrix.mtx.gz"), "rb") as f:
+        data = f.read()
+    at = 0
+    while data.startswith(b"%", at):
+        at = data.index(b"\n", at) + 1
+    at = data.index(b"\n", at) + 1          # rows cols entries
+    m = np.array(data[at:].split(), np.int64).reshape(-1, 3)
+    return m[:, 0] - 1, m[:, 1] - 1, m[:, 2]
+
+
+def depth_truth_diffs(fx: dict, out: str, summary: dict) -> list[str]:
+    """What a run of a `build_depth_run` well wrote, against what the
+    fixture built: reads, molecules, conf_mapped_frac 1.0, the raw matrix
+    (read back from the MEX), the filtered barcodes (the planted cells)
+    and each molecule's reads in molecule_info.h5."""
+    import numpy as np
+
+    from cellranger_tpu_torch.io import hdf5
+
+    diffs = []
+    for k, want in (("total_reads", fx["n_reads"]),
+                    ("total_molecules", fx["n_molecules"]),
+                    ("conf_mapped_frac", 1.0)):
+        if summary[k] != want:
+            diffs.append(f"{k} {summary[k]} != {want}")
+    bc, gene = fx["mol_bc"].astype(np.int64), fx["mol_gene"].astype(np.int64)
+    new = np.r_[True, (bc[1:] != bc[:-1]) | (gene[1:] != gene[:-1])]
+    first = np.flatnonzero(new)
+    want = (gene[first], bc[first], np.diff(np.r_[first, len(bc)]))
+    feat, col, cnt = mex_entries(out)
+    o = np.lexsort((feat, col))
+    if not (len(o) == len(first) and all(
+            np.array_equal(a[o], b) for a, b in zip((feat, col, cnt), want))):
+        diffs.append(f"raw matrix: {len(o)} entries, {len(first)} planted, "
+                     "not the fixture's counts")
+    with open(fx["wl"], "rb") as f:
+        wl = np.frombuffer(f.read(), np.uint8).reshape(-1, 17)[:, :16]
+    planted = {wl[i].tobytes() + b"-1" for i in fx["cells"].tolist()}
+    with gzip.open(os.path.join(out, "filtered_feature_bc_matrix",
+                                "barcodes.tsv.gz"), "rb") as f:
+        called = set(f.read().split())
+    if called != planted:
+        diffs.append(f"called {len(called)} cells, planted {len(planted)}, "
+                     f"{len(called & planted)} of them called")
+    with hdf5.File(os.path.join(out, "molecule_info.h5"), "r") as f:
+        got = [f[k][:] for k in ("barcode_idx", "feature_idx", "umi",
+                                 "count")]
+    o = np.lexsort((got[2], got[1], got[0]))
+    if not (len(o) == len(bc) and all(
+            np.array_equal(g[o].astype(np.int64), w.astype(np.int64))
+            for g, w in zip(got, (fx["mol_bc"], fx["mol_gene"],
+                                  fx["mol_umi"], fx["mol_reads"])))):
+        diffs.append("molecule_info.h5: molecules or their reads differ "
+                     "from the fixture's")
+    return diffs
+
+
+def depth_bam_diffs(fx: dict, out: str, tmp: str,
+                    n_sample: int = DEPTH_SAMPLE_READS) -> tuple:
+    """The BAM of a run of a `build_depth_run` well: a primary record a
+    read, positions sorted (unmapped records last), the .bai that of the
+    records as laid out in the file (`bam_index_check`'s plain index up
+    to DEPTH_PLAIN_INDEX records, beyond that io/bam_fast.py's builder
+    from the walked records), and the CB, UB and GN of a seeded sample
+    of reads' primary records those the fixture built.  Returns (diffs,
+    report)."""
+    import numpy as np
+
+    from cellranger_tpu_torch.io import bam_fast
+    from cellranger_tpu_torch.testing.bam_walk import walk_bam
+
+    bam = os.path.join(out, "possorted_genome_bam.bam")
+    n = fx["n_reads"]
+    sample = np.sort(np.random.default_rng(DEPTH_SEED_SAMPLE).choice(
+        n, min(n_sample, n), replace=False))
+    t = time.time()
+    w = walk_bam(bam, sample)
+    rep = dict(records=len(w["ref"]), walk_s=time.time() - t,
+               blocks=w["blocks"], stream_bytes=w["stream_bytes"])
+    diffs = []
+    primary = (w["flag"] & 0x900) == 0
+    rep["primary_records"] = int(primary.sum())
+    if rep["primary_records"] != n:
+        diffs.append(f"{rep['primary_records']} primary records, {n} reads")
+    ref, pos = w["ref"].astype(np.int64), w["pos"].astype(np.int64)
+    mapped = ref >= 0
+    if mapped.any() and not mapped[:np.flatnonzero(mapped)[-1] + 1].all():
+        diffs.append("an unmapped record before a mapped one")
+    key = (ref[mapped] << 32) | pos[mapped]
+    if np.any(key[1:] < key[:-1]):
+        diffs.append("mapped records out of position order")
+    t = time.time()
+    if len(w["ref"]) <= DEPTH_PLAIN_INDEX:
+        rep["index"] = bam_index_check(bam, tmp)
+    else:
+        vs, ve, end = w["vstart"][mapped], w["vend"][mapped], \
+            w["end"][mapped].astype(np.int64)
+        chunks = bam_fast.merge_chunks(ref[mapped], bam_fast.reg2bins(
+            pos[mapped], end), vs, ve)
+        wins = bam_fast.least_per_window(*bam_fast.windows(
+            ref[mapped], pos[mapped], end, vs))
+        with open(bam + ".bai", "rb") as f:
+            if f.read() != bam_fast.bai_bytes(w["n_ref"], chunks, wins):
+                diffs.append(".bai differs from the index of its records")
+        rep["index"] = dict(indexed_records=int(mapped.sum()),
+                            bai_bytes=os.path.getsize(bam + ".bai"),
+                            check_s=time.time() - t, built_by="io/bam_fast.py")
+    del w["ref"], w["pos"], w["end"], w["vstart"], w["vend"]
+    gen = fx["gen_dir"]
+    tables = {k: np.load(os.path.join(gen, k + ".npy"), mmap_mode="r")
+              for k in ("mol_of_read", "slot", "slot_bc", "umi", "gene")}
+    mol = np.asarray(tables["mol_of_read"][sample])
+    slot = np.asarray(tables["slot"])[mol]
+    bc = np.frombuffer(b"ACGT", np.uint8)[unpack_codes(
+        np.asarray(tables["slot_bc"])[slot], 16)]
+    umi = np.frombuffer(b"ACGT", np.uint8)[unpack_codes(
+        np.asarray(tables["umi"])[mol], 12)]
+    gene = np.asarray(tables["gene"])[mol]
+    bad = 0
+    for i, r in enumerate(sample.tolist()):
+        recs = [tg for tg in w["tags"].get(r, []) if not tg["flag"] & 0x900]
+        want = dict(CB=bc[i].tobytes().decode() + "-1",
+                    UB=umi[i].tobytes().decode(), GN=f"G{gene[i]}")
+        got = [{k: tg.get(k) for k in want} for tg in recs]
+        if got != [want]:
+            bad += 1
+            if bad <= 3:
+                diffs.append(f"read {r}: {got} != {want}")
+    rep["sampled_reads"] = len(sample)
+    rep["sample_mismatches"] = bad
+    return diffs, rep
+
+
+def unpack_codes(packed, length: int):
+    """Packed 2-bit bases -> [n, length] codes, first base highest."""
+    from cellranger_tpu_torch.ops.encode import unpack_np
+    return unpack_np(packed, length)
+
+
+def depth_count(fx: dict, out: str, write_bam: bool, tmp: str,
+                device: str = "cuda", analysis: bool = True,
+                band_records: int | None = None,
+                state_cap: int | None = None,
+                buffer_rows: int | None = None,
+                peak_limit: float = DEEP_PEAK_BYTES) -> dict:
+    """run_count of a `build_depth_run` well (its FASTQ lanes as
+    find_fastqs finds them), count-only or with BAM, on `device`, with
+    the BAM writer's band budget, the molecule state's cap and the step's
+    molecule buffer at their real values or those given; held to the
+    fixture by `depth_truth_diffs` and, with BAM, `depth_bam_diffs`; one
+    K1 launch a step on cuda; every dedup_molecules call within
+    _pow2(DEDUP_CHUNK_LIMIT) rows; peak device memory under peak_limit.
+    Reports wall, the phase split, bam_write's split, records a second,
+    peak RSS against MemTotal, peak device memory, flushes, dedup calls,
+    K1 launches, spool and FASTQ bytes, the disk used at its peak, and
+    the MEX digests."""
+    from cellranger_tpu_torch.io.fastq import find_fastqs
+    from cellranger_tpu_torch.parallel import molecule_state
+    from cellranger_tpu_torch.pipeline import bam_out, count
+
+    flushes, dedup_calls = [], []
+    MS = molecule_state.MoleculeState
+    real = (MS.flush_to_host, molecule_state.dedup_molecules,
+            count.MOLECULE_STATE_CAP, count.MOLECULE_BUFFER_ROWS,
+            bam_out.BAND_RECORDS)
+
+    def flush(self):
+        real[0](self)
+        flushes.append(len(self.flushed[-1]))
+
+    def dedup_molecules(bc, *a, **kw):
+        dedup_calls.append(int(bc.shape[0]))
+        return real[1](bc, *a, **kw)
+
+    MS.flush_to_host = flush
+    molecule_state.dedup_molecules = dedup_molecules
+    count.MOLECULE_STATE_CAP = state_cap or real[2]
+    count.MOLECULE_BUFFER_ROWS = buffer_rows or real[3]
+    bam_out.BAND_RECORDS = band_records or real[4]
+    run_fx = dict(fx, pairs=find_fastqs(fx["fastq_dir"]))
+    try:
+        with rss_peak() as rss, disk_peak(tmp) as disk:
+            r = count_run(run_fx, out, device, write_bam=write_bam,
+                          secondary_analysis=analysis)
+    finally:
+        (MS.flush_to_host, molecule_state.dedup_molecules,
+         count.MOLECULE_STATE_CAP, count.MOLECULE_BUFFER_ROWS,
+         bam_out.BAND_RECORDS) = real
+    summary = r.pop("summary")
+    limit_rows = molecule_state._pow2(count.DEDUP_CHUNK_LIMIT)
+    # a batch never spans two lanes: each lane's reads step on their own
+    lanes = len(run_fx["pairs"])
+    r["n_steps"] = sum(-(-((k + 1) * fx["n_reads"] // lanes
+                          - k * fx["n_reads"] // lanes) // E2E_BATCH)
+                       for k in range(lanes))
+    r.update(write_bam=write_bam, lanes=lanes,
+             flushes=flushes, dedup_calls=len(dedup_calls),
+             dedup_rows_max=max(dedup_calls, default=0),
+             dedup_limit_rows=limit_rows,
+             state_cap=count.MOLECULE_STATE_CAP if state_cap is None
+             else state_cap, peak_host_rss_bytes=rss["bytes"],
+             mem_total_bytes=mem_total(), disk_peak_bytes=disk["bytes"],
+             fastq_bytes=sum(os.path.getsize(p) for pr in run_fx["pairs"]
+                             for p in pr),
+             estimated_cells=summary["estimated_cells"],
+             mex_sha256=mex_sha256(out))
+    r["rss_share"] = r["peak_host_rss_bytes"] / r["mem_total_bytes"]
+    diffs = depth_truth_diffs(fx, out, summary)
+    if r["sw_launches"] != (r["n_steps"] if device == "cuda" else 0):
+        diffs.append(f"{r['sw_launches']} K1 launches in {r['n_steps']} "
+                     f"steps on {device}")
+    if not dedup_calls or max(dedup_calls) > limit_rows:
+        diffs.append(f"dedup calls of up to {r['dedup_rows_max']} rows, "
+                     f"the limit {limit_rows}")
+    if r["peak_mem_bytes"] is not None and r["peak_mem_bytes"] > peak_limit:
+        diffs.append(f"peak device memory {r['peak_mem_bytes']}")
+    if write_bam:
+        split = dict(bam_out.LAST_SPLIT)
+        r.update(bam_write_s=r["phase_s"]["bam_write"], bam_split=split,
+                 bam_bytes=os.path.getsize(os.path.join(
+                     out, "possorted_genome_bam.bam")))
+        r["records_per_s"] = split["records"] / r["bam_write_s"]
+        r["spool_bytes_per_record"] = split["spool_bytes"] / split["records"]
+        if split["band_rows_max"] > split["band_records"]:
+            diffs.append(f"a BAM part of {split['band_rows_max']} records, "
+                         f"the budget {split['band_records']}")
+        bam_diffs, r["bam_check"] = depth_bam_diffs(fx, out, tmp)
+        diffs += bam_diffs
+    elif not any(flushes):
+        diffs.append(f"the molecule state never flushed at its cap "
+                     f"{r['state_cap']}")
+    if diffs:
+        raise AssertionError(f"depth ({'BAM' if write_bam else 'count-only'}"
+                             f", {fx['n_reads']} reads): {diffs}: "
+                             + json.dumps(r))
+    return r
+
+
+def depth_run(tmp: str, n_reads: int = DEPTH_READS, write_bam: bool = False,
+              expected_mex: dict | None = None, device: str = "cuda",
+              **kw) -> dict:
+    """`build_depth_run` at n_reads (a 10,000-cell 3' well at 10x's
+    20,000 reads a cell by default) through the port's run_count,
+    count-only or with BAM (`depth_count`), the MEX digests equal to
+    `expected_mex` where given (the other mode's run).  The fixture and
+    the outputs are deleted at the end.  Not a phase of main: at 200M
+    reads count-only took about half an hour on one H100's machine with
+    its fixture (10.5 GB of FASTQ); with BAM it takes longer (PERF.md
+    §6).  Alone, a mode a call:
+
+        python3 -c "import chip_smoke as c, json, tempfile;
+        from cellranger_tpu_torch import kernels; kernels.build();
+        print(json.dumps(c.depth_run(tempfile.mkdtemp(), write_bam=False)))"
+    """
+    from cellranger_tpu_torch.testing.fixtures import build_depth_run
+
+    kw_fx = {k: kw.pop(k) for k in ("n_cells", "n_wl", "ref", "workers",
+                                    "n_ambient") if k in kw}
+    with rss_peak() as rss:
+        fx = build_depth_run(os.path.join(tmp, "depth"), n_reads, **kw_fx)
+    try:
+        r = depth_count(fx, os.path.join(tmp, "depth_out"), write_bam, tmp,
+                        device, **kw)
+    finally:
+        shutil.rmtree(os.path.join(tmp, "depth"), ignore_errors=True)
+        shutil.rmtree(os.path.join(tmp, "depth_out"), ignore_errors=True)
+    r.update(fixture_s=fx["fixture_s"], fixture_rss_bytes=rss["bytes"],
+             ambient_reads=fx["ambient_reads"],
+             molecules=fx["n_molecules"], cells=fx["n_cells"],
+             ambient_barcodes=fx["n_ambient"], whitelist=fx["n_wl"],
+             barcode_errors=fx["n_errors"])
+    if expected_mex is not None and r["mex_sha256"] != expected_mex:
+        raise AssertionError(f"depth MEX {r['mex_sha256']} differs from "
+                             f"the other run's {expected_mex}")
+    return r
+
+
+def depth_small(tmp: str, ref: dict | None = None, device: str = "cuda",
+                **kw) -> dict:
+    """The depth fixture at DEPTH_SMALL's size, built once, run count-only
+    with the molecule state's cap and buffer lowered (the state flushes
+    during pass 2) and with BAM at a band budget of
+    DEPTH_SMALL_BAND_RECORDS (the hot gene's band loaded in parts); both
+    held to `depth_count`'s checks, their MEX digests equal.  ref: the
+    paths "ref" and "wl" of an e2e fixture, reused.  Its files stay under
+    tmp/depth_small (the disk it reports is the filesystem's, other
+    phases' files included)."""
+    from cellranger_tpu_torch.testing.fixtures import build_depth_run
+
+    size = dict(DEPTH_SMALL, **kw)
+    n_reads = size.pop("n_reads")
+    root = os.path.join(tmp, "depth_small")
+    fx = build_depth_run(os.path.join(root, "fixture"), n_reads, ref=ref,
+                         **size)
+    try:
+        c = depth_count(fx, os.path.join(root, "count"), False, root,
+                        device, analysis=False,
+                        state_cap=DEPTH_SMALL_STATE_CAP,
+                        buffer_rows=DEPTH_SMALL_BUFFER_ROWS)
+        b = depth_count(fx, os.path.join(root, "bam"), True, root, device,
+                        analysis=False, band_records=DEPTH_SMALL_BAND_RECORDS)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if c["mex_sha256"] != b["mex_sha256"]:
+        raise AssertionError("depth_small: the BAM run's MEX differs from "
+                             "the count-only run's")
+    if b["bam_split"]["respooled_rows"] == 0:
+        raise AssertionError("depth_small: no band past the budget")
+    return dict(reads=n_reads, fixture_s=fx["fixture_s"],
+                sw_launches=c["sw_launches"] + b["sw_launches"],
+                count_only=c, bam=b)
 
 
 def mesh_devices(n: int = MESH_ENTRIES) -> list[str]:
@@ -4698,51 +5069,65 @@ def main() -> None:
             phase("deep", f"{g['reads']} reads, the JAX package's molecules "
                   "and MEX bytes, the state flushed at its cap, every dedup "
                   "call within the limit: " + json.dumps(g))
-            g = h5_pipelines(fx, tmp, e2e_out, ovf_out)
-            launches["h5_pipelines"] = g["sw_launches"]
-            phase("h5_pipelines", "aggr, GEM wells and reanalyze through "
-                  "io/hdf5.py: " + json.dumps(g))
+            with phase_beside("depth_small", tmp, DEPTH_SMALL_TIMEOUT_S, tmp,
+                              {"ref": fx["ref"], "wl": fx["wl"]}
+                              ) as depth_small_report:
+                g = h5_pipelines(fx, tmp, e2e_out, ovf_out)
+                launches["h5_pipelines"] = g["sw_launches"]
+                phase("h5_pipelines", "aggr, GEM wells and reanalyze "
+                      "through io/hdf5.py: " + json.dumps(g))
 
-            devs = mesh_devices()
-            for path, shard in (("mesh", False), ("mesh_shard_index", True)):
-                rm = mesh_run(fx, os.path.join(tmp, f"{path}_out"), e2e_out,
-                              e2e_summary, devs, shard_index=shard)
-                launches[path] = rm["sw_launches"]
-                phase(path, ("4 distinct cards" if rm["distinct_cards"] > 1
-                             else "cuda:0 four times: the code path, not a "
-                             "multi-GPU speedup") + "; same metrics and MEX "
-                      "bytes as e2e: " + json.dumps(rm))
-            rh = multihost_run(fx, tmp)
-            launches["multihost"] = rh["sw_launches"]
-            phase("multihost", "host 0 == one process on the same lanes: "
-                  + json.dumps(rh))
+                devs = mesh_devices()
+                for path, shard in (("mesh", False),
+                                    ("mesh_shard_index", True)):
+                    rm = mesh_run(fx, os.path.join(tmp, f"{path}_out"),
+                                  e2e_out, e2e_summary, devs,
+                                  shard_index=shard)
+                    launches[path] = rm["sw_launches"]
+                    phase(path, ("4 distinct cards"
+                                 if rm["distinct_cards"] > 1 else
+                                 "cuda:0 four times: the code path, not a "
+                                 "multi-GPU speedup") + "; same metrics and "
+                          "MEX bytes as e2e: " + json.dumps(rm))
+                rh = multihost_run(fx, tmp)
+                launches["multihost"] = rh["sw_launches"]
+                phase("multihost", "host 0 == one process on the same lanes: "
+                      + json.dumps(rh))
 
-            g = pe_parity(tmp, fx)
-            launches["pe_parity"] = g["sw_launches_cuda"]
-            phase("pe_parity", "cuda == cpu, metrics, MEX and BAM bytes: "
-                  + json.dumps(g))
-            rp = pe_run(tmp, fx)
-            launches["pe"] = rp["sw_launches"]
-            phase("pe", json.dumps(rp))
+                g = pe_parity(tmp, fx)
+                launches["pe_parity"] = g["sw_launches_cuda"]
+                phase("pe_parity", "cuda == cpu, metrics, MEX and BAM bytes: "
+                      + json.dumps(g))
+                rp = pe_run(tmp, fx)
+                launches["pe"] = rp["sw_launches"]
+                phase("pe", json.dumps(rp))
 
-            g = rtl_parity(tmp)
-            launches["rtl_parity"] = g["sw_launches"]
-            phase("rtl_parity", "cuda == cpu, metrics, MEX and the probe "
-                  "aligner's five outputs: " + json.dumps(g))
-            rr = rtl_run(tmp)
-            launches["rtl"] = rr["sw_launches"]
-            phase("rtl", json.dumps(rr))
+                g = rtl_parity(tmp)
+                launches["rtl_parity"] = g["sw_launches"]
+                phase("rtl_parity", "cuda == cpu, metrics, MEX and the probe "
+                      "aligner's five outputs: " + json.dumps(g))
+                rr = rtl_run(tmp)
+                launches["rtl"] = rr["sw_launches"]
+                phase("rtl", json.dumps(rr))
 
-            g = multi_run(tmp)
-            launches["multi"] = g["sw_launches"]
-            phase("multi", "cells in the samples they were built for: "
-                  + json.dumps(g))
+                g = multi_run(tmp)
+                launches["multi"] = g["sw_launches"]
+                phase("multi", "cells in the samples they were built for: "
+                      + json.dumps(g))
 
-            g = analysis(tmp)
-            launches["analysis"] = g["sw_launches"]
-            phase("analysis", f"{smi}: " + json.dumps(g))
-            phase("analysis_parity", "cuda against cpu, two cuda runs "
-                  "identical: " + json.dumps(analysis_parity(tmp)))
+                g = analysis(tmp)
+                launches["analysis"] = g["sw_launches"]
+                phase("analysis", f"{smi}: " + json.dumps(g))
+                phase("analysis_parity", "cuda against cpu, two cuda runs "
+                      "identical: " + json.dumps(analysis_parity(tmp)))
+                g = depth_small_report()
+            launches["depth_small"] = g["sw_launches"]
+            phase("depth_small", f"{smi}: {g['reads']} reads of the depth "
+                  "fixture in a child process beside "
+                  "h5_pipelines..analysis_parity, count-only with the state "
+                  "flushing and with BAM in parts of at most "
+                  f"{g['bam']['bam_split']['band_records']} records: the "
+                  "fixture's truth, the same MEX: " + json.dumps(g))
 
             g = cellplex_report()
             launches["cellplex"] = g["sw_launches"]

@@ -172,14 +172,11 @@ def _views(chunks) -> dict:
 
 
 def _collector(spool, chunks, n_bands=4) -> bam_out.BamCollector:
-    c = bam_out.BamCollector(GI, TXOME, str(spool), n_bands=n_bands,
-                             read_group="lib1")
+    c = bam_out.BamCollector(GI, TXOME, str(spool), read_group="lib1")
+    c.n_bands = n_bands
     for ch in chunks:
         n = len(ch["names"])
-        band = np.where(ch["mapped"], np.minimum(
-            ch["sort_key"] * n_bands // c._max_key, n_bands - 1), n_bands)
-        c.spool.add(band, ch)
-        c._spool_rep_sidecar(band, ch, n)
+        c._route(ch, n)
         c.n_reads += n
     return c
 
@@ -337,33 +334,35 @@ def test_concat_chunks_linear_equals_sum_join():
 
 
 def test_representative_join_equals_rep_dict(tmp_path):
-    """Record by record, the joined winner with an exact comparison of
-    (raw UMI, not_txomic, qname) decides as the plain version's dict of
-    hashes does."""
+    """Record by record, the UMI_COUNT flags the write files a molecule
+    partition at a time (each molecule's winner, then an exact comparison
+    of (raw UMI, not_txomic, qname)) decide as the plain version's dict
+    of hashes does."""
     chunks = _bands(seed=11)
     views = _views(chunks)
     c = _collector(tmp_path / "spool", chunks)
     rv = bam_out._raw_views(views)
-    winners = c._select_representatives(*rv)
-    rep = c._rep_dict(winners)
+    rep = c._rep_dict(c._select_representatives(*rv))
+    work = tmp_path / "work"
+    work.mkdir()
+    c._file_winners(bam_out._ViewIndex(rv), str(work), c._sources())
     decided = []
     for band in range(c.n_bands + 1):
         r = c._load_band(band, rv)
         if r is None:
             continue
         cat, cu, low = r
-        rows = bam_out._winner_rows(winners, cat, cu, low)
+        won = work / f"win{band}"
+        wins = np.sort(np.fromfile(won, np.int64)) if won.exists() else \
+            np.zeros(0, np.int64)
+        win_idx, _ = bam_out._band_winners(cat, wins)
         for i in np.flatnonzero(cat["conf_ok"] & ~low):
             ntxo = 0 if int(cat["region"][i]) == 0 else 1
             plain = rep.get(c._rep_key(int(cat["bc_idx"][i]),
                                        int(cat["gene_lib"][i]),
                                        int(cu[i]))) == hash(
                 (int(cat["umi_packed"][i]), ntxo, cat["names"][i]))
-            w = rows[i]
-            new = bool(w >= 0 and winners[3][w] == cat["umi_packed"][i]
-                       and winners[4][w] == ntxo
-                       and bytes(winners[5][w]) == cat["names"][i])
-            decided.append((plain, new))
+            decided.append((plain, bool(win_idx[i] >= 0)))
     plain, new = np.array(decided).T
     assert plain.any() and not plain.all()
     np.testing.assert_array_equal(new, plain)
