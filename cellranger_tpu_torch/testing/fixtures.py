@@ -1147,22 +1147,13 @@ def _vdj_families(n: int, rng) -> list[str]:
     return [acgt[g].tobytes().decode() + "TGT" for g in out]
 
 
-def _vdj_design_wide(n_cells: int, seed: int, genes: dict, n_wl: int,
-                     background: int) -> dict:
-    """_vdj_design at a library's width: per chain genes[chain] = (V, J)
-    genes (V in families) and one C gene, the 5' UTR of every
-    VDJ_PRIMER_EVERY-th V gene carrying the reverse complement of one of
-    the human TCR inner primers at VDJ_PRIMER_AT; one expanded clonotype
-    of VDJ_EXPANDED_SIZES cells per VDJ_EXPANDED_PER_CELL cells (at least
-    one) and every other cell its own
-    clonotype, each clonotype a random V and J gene per chain and N/D
-    additions whose CDR3 is at least VDJ_CDR3_MIN_DIST from every other
-    clonotype's of that chain, V and J, and no (K-1)-mer of its
-    transcripts twice; an n_wl-barcode whitelist (packed),
-    the cells' and `background` non-cell barcodes drawn from it."""
-    from ..vdj.assembly import INNER_PRIMERS, K, _revcomp_b
+def _vdj_t_segments(genes: dict, rng) -> dict:
+    """Per chain of `genes` ({chain: (V genes, J genes)}) its V genes in
+    families (_vdj_families), J genes opening with F-G-x-G, one C gene
+    and a 5' UTR a V gene, every VDJ_PRIMER_EVERY-th carrying the reverse
+    complement of the chain's human TCR inner primer at VDJ_PRIMER_AT."""
+    from ..vdj.assembly import INNER_PRIMERS, _revcomp_b
 
-    rng = np.random.default_rng(seed)
     seg = {}
     for ci, (chain, (nv, nj)) in enumerate(genes.items()):
         primer = _revcomp_b(INNER_PRIMERS[("human", "tcr")][ci]).decode()
@@ -1176,6 +1167,42 @@ def _vdj_design_wide(n_cells: int, seed: int, genes: dict, n_wl: int,
                + _rand_nt(1, rng) + _rand_nt(VDJ_J_LEN - 12, rng)
                for _ in range(nj)],
             c=_rand_nt(VDJ_C_LEN, rng), utr=utr)
+    return seg
+
+
+def _vdj_t_records(seg: dict) -> dict:
+    """regions.fa's records {header: sequence bytes} of a T reference:
+    per chain its V, J and C genes, named TRAV1.., TRAJ1.., TRAC1."""
+    recs, n = {}, 0
+    for chain, s in seg.items():
+        for kind, region, seqs in (("V", "L-REGION+V-REGION", s["v"]),
+                                   ("J", "J-REGION", s["j"]),
+                                   ("C", "C-REGION", [s["c"]])):
+            for i, seq in enumerate(seqs):
+                n += 1
+                g = f"{chain}{kind}{i + 1}"
+                recs[f"{n}|{g}|{g}|{g}|{region}|{chain}|None|00"] = \
+                    seq.encode()
+    return recs
+
+
+def _vdj_design_wide(n_cells: int, seed: int, genes: dict, n_wl: int,
+                     background: int) -> dict:
+    """_vdj_design at a library's width: per chain genes[chain] = (V, J)
+    genes (V in families) and one C gene, the 5' UTR of every
+    VDJ_PRIMER_EVERY-th V gene carrying the reverse complement of one of
+    the human TCR inner primers at VDJ_PRIMER_AT; one expanded clonotype
+    of VDJ_EXPANDED_SIZES cells per VDJ_EXPANDED_PER_CELL cells (at least
+    one) and every other cell its own
+    clonotype, each clonotype a random V and J gene per chain and N/D
+    additions whose CDR3 is at least VDJ_CDR3_MIN_DIST from every other
+    clonotype's of that chain, V and J, and no (K-1)-mer of its
+    transcripts twice; an n_wl-barcode whitelist (packed),
+    the cells' and `background` non-cell barcodes drawn from it."""
+    from ..vdj.assembly import K
+
+    rng = np.random.default_rng(seed)
+    seg = _vdj_t_segments(genes, rng)
     lo, hi = VDJ_EXPANDED_SIZES
     expanded = max(1, n_cells // VDJ_EXPANDED_PER_CELL)
     sizes = np.exp(rng.uniform(np.log(lo), np.log(hi + 1), expanded))
@@ -1275,18 +1302,7 @@ def _build_vdj_wide(tmp: str, n_cells: int, pairs_per_cell: int, seed: int,
         p1 = np.concatenate([p1, bp1])[order]
         end = np.concatenate([end, bend])[order]
     fa = os.path.join(tmp, "regions.fa")
-    recs, n = {}, 0
-    for chain in genes:
-        s = d["seg"][chain]
-        for kind, region, seqs in (("V", "L-REGION+V-REGION", s["v"]),
-                                   ("J", "J-REGION", s["j"]),
-                                   ("C", "C-REGION", [s["c"]])):
-            for i, seq in enumerate(seqs):
-                n += 1
-                g = f"{chain}{kind}{i + 1}"
-                recs[f"{n}|{g}|{g}|{g}|{region}|{chain}|None|00"] = \
-                    seq.encode()
-    write_fasta(fa, recs)
+    write_fasta(fa, _vdj_t_records(d["seg"]))
     wl_path = os.path.join(tmp, "wl.txt")
     _write_whitelist(wl_path, d["wl_packed"])
     r1p, r2p = _write_vdj_fastqs(tmp, d, bc, umi, t, p1, end)
@@ -1836,6 +1852,18 @@ def _vdj_b_records(seg: dict) -> dict:
     return recs
 
 
+def _combined_records(*parts: dict) -> dict:
+    """One regions.fa's records {header: sequence str} from several
+    references' (str or bytes sequences), in order, each header's record
+    number renumbered from 1."""
+    out = {}
+    for recs in parts:
+        for h, x in recs.items():
+            out[f"{len(out) + 1}|" + h.split("|", 1)[1]] = (
+                x.decode() if isinstance(x, bytes) else x)
+    return out
+
+
 def _vdj_b_annotation(annotator, seq: str, want: dict):
     """The annotation of a planted transcript's `seq` when it is what the
     design wants -- chain, V, J and C gene, CDR3 nucleotides, productive,
@@ -1861,7 +1889,8 @@ def _vdj_b_annotation(annotator, seq: str, want: dict):
 
 
 def _vdj_b_design(n_cells: int, n_wl: int, background: int,
-                  families=None, plan=None) -> dict:
+                  families=None, plan=None, ahead: dict | None = None,
+                  barcodes: bool = True) -> dict:
     """Segments, clones and cells of a B-cell library.  A clone (`plan`,
     else _vdj_b_plan) is a dict: "kinds", its cells' kinds; "sub", how
     many of its last cells carry a heavy CDR3 one nucleotide off the
@@ -1874,10 +1903,14 @@ def _vdj_b_design(n_cells: int, n_wl: int, background: int,
     "IGH" or "light"): that chain's V, J and CDR3 of that clone, taken
     with one nucleotide off; "same", an
     earlier clone whose chains it takes whole, its cells substituted at
-    that clone's first cell's positions with other bases.
+    that clone's first cell's positions with other bases; "light2",
+    both an IGK and an IGL chain; "drop", how many of its last cells hold
+    one molecule of their IGL transcript (under MIN_UMIS_PER_CONTIG, so
+    that the subset merge joins them to the clone).
 
     Each clone takes a heavy chain and, VDJ_B_KAPPA of them, an IGK else
-    an IGL chain, a random V and J each; its CDR3s differ from every
+    an IGL chain (both with "light2"), a random V and J each; its CDR3s
+    differ from every
     other clone's of a (chain, V, J, length) bucket in at least
     max(1, length // 10) + 2 bases (a near or same partner apart).  A
     cell's transcripts are UTR + V with its substitutions + CDR3 + J + C,
@@ -1886,8 +1919,12 @@ def _vdj_b_design(n_cells: int, n_wl: int, background: int,
     into C) and the clone's mutations are redrawn until _vdj_b_annotation
     holds for every cell and a CDR3 subclone's join holds: by the shared
     mutations where both sides carry JOIN_MIN_MUTATIONS, else by the
-    frequency gate.  Last, group_clonotypes of those annotations must
-    give the clones as its partition."""
+    frequency gate.  Last, group_clonotypes of those annotations (a
+    dropped transcript's left out) must give the clones as its partition.
+    With `ahead` (another reference's records) the annotator holds a
+    combined reference, those records and then the B reference's,
+    numbered in that order ("ref_recs"), so that the other segments are
+    in its way too.  With `barcodes` false no whitelist is drawn."""
     from ..vdj import annotate
     from ..vdj.assembly import INNER_PRIMERS, K, _revcomp_b
     from ..vdj.reference import REGION_MAP, Segment, VdjReference
@@ -1899,10 +1936,11 @@ def _vdj_b_design(n_cells: int, n_wl: int, background: int,
     if sum(len(c["kinds"]) for c in plan) != n_cells:
         raise ValueError(f"the plan holds other than {n_cells} cells")
     recs = _vdj_b_records(seg)
-    fields = [h.split("|") for h in recs]
+    held = recs if ahead is None else _combined_records(ahead, recs)
+    fields = [h.split("|") for h in held]
     annotator = Annotator(VdjReference(
         [Segment(f[0], f[3], REGION_MAP[f[4]], f[5], s.encode())
-         for f, s in zip(fields, recs.values())]))
+         for f, s in zip(fields, held.values())]))
     primers = [_revcomp_b(p).decode() for v in INNER_PRIMERS.values()
                for p in v]
     seen: dict = {}
@@ -1931,7 +1969,8 @@ def _vdj_b_design(n_cells: int, n_wl: int, background: int,
         if on == "light":
             light = [c for c in clones[partner]["chains"] if c != "IGH"][0]
         chains = {}
-        for chain in ("IGH", light):
+        for chain in (("IGH", "IGK", "IGL") if spec.get("light2") else
+                      ("IGH", light)):
             nv, nj = VDJ_B_GENES[chain]
             near = partner if (chain == "IGH") == (on == "IGH") else None
             for _ in range(VDJ_B_ATTEMPTS):
@@ -2026,11 +2065,14 @@ def _vdj_b_design(n_cells: int, n_wl: int, background: int,
             raise ValueError(f"clone {ci} ({spec}): no draw holds")
         drawn, subs = drawn
         clone = dict(chains=chains, cells=[], subs0=subs[0])
-        for kind, cell in zip(kinds, drawn):
-            anns[str(len(cells))] = [a for _, _, a in cell]
+        for i, (kind, cell) in enumerate(zip(kinds, drawn)):
+            low = [w["chain"] == "IGL" and i >= len(kinds) - spec.get(
+                "drop", 0) for _, w, _ in cell]
+            anns[str(len(cells))] = [a for (_, _, a), x in zip(cell, low)
+                                     if not x]
             clone["cells"].append(len(cells))
             cells.append(dict(clone=ci, kind=kind, tx=[t for t, _, _ in cell],
-                              want=[w for _, w, _ in cell]))
+                              want=[w for _, w, _ in cell], low=low))
         for chain, (vi, ji, mid) in chains.items():
             seen.setdefault((chain, vi, ji, len(mid)), []).append((ci, mid))
         if sub is not None:
@@ -2042,11 +2084,14 @@ def _vdj_b_design(n_cells: int, n_wl: int, background: int,
     if sorted(got) != sorted(want):
         raise ValueError("group_clonotypes of the planted annotations "
                          "does not give the planned clones")
+    out = dict(seg=seg, recs=recs, ref_recs=held, clones=clones,
+               cells=cells, anns=anns,
+               tx=[t for c in cells for t in c["tx"]])
+    if not barcodes:
+        return out
     wl = _human_whitelist(rng, n_wl)
     picks = rng.choice(n_wl, n_cells + background, replace=False)
-    return dict(seg=seg, recs=recs, clones=clones, cells=cells,
-                tx=[t for c in cells for t in c["tx"]],
-                slot=rng.permutation(n_cells), wl_packed=wl,
+    return dict(out, slot=rng.permutation(n_cells), wl_packed=wl,
                 cell_wl=np.sort(picks[:n_cells]),
                 bg_wl=np.sort(picks[n_cells:]), rng=rng)
 
@@ -2189,6 +2234,517 @@ def build_vdj_b_run(tmp: str, n_cells: int = 12,
     return dict(fa=fa, wl=wl_path, fq1=r1p, fq2=r2p, n_reads=P,
                 chemistry="SCVDJ", read_len=VDJ_READ_LEN, expected=expected,
                 truth=truth)
+
+
+# ---------------------------------------------------------------------------
+# 5' immune profiling: GEX, VDJ-T and VDJ-B of one well (build_immune_run)
+# ---------------------------------------------------------------------------
+
+IMMUNE_CELLS = 10_000
+# A PBMC well's cells: T, B and the rest (NK cells, monocytes, dendritic
+# cells), GEX only.  Inside the usual ranges of adult human PBMCs
+# (Kleiveland, "Peripheral Blood Mononuclear Cells", in The Impact of Food
+# Bioactives on Health, Springer 2015, ch. 15: lymphocytes 70-90% of
+# PBMCs, of them T cells 70-85% and B cells up to 15%).
+IMMUNE_SHARES = {"T": 0.60, "B": 0.15, "other": 0.25}
+# GEX read pairs a cell.  10x's 5' v2 GEX guide asks for 20,000; cut ten
+# times because count ran 200M reads of one well on its own already
+# (chip_smoke.depth_run): 20M pairs for 10,000 cells.
+IMMUNE_GEX_PAIRS = 2_000
+IMMUNE_VDJ_PAIRS = 5_000            # 10x's V(D)J depth, T and B alike
+# Dual-alpha T cells: up to a third of human T cells express two TCR alpha
+# chains (Padovan et al., Science 1993, "Expression of two T cell receptor
+# alpha chains: dual receptor T cells"); a tenth of the clones here.
+IMMUNE_TWO_ALPHA = 0.10
+# Kappa + lambda B cells: a small share of human blood B cells carries both
+# (Giachino, Padovan and Lanzavecchia, J Exp Med 1995, "kappa+lambda+ dual
+# receptor B cells are present in the human peripheral repertoire"); set
+# to 5% of the clones so that a 1,500-cell library holds dozens of them.
+IMMUNE_TWO_LIGHT = 0.05
+IMMUNE_T_DROPS = 3          # two-alpha clones with a cell whose second
+                            # alpha falls under MIN_UMIS_PER_CONTIG
+IMMUNE_B_DROPS = 3          # two-light families with a cell whose IGL does
+IMMUNE_BETA_ONLY = 2        # cells of one of those T clones that lose both
+                            # alphas: {TRB} is then a subset of two chain
+                            # sets of its clone, of unequal sizes (the
+                            # "dominant superset" branch of the merge)
+IMMUNE_LOW_UMIS = 1         # molecules of a transcript under the threshold
+                            # (of a beta-only cell's first alpha; its second
+                            # has none: two one-molecule alphas would share
+                            # their C gene's reads and so reach 2 UMIs)
+IMMUNE_R2_OVERHANG = 60     # R2 starts drawn on [-60, L - 60] and clipped
+                            # to the transcript: its ends are covered
+IMMUNE_SEED = 53
+
+
+def _immune_t_plan(n_t: int, rng) -> list[dict]:
+    """The T clones of a drawn library: sizes as _vdj_design_wide draws
+    them (an expanded clone of VDJ_EXPANDED_SIZES cells per
+    VDJ_EXPANDED_PER_CELL cells, the rest one cell each), IMMUNE_TWO_ALPHA
+    of them with two alphas; the largest two-alpha clone a cell whose
+    second alpha drops and IMMUNE_BETA_ONLY cells whose both do (where no
+    two-alpha clone is that large, the largest clone takes two alphas),
+    the next IMMUNE_T_DROPS - 1 two-alpha clones of 3 or more cells one
+    cell whose second alpha drops.  A clone is dict(cells, alphas, drop,
+    beta_only); its full cells come first."""
+    lo, hi = VDJ_EXPANDED_SIZES
+    expanded = max(1, n_t // VDJ_EXPANDED_PER_CELL)
+    sizes = np.exp(rng.uniform(np.log(lo), np.log(hi + 1), expanded))
+    sizes = np.minimum(sizes.astype(np.int64), max(lo, n_t // 5))
+    if sizes.sum() > n_t:
+        raise ValueError(f"{expanded} expanded clones need {sizes.sum()} "
+                         f"of {n_t} T cells")
+    sizes = list(sizes) + [1] * int(n_t - sizes.sum())
+    two = rng.random(len(sizes)) < IMMUNE_TWO_ALPHA
+    plan = [dict(cells=int(s), alphas=2 if x else 1, drop=0, beta_only=0)
+            for s, x in zip(sizes, two)]
+    big = sorted((k for k, c in enumerate(plan)
+                  if c["alphas"] == 2 and c["cells"] >= 3),
+                 key=lambda k: -plan[k]["cells"])
+    need = 3 + IMMUNE_BETA_ONLY
+    if not big or plan[big[0]]["cells"] < need:
+        # too few clones to draw one: the largest clone takes two alphas
+        k = int(np.argmax(sizes))
+        if sizes[k] < need:
+            raise ValueError(f"no clone of {need} T cells for the "
+                             "dominant-superset case")
+        plan[k]["alphas"] = 2
+        big.insert(0, k)
+    plan[big[0]].update(drop=1, beta_only=IMMUNE_BETA_ONLY)
+    for k in big[1:IMMUNE_T_DROPS]:
+        plan[k]["drop"] = 1
+    return plan
+
+
+def _immune_t_design(seg: dict, plan: list[dict], rng) -> dict:
+    """The chains, transcripts, cells and planted annotations of a T
+    library on the segments `seg` (_vdj_t_segments).  A clone takes a
+    TRB and one or two TRA chains ("alphas"), each a random V and J and
+    N additions whose CDR3 is at least VDJ_CDR3_MIN_DIST from every other
+    of its (chain, V, J); a second alpha another V and J than the first.
+    A cell's transcripts (UTR + V + additions + J + C) share no 19-mer
+    but the two alphas' in their common C gene.  A cell is its clone's
+    transcripts, each VDJ_UMIS_PER_CHAIN molecules ("mols"); of its last
+    cells `drop` hold IMMUNE_LOW_UMIS of the second alpha and `beta_only`
+    IMMUNE_LOW_UMIS of the first and none of the second ("low" marks a
+    chain under MIN_UMIS_PER_CONTIG).  Each cell's kept chains are
+    annotated as the pipeline
+    would annotate their contigs (exact V and J hits, no variant), and
+    group_clonotypes of those annotations must give the clones."""
+    from ..vdj.annotate import (ContigAnnotation, SegmentHit,
+                                group_clonotypes, translate)
+    from ..vdj.assembly import K
+    from ..vdj.reference import Segment
+
+    def kmers(t):
+        return {t[i:i + K - 1] for i in range(len(t) - K + 2)}
+
+    c_kmers = kmers(seg["TRA"]["c"])
+    segs = {(ch, r, i): Segment(f"{ch}{r}{i + 1}", f"{ch}{r}{i + 1}", r, ch,
+                                x.encode())
+            for ch, s in seg.items() for r in ("V", "J")
+            for i, x in enumerate(s[r.lower()])}
+    seen: dict = {}
+    clones, tx, cells, anns = [], [], [], {}
+    for ci, spec in enumerate(plan):
+        chains, taken = [], set()
+        for chain in ["TRA"] * spec["alphas"] + ["TRB"]:
+            s = seg[chain]
+            nv, nj = len(s["v"]), len(s["j"])
+            first = chains[0] if chain == "TRA" and chains else None
+            for _ in range(VDJ_B_ATTEMPTS):
+                vi, ji = int(rng.integers(nv)), int(rng.integers(nj))
+                if first is not None and (vi == first[1] or ji == first[2]):
+                    continue
+                ins = _vdj_insert(chain, rng)
+                nt = "TGT" + ins + s["j"][ji][:3]
+                t = s["utr"][vi] + s["v"][vi] + ins + s["j"][ji] + s["c"]
+                km = [t[i:i + K - 1] for i in range(len(t) - K + 2)]
+                shared = taken & set(km)
+                if (len(set(km)) == len(km)
+                        and (not shared or (first is not None
+                                            and shared <= c_kmers))
+                        and all(sum(a != b for a, b in zip(nt, o))
+                                >= VDJ_CDR3_MIN_DIST
+                                for o in seen.get((chain, vi, ji), ()))):
+                    break
+            else:
+                raise ValueError(f"T clone {ci}: no {chain} drawn apart")
+            seen.setdefault((chain, vi, ji), []).append(nt)
+            taken.update(km)
+            chains.append((chain, vi, ji, nt, len(tx)))
+            tx.append(t)
+        clone = dict(chains=chains, cells=[])
+        n = spec["cells"]
+        for i in range(n):
+            mols = [VDJ_UMIS_PER_CHAIN] * len(chains)
+            if spec["alphas"] == 2 and i >= n - spec["beta_only"]:
+                mols[:2] = [IMMUNE_LOW_UMIS, 0]
+            elif spec["alphas"] == 2 and \
+                    i >= n - spec["beta_only"] - spec["drop"]:
+                mols[1] = IMMUNE_LOW_UMIS
+            low = [x < VDJ_UMIS_PER_CHAIN for x in mols]
+            cell = []
+            for (chain, vi, ji, nt, k), x in zip(chains, low):
+                if x:
+                    continue
+                v, j = seg[chain]["v"][vi], seg[chain]["j"][ji]
+                at = VDJ_UTR + len(v) + len(nt) - 6
+                cell.append(ContigAnnotation(
+                    contig_seq=tx[k], chain=chain,
+                    v=SegmentHit(segs[(chain, "V", vi)], len(v), VDJ_UTR,
+                                 VDJ_UTR + len(v), 0, len(v)),
+                    j=SegmentHit(segs[(chain, "J", ji)], len(j), at,
+                                 at + len(j), 0, len(j)),
+                    cdr3_nt=nt, cdr3_aa=translate(nt), productive=True,
+                    full_length=True))
+            anns[str(len(cells))] = cell
+            clone["cells"].append(len(cells))
+            cells.append(dict(clone=ci, tx=[c[4] for c in chains], low=low,
+                              mols=mols))
+        clones.append(clone)
+    got = sorted(sorted(c["barcodes"], key=int)
+                 for c in group_clonotypes(anns))
+    if got != sorted([str(i) for i in c["cells"]] for c in clones):
+        raise ValueError("group_clonotypes of the planted T annotations "
+                         "does not give the planned clones")
+    return dict(clones=clones, tx=tx, cells=cells, anns=anns)
+
+
+def _immune_b_plan(n_b: int, rng) -> list[dict]:
+    """The B clones of a drawn library (_vdj_b_plan), IMMUNE_TWO_LIGHT of
+    them with both an IGK and an IGL chain ("light2"), and the first
+    IMMUNE_B_DROPS families without a CDR3 subclone two-light clones
+    whose last cell's IGL drops ("drop")."""
+    plan = _vdj_b_plan(n_b, rng, None)
+    two = rng.random(len(plan)) < IMMUNE_TWO_LIGHT
+    for spec, x in zip(plan, two):
+        if x:
+            spec["light2"] = True
+    fams = [s for s in plan if len(s["kinds"]) >= 2
+            and not s.get("sub")][:IMMUNE_B_DROPS]
+    if not fams:
+        raise ValueError("no B family for a two-light dropout")
+    for spec in fams:
+        spec.update(light2=True, drop=1)
+    return plan
+
+
+def _immune_pairs(rng, cell_tx: list, n_mol: list, pairs: np.ndarray):
+    """Read pairs of a library's cells, shuffled: cell i holds n_mol[i][k]
+    molecules of its transcript cell_tx[i][k], every molecule at least
+    one pair, pairs[i] pairs in all.  Returns (cell [P], UMI codes
+    [P, 10], transcript [P])."""
+    n_mol = [np.asarray(m) for m in n_mol]
+    per_cell = np.array([int(m.sum()) for m in n_mol])
+    if (pairs < per_cell).any():
+        raise ValueError(f"{pairs.min()} pairs cannot cover a cell's "
+                         "molecules")
+    first = np.r_[0, np.cumsum(per_cell)[:-1]]
+    mol_cell = np.repeat(np.arange(len(per_cell)), per_cell)
+    mol_tx = np.concatenate([np.repeat(t, m) for t, m in zip(cell_tx, n_mol)])
+    mol_umi = _coded_umis(mol_cell, VDJ_UMI_LEN, rng)
+    extra_cell = np.repeat(np.arange(len(per_cell)), pairs - per_cell)
+    mol = np.concatenate([np.arange(len(mol_cell)), first[extra_cell] + (
+        rng.random(len(extra_cell)) * per_cell[extra_cell]).astype(np.int64)])
+    mol = mol[rng.permutation(len(mol))]
+    return mol_cell[mol], mol_umi[mol], mol_tx[mol]
+
+
+def _r2_starts(rng, tx_len: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """A read start on each pair's transcript: uniform on [-overhang,
+    L - 120 + overhang], clipped to [0, L - 120]."""
+    span = tx_len[t] - VDJ_READ_LEN + 1 + 2 * IMMUNE_R2_OVERHANG
+    return np.clip((rng.random(len(t)) * span).astype(np.int64)
+                   - IMMUNE_R2_OVERHANG, 0, tx_len[t] - VDJ_READ_LEN)
+
+
+def _write_vdj_r2_fastqs(tmp: str, name: str, rng, wl: np.ndarray,
+                         bc: np.ndarray, umi: np.ndarray, codes: np.ndarray,
+                         t: np.ndarray, start: np.ndarray):
+    """A V(D)J library in the SCVDJ-R2 layout that `multi` reads: R1 =
+    barcode + 10-base UMI, R2 = 120 bases of the transcript from `start`,
+    on its strand, binned qualities with N at Q2; one barcode in 50 with
+    a correctable error.  Written VDJ_WRITE_BLOCK pairs at a time.
+    Returns the R1 and R2 paths."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    P = len(t)
+    _human_barcode_errors(bc, np.arange(0, P, 50), wl, rng)
+    ar = np.arange(VDJ_READ_LEN, dtype=np.int64)
+    r1p = os.path.join(tmp, f"{name}_S1_L001_R1_001.fastq")
+    r2p = os.path.join(tmp, f"{name}_S1_L001_R2_001.fastq")
+    with open(r1p, "wb") as f1, open(r2p, "wb") as f2:
+        for s in range(0, P, VDJ_WRITE_BLOCK):
+            e = min(P, s + VDJ_WRITE_BLOCK)
+            read = bases[codes[t[s:e, None], start[s:e, None] + ar]]
+            q = _binned_quals(rng, read.shape)
+            read[q == ord("#")] = ord("N")
+            f1.write(_fastq_block(np.concatenate(
+                [_unpack_barcodes(bc[s:e]), bases[umi[s:e]]], 1)))
+            f2.write(_fastq_block(read, q))
+    return r1p, r2p
+
+
+def _immune_library(tmp: str, name: str, rng, wl: np.ndarray,
+                    cell_wl: np.ndarray, bg_wl: np.ndarray, tx: list,
+                    cell_tx: list, n_mol: list, pairs: np.ndarray,
+                    bg_tx: np.ndarray) -> dict:
+    """One V(D)J library of a well: its cells' pairs (_immune_pairs), the
+    background barcodes' (one molecule each of a transcript drawn from
+    bg_tx, VDJ_BACKGROUND_SHARE of all pairs split evenly over them),
+    shuffled, written as SCVDJ-R2 FASTQs under tmp/name.  Returns the
+    directory, pairs, background pairs."""
+    codes = _vdj_tx_codes(dict(tx=tx))
+    tx_len = np.array([len(x) for x in tx])
+    cell, umi, t = _immune_pairs(rng, cell_tx, n_mol, pairs)
+    bc = wl[cell_wl[cell]]
+    n_bg = 0
+    if len(bg_wl):
+        n_bg = int(round(len(cell) * VDJ_BACKGROUND_SHARE
+                         / (1 - VDJ_BACKGROUND_SHARE)))
+        n = len(bg_wl)
+        if n_bg < n:
+            raise ValueError(f"{n_bg} background pairs for {n} barcodes")
+        bt = bg_tx[rng.integers(0, len(bg_tx), n)]
+        bumi = _coded_umis(np.arange(n), VDJ_UMI_LEN, rng)
+        per = np.full(n, n_bg // n)
+        per[:n_bg % n] += 1
+        bgi = np.repeat(np.arange(n), per)
+        order = rng.permutation(len(cell) + n_bg)
+        bc = np.concatenate([bc, wl[bg_wl[bgi]]])[order]
+        umi = np.concatenate([umi, bumi[bgi]])[order]
+        t = np.concatenate([t, bt[bgi]])[order]
+    start = _r2_starts(rng, tx_len, t)
+    d = os.path.join(tmp, name)
+    os.makedirs(d, exist_ok=True)
+    _write_vdj_r2_fastqs(d, name, rng, wl, bc, umi, codes, t, start)
+    return dict(dir=d, n_reads=len(t), background_pairs=n_bg)
+
+
+def _immune_gex(tmp: str, rng, garr: np.ndarray, spacing: int,
+                n_genes: int, wl: np.ndarray, cell_packed: np.ndarray,
+                n_pairs: int, discordant_frac: float = 0.1) -> dict:
+    """The well's 5' GEX library in build_pe_run's SC5P-PE layout on the
+    genome `garr`: n_pairs pairs = molecules of the cells emitted
+    E2E_DUP times each, a cell drawn for each molecule, mate 1 in exon 1
+    of a '+' gene, mate 2 100-300 bases on (PE_DISCORDANT_GAP further in
+    a discordant_frac share: improper); the first copy of every 25th
+    molecule with a correctable barcode error.  Written a block of
+    VDJ_WRITE_BLOCK pairs at a time under tmp/gex.  Returns the
+    directory and the expected counts."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    comp = np.zeros(256, np.uint8)
+    comp[list(b"ACGT")] = list(b"TGCA")
+    n_mol = n_pairs // E2E_DUP
+    cell_idx = rng.integers(0, len(cell_packed), n_mol)
+    umi = _coded_umis(cell_idx, PE_UMI_LEN, rng)
+    gene = rng.integers(0, n_genes // 2, n_mol) * 2      # '+' strand only
+    p1 = gene * spacing + 1000 + rng.integers(0, 200, n_mol)
+    discordant = rng.random(n_mol) < discordant_frac
+    p2 = (p1 + rng.integers(100, 300, n_mol)
+          + np.where(discordant, PE_DISCORDANT_GAP, 0))
+    order = rng.permutation(n_mol * E2E_DUP)
+    mol = order // E2E_DUP
+    bc = cell_packed[cell_idx[mol]]
+    _human_barcode_errors(
+        bc, np.flatnonzero((order % E2E_DUP == 0) & (mol % 25 == 0)), wl,
+        rng)
+    ar = np.arange(READ_LEN)
+    d = os.path.join(tmp, "gex")
+    os.makedirs(d, exist_ok=True)
+    r1p = os.path.join(d, "gex_S1_L001_R1_001.fastq")
+    r2p = os.path.join(d, "gex_S1_L001_R2_001.fastq")
+    with open(r1p, "wb") as f1, open(r2p, "wb") as f2:
+        for s in range(0, len(mol), VDJ_WRITE_BLOCK):
+            m = mol[s:s + VDJ_WRITE_BLOCK]
+            f1.write(_fastq_block(np.concatenate(
+                [_unpack_barcodes(bc[s:s + VDJ_WRITE_BLOCK]), bases[umi[m]],
+                 garr[p1[m, None] + ar]], 1)))
+            f2.write(_fastq_block(comp[garr[p2[m, None] + ar[::-1]]]))
+    n_disc = int(discordant.sum())
+    return dict(dir=d, n_reads=n_mol * E2E_DUP, expected=dict(
+        total_reads=n_mol * E2E_DUP,
+        conf_mapped_reads=(n_mol - n_disc) * E2E_DUP,
+        improper_pair_reads=n_disc * E2E_DUP,
+        total_molecules=n_mol - n_disc))
+
+
+def _vdj_lib_truth(bcs: list, cells: list, clones: list, chains_of,
+                   anns: dict) -> dict:
+    """A V(D)J library's truth: "expected" (cells, clonotypes, each cell's
+    kept CDR3s) and "truth" (V and J genes per kept chain, the clonotypes
+    as a partition of the cell barcodes, the planted annotations by
+    barcode) and "merged": per clone holding a cell with a dropped chain,
+    its barcodes, the cells with a dropped chain and whether one of their
+    chain sets is a subset of two of the clone's."""
+    cdr3s, genes, merged = {}, {}, []
+    for i, c in enumerate(cells):
+        kept = [w for w, x in zip(chains_of(c), c["low"]) if not x]
+        cdr3s[bcs[i]] = sorted([w[0], w[3]] for w in kept)
+        genes[bcs[i]] = sorted([w[0], w[1], w[2]] for w in kept)
+    for cl in clones:
+        low = [i for i in cl["cells"] if any(cells[i]["low"])]
+        if low:
+            sets = {tuple(cells[i]["low"]) for i in cl["cells"]}
+            merged.append(dict(
+                clone=sorted(bcs[i] for i in cl["cells"]),
+                joined=sorted(bcs[i] for i in low),
+                dominant=len(sets) >= 3))
+    return dict(
+        expected=dict(estimated_cells=len(cells), n_clonotypes=len(clones),
+                      cdr3s=cdr3s),
+        truth=dict(genes=genes, clonotypes=sorted(
+            sorted(bcs[i] for i in cl["cells"]) for cl in clones),
+            merged=merged),
+        anns={bcs[int(k)]: v for k, v in anns.items()})
+
+
+def build_immune_run(tmp: str, n_cells: int = IMMUNE_CELLS,
+                     gex_pairs: int = IMMUNE_GEX_PAIRS,
+                     vdj_pairs: int = IMMUNE_VDJ_PAIRS, *,
+                     kinds: tuple | None = None, t_plan=None, b_plan=None,
+                     background: int = VDJ_BACKGROUND_PER_CELL,
+                     genome_len: int = E2E_GENOME_LEN,
+                     n_genes: int = E2E_GENES) -> dict:
+    """A 5' immune profiling well for `multi` whose outcome holds by
+    construction: one drawn whitelist of VDJ_WL_5P barcodes (10x's
+    737,280 of the 5' kits) and n_cells cells, IMMUNE_SHARES' T, B and
+    other cells
+    (`kinds`: their counts instead), three libraries and a multi config:
+
+    - GEX (SC5P-PE, build_pe_run's layout) on the e2e genome and genes:
+      every cell, gex_pairs read pairs a cell in all;
+    - VDJ-T (_immune_t_design on IMGT's TRA/TRB gene counts) of the T
+      cells at vdj_pairs pairs a cell, IMMUNE_TWO_ALPHA of the clones with
+      two productive alphas, dropouts planted (`t_plan`: the clones
+      instead, see _immune_t_plan);
+    - VDJ-B (_vdj_b_design: IGH/IGK/IGL, isotypes, SHM, plasma cells at
+      VDJ_B_PLASMA_FOLD times the molecules and pairs, families with
+      subclones and switches) of the B cells, IMMUNE_TWO_LIGHT of the
+      clones with both
+      an IGK and an IGL chain, dropouts planted (`b_plan` instead);
+    - each V(D)J library `background` non-cell barcodes a cell holding
+      VDJ_BACKGROUND_SHARE of its pairs, one molecule each (a T cell's
+      transcript in VDJ-T, a plasma cell's in VDJ-B, a B cell's where
+      there is no plasma cell): first the well's
+      other cells (B and other cells in VDJ-T), then barcodes of no cell;
+    - one vdj_reference/fasta/regions.fa holding the TR genes and then the
+      IG genes (D and C regions included), and multi.csv with
+      [gene-expression] reference and chemistry SC5P-PE, [vdj] reference
+      and [libraries] gex, vdj_t (VDJ-T) and vdj_b (VDJ-B).
+
+    `multi` runs V(D)J libraries as SCVDJ-R2 and takes R2 as it is, so the
+    V(D)J libraries hold R1 = barcode + UMI and R2 = 120 bases on the
+    transcript's strand (_write_vdj_r2_fastqs).  Returns the paths, the
+    GEX "expected" counts and cells, and per V(D)J library
+    (_vdj_lib_truth) its expected cells, clonotypes and CDR3s, its truth
+    (genes, C genes for B, the clonotype partition with every dropout in
+    its clone, the merges) and planted annotations by barcode."""
+    from ..io.gtf import write_fasta
+
+    os.makedirs(tmp, exist_ok=True)
+    if kinds is None:
+        n_t = int(round(IMMUNE_SHARES["T"] * n_cells))
+        n_b = int(round(IMMUNE_SHARES["B"] * n_cells))
+        kinds = (n_t, n_b, n_cells - n_t - n_b)
+    n_t, n_b, n_other = kinds
+    n_cells = n_t + n_b + n_other
+    rng = np.random.default_rng(IMMUNE_SEED)
+    wl = _human_whitelist(rng, VDJ_WL_5P)
+    seg_t = _vdj_t_segments(VDJ_IMGT_GENES, rng)
+    t_recs = _vdj_t_records(seg_t)
+    dt = _immune_t_design(seg_t, _immune_t_plan(n_t, rng) if t_plan is None
+                          else t_plan, rng)
+    db = _vdj_b_design(n_b, 0, 0, plan=_immune_b_plan(n_b, rng)
+                       if b_plan is None else b_plan, ahead=t_recs,
+                       barcodes=False)
+    bg_t, bg_b = background * n_t, background * n_b
+    fresh_t = max(0, bg_t - n_b - n_other)
+    fresh_b = max(0, bg_b - n_t - n_other)
+    picks = rng.choice(VDJ_WL_5P, n_cells + fresh_t + fresh_b,
+                       replace=False)
+    well = picks[:n_cells]
+    t_wl, b_wl, o_wl = np.split(well, [n_t, n_t + n_b])
+    not_t = rng.permutation(np.concatenate([b_wl, o_wl]))[:bg_t]
+    not_b = rng.permutation(np.concatenate([t_wl, o_wl]))[:bg_b]
+    t_bg = np.sort(np.concatenate([not_t, picks[n_cells:n_cells + fresh_t]]))
+    b_bg = np.sort(np.concatenate([not_b, picks[n_cells + fresh_t:]]))
+    bcs = lambda idx: [b.tobytes().decode() + "-1" for b in  # noqa: E731
+                       _unpack_barcodes(wl[idx])]
+
+    garr, spacing, _, ref_dir, _ = _e2e_reference(
+        tmp, np.random.default_rng(11), genome_len, n_genes, None)
+    gex = _immune_gex(tmp, rng, garr, spacing, n_genes, wl, wl[np.sort(well)],
+                      n_cells * gex_pairs)
+    gex["cells"] = sorted(bcs(well))
+
+    m = VDJ_UMIS_PER_CHAIN
+    lib_t = _immune_library(
+        tmp, "vdj_t", rng, wl, t_wl, t_bg, dt["tx"],
+        [c["tx"] for c in dt["cells"]], [c["mols"] for c in dt["cells"]],
+        np.full(n_t, vdj_pairs), np.arange(len(dt["tx"])))
+    plasma = np.array([c["kind"] == "plasma" for c in db["cells"]])
+    fold = np.where(plasma, VDJ_B_PLASMA_FOLD, 1)
+    first = np.r_[0, np.cumsum([len(c["tx"]) for c in db["cells"]])]
+    b_tx = [list(range(first[i], first[i + 1]))
+            for i in range(len(db["cells"]))]
+    lib_b = _immune_library(
+        tmp, "vdj_b", rng, wl, b_wl, b_bg, db["tx"], b_tx,
+        [np.where(c["low"], IMMUNE_LOW_UMIS, m * f)
+         for c, f in zip(db["cells"], fold)],
+        np.where(plasma, VDJ_B_PLASMA_FOLD * vdj_pairs, vdj_pairs),
+        np.concatenate([b_tx[i] for i in (np.flatnonzero(plasma)
+                                          if plasma.any() else
+                                          range(len(b_tx)))]))
+
+    chains_t = lambda c: [(ch, f"{ch}V{vi + 1}", f"{ch}J{ji + 1}", nt)  # noqa
+                          for ch, vi, ji, nt, _ in
+                          dt["clones"][c["clone"]]["chains"]]
+    t_bcs = bcs(t_wl)
+    truth_t = _vdj_lib_truth(t_bcs, dt["cells"], dt["clones"], chains_t,
+                             dt["anns"])
+    chains_b = lambda c: [(w["chain"], w["v"], w["j"], w["nt"])  # noqa
+                          for w in c["want"]]
+    b_bcs = bcs(b_wl)
+    truth_b = _vdj_lib_truth(b_bcs, db["cells"], db["clones"], chains_b,
+                             db["anns"])
+    truth_b["truth"]["c_genes"] = {
+        b_bcs[i]: sorted([w["chain"], w["c"]] for w, x in
+                         zip(c["want"], c["low"]) if not x)
+        for i, c in enumerate(db["cells"])}
+    truth_b["truth"]["kinds"] = {b_bcs[i]: c["kind"]
+                                 for i, c in enumerate(db["cells"])}
+    for lib, tr, bg in ((lib_t, truth_t, t_bg), (lib_b, truth_b, b_bg)):
+        lib.update(tr)
+        lib["expected"]["total_reads"] = lib["n_reads"]
+        lib["truth"].update(background=bcs(bg),
+                            background_pairs=lib["background_pairs"])
+    lib_t["truth"]["two_alpha"] = sorted(
+        b for b, v in lib_t["expected"]["cdr3s"].items()
+        if [ch for ch, _ in v].count("TRA") == 2)
+    lib_b["truth"]["two_light"] = sorted(
+        b for b, v in lib_b["expected"]["cdr3s"].items()
+        if {ch for ch, _ in v} >= {"IGK", "IGL"})
+
+    vdj_ref = os.path.join(tmp, "vdj_reference")
+    os.makedirs(os.path.join(vdj_ref, "fasta"), exist_ok=True)
+    write_fasta(os.path.join(vdj_ref, "fasta", "regions.fa"),
+                {h: x.encode() for h, x in db["ref_recs"].items()})
+    wl_path = os.path.join(tmp, "wl.txt")
+    _write_whitelist(wl_path, wl)
+    csv = os.path.join(tmp, "multi.csv")
+    with open(csv, "w") as f:
+        f.write(f"[gene-expression]\nreference,{ref_dir}\n"
+                "chemistry,SC5P-PE\n\n"
+                f"[vdj]\nreference,{vdj_ref}\n\n"
+                "[libraries]\nfastq_id,fastqs,feature_types\n"
+                f"gex,{gex['dir']},Gene Expression\n"
+                f"vdj_t,{lib_t['dir']},VDJ-T\n"
+                f"vdj_b,{lib_b['dir']},VDJ-B\n")
+    return dict(csv=csv, wl=wl_path, ref=ref_dir, vdj_reference=vdj_ref,
+                kinds=dict(T=n_t, B=n_b, other=n_other), gex=gex,
+                vdj_t=lib_t, vdj_b=lib_b,
+                n_reads=gex["n_reads"] + lib_t["n_reads"] + lib_b["n_reads"])
 
 
 # ---------------------------------------------------------------------------

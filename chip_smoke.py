@@ -156,6 +156,18 @@ Phases, each printing one line; any failure raises and exits non-zero:
                child process (phase_beside) from index_build to
                analysis_parity, so its seconds and theirs include each
                other's load; its line comes after analysis_parity's
+  immune_held  a 30-cell 5' immune profiling well (testing/fixtures.
+               build_immune_run at IMMUNE_HELD: 12 T cells with two-alpha
+               clones, 8 B cells with a two-light clone, dropouts joined
+               by the subset merge, one TR + IG regions.fa, the
+               737,280-barcode whitelist; GEX SC5P-PE) through run_multi
+               on cuda: the well's truth (immune_truth_diffs) and
+               immune_digest equal to the JAX package's CPU run
+               (IMMUNE_EXPECTED, tests/immune_reference.py); two K1
+               launches a GEX step.  It runs in a child process beside
+               the phases from h5_pipelines to analysis_parity, next to
+               depth_small; its line comes after depth_small's.  At a
+               10,000-cell well alone: immune_run
   vdj_parity   run_vdj on the single-end and the paired-end worlds of
                tests/test_vdj.py on cuda and on cpu: every output file
                equal; count_bc_umi_kmers on the rows run_vdj handed it,
@@ -310,7 +322,8 @@ counts; `h5_pipelines`: one a step of each GEM well; `deep`: one a
 step, 611 at 20,000,000 reads; `human_parity`:
 its cuda step, aligner call and truth-probe step and aligner call;
 `cellplex` and `perturb`: one a GEX step, 306, and none for the CMO,
-guide and antibody libraries;
+guide and antibody libraries; `immune_held`: two a GEX step, none for
+the V(D)J libraries;
 `rtl`, the V(D)J paths (`vdj_fast_parity` reads no count), `mkfastq`, `index_build`, `analysis` and
 `analysis_68k`: none, no genome aligner runs).  Before the kernel
 report a `[timeline]` line gives the seconds from the script's start at
@@ -858,6 +871,119 @@ VDJ_B_EXPECTED = {
         "8a07f0a2c9cc9210a186ccee1b6831dca023f8e67d6a331f6d668815629aa21c",
     "web_summary.html":
         "57c1977acba811851761d513617e9420ca2d4ba7ea310a77b2560c721dcb99ab",
+}
+IMMUNE_CELLS = 10_000           # immune_run's well: a 10x 5' run's cells
+# immune_held's well (testing/fixtures.build_immune_run): 12 T, 8 B and
+# 10 other cells, 200 GEX and 200 V(D)J read pairs a cell, 2 non-cell
+# barcodes a V(D)J cell, the 737,280-barcode whitelist, a 400 kb genome of
+# 40 genes; the T clones: two alphas in 5 cells (one losing its second
+# alpha, two both: {TRB} a subset of two chain sets of unequal size) and in
+# 2 cells (one losing its second alpha), one alpha in 2 cells and in 3
+# single cells; the B clones: IGK and IGL in 2 memory cells (one losing
+# its IGL) and in a naive cell, a memory family of 2, 4 single cells
+IMMUNE_HELD = dict(kinds=(12, 8, 10), gex_pairs=200, vdj_pairs=200,
+                   background=2, genome_len=400_000, n_genes=40)
+IMMUNE_HELD_T_PLAN = (
+    [dict(cells=5, alphas=2, drop=1, beta_only=2),
+     dict(cells=2, alphas=2, drop=1, beta_only=0),
+     dict(cells=2, alphas=1, drop=0, beta_only=0)]
+    + [dict(cells=1, alphas=1, drop=0, beta_only=0)] * 3)
+IMMUNE_HELD_B_PLAN = [
+    dict(kinds=["memory", "memory"], light2=True, drop=1),
+    dict(kinds=["memory"]), dict(kinds=["memory", "memory"]),
+    dict(kinds=["naive"], light2=True),
+    dict(kinds=["naive"]), dict(kinds=["naive"])]
+IMMUNE_HELD_BATCH = 4096
+IMMUNE_HELD_TIMEOUT_S = 600
+IMMUNE_RSS_SHARE = 0.75         # PERF.md section 2's V(D)J limits
+IMMUNE_DEVICE_BYTES = 16e9
+# immune_digest of the JAX package's run_multi of the immune_held build on
+# the CPU (tests/immune_reference.py, batch IMMUNE_HELD_BATCH)
+IMMUNE_EXPECTED = {
+    "count/filtered_barcodes.csv":
+        "8fd26c49772e638f60f07b254fc43ca8f5f67859217d0fa65c172ffc861329cf",
+    "count/filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "8219d47509ee6f0f9b70d1feec3163c8c4d39ebf27f1fe2e056b422523e39601",
+    "count/filtered_feature_bc_matrix/features.tsv.gz":
+        "b39db9a1c18b84b9a4dc0a7aa24b92bf417d496b6d3a473145f3b27fa6a32b15",
+    "count/filtered_feature_bc_matrix/matrix.mtx.gz":
+        "87b32668990768f1fb40d0265dc9bc62d221ddf5245500dd08d284206b5c80c7",
+    "count/metrics_summary.json":
+        "13e937b199f7a65836477c6aa74ba1a4ade3c87fd8857ec4f36df5862b5e0377",
+    "count/per_barcode_metrics.csv":
+        "96af1069a62388863a2b4747f6de1cc06d4df706d70903dcefbbbb855d904fde",
+    "count/raw_feature_bc_matrix/barcodes.tsv.gz":
+        "1e890ec2a60ed95727179787927506e709c6c1bbccd1a9f272ca69c24b872eaa",
+    "count/raw_feature_bc_matrix/features.tsv.gz":
+        "b39db9a1c18b84b9a4dc0a7aa24b92bf417d496b6d3a473145f3b27fa6a32b15",
+    "count/raw_feature_bc_matrix/matrix.mtx.gz":
+        "e98bdef75428e12d7c5a68a2e2a24825511dd5ae2769cc5f9e995e0a96548b27",
+    "metrics_summary.json":
+        "a2547e5e939537965a54f2c2559e6dace5919da946eff96f1fb7e038575085dd",
+    "vdj/vdj_b/airr_rearrangement.tsv":
+        "0ac55d696509300816b4ce17b58243bc4b2c25ff8141c1f41722da687499909b",
+    "vdj/vdj_b/all_contig.fasta":
+        "60ef6f16b31a8148222638d268a6175bd4553cb23fff0e0726ef3c34609e7f03",
+    "vdj/vdj_b/all_contig.fastq":
+        "bbc52691d43d96bfb1bd695c13922f0cb2d47be43e1787e2314c9c5f2bc35991",
+    "vdj/vdj_b/all_contig_annotations.csv":
+        "aae3f9bccb009a2806454ee7ccb32fe1be3048f898c133599f9c8219a74f6d56",
+    "vdj/vdj_b/all_contig_annotations.json":
+        "6537283cc2a6a64e3f743e1f43879f151c54655da8ab41c9c89333ca8e1ab1c8",
+    "vdj/vdj_b/cell_barcodes.json":
+        "deaf3bafcdc30eb6eac50f2b4dff294f9972641865e125e9946c4ddd08f23940",
+    "vdj/vdj_b/clonotypes.csv":
+        "498f29edf69e2bd0efbc1a37dcf2cb54e06ce1064e1261bd9691cf4935d23d9f",
+    "vdj/vdj_b/concat_ref.fasta":
+        "26f1954da4a9bdb72c0092294e3886f27befa832bf39389481aec3e70fe0bdfe",
+    "vdj/vdj_b/consensus.fasta":
+        "47fb70ce9f5a39800deca3756b7e77ba0411e1699f6a949b8061adc318464d1e",
+    "vdj/vdj_b/consensus_annotations.csv":
+        "9de95a47d8bfb92d96face4e415225d19dd2ea5615da1b3995fb825d7ce550b7",
+    "vdj/vdj_b/filtered_contig.fasta":
+        "60ef6f16b31a8148222638d268a6175bd4553cb23fff0e0726ef3c34609e7f03",
+    "vdj/vdj_b/filtered_contig.fastq":
+        "bbc52691d43d96bfb1bd695c13922f0cb2d47be43e1787e2314c9c5f2bc35991",
+    "vdj/vdj_b/filtered_contig_annotations.csv":
+        "aae3f9bccb009a2806454ee7ccb32fe1be3048f898c133599f9c8219a74f6d56",
+    "vdj/vdj_b/metrics_summary.json":
+        "c5ddbf0b184f99f0875b2dee94fdcfdbaf6c6361ff007f19a6d5668429438130",
+    "vdj/vdj_b/vdj_reference/fasta/regions.fa":
+        "502eef1fcdb0a04fdac2b297817866fee37f141f400bdc78aa490e327528150e",
+    "vdj/vdj_b/web_summary.html":
+        "52fdd041c937ad51424b55dd24685f9373798dcfc7a300b09fc36644cf713364",
+    "vdj/vdj_t/airr_rearrangement.tsv":
+        "f8026eca4b965c76c7f27ef2982519b42e73cc8c63b9d4fb66ee18e55224fa03",
+    "vdj/vdj_t/all_contig.fasta":
+        "d6d14525c4c74e547112ae26782a5d4b36f9f06167ec276dbc938391340f6f8d",
+    "vdj/vdj_t/all_contig.fastq":
+        "12ebc96c953afdab2ffc582a74df9ff284d975b1357603c3d0e16cf18d845f44",
+    "vdj/vdj_t/all_contig_annotations.csv":
+        "8f3ce95e61837b719c890456c4b7edf4fcc9137385cbd3a6942f16b989cd4f83",
+    "vdj/vdj_t/all_contig_annotations.json":
+        "819009d33a2397c6d24a50d9100b9cfa108bc6f730b26fc74fb881c1bd8cde28",
+    "vdj/vdj_t/cell_barcodes.json":
+        "364f1fa470f93a7d9039960f7ecd426f7540d36372a5f3f90ba42dfc10b894b0",
+    "vdj/vdj_t/clonotypes.csv":
+        "2a68cdcc2d3220ed72b44162b1b50501e2d60dbefa033509c6e7286b0db18bb9",
+    "vdj/vdj_t/concat_ref.fasta":
+        "96130d56e23f9d3203bbd1cdf03661dc3b6894ca5b1ce2aaff6b2977803cf37b",
+    "vdj/vdj_t/consensus.fasta":
+        "6a64444f973ab3ff9c4cdd5ffc4a6867f824f171af5080e14edc8433ebde7e85",
+    "vdj/vdj_t/consensus_annotations.csv":
+        "099887c302943a13a75edb27a54a5dc3e2420c5badc72b805a7c4c58387bd90b",
+    "vdj/vdj_t/filtered_contig.fasta":
+        "d6d14525c4c74e547112ae26782a5d4b36f9f06167ec276dbc938391340f6f8d",
+    "vdj/vdj_t/filtered_contig.fastq":
+        "12ebc96c953afdab2ffc582a74df9ff284d975b1357603c3d0e16cf18d845f44",
+    "vdj/vdj_t/filtered_contig_annotations.csv":
+        "8f3ce95e61837b719c890456c4b7edf4fcc9137385cbd3a6942f16b989cd4f83",
+    "vdj/vdj_t/metrics_summary.json":
+        "1562985ccb3c8bbdf54b1ca3b828736ae2a7eedb00e825ff294a7e5bbe28b473",
+    "vdj/vdj_t/vdj_reference/fasta/regions.fa":
+        "502eef1fcdb0a04fdac2b297817866fee37f141f400bdc78aa490e327528150e",
+    "vdj/vdj_t/web_summary.html":
+        "daf847643f0beea39c6ca2b1b88b5c5940f5e2793dc085ed7b6b0cc92892d851",
 }
 VDJ_PARITY_CHUNK = 500          # kmer rows a block: splits every world
 VDJ_KMER_CELLS = 400            # 2,000,000 pairs, 4,000,000 reads
@@ -3982,6 +4108,352 @@ def vdj_b_held(tmp: str, device: str = "cuda") -> dict:
     return rep
 
 
+def immune_truth_diffs(fx: dict, out: str, summary: dict) -> list[str]:
+    """A run_multi of fixtures.build_immune_run against the well's truth:
+    the GEX library's reads, confidently mapped and improper pairs,
+    molecules and cells (every cell of the well, no other barcode); each
+    V(D)J library's reads, cells, clonotypes as the fixture's partition
+    (every planted dropout in its clone, by the subset merge), each
+    cell's CDR3s and V and J genes per chain, two alphas or two lights
+    where planted (vdj_truth_diffs), and the B library's C genes
+    (vdj_b_truth_diffs)."""
+    with open(os.path.join(out, "count", "metrics_summary.json")) as f:
+        m = json.load(f)
+    with gzip.open(os.path.join(out, "count", "filtered_feature_bc_matrix",
+                                "barcodes.tsv.gz"), "rt") as f:
+        cells = sorted(f.read().split())
+    diffs = [f"gex {k}: got {m.get(k)}, expected {v}"
+             for k, v in fx["gex"]["expected"].items() if m.get(k) != v]
+    if cells != fx["gex"]["cells"]:
+        diffs.append(f"gex cells: {len(cells)} called, not the well's "
+                     f"{len(fx['gex']['cells'])}")
+    for lib, check in (("vdj_t", vdj_truth_diffs),
+                       ("vdj_b", vdj_b_truth_diffs)):
+        diffs += [f"{lib}: {d}" for d in check(
+            fx[lib], os.path.join(out, "vdj", lib), summary["vdj"][lib],
+            None)]
+    return diffs
+
+
+def immune_merges(fx: dict, out: str) -> dict:
+    """Per V(D)J library, the planted dropout cells the run put in one
+    clonotype with the rest of their clone, against the fixture's
+    count, and the clones of those with a dominant-superset case."""
+    rep = {}
+    for lib in ("vdj_t", "vdj_b"):
+        with open(os.path.join(out, "vdj", lib,
+                               "all_contig_annotations.json")) as f:
+            clono = {r["barcode"]: r["clonotype"] for r in json.load(f)
+                     if r["is_cell"]}
+        merged = fx[lib]["truth"]["merged"]
+        joined = sum(
+            sum(clono.get(b) is not None and clono.get(b) == clono.get(
+                next(x for x in m["clone"] if x not in m["joined"]))
+                for b in m["joined"]) for m in merged)
+        rep[lib] = dict(planted=sum(len(m["joined"]) for m in merged),
+                        joined=joined, clones=len(merged),
+                        dominant=sum(m["dominant"] for m in merged))
+    return rep
+
+
+def immune_digest(out: str) -> dict:
+    """{path: sha256} of what a run_multi of an immune well must write
+    alike on every device and in both packages: every file under vdj/,
+    the count's MEX files decompressed (gzip headers carry a time),
+    filtered_barcodes.csv and per_barcode_metrics.csv, and both
+    metrics_summary.json files read back without wall_time_s.  Not held
+    here: the count's h5 files (h5py and io/hdf5.py lay out equal data in
+    other bytes; the tests hold them by h5_parity_diffs), analysis/
+    (floats held by tolerance between devices), _perf.json and the web
+    summaries of count and multi (times)."""
+    count = os.path.join(out, "count")
+    got = {f"vdj/{k}": v for k, v in tree_sha256(os.path.join(
+        out, "vdj")).items()}
+    got.update({f"count/{k}": v for k, v in mex_sha256(count).items()})
+    for f in ("filtered_barcodes.csv", "per_barcode_metrics.csv"):
+        with open(os.path.join(count, f), "rb") as fh:
+            got[f"count/{f}"] = _sha256(fh.read())
+    for f in ("count/metrics_summary.json", "metrics_summary.json"):
+        with open(os.path.join(out, f)) as fh:
+            m = json.load(fh)
+        m.pop("wall_time_s", None)
+        got[f] = _sha256(json.dumps(m, sort_keys=True).encode())
+    return dict(sorted(got.items()))
+
+
+def immune_held(tmp: str, device: str = "cuda") -> dict:
+    """The small immune well (IMMUNE_HELD, plans IMMUNE_HELD_T_PLAN and
+    IMMUNE_HELD_B_PLAN: two-alpha T clones with a dominant-superset case,
+    a two-light B clone with a dropout sibling) through the port's
+    run_multi on `device`: the fixture's truth (immune_truth_diffs) and
+    immune_digest equal to the JAX package's CPU run (IMMUNE_EXPECTED,
+    tests/immune_reference.py); the GEX library's K1 launches, two a
+    step on cuda."""
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.io.multi_config import run_multi
+    from cellranger_tpu_torch.testing.fixtures import build_immune_run
+
+    root = os.path.join(tmp, "immune_held")
+    try:
+        t = time.time()
+        fx = build_immune_run(os.path.join(root, "fx"), **IMMUNE_HELD,
+                              t_plan=IMMUNE_HELD_T_PLAN,
+                              b_plan=IMMUNE_HELD_B_PLAN)
+        t_fix = time.time() - t
+        out = os.path.join(root, "out")
+        sw.LAUNCHES = 0
+        t = time.time()
+        s = run_multi(fx["csv"], out, fx["wl"], batch_size=IMMUNE_HELD_BATCH,
+                      device=device)
+        wall = time.time() - t
+        launches = sw.LAUNCHES
+        diffs = immune_truth_diffs(fx, out, s)
+        merges = immune_merges(fx, out)
+        files = immune_digest(out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    off = sorted(k for k in set(files) | set(IMMUNE_EXPECTED)
+                 if files.get(k) != IMMUNE_EXPECTED.get(k))
+    if off:
+        diffs.append(f"files differ from the JAX package's run: {off}")
+    steps = -(-fx["gex"]["n_reads"] // IMMUNE_HELD_BATCH)
+    if launches != (2 * steps if device == "cuda" else 0):
+        diffs.append(f"{launches} K1 launches in {steps} GEX steps")
+    rep = dict(cells=fx["kinds"], reads=dict(
+        gex=fx["gex"]["n_reads"], vdj_t=fx["vdj_t"]["n_reads"],
+        vdj_b=fx["vdj_b"]["n_reads"]), merges=merges,
+        clonotypes={lib: s["vdj"][lib]["n_clonotypes"]
+                    for lib in ("vdj_t", "vdj_b")},
+        sw_launches=launches, fixture_s=t_fix, wall_s=wall,
+        files_equal=len(files) - len(off))
+    if diffs:
+        raise AssertionError(f"immune_held: {diffs}; got {files}; "
+                             f"measured {json.dumps(rep)}")
+    return rep
+
+
+def _tree_rss(root: int, page: int) -> int:
+    """The summed resident sets of process `root` and of every process
+    below it (the graph workers), from /proc."""
+    kids: dict = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        kids.setdefault(ppid, []).append(int(d))
+    total, todo = 0, [root]
+    while todo:
+        p = todo.pop()
+        try:
+            with open(f"/proc/{p}/statm") as f:
+                total += int(f.read().split()[1]) * page
+        except (OSError, IndexError, ValueError):
+            pass
+        todo.extend(kids.get(p, ()))
+    return total
+
+
+@contextlib.contextmanager
+def stage_rss(every: float = 0.25):
+    """The summed resident set of this process and its children (_tree_rss)
+    sampled every `every` seconds by a thread, its peak kept per stage:
+    yields a dict whose "stage" the caller sets and whose "peaks"
+    ({stage: bytes}) and "bytes" (the peak of all) it fills."""
+    import threading
+
+    page = os.sysconf("SC_PAGE_SIZE")
+    out, stop = {"stage": None, "peaks": {}, "bytes": 0}, threading.Event()
+
+    def sample():
+        while True:
+            rss = _tree_rss(os.getpid(), page)
+            st = out["stage"]
+            out["peaks"][st] = max(out["peaks"].get(st, 0), rss)
+            out["bytes"] = max(out["bytes"], rss)
+            if stop.wait(every):
+                return
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        th.join()
+
+
+def _immune_fixture(root: str, n_cells: int, kw: dict) -> dict:
+    """build_immune_run in a child process (immune_run): the fixture
+    without its planted annotations, with its seconds and the child's
+    peak RSS."""
+    import resource
+
+    from cellranger_tpu_torch.testing.fixtures import build_immune_run
+
+    t = time.time()
+    fx = build_immune_run(root, n_cells, **kw)
+    for lib in ("vdj_t", "vdj_b"):
+        fx[lib].pop("anns")
+    fx["fixture_s"] = time.time() - t
+    fx["fixture_peak_rss_bytes"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024
+    return fx
+
+
+def immune_run(tmp: str, n_cells: int = IMMUNE_CELLS, device: str = "cuda",
+               **fixture_kw) -> dict:
+    """A 5' immune profiling well (fixtures.build_immune_run: n_cells of
+    PBMC shares; GEX at 2,000 SC5P-PE pairs a cell, VDJ-T and VDJ-B at
+    5,000 pairs a cell, two-alpha and two-light clones, planted dropouts,
+    one combined TR + IG reference, the 737,280-barcode whitelist) built
+    in a child process, then through the port's run_multi on `device`
+    (GEX at batch E2E_BATCH; the V(D)J libraries at VdjConfig's own):
+    held to the well's truth (immune_truth_diffs).  Reports each
+    library's wall, the GEX phases and K1 launches (two a step), each
+    V(D)J library's pipeline.vdj.LAST_SPLIT with host seconds a cell,
+    cells and clonotypes, the planted dropouts joined by the subset
+    merge, peak device memory and peak summed RSS (this process and the
+    graph workers) per library against MemTotal, this process's RSS as
+    immune_run starts and
+    its children's when each library starts (a torn-down pool leaves
+    none) and the summed RSS when it ends, the fixture's seconds, peak
+    RSS and FASTQ bytes.  Fails
+    where the truth is missed, peak RSS reaches IMMUNE_RSS_SHARE of
+    MemTotal or a library's device peak IMMUNE_DEVICE_BYTES.  The fixture
+    and outputs are deleted after.  `fixture_kw` goes to
+    build_immune_run.  Alone on a machine with one card (about 22
+    minutes with its fixture, 24 GB of FASTQ under tmp):
+
+        python3 -c "import chip_smoke as c, json, tempfile; from
+        cellranger_tpu_torch import kernels; kernels.build();
+        print(json.dumps(c.immune_run(tempfile.mkdtemp())))"
+    """
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.io.multi_config import run_multi
+    from cellranger_tpu_torch.pipeline import count, vdj
+
+    root = os.path.join(tmp, f"immune_{n_cells}")
+    page = os.sysconf("SC_PAGE_SIZE")
+    libs: dict = {}
+    real = dict(count=count.run_count, vdj=vdj.run_vdj)
+
+    def timed(name, fn, cfg, out_dir, **kw):
+        with open("/proc/self/statm") as f:
+            rss0 = int(f.read().split()[1]) * page
+        kids0 = _tree_rss(os.getpid(), page) - rss0
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        sw.LAUNCHES = 0
+        rss["stage"] = name
+        t = time.time()
+        s = fn(cfg, out_dir, **kw)
+        lib = dict(wall_s=time.time() - t, sw_launches=sw.LAUNCHES,
+                   rss_before_bytes=rss0, children_rss_before_bytes=kids0,
+                   rss_after_bytes=_tree_rss(os.getpid(), page),
+                   peak_device_bytes=(torch.cuda.max_memory_allocated()
+                                      if device == "cuda" else None))
+        rss["stage"] = None
+        libs[name] = lib
+        return s
+
+    def run_count(cfg, out_dir, **kw):
+        return timed("gex", real["count"], cfg, out_dir, **kw)
+
+    def run_vdj(cfg, out_dir, **kw):
+        name = os.path.basename(out_dir)
+        s = timed(name, real["vdj"], cfg, out_dir, **kw)
+        libs[name]["split"] = dict(vdj.LAST_SPLIT)
+        return s
+
+    with open("/proc/self/statm") as f:
+        rss_start = int(f.read().split()[1]) * page
+    try:
+        with ProcessPoolExecutor(1, multiprocessing.get_context(
+                "spawn")) as ex:
+            fx = ex.submit(_immune_fixture, os.path.join(root, "fx"),
+                           n_cells, fixture_kw).result()
+        fastq_bytes = sum(os.path.getsize(os.path.join(d, f))
+                          for d in (fx["gex"]["dir"], fx["vdj_t"]["dir"],
+                                    fx["vdj_b"]["dir"])
+                          for f in os.listdir(d))
+        out = os.path.join(root, "out")
+        count.run_count, vdj.run_vdj = run_count, run_vdj
+        try:
+            with stage_rss() as rss:
+                t = time.time()
+                s = run_multi(fx["csv"], out, fx["wl"], batch_size=E2E_BATCH,
+                              device=device)
+                wall = time.time() - t
+        finally:
+            count.run_count, vdj.run_vdj = real["count"], real["vdj"]
+        diffs = immune_truth_diffs(fx, out, s)
+        merges = immune_merges(fx, out)
+        with open(os.path.join(out, "count", "_perf.json")) as f:
+            phases: dict = {}
+            for ph in json.load(f)["phases"]:
+                phases[ph["name"]] = phases.get(ph["name"], 0.0) \
+                    + ph["wall_s"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = mem_total()
+    gex = libs["gex"]
+    gex.update(reads=s["count"]["total_reads"],
+               molecules=s["count"]["total_molecules"],
+               cells=s["count"]["estimated_cells"], phase_s=phases,
+               steps=-(-s["count"]["total_reads"] // E2E_BATCH),
+               peak_rss_bytes=rss["peaks"].get("gex"))
+    if device == "cuda" and gex["sw_launches"] != 2 * gex["steps"]:
+        diffs.append(f"{gex['sw_launches']} K1 launches in {gex['steps']} "
+                     "GEX steps")
+    for name in ("vdj_t", "vdj_b"):
+        lib, sp = libs[name], libs[name].pop("split")
+        cells = s["vdj"][name]["estimated_cells"]
+        host = lib["wall_s"] - sp["pass1_s"] - sp["pass2_s"] - sp["kmers_s"]
+        lib.update(reads=s["vdj"][name]["total_reads"], cells=cells,
+                   clonotypes=s["vdj"][name]["n_clonotypes"],
+                   pass1_s=sp["pass1_s"], pass2_s=sp["pass2_s"],
+                   kmers_s=sp["kmers_s"], host_assembly_s=host,
+                   host_s_per_cell=host / max(cells, 1),
+                   **_vdj_split_report(sp),
+                   peak_rss_bytes=rss["peaks"].get(name),
+                   background_pairs=fx[name]["background_pairs"],
+                   background_barcodes=len(fx[name]["truth"]["background"]),
+                   merges=merges[name])
+        if lib["sw_launches"]:
+            diffs.append(f"{name} launched the SW kernel")
+    libs["vdj_t"]["two_alpha_cells"] = len(fx["vdj_t"]["truth"]["two_alpha"])
+    libs["vdj_b"]["two_light_cells"] = len(fx["vdj_b"]["truth"]["two_light"])
+    libs["vdj_b"]["plasma_cells"] = list(
+        fx["vdj_b"]["truth"]["kinds"].values()).count("plasma")
+    rep = dict(cells=fx["kinds"], wall_s=wall, libraries=libs,
+               rss_start_bytes=rss_start,
+               peak_rss_bytes=rss["bytes"], mem_total_bytes=total,
+               peak_rss_share=rss["bytes"] / total,
+               peak_device_bytes=(max(v["peak_device_bytes"]
+                                      for v in libs.values())
+                                  if device == "cuda" else None),
+               sw_launches=gex["sw_launches"], fixture_s=fx["fixture_s"],
+               fixture_peak_rss_bytes=fx["fixture_peak_rss_bytes"],
+               fastq_bytes=fastq_bytes)
+    if rep["peak_rss_share"] >= IMMUNE_RSS_SHARE:
+        diffs.append(f"peak RSS {rss['bytes']} bytes, "
+                     f"{rep['peak_rss_share']:.3f} of MemTotal")
+    if device == "cuda" and rep["peak_device_bytes"] >= IMMUNE_DEVICE_BYTES:
+        diffs.append(f"peak device memory {rep['peak_device_bytes']} bytes")
+    if diffs:
+        raise AssertionError(f"immune at {n_cells} cells: {diffs[:20]}; "
+                             f"measured {json.dumps(rep)}")
+    return rep
+
+
 def _plain_reads(rd) -> list:
     """The originals' read list, (umi, seq, qual bytes), of a
     support.BarcodeReads."""
@@ -5071,7 +5543,9 @@ def main() -> None:
                   "call within the limit: " + json.dumps(g))
             with phase_beside("depth_small", tmp, DEPTH_SMALL_TIMEOUT_S, tmp,
                               {"ref": fx["ref"], "wl": fx["wl"]}
-                              ) as depth_small_report:
+                              ) as depth_small_report, phase_beside(
+                                  "immune_held", tmp, IMMUNE_HELD_TIMEOUT_S,
+                                  tmp) as immune_held_report:
                 g = h5_pipelines(fx, tmp, e2e_out, ovf_out)
                 launches["h5_pipelines"] = g["sw_launches"]
                 phase("h5_pipelines", "aggr, GEM wells and reanalyze "
@@ -5121,6 +5595,7 @@ def main() -> None:
                 phase("analysis_parity", "cuda against cpu, two cuda runs "
                       "identical: " + json.dumps(analysis_parity(tmp)))
                 g = depth_small_report()
+                immune = immune_held_report()
             launches["depth_small"] = g["sw_launches"]
             phase("depth_small", f"{smi}: {g['reads']} reads of the depth "
                   "fixture in a child process beside "
@@ -5128,6 +5603,13 @@ def main() -> None:
                   "flushing and with BAM in parts of at most "
                   f"{g['bam']['bam_split']['band_records']} records: the "
                   "fixture's truth, the same MEX: " + json.dumps(g))
+            launches["immune_held"] = immune["sw_launches"]
+            phase("immune_held", f"{smi}: run_multi of a 5' well (GEX, "
+                  "VDJ-T with two-alpha clones and VDJ-B with a two-light "
+                  "clone, planted dropouts, one TR + IG reference) in a "
+                  "child process beside h5_pipelines..analysis_parity: "
+                  f"{immune['files_equal']} digests the JAX package's "
+                  "and the well's truth: " + json.dumps(immune))
 
             g = cellplex_report()
             launches["cellplex"] = g["sw_launches"]
