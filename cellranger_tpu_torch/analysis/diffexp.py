@@ -13,11 +13,20 @@ driven from cr_ana/src/stages/diff_exp_stage.rs:78):
     <= big_count=900, else normal approximation (diffexp.py:100)
   * Benjamini-Hochberg adjustment; log2 fold change with pseudocounts.
 
-Verbatim copy of cellranger_tpu/analysis/diffexp.py: the port keeps its own copy of
-every jax-free module it needs and imports nothing of that package.
+The JAX package's module, but for the exact test, which takes a chunk of
+genes at a time: one pair of `logpmf` calls over every split of every gene
+in the chunk, laid out as columns of a [split, gene] plane, and the two
+reductions folded column by column in the order each gene's own reduction
+takes, each column over the genes that reach it (genes in order of their
+total count); the last `exp` a gene at a time.  The clusters' tests run on
+threads (numpy and scipy's ufuncs let go of the GIL).  Every output equals
+the JAX package's bit for bit (tests/test_torch_diffexp_exact.py).
 """
 
 from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import scipy.sparse as sp
@@ -25,6 +34,9 @@ import scipy.stats as st
 
 SSEQ_ZETA_QUANTILE = 0.995
 BIG_COUNT = 900
+# splits of a chunk's [split, gene] plane, padding included (8 MB a
+# plane; a cluster's thread holds about ten arrays of it)
+CHUNK_SPLITS = 1 << 20
 
 
 def estimate_size_factors(x: sp.spmatrix) -> np.ndarray:
@@ -69,6 +81,34 @@ def compute_sseq_params(x: sp.spmatrix, zeta_quantile: float = SSEQ_ZETA_QUANTIL
                 delta=delta, phi_g=phi_g)
 
 
+def _logpmf(k: np.ndarray, mean: np.ndarray, disp: np.ndarray) -> np.ndarray:
+    """The per-gene `logpmf` on flat arrays: Poisson where the
+    dispersion is not positive, else the negative binomial of size 1/disp."""
+    out = np.empty(len(k))
+    pois = disp <= 0
+    if pois.any():
+        out[pois] = st.poisson.logpmf(k[pois], mean[pois])
+    nb = ~pois
+    if nb.any():
+        r = 1.0 / disp[nb]
+        out[nb] = st.nbinom.logpmf(k[nb], r, r / (r + mean[nb]))
+    return out
+
+
+def _chunks(n_sorted: np.ndarray):
+    """[start, stop) runs of genes sorted by n whose padded plane,
+    (stop - start) x (largest n + 1), stays within CHUNK_SPLITS."""
+    cap = CHUNK_SPLITS // (n_sorted + 1)
+    start = 0
+    while start < len(n_sorted):
+        over = np.flatnonzero(np.arange(1, len(n_sorted) - start + 1)
+                              > cap[start:])
+        stop = start + (int(over[0]) if len(over) else len(n_sorted) - start)
+        stop = max(stop, start + 1)
+        yield start, stop
+        start = stop
+
+
 def _nb_exact_pvals(x_a, x_b, size_a, size_b, mu, phi):
     """Exact NB test per gene (vectorized over a chunk of genes).
 
@@ -81,26 +121,30 @@ def _nb_exact_pvals(x_a, x_b, size_a, size_b, mu, phi):
     out = np.ones(len(n))
     if len(n) == 0:
         return out
-    max_n = int(n.max())
-    ks = np.arange(max_n + 1)
-
-    def logpmf(k, mean, disp):
-        if disp <= 0:
-            return st.poisson.logpmf(k, mean)
-        r = 1.0 / disp
-        p = r / (r + mean)
-        return st.nbinom.logpmf(k, r, p)
-
-    for i in range(len(n)):
-        ni = n[i]
-        k = ks[:ni + 1]
-        la = logpmf(k, size_a[i] * mu[i], phi[i] / size_a[i])
-        lb = logpmf(ni - k, size_b[i] * mu[i], phi[i] / size_b[i])
-        joint = la + lb
-        obs = joint[int(x_a[i])]
-        total = np.logaddexp.reduce(joint)
-        sel = joint <= obs + 1e-10
-        out[i] = np.exp(np.logaddexp.reduce(joint[sel]) - total)
+    order = np.argsort(n, kind="stable")
+    for start, stop in _chunks(n[order]):
+        g = order[start:stop]
+        w = n[g] + 1
+        rows = np.repeat(np.arange(len(g)), w)
+        k = np.arange(int(w.sum())) - np.repeat(np.cumsum(w) - w, w)
+        la = _logpmf(k, (size_a[g] * mu[g])[rows], (phi[g] / size_a[g])[rows])
+        lb = _logpmf(n[g][rows] - k, (size_b[g] * mu[g])[rows],
+                     (phi[g] / size_b[g])[rows])
+        joint = np.full((int(w.max()), len(g)), -np.inf)
+        joint[k, rows] = la + lb
+        obs = joint[x_a[g].astype(int), np.arange(len(g))]
+        thr = obs + 1e-10
+        total = joint[0].copy()
+        tail = np.where(joint[0] <= thr, joint[0], -np.inf)
+        # column j folds only the genes of n >= j: a suffix, n ascending
+        for j, a in enumerate(np.searchsorted(w, np.arange(2, len(joint) + 1)),
+                              1):
+            col, t = joint[j, a:], thr[a:]
+            total[a:] = np.logaddexp(total[a:], col)
+            tail[a:] = np.where(col <= t, np.logaddexp(tail[a:], col),
+                                tail[a:])
+        for j, i in enumerate(g):
+            out[i] = np.exp(tail[j] - total[j])
     return np.minimum(out, 1.0)
 
 
@@ -166,14 +210,17 @@ def sseq_differential_expression(x: sp.spmatrix, cond_a, cond_b, params,
 
 
 def run_differential_expression(x: sp.spmatrix, clusters: np.ndarray):
-    """Per-cluster one-vs-rest DE (diffexp.py:137-172). clusters 1-based.
-    Returns dict cluster -> result dict."""
+    """Per-cluster one-vs-rest DE (diffexp.py:137-172), the clusters on
+    threads. clusters 1-based. Returns dict cluster -> result dict."""
     params = compute_sseq_params(x)
-    out = {}
-    for c in np.unique(clusters):
-        in_c = np.flatnonzero(clusters == c)
-        out_c = np.flatnonzero(clusters != c)
-        if len(in_c) == 0 or len(out_c) == 0:
-            continue
-        out[int(c)] = sseq_differential_expression(x, in_c, out_c, params)
-    return out
+    x = x.tocsc()
+    cs = [int(c) for c in np.unique(clusters)
+          if (clusters == c).any() and (clusters != c).any()]
+
+    def test(c):
+        return sseq_differential_expression(
+            x, np.flatnonzero(clusters == c), np.flatnonzero(clusters != c),
+            params)
+
+    with ThreadPoolExecutor(max(1, min(len(cs), os.cpu_count() or 1))) as ex:
+        return dict(zip(cs, ex.map(test, cs)))

@@ -8,8 +8,10 @@ The standardized dense matrix is uploaded once; the PCA projection stays
 on the device through k-means, the kNN graphs, t-SNE and UMAP, and comes
 to the host only for the CSVs and for Louvain.  Preprocessing, hierarchical
 clustering and differential expression are verbatim copies of the JAX
-package's jax-free host modules.  `results["stage_s"]` holds each stage's wall seconds, the
-device synchronized at each stage's end.
+package's jax-free host modules, but for differential expression's exact
+test, run on many genes at once (`diffexp.py`, the JAX package's bits).
+`results["stage_s"]` holds each stage's wall seconds, the device
+synchronized at each stage's end.
 """
 
 from __future__ import annotations
@@ -144,15 +146,15 @@ def run_secondary_analysis(matrix: CountMatrix, out_dir: str,
         for c in sorted(d):
             header += [f"Cluster {c} Mean Counts", f"Cluster {c} Log2 fold change",
                        f"Cluster {c} Adjusted p value"]
-        rows = []
-        for g in range(len(ids)):
-            row = [ids[g], names[g]]
-            for c in sorted(d):
-                r = d[c]
-                row += [round(r["norm_mean_a"][g], 6),
-                        round(r["log2_fold_change"][g], 6),
-                        r["adjusted_p_value"][g]]
-            rows.append(row)
+        # np.round of a column rounds each value as round(value, 6) does
+        cols = []
+        for c in sorted(d):
+            r = d[c]
+            cols += [np.round(r["norm_mean_a"], 6),
+                     np.round(r["log2_fold_change"], 6),
+                     r["adjusted_p_value"]]
+        rows = [[ids[g], names[g]] + [col[g] for col in cols]
+                for g in range(len(ids))]
         _write_csv(os.path.join(out_dir, "diffexp", key,
                                 "differential_expression.csv"), header, rows)
     st.lap("diffexp")

@@ -32,12 +32,14 @@ modification times are written.  Whatever is outside this subset raises.
 
 from __future__ import annotations
 
+import collections
 import math
 import mmap
 import os
 import struct
 import zlib
 from collections.abc import MutableMapping
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -70,6 +72,26 @@ DEFAULT_GZIP = 4
 _VLEN_RAW = np.dtype([("len", "<u4"), ("addr", "<u8"), ("idx", "<u4")])
 VLEN_UTF8 = np.dtype("O", metadata={"vlen": str})
 VLEN_ASCII = np.dtype("O", metadata={"vlen": bytes})
+
+
+def _ordered_map(fn, items: list):
+    """fn over items, the results in their order, on threads when there is
+    more than one item: zlib lets go of the GIL, so a dataset's chunks are
+    deflated and inflated on every core, and the file's bytes stay those of
+    one thread.  At most two results a thread are held at once, so a
+    dataset's chunks pass through in a bounded window."""
+    if len(items) < 2:
+        yield from map(fn, items)
+        return
+    n = min(len(items), os.cpu_count() or 1)
+    with ThreadPoolExecutor(n) as ex:
+        window = collections.deque()
+        for item in items:
+            window.append(ex.submit(fn, item))
+            if len(window) == 2 * n:
+                yield window.popleft().result()
+        while window:
+            yield window.popleft().result()
 
 
 def _pad8(b: bytes) -> bytes:
@@ -702,9 +724,10 @@ class _Reader:
         cshape = tuple(dims[:rank])
         csize = math.prod(cshape) * raw_dt.itemsize
         key_size = 8 + 8 * (rank + 1)
-        for key, addr in self._btree_children(btree, 1, key_size):
+
+        def inflate(child):
+            key, addr = child
             nbytes, mask = struct.unpack_from("<II", key)
-            offs = struct.unpack_from(f"<{rank}Q", key, 8)
             data = bytes(self.buf[addr:addr + nbytes])
             for i, (fid, cd) in reversed(list(enumerate(ds._filters))):
                 if mask & (1 << i):
@@ -713,6 +736,10 @@ class _Reader:
                     data = zlib.decompress(data)
                 else:
                     data = _unshuffle(data, cd[0])
+            return struct.unpack_from(f"<{rank}Q", key, 8), addr, data
+
+        for offs, addr, data in _ordered_map(inflate, list(
+                self._btree_children(btree, 1, key_size))):
             if len(data) != csize:
                 self._fail(f"{ds.name}: chunk at {addr} holds {len(data)} "
                            f"bytes, not {csize}")
@@ -851,7 +878,8 @@ class _Writer:
             return UNDEF
         grid = [-(-s // c) for s, c in zip(raw.shape, chunks)]
         entries = []
-        for idx in np.ndindex(*grid):
+
+        def deflate(idx):
             offs = tuple(i * c for i, c in zip(idx, chunks))
             block = raw[tuple(slice(o, o + c) for o, c in zip(offs, chunks))]
             if block.shape != chunks:
@@ -862,6 +890,9 @@ class _Writer:
             for fid, cd in filters:
                 data = _shuffle(data, cd[0]) if fid == FILTER_SHUFFLE \
                     else zlib.compress(data, cd[0])
+            return offs, data
+
+        for offs, data in _ordered_map(deflate, list(np.ndindex(*grid))):
             key = struct.pack(f"<II{len(offs) + 1}Q", len(data), 0, *offs, 0)
             entries.append((key, self.append(data)))
         # the right key of the last chunk, as the library writes it: the

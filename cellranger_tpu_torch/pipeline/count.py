@@ -43,6 +43,7 @@ verbatim copies of the JAX package's jax-free modules.
 
 from __future__ import annotations
 
+import concurrent.futures as _futures
 import glob
 import json
 import os
@@ -1536,12 +1537,19 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
                     for ps in probe_strs]
     else:
         barcodes = barcode_names(out_seqs, whitelist.length, suffix)
+    perf.lap("barcode_names")
     raw = CountMatrix.from_molecules(mbc.astype(np.int64),
                                      mgene.astype(np.int64), barcodes,
                                      features)
     raw.save_h5(os.path.join(out_dir, "raw_feature_bc_matrix.h5"),
                 chemistry_description=chem.description)
-    raw.save_mex(os.path.join(out_dir, "raw_feature_bc_matrix"))
+    # the raw MEX (a level-9 gzip line a barcode: minutes over millions of
+    # barcodes, nearly all of it in zlib, which lets go of the GIL) is
+    # written on a thread beside the rest, and waited for at the end
+    mex_pool = _futures.ThreadPoolExecutor(1)
+    raw_mex = mex_pool.submit(
+        raw.save_mex, os.path.join(out_dir, "raw_feature_bc_matrix"))
+    mex_pool.shutdown(wait=False)
     perf.lap("matrix_assembly")
 
     # ---- antibody/antigen aggregate-GEM removal (FILTER_BARCODES step 1,
@@ -1737,6 +1745,8 @@ def _finalize(cfg, chem, out_dir, whitelist, libraries, ref, gi, features,
     from .websummary import build_web_summary
     build_web_summary(out_dir, cfg.sample_id)
     perf.lap("report_websummary")
+    raw_mex.result()
+    perf.lap("raw_mex_wait")
     perf.lap("reporting")
     perf.write(os.path.join(out_dir, "_perf.json"))
     return summary

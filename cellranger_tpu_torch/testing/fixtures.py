@@ -4649,3 +4649,435 @@ def _depth_block(task) -> tuple[bytes, bytes]:
     r = depth_reads(gen, a, b)
     return (gzip.compress(_named_fastq(r["names"], r["r1"]), 1, mtime=0),
             gzip.compress(_named_fastq(r["names"], r["r2"]), 1, mtime=0))
+
+
+# ---------------------------------------------------------------------------
+# A multiplexed Flex well: 16 samples in one GEM well, told apart by the
+# probe barcode on R2
+# ---------------------------------------------------------------------------
+
+FLEX_READS = 160_000_000     # 10x's 10,000 read pairs a cell
+FLEX_CELLS = 16_000          # 16 samples of 1,000 cells
+FLEX_GEL_BEADS = 15_000      # the cells' beads: ~10,000 of them used
+FLEX_SEED = 59
+FLEX_EXTRA_READS = 0.3       # a molecule's reads: 1 + Poisson(0.3)
+FLEX_AMBIENT_PER_CELL = 30   # ambient product barcodes a cell, 1-5 molecules
+FLEX_LOW_SHARE = 0.2         # cells at FLEX_LOW_WEIGHT of the others' depth:
+FLEX_LOW_WEIGHT = 0.08       # under ordmag's cutoff, called by EmptyDrops
+FLEX_HOT_GENE = 7            # a gene with FLEX_HOT_SHARE of the cells'
+FLEX_HOT_SHARE = 0.08        # molecules
+FLEX_MIN_SHARED = 0.30       # cells sharing their bead with another sample
+# a read's probe barcode: its own; one base off (assigned); two bases off
+# its own and at least two off every listed one, or a random 8-mer at least
+# two off every listed one (both dropped by assign_probe_bcs)
+FLEX_PBC_KINDS = ("exact", "one_mm", "two_mm", "off_list")
+FLEX_PBC_SHARES = (0.95, 0.03, 0.01, 0.01)
+FLEX_PBC_BLOCK = 1 << 24     # reads whose probe barcode is drawn at once
+FLEX_NAME = 11               # read names F<10 digits>: the read's number
+_MIX = (np.uint64(0x9E3779B97F4A7C15), np.uint64(0xBF58476D1CE4E5B9),
+        np.uint64(0x94D049BB133111EB))
+
+
+def _mix64(x) -> np.ndarray:
+    """splitmix64 of each value: the draws a FASTQ block makes for a
+    molecule or a read, the same whichever block makes them."""
+    z = np.asarray(x, np.uint64) + _MIX[0]
+    z = (z ^ (z >> np.uint64(30))) * _MIX[1]
+    z = (z ^ (z >> np.uint64(27))) * _MIX[2]
+    return z ^ (z >> np.uint64(31))
+
+
+def probe_bc_distances(codes: np.ndarray, listed: np.ndarray) -> np.ndarray:
+    """Mismatched bases [n, P] between packed 8-base probe barcodes and
+    each listed one."""
+    x = codes.astype(np.uint32)[:, None] ^ listed.astype(np.uint32)[None, :]
+    g = (x | (x >> 1)) & np.uint32(0x5555)
+    return np.unpackbits(g.astype(">u2").view(np.uint8).reshape(
+        *g.shape, 2), axis=-1).sum(-1)
+
+
+def _flex_probe_bcs(own: np.ndarray, kind: np.ndarray, listed: np.ndarray,
+                    rng) -> np.ndarray:
+    """The packed probe barcode each read carries (FLEX_PBC_KINDS)."""
+    out = own.astype(np.uint16)
+    sel = np.flatnonzero(kind == 1)
+    pos = rng.integers(0, 8, len(sel)).astype(np.uint16)
+    out[sel] ^= (rng.integers(1, 4, len(sel)).astype(np.uint16)
+                 << (2 * (7 - pos)))
+    for k in (2, 3):
+        todo = np.flatnonzero(kind == k)
+        while len(todo):
+            if k == 2:
+                p1 = rng.integers(0, 8, len(todo))
+                p2 = (p1 + rng.integers(1, 8, len(todo))) % 8
+                new = own[todo].astype(np.uint16)
+                for p in (p1, p2):
+                    new ^= (rng.integers(1, 4, len(todo)).astype(np.uint16)
+                            << (2 * (7 - p)).astype(np.uint16))
+            else:
+                new = rng.integers(0, 1 << 16, len(todo)).astype(np.uint16)
+            ok = probe_bc_distances(new, listed).min(1) >= 2
+            out[todo[ok]] = new[ok]
+            todo = todo[~ok]
+    return out
+
+
+def build_flex_run(tmp: str, n_reads: int = FLEX_READS,
+                   n_cells: int = FLEX_CELLS, n_wl: int = VDJ_WL_5P,
+                   n_gel: int = FLEX_GEL_BEADS,
+                   n_probes: int = RTL_PROBES, n_genes: int = RTL_GENES,
+                   samples: list | None = None,
+                   n_ambient: int | None = None,
+                   low_share: float = FLEX_LOW_SHARE, seed: int = FLEX_SEED,
+                   block: int = DEPTH_WRITE_BLOCK,
+                   workers: int | None = None) -> dict:
+    """A multiplexed Fixed RNA Profiling well (MFRP-RNA) whose counts hold
+    by construction, at any depth: n_cells cells, n_cells / 16 on each of
+    the 16 probe barcodes of `rtl_probe_barcodes` (BC001-BC016, stand-ins
+    for 10x's list), each cell on a gel bead drawn from n_gel beads of an
+    n_wl-barcode whitelist (`_human_whitelist`; 10x's
+    737K-fixed-rna-profiling list has 737,280), the beads of one probe
+    barcode distinct, so that cells of several samples share a bead and
+    only the probe barcode tells them apart.  The probe set is
+    `build_rtl_run`'s: n_probes 50-base probes over n_genes genes, every
+    20th excluded, every 3rd probe's region unspliced.  R1 = bead
+    barcode + 12-base UMI; R2 = 50 probe bases, 18 filler bases, the
+    8-base probe barcode.
+
+    Molecules get 1 + Poisson(FLEX_EXTRA_READS) reads, drawn until the
+    reads number exactly n_reads; n_ambient ambient product barcodes
+    (FLEX_AMBIENT_PER_CELL a cell by default: with 16 probe barcodes
+    EmptyDrops takes its background from the barcodes ranked 360,000 to
+    720,000) hold 1-5 molecules each from a soup whose genes fall off as
+    1 / rank; the cells hold the rest, at one depth but for a low_share
+    of them at FLEX_LOW_WEIGHT of it, and one gene (FLEX_HOT_GENE) has
+    FLEX_HOT_SHARE of their molecules.  A molecule's kind is drawn in
+    RTL_SHARES (`build_rtl_run`: exact, one mismatch, rescued by the
+    other half, on an excluded probe, junk); a read's probe barcode in
+    FLEX_PBC_SHARES (FLEX_PBC_KINDS).  UMIs come from `_coded_umis` a
+    block of whole product barcodes at a time, so no two molecules of a
+    product barcode merge.  So cell calling finds the planted cells
+    exactly, as `build_depth_run`'s does: the deep cells hold about ten
+    times EmptyDrops' 500 UMIs, ordmag takes them and some of the low
+    ones, EmptyDrops the rest.  With few barcodes (no EmptyDrops) only a
+    well of cells alone is called exactly (n_ambient=0, low_share=0).
+
+    The reads are shuffled and written as gzipped FASTQs in DEPTH_LANES
+    lanes (<tmp>/fastq/flex_S1_L00k_R*), each a gzip member a block of
+    `block` reads made by one of `workers` spawned processes from the
+    tables in <tmp>/_flex (memory maps): no process holds the reads, and
+    the bytes are the same for any block and worker count.  <tmp>/multi.csv
+    is the `multi` config: the probe set, the probe barcodes, MFRP-RNA,
+    one Gene Expression library and a [samples] row for each entry of
+    `samples` ('|'-joined probe barcode ids; one sample a probe barcode
+    by default).
+
+    Returns the paths and the truth: `cells` ({sample: product barcode
+    names, sorted}), `assignments` ({cell name: its sample, or
+    'unassigned'}), the molecules sorted by (product barcode, gene, UMI)
+    as `mol_bc` (the product index: whitelist rank * 16 + probe barcode
+    rank), `mol_gene`, `mol_umi` (packed), `mol_reads` (the reads whose
+    probe barcode is assigned), `expected` (the run's read and molecule
+    metrics), `cell_index` ({cell name: product index}), `pbc_reads`
+    (reads of each FLEX_PBC_KINDS), the beads, the
+    share of cells on a shared bead, fixture_s and fastq_bytes."""
+    import multiprocessing as mp
+
+    from ..ops.encode import pack_codes_np
+
+    t0 = time.time()
+    gen = os.path.join(tmp, "_flex")
+    fq_dir = os.path.join(tmp, "fastq")
+    os.makedirs(gen, exist_ok=True)
+    os.makedirs(fq_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+
+    # the probe set and the probe barcodes, as build_rtl_run writes them
+    codes, slot_pos = _rtl_probe_codes(n_probes, rng)
+    probe_gene = (np.arange(n_probes) * n_genes // n_probes).astype(np.int32)
+    included = np.arange(n_probes) % RTL_EXCLUDED_EVERY != 0
+    unspliced = np.arange(n_probes) % 3 == 0
+    pcsv = os.path.join(tmp, "probes.csv")
+    seq_txt = bases[codes].view(f"S{RTL_PROBE_LEN}").ravel()
+    with open(pcsv, "w") as f:
+        f.write("#probe_set_file_format=1.0\n#panel_name=synthetic "
+                "whole transcriptome\n#reference_genome=synth\n")
+        f.write("gene_id,probe_seq,probe_id,included,region\n")
+        f.writelines(
+            f"GENE{g:05d},{s.decode()},GENE{g:05d}|p{i},"
+            f"{'TRUE' if inc else 'FALSE'},"
+            f"{'unspliced' if u else 'spliced'}\n"
+            for i, (g, s, inc, u) in enumerate(zip(
+                probe_gene.tolist(), seq_txt.tolist(), included.tolist(),
+                unspliced.tolist())))
+    pbcs = rtl_probe_barcodes()
+    n_pbc = len(pbcs)
+    ids = [f"BC{i + 1:03d}" for i in range(n_pbc)]
+    pbc_csv = os.path.join(tmp, "probe_barcodes.csv")
+    with open(pbc_csv, "w") as f:
+        f.write("id,sequence\n")
+        f.writelines(f"{i},{s}\n" for i, s in zip(ids, pbcs))
+    pbc_codes = np.asarray([[b"ACGT".index(c) for c in s.encode()]
+                            for s in pbcs], np.uint8)
+    pbc_packed = pack_codes_np(pbc_codes, 8).astype(np.uint16)
+    wl = _human_whitelist(rng, n_wl)
+    wl_path = os.path.join(tmp, "wl.txt")
+    _write_whitelist(wl_path, wl)
+
+    # cells: n_cells / 16 on each probe barcode, each on its own bead of
+    # the pool; ambient product barcodes: any bead, any probe barcode
+    if n_cells % n_pbc:
+        raise ValueError(f"n_cells must be a multiple of {n_pbc}")
+    per_pbc = n_cells // n_pbc
+    bead_wl = rng.choice(n_wl, n_gel, replace=False)
+    cell_bead = np.concatenate([rng.choice(n_gel, per_pbc, replace=False)
+                                for _ in range(n_pbc)])
+    cell_pbc = np.repeat(np.arange(n_pbc), per_pbc)
+    cell_prod = bead_wl[cell_bead].astype(np.int64) * n_pbc + cell_pbc
+    n_amb = FLEX_AMBIENT_PER_CELL * n_cells if n_ambient is None \
+        else n_ambient
+    amb = rng.choice(n_wl * n_pbc, n_amb + n_cells, replace=False)
+    amb = amb[~np.isin(amb, cell_prod)][:n_amb]
+    slot_prod = np.concatenate([cell_prod, amb])
+    cells_on_bead = np.bincount(cell_bead, minlength=n_gel)
+    shared = float((cells_on_bead[cell_bead] > 1).mean())
+
+    # molecules: reads each, product slot (cells, then ambient), UMI,
+    # kind, probe
+    draw = int(n_reads / (1 + FLEX_EXTRA_READS) * 1.05) + 64
+    counts = (1 + rng.poisson(FLEX_EXTRA_READS, draw)).astype(np.int32)
+    cs = np.cumsum(counts, dtype=np.int64)
+    n_mol = int(np.searchsorted(cs, n_reads)) + 1
+    if n_mol > draw:
+        raise AssertionError("the draw of molecules fell short of n_reads")
+    counts = counts[:n_mol]
+    counts[-1] -= np.int32(cs[n_mol - 1] - n_reads)
+    del cs
+    amb_mol = rng.integers(1, DEPTH_AMBIENT_MOLECULES + 1, n_amb)
+    if amb_mol.sum() >= n_mol:
+        raise AssertionError("ambient molecules past the reads")
+    weight = np.where(np.arange(n_cells) % round(1 / low_share) == 0,
+                      FLEX_LOW_WEIGHT, 1.0) if low_share else \
+        np.ones(n_cells)
+    per_cell = rng.multinomial(n_mol - int(amb_mol.sum()),
+                               weight / weight.sum())
+    slot = np.concatenate([np.repeat(np.arange(n_cells), per_cell),
+                           n_cells + np.repeat(np.arange(n_amb), amb_mol)]
+                          ).astype(np.int32)
+    umi = np.empty(n_mol, np.uint32)
+    a = 0
+    while a < n_mol:
+        b = int(np.searchsorted(slot, slot[min(a + DEPTH_UMI_BLOCK,
+                                               n_mol - 1)], "right"))
+        b = n_mol if a + DEPTH_UMI_BLOCK >= n_mol else b
+        umi[a:b] = pack_codes_np(_coded_umis(slot[a:b] - slot[a],
+                                             RTL_UMI_LEN, rng), RTL_UMI_LEN)
+        a = b
+    kind = rng.choice(len(RTL_KINDS), n_mol, p=RTL_SHARES).astype(np.uint8)
+    inc_idx, exc_idx = np.flatnonzero(included), np.flatnonzero(~included)
+    probe = inc_idx[rng.integers(0, len(inc_idx), n_mol)].astype(np.int32)
+    is_exc = kind == RTL_KINDS.index("excluded")
+    probe[is_exc] = exc_idx[rng.integers(0, len(exc_idx), int(is_exc.sum()))]
+
+    def probe_of(genes):
+        """A random included probe of each gene."""
+        lo = np.searchsorted(probe_gene[inc_idx], genes, "left")
+        hi = np.searchsorted(probe_gene[inc_idx], genes, "right")
+        return inc_idx[lo + (rng.random(len(genes)) * (hi - lo)).astype(
+            np.int64)].astype(np.int32)
+
+    soup = slot >= n_cells
+    hot = ~soup & ~is_exc & (rng.random(n_mol) < FLEX_HOT_SHARE)
+    probe[hot] = probe_of(np.full(int(hot.sum()), FLEX_HOT_GENE))
+    genes = np.unique(probe_gene[inc_idx])
+    zipf = 1.0 / np.arange(1, len(genes) + 1)
+    sel = soup & ~is_exc
+    probe[sel] = probe_of(rng.choice(rng.permutation(genes), int(sel.sum()),
+                                     p=zipf / zipf.sum()))
+    del hot, sel
+
+    # reads: each molecule's, shuffled; each read's probe barcode
+    mol_of_read = np.repeat(np.arange(n_mol, dtype=np.int32), counts)
+    rng.shuffle(mol_of_read)
+    slot_pbc = (slot_prod % n_pbc).astype(np.uint8)
+    pbc_read = np.empty(n_reads, np.uint16)
+    pbc_kind_reads = np.zeros(len(FLEX_PBC_KINDS), np.int64)
+    good_reads = np.zeros(n_mol, np.int32)
+    for a in range(0, n_reads, FLEX_PBC_BLOCK):
+        mol = mol_of_read[a:a + FLEX_PBC_BLOCK]
+        pk = rng.choice(len(FLEX_PBC_KINDS), len(mol),
+                        p=FLEX_PBC_SHARES).astype(np.uint8)
+        own = pbc_packed[slot_pbc[slot[mol]]]
+        pbc_read[a:a + len(mol)] = _flex_probe_bcs(own, pk, pbc_packed, rng)
+        pbc_kind_reads += np.bincount(pk, minlength=len(FLEX_PBC_KINDS))
+        good_reads += np.bincount(mol[pk <= 1], minlength=n_mol).astype(
+            np.int32)
+    slot_bc = wl[slot_prod // n_pbc]
+    for name, arr in (("mol_of_read", mol_of_read), ("slot", slot),
+                      ("slot_bc", slot_bc), ("umi", umi), ("kind", kind),
+                      ("probe", probe), ("pbc_read", pbc_read),
+                      ("codes", codes), ("slot_pos", slot_pos)):
+        np.save(os.path.join(gen, name + ".npy"), arr)
+    del mol_of_read, pbc_read
+
+    # the truth: molecules of a usable kind with an assigned read, by
+    # (product barcode, gene, UMI); the run's metrics
+    usable = kind <= RTL_KINDS.index("rescued")
+    keep = usable & (good_reads > 0)
+    mol_bc = slot_prod[slot[keep]].astype(np.uint32)
+    mol_gene = probe_gene[probe[keep]].astype(np.uint32)
+    mol_umi, mol_reads = umi[keep], good_reads[keep]
+    order = np.lexsort((mol_umi, mol_gene, mol_bc))
+    truth = dict(mol_bc=mol_bc[order], mol_gene=mol_gene[order],
+                 mol_umi=mol_umi[order], mol_reads=mol_reads[order])
+    del mol_bc, mol_gene, mol_umi, mol_reads, order
+    uns = unspliced[probe]
+    expected = dict(
+        total_reads=n_reads,
+        mapped_reads=int(counts[usable | is_exc].sum()),
+        conf_mapped_reads=int(counts[usable].sum()),
+        usable_reads=int(good_reads[usable].sum()),
+        probe_reads_spliced=int(good_reads[usable & ~uns].sum()),
+        probe_reads_unspliced=int(good_reads[usable & uns].sum()),
+        total_molecules=int(keep.sum()))
+    del kind, probe, umi, slot, counts, good_reads, usable, keep, uns
+
+    # the samples and their cells, as product barcode names
+    rows = samples or ids
+    pbc_sample = {p: f"S{i + 1:02d}" for i, r in enumerate(rows)
+                  for p in r.split("|")}
+    names = barcode_product_names(wl, cell_prod, pbcs)
+    cells: dict = {}
+    assignments = {}
+    for nm, p in zip(names, cell_pbc.tolist()):
+        s = pbc_sample.get(ids[p], "unassigned")
+        assignments[nm] = s
+        if s != "unassigned":
+            cells.setdefault(s, []).append(nm)
+    cells = {s: sorted(v) for s, v in sorted(cells.items())}
+    csv = os.path.join(tmp, "multi.csv")
+    with open(csv, "w") as f:
+        f.write(f"[gene-expression]\nprobe-set,{pcsv}\n"
+                f"probe-barcode-set,{pbc_csv}\nchemistry,MFRP-RNA\n"
+                "[libraries]\nfastq_id,fastqs,feature_types\n"
+                f"flex,{fq_dir},Gene Expression\n"
+                "[samples]\nsample_id,probe_barcode_ids\n")
+        f.writelines(f"S{i + 1:02d},{r}\n" for i, r in enumerate(rows))
+
+    # FASTQs: lanes of blocks, made in spawned workers, written in order
+    lanes = [(k * n_reads // DEPTH_LANES, (k + 1) * n_reads // DEPTH_LANES)
+             for k in range(DEPTH_LANES)]
+    pairs = [tuple(os.path.join(fq_dir, f"flex_S1_L{k + 1:03d}_{r}_001"
+                                ".fastq.gz") for r in ("R1", "R2"))
+             for k in range(DEPTH_LANES)]
+    tasks = [(gen, k, a_, min(a_ + block, hi), seed)
+             for k, (lo, hi) in enumerate(lanes)
+             for a_ in range(lo, hi, block)]
+    workers = min(workers or min(8, os.cpu_count() or 1), len(tasks))
+    files = [(open(p1, "wb"), open(p2, "wb")) for p1, p2 in pairs]
+    try:
+        with mp.get_context("spawn").Pool(workers) as pool:
+            for (_, k, _, _, _), (z1, z2) in zip(
+                    tasks, pool.imap(_flex_block, tasks)):
+                files[k][0].write(z1)
+                files[k][1].write(z2)
+    finally:
+        for f1, f2 in files:
+            f1.close()
+            f2.close()
+    return dict(
+        csv=csv, wl=wl_path, probes=pcsv, probe_barcodes=pbc_csv,
+        fastq_dir=fq_dir, pairs=pairs, gen_dir=gen, n_reads=n_reads,
+        n_molecules=expected["total_molecules"], n_cells=n_cells,
+        n_ambient=n_amb, n_wl=n_wl, n_probe_bcs=n_pbc, samples=rows,
+        cells=cells, assignments=assignments,
+        cell_index=dict(zip(names, cell_prod.tolist())), expected=expected,
+        pbc_reads=dict(zip(FLEX_PBC_KINDS, pbc_kind_reads.tolist())),
+        beads_used=int((cells_on_bead > 0).sum()), shared_bead_share=shared,
+        fixture_s=time.time() - t0,
+        fastq_bytes=sum(os.path.getsize(p) for pr in pairs for p in pr),
+        **truth)
+
+
+def barcode_product_names(wl: np.ndarray, prod: np.ndarray,
+                          pbcs: list[str]) -> list[str]:
+    """Names of product barcodes (whitelist rank * len(pbcs) + probe
+    barcode rank) as the count pipeline writes them: bead barcode, probe
+    barcode, '-1'."""
+    beads = _unpack_barcodes(wl[np.asarray(prod) // len(pbcs)])
+    tails = np.asarray([list(f"{p}-1".encode()) for p in pbcs],
+                       np.uint8)[np.asarray(prod) % len(pbcs)]
+    return [r.decode() for r in np.ascontiguousarray(np.concatenate(
+        [beads, tails], 1)).view(f"S{16 + tails.shape[1]}").ravel()]
+
+
+_FLEX_TABLES: dict = {}
+
+
+def _flex_tables(gen: str) -> dict:
+    """The generator's tables, mapped once a worker process."""
+    if gen not in _FLEX_TABLES:
+        _FLEX_TABLES[gen] = {
+            k: np.load(os.path.join(gen, k + ".npy"), mmap_mode="r")
+            for k in ("mol_of_read", "slot", "slot_bc", "umi", "kind",
+                      "probe", "pbc_read", "codes", "slot_pos")}
+    return _FLEX_TABLES[gen]
+
+
+def flex_reads(gen: str, a: int, b: int, seed: int = FLEX_SEED) -> dict:
+    """Reads a..b of a `build_flex_run` well as written: molecule, names,
+    R1 and R2 bases.  A molecule's probe bases are its probe's with the
+    substitutions of its kind (as `build_rtl_run` makes them), drawn
+    from a hash of the molecule's number; the filler from one of the
+    read's."""
+    t = _flex_tables(gen)
+    mol = np.asarray(t["mol_of_read"][a:b])
+    slot = np.asarray(t["slot"])[mol]
+    r1 = np.concatenate([_unpack_barcodes(np.asarray(t["slot_bc"])[slot]),
+                         _unpack_barcodes(np.asarray(t["umi"])[mol],
+                                          RTL_UMI_LEN)], 1)
+    seq = np.asarray(t["codes"])[np.asarray(t["probe"])[mol]]
+    kind = np.asarray(t["kind"])[mol]
+    slot_pos = np.asarray(t["slot_pos"])
+    h = _mix64((np.uint64(seed) << np.uint64(40)) ^ mol.astype(np.uint64))
+    rows = np.arange(len(mol))
+
+    def bump(sel, pos, shift):
+        d = ((h[sel] >> np.uint64(shift)) & np.uint64(15)) % np.uint64(3)
+        seq[sel, pos] = (seq[sel, pos] + 1 + d.astype(np.uint8)) % 4
+
+    sel = rows[kind == RTL_KINDS.index("one_mm")]
+    bump(sel, (h[sel] % np.uint64(RTL_PROBE_LEN)).astype(np.int64), 8)
+    sel = rows[kind == RTL_KINDS.index("rescued")]
+    half = ((h[sel] >> np.uint64(16)) & np.uint64(1)).astype(np.int64)
+    copy = (((h[sel] >> np.uint64(17)) & np.uint64(3)) % np.uint64(3)
+            ).astype(np.int64)
+    for k in range(3):              # digits k or k+3 of the chosen copy
+        pick = ((h[sel] >> np.uint64(20 + k)) & np.uint64(1)).astype(np.int64)
+        bump(sel, slot_pos[half, 8 * copy + pick * 3 + k], 24 + 4 * k)
+    sel = rows[kind == RTL_KINDS.index("junk")]
+    for i, (hh, sl) in enumerate((hh, sl) for hh in range(2)
+                                 for sl in (8, 9, 18, 19)):
+        bump(sel, np.full(len(sel), slot_pos[hh, sl]), 36 + 3 * i)
+    idx = np.arange(a, b, dtype=np.uint64)
+    hf = _mix64((np.uint64(seed + 1) << np.uint64(40)) ^ idx)
+    filler = ((hf[:, None] >> (2 * np.arange(18, dtype=np.uint64))[None, :])
+              & np.uint64(3)).astype(np.uint8)
+    pbc = _unpack_barcodes(np.asarray(t["pbc_read"][a:b]).astype(np.uint32),
+                           8)
+    r2 = np.concatenate([np.frombuffer(b"ACGT", np.uint8)[seq],
+                         np.frombuffer(b"ACGT", np.uint8)[filler], pbc], 1)
+    digits = (idx.astype(np.int64)[:, None]
+              // 10 ** np.arange(FLEX_NAME - 2, -1, -1)) % 10
+    names = np.concatenate([np.full((b - a, 1), ord("F"), np.uint8),
+                            (digits + ord("0")).astype(np.uint8)], 1)
+    return dict(mol=mol, names=names, r1=r1, r2=r2)
+
+
+def _flex_block(task) -> tuple[bytes, bytes]:
+    """One block of a lane: (R1, R2) as gzip members (level 1)."""
+    gen, _lane, a, b, seed = task
+    r = flex_reads(gen, a, b, seed)
+    return (gzip.compress(_named_fastq(r["names"], r["r1"]), 1, mtime=0),
+            gzip.compress(_named_fastq(r["names"], r["r2"]), 1, mtime=0))

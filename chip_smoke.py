@@ -112,11 +112,15 @@ Phases, each printing one line; any failure raises and exits non-zero:
                (20,000 cells x 20,000 genes, the JAX package's
                max_cells_tsne) on cuda: 16 files, finite embeddings that
                separate the populations, stage times, peak memory, ms a
-               t-SNE step and a UMAP epoch; TF32 must be off
+               t-SNE step and a UMAP epoch; TF32 must be off.  It runs in
+               a child process (analysis_both) beside the phases from
+               h5_pipelines to multi, next to depth_small; its line comes
+               after flex_held's
   analysis_parity  cuda against cpu at 2,000 cells x 1,000 genes (the
                files, the clusterings of one projection, and the t-SNE/UMAP
                steps over a short horizon) under testing/analysis_check.py's
-               tolerances; a second cuda run with identical analysis/ bytes
+               tolerances; a second cuda run with identical analysis/ bytes.
+               In analysis's child process, after it
   analysis_68k the same fixture at 68,579 cells (10x's "Fresh 68k PBMCs",
                past max_cells_tsne) written as a filtered h5 and analyzed
                by the CLI's reanalyze on cuda: 14 files, no tsne/ or
@@ -153,9 +157,10 @@ Phases, each printing one line; any failure raises and exits non-zero:
                the aggregate detection apart), JIBES, per-sample outs (total,
                slowest, molecule-info subsets, analyses) and web
                summaries; peak device memory and host RSS.  It runs in a
-               child process (phase_beside) from index_build to
-               analysis_parity, so its seconds and theirs include each
-               other's load; its line comes after analysis_parity's
+               child process (phase_beside) from index_build to multi
+               and the children beside them, so its seconds and theirs
+               include each other's load; its line comes after
+               analysis_parity's
   immune_held  a 30-cell 5' immune profiling well (testing/fixtures.
                build_immune_run at IMMUNE_HELD: 12 T cells with two-alpha
                clones, 8 B cells with a two-light clone, dropouts joined
@@ -165,9 +170,20 @@ Phases, each printing one line; any failure raises and exits non-zero:
                immune_digest equal to the JAX package's CPU run
                (IMMUNE_EXPECTED, tests/immune_reference.py); two K1
                launches a GEX step.  It runs in a child process beside
-               the phases from h5_pipelines to analysis_parity, next to
+               the phases from h5_pipelines to multi, next to
                depth_small; its line comes after depth_small's.  At a
                10,000-cell well alone: immune_run
+  flex_held    a 48-cell multiplexed Flex well (testing/fixtures.
+               build_flex_run at FLEX_HELD: 3 cells on each of the 16
+               probe barcodes, on beads shared between samples, 2,000
+               probes, BC001 and BC002 one sample's, BC016 no sample's,
+               reads with a probe barcode one base off, two off and on no
+               list) through run_multi on cuda: the well's truth
+               (flex_truth_diffs) and flex_digest equal to the JAX
+               package's CPU run (FLEX_EXPECTED, tests/flex_reference.py);
+               no K1 launch.  It runs in a child process beside the
+               phases from h5_pipelines to multi; its line comes after
+               immune_held's.  At a 16,000-cell well alone: flex_run
   vdj_parity   run_vdj on the single-end and the paired-end worlds of
                tests/test_vdj.py on cuda and on cpu: every output file
                equal; count_bc_umi_kmers on the rows run_vdj handed it,
@@ -228,7 +244,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
                graph in a worker and this process's seconds on it) for
                the plasma cells and the others apart.  It runs in a
                child process beside the phases from index_build to
-               analysis_parity, next to cellplex; its line comes after
+               multi, next to cellplex; its line comes after
                cellplex's
   vdj_held     20 cells of the same design (400 non-cell barcodes)
                through run_vdj on cuda: the sha256 of every output file
@@ -432,7 +448,7 @@ DEPTH_SMALL = dict(n_reads=2_000_000, n_cells=50, n_ambient=100_000,
 DEPTH_SMALL_BAND_RECORDS = 1 << 16
 DEPTH_SMALL_STATE_CAP = 1 << 18
 DEPTH_SMALL_BUFFER_ROWS = 1 << 17
-# it runs in a child process beside h5_pipelines..analysis_parity
+# it runs in a child process beside h5_pipelines..multi
 DEPTH_SMALL_TIMEOUT_S = 600
 # padded rows of the dedup_memory phase, besides the port's limit
 DEDUP_MEMORY_ROWS = (1 << 20, 1 << 22)
@@ -478,6 +494,7 @@ DIFFEXP_TOP = 10            # top genes by log2 fold change, each a marker
 # cuda against cpu on the 8-population matrix of tests/test_torch_analysis.py
 ANALYSIS_PARITY_CELLS = 2_000
 ANALYSIS_PARITY_GENES = 1_000
+ANALYSIS_TIMEOUT_S = 900        # analysis and analysis_parity in one child
 # cellplex: a CellPlex GEM well as 10x's 12-CMO example runs it ("30k
 # Mouse E18 Combined Cortex, Hippocampus and Subventricular Zone Cells,
 # Multiplexed, 12 CMOs", Cell Ranger 6.0): 30,000 cells superloaded, one
@@ -3575,6 +3592,12 @@ def analysis_parity(tmp: str, n_cells: int = ANALYSIS_PARITY_CELLS,
     return rep
 
 
+def analysis_both(tmp: str) -> dict:
+    """`analysis` and then `analysis_parity`, in one child process of
+    main, each report under its name."""
+    return dict(analysis=analysis(tmp), analysis_parity=analysis_parity(tmp))
+
+
 def file_tree(root: str, gunzip: bool = False) -> dict:
     """{relative path: bytes} of every file under root (decompressed with
     `gunzip`: gzip headers carry a time stamp)."""
@@ -4450,6 +4473,589 @@ def immune_run(tmp: str, n_cells: int = IMMUNE_CELLS, device: str = "cuda",
         diffs.append(f"peak device memory {rep['peak_device_bytes']} bytes")
     if diffs:
         raise AssertionError(f"immune at {n_cells} cells: {diffs[:20]}; "
+                             f"measured {json.dumps(rep)}")
+    return rep
+
+
+FLEX_CELLS = 16_000             # flex_run's well: 16 samples of 1,000
+FLEX_READS = 160_000_000        # 10x's 10,000 read pairs a cell
+# flex_held's well (testing/fixtures.build_flex_run): 48 cells, 3 on each
+# of the 16 probe barcodes, on beads drawn from 32 of a 4,096-barcode
+# list; 2,000 probes over 600 genes; BC001 and BC002 one sample's, BC016
+# no sample's; no ambient barcodes (no EmptyDrops at this size)
+FLEX_HELD = dict(n_reads=10_000, n_cells=48, n_wl=4_096, n_gel=32,
+                 n_probes=2_000, n_genes=600, n_ambient=0, low_share=0.0,
+                 samples=["BC001|BC002"] + [f"BC{i:03d}"
+                                            for i in range(3, 16)])
+FLEX_HELD_BATCH = 4096
+FLEX_HELD_TIMEOUT_S = 600
+FLEX_RSS_SHARE = 0.5            # PERF.md section 2's Flex limit
+FLEX_DEVICE_BYTES = 16e9
+# flex_digest of the JAX package's run_multi of the flex_held build on the
+# CPU (tests/flex_reference.py, batch FLEX_HELD_BATCH)
+FLEX_EXPECTED = {
+    "count/filtered_barcodes.csv":
+        "930252ba5373c43ed87887788777b86cfff94c2a59f7339f6f298147cb99486b",
+    "count/filtered_feature_bc_matrix.h5":
+        "b29bfdcfdc46998c1a1e1bab0b6f6d076af02c51a052f92253250f64394ea698",
+    "count/filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "2acd81351ab663b2979da614558316101fbc2b9768f7f09c5360ad9105aa4c63",
+    "count/filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "count/filtered_feature_bc_matrix/matrix.mtx.gz":
+        "cdaf2fb2452376b06a435614b82d01008953d778f4ebcf17bcb8b2151bef2afc",
+    "count/metrics_summary.json":
+        "62e5c4d8782ebe165f6c24a94479a4be45cdfdcbcda8a200651a12e3245b2669",
+    "count/molecule_info.h5":
+        "0e80f75caa179a669fee57e3d0a2fafea78b361bea89c21376212a3db7e017c1",
+    "count/per_barcode_metrics.csv":
+        "1f1a7b9bf96bfdcffd8214386a49c1ffac1b6fdec0a41b078c7f78009eea5fb0",
+    "count/raw_feature_bc_matrix.h5":
+        "a21c022392fb6dee05c8a35533001f113fa60d8de892823e6e2e342b4937baa0",
+    "count/raw_feature_bc_matrix/barcodes.tsv.gz":
+        "056eb8c067dd128cfe30f4b938027863c5aab4c027b7c294b6b195d1a9c85f48",
+    "count/raw_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "count/raw_feature_bc_matrix/matrix.mtx.gz":
+        "ffb3038610b45ac2559c271114d428a90faa96630ee2414cd8789459d2a9a6ef",
+    "demux/per_sample_outs/S01/metrics_summary.json":
+        "107172dcc4f0d0f42708bfde913232de783527d288101b9b340ab56448b03a8d",
+    "demux/per_sample_outs/S01/sample_filtered_feature_bc_matrix.h5":
+        "3d9fbb4cffbf4f13c6a6f3801705fe9b801fdb50ceed074a2ff7966283e1d03d",
+    "demux/per_sample_outs/S01/sample_filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "37a39dc599dc43391084a7749be89c5e62417b8361f8cf6e6bf68bc947128b42",
+    "demux/per_sample_outs/S01/sample_filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "demux/per_sample_outs/S01/sample_filtered_feature_bc_matrix/matrix.mtx.gz":
+        "5d5476163981d243f5a55f29d7fc50bacc6a62d933020a12ba94b1ce16c1034d",
+    "demux/per_sample_outs/S01/sample_molecule_info.h5":
+        "113409c7e5935552245684668bc2ea8221e35c058a3178e3ea2f9e6895d43c77",
+    "demux/per_sample_outs/S02/metrics_summary.json":
+        "725837bc5bb705f0aeefe30094b5b940a0efe6d7a67ec08a48a2dda0250271ae",
+    "demux/per_sample_outs/S02/sample_filtered_feature_bc_matrix.h5":
+        "fd43a578400b01eea6f2642e901074a5ba9f9ad5ddc7d90c65da86bd32561bdb",
+    "demux/per_sample_outs/S02/sample_filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "6fd4c92762e6960f7caaec8d0101c307eafacc760eb2cc2cd766c36fbdbccaa3",
+    "demux/per_sample_outs/S02/sample_filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "demux/per_sample_outs/S02/sample_filtered_feature_bc_matrix/matrix.mtx.gz":
+        "5c037aee96d1617bfd68930a0f0efffb1d6386d1a31f290d72b65805693cf4da",
+    "demux/per_sample_outs/S02/sample_molecule_info.h5":
+        "223bee7f6cffaf2fca892acbee76f01284f2f9a016ec706d357bc20a71772338",
+    "demux/per_sample_outs/S03/metrics_summary.json":
+        "a42756adab14f8776a7ff63fde6a3aa831b3a4f9f719d27c863cb6e1e472fe22",
+    "demux/per_sample_outs/S03/sample_filtered_feature_bc_matrix.h5":
+        "50468e03a4e427ac6bb082ced8dc979df70c6d67f332c3e2f477951a9cbd0f88",
+    "demux/per_sample_outs/S03/sample_filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "419bee0d9a4c4982edbe11f3a3d340588ca2aad8e3c817316ec694c834f99416",
+    "demux/per_sample_outs/S03/sample_filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "demux/per_sample_outs/S03/sample_filtered_feature_bc_matrix/matrix.mtx.gz":
+        "bd53bb2eb08e800527d944527451d83a1457b06415645751a32551142f36d4c1",
+    "demux/per_sample_outs/S03/sample_molecule_info.h5":
+        "2035d9a427021feceb1f5b52a61d227a08788624efd1555a8f349c82314bb0e5",
+    "demux/per_sample_outs/S04/metrics_summary.json":
+        "f8af34a143d1fcb5e76e73faa141057029464177d7c8ba95eb1e8227a84595df",
+    "demux/per_sample_outs/S04/sample_filtered_feature_bc_matrix.h5":
+        "ac6e4243c4848e3409b1c7885608a1ca0e401268d0df6b66d0e2e54063de3327",
+    "demux/per_sample_outs/S04/sample_filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "9740f21f5cbcaf2655e5cd4d730f26541159f80ef6f8375759bf462e3687c162",
+    "demux/per_sample_outs/S04/sample_filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "demux/per_sample_outs/S04/sample_filtered_feature_bc_matrix/matrix.mtx.gz":
+        "0dcce5e628cf33f62de4b016681b3e9713dbcbe093f33a89cc7b9a6e60476b45",
+    "demux/per_sample_outs/S04/sample_molecule_info.h5":
+        "76a334cc0b734e4257296c737370eeebcef65e1ebb8721e79ce4a66ce1156e3c",
+    "demux/per_sample_outs/S05/metrics_summary.json":
+        "b53be05776a0581bf0cee9bbf3bb4866e112ebfdb574b3724b0def2514c7da93",
+    "demux/per_sample_outs/S05/sample_filtered_feature_bc_matrix.h5":
+        "d0c2f1589c62b68f45ae4ccf0f1c622b5468aa272e958e166a68821d09f2bcea",
+    "demux/per_sample_outs/S05/sample_filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "48ddb7be2f9ed805075355e0bbaf1dba0d8e8339b7ddc97e7ec01625d313a72e",
+    "demux/per_sample_outs/S05/sample_filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "demux/per_sample_outs/S05/sample_filtered_feature_bc_matrix/matrix.mtx.gz":
+        "4a6af9e442ca7a58694fb12fc1a5b1f6f5b29b3c4e3e0e2475d1ad463b1b0030",
+    "demux/per_sample_outs/S05/sample_molecule_info.h5":
+        "6bff2d67bd3f4b679cef4fc55f2c4babe7951c28b488ff94c0161d9665a331a6",
+    "demux/per_sample_outs/S06/metrics_summary.json":
+        "913bc9e38c053cba861e5593ccaa5f0eb0025d4cb72df31d169eab4cc20aa85e",
+    "demux/per_sample_outs/S06/sample_filtered_feature_bc_matrix.h5":
+        "7346b95372d277c766dac34b8e5eaa5c6e06b90ca09bf868ac10c350b466e8c0",
+    "demux/per_sample_outs/S06/sample_filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "cd8617fc6331f82e85dd8e9112f7b8d39c2a904a53ed217f3569a17e4c37b76b",
+    "demux/per_sample_outs/S06/sample_filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "demux/per_sample_outs/S06/sample_filtered_feature_bc_matrix/matrix.mtx.gz":
+        "235e503fa79814a29538b5ab729ea0707d78f8b2f6a1a4303420d84162e42a60",
+    "demux/per_sample_outs/S06/sample_molecule_info.h5":
+        "242065e3741e0feb64f0282967419b773112343ed6607f267a8da9579f0947e5",
+    "demux/per_sample_outs/S07/metrics_summary.json":
+        "85f171632d3f353924e4d69f79a2b5f46265d0c4f889ae6e09b35af1d1636ee9",
+    "demux/per_sample_outs/S07/sample_filtered_feature_bc_matrix.h5":
+        "4c089c564a72684ca545c3827a2b88c2216a770b60eb87ca4df8b69bda89758c",
+    "demux/per_sample_outs/S07/sample_filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "888573d9e3f31498719532d0e77d477760c91f7c3f2b2ff50e9e8bc02751c8a3",
+    "demux/per_sample_outs/S07/sample_filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "demux/per_sample_outs/S07/sample_filtered_feature_bc_matrix/matrix.mtx.gz":
+        "b37c627a57018ab364c4cf0c25db17597316edaf075c482650acc3c517119320",
+    "demux/per_sample_outs/S07/sample_molecule_info.h5":
+        "1d33c6a1c2d330386ed6cdfcd50188b690249d9099740135490af1117d9932d2",
+    "demux/per_sample_outs/S08/metrics_summary.json":
+        "f121eb2452c154dd07f428019968e853fadbf1509e40ce1e08634f1b9ab59251",
+    "demux/per_sample_outs/S08/sample_filtered_feature_bc_matrix.h5":
+        "d5f6a93163422b1d1208ba5a7e5ef3bdec2948dcd3442be16776e39c638d2f83",
+    "demux/per_sample_outs/S08/sample_filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "0dcf879dfbfa3350af2cc0ff416adef62762441bfa42a267acfdea838ed38feb",
+    "demux/per_sample_outs/S08/sample_filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "demux/per_sample_outs/S08/sample_filtered_feature_bc_matrix/matrix.mtx.gz":
+        "097afd1f532910498e466523fbefd0e83a59a66248fbc5d86c201f46ec385c89",
+    "demux/per_sample_outs/S08/sample_molecule_info.h5":
+        "0888d1361d7b4012f9ef0e000b51b29a6c5ce9cba191346c5fc4e62fcb4e4087",
+    "demux/per_sample_outs/S09/metrics_summary.json":
+        "7497113069736663df038fef67e345b6c945bb21c7347f7de766ed53682f0f0e",
+    "demux/per_sample_outs/S09/sample_filtered_feature_bc_matrix.h5":
+        "f72794671270c462d7671c3557ccb58edd614cda810ff7885a6129cab0e1d0d1",
+    "demux/per_sample_outs/S09/sample_filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "883b6dc02821a2dc23fd899aa5b4c88de944a92f6f999b8acbc7ddef3d1830d6",
+    "demux/per_sample_outs/S09/sample_filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "demux/per_sample_outs/S09/sample_filtered_feature_bc_matrix/matrix.mtx.gz":
+        "3a411619ec59897d9426226a4e5ad7bc0eaa840da43472a8f9a960c5948701a6",
+    "demux/per_sample_outs/S09/sample_molecule_info.h5":
+        "e417b3d952d848f6df0028dc5d0ce690a664b816f05a204e817813fa797dd0fd",
+    "demux/per_sample_outs/S10/metrics_summary.json":
+        "33642103daa023bbd1d0aaedc839ab6650566cac9aa53f891e93b80d01a5b91c",
+    "demux/per_sample_outs/S10/sample_filtered_feature_bc_matrix.h5":
+        "00a4a362982c981f4bb80d8ea97626c01524665058600ed089041c206546b0e8",
+    "demux/per_sample_outs/S10/sample_filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "34febe04ab7a305912ef70018e1cb2af8c371901cbcdf5c9966272c257172f79",
+    "demux/per_sample_outs/S10/sample_filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "demux/per_sample_outs/S10/sample_filtered_feature_bc_matrix/matrix.mtx.gz":
+        "4575291ee8d68898f7c1b2df0377e2d0879ef0a2f3cfa8dbc23c43c58d0ec2b4",
+    "demux/per_sample_outs/S10/sample_molecule_info.h5":
+        "d518e95f55aefcb3b90d6367cef5761a9239625131aa548408a5cec11fc3b550",
+    "demux/per_sample_outs/S11/metrics_summary.json":
+        "64e087e2a5ee88c5f9e64cf5b19a8610ede214e2e805c9dff9e3de9ee06ddc92",
+    "demux/per_sample_outs/S11/sample_filtered_feature_bc_matrix.h5":
+        "7d808c801ea96aced36329d10c52aa4620b92ff4e4e2ddaea384409d2c93855d",
+    "demux/per_sample_outs/S11/sample_filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "f6a305686cd3149e7eaecdad6f5e4332f2853a795ccb2c603f93d75f034bcb5d",
+    "demux/per_sample_outs/S11/sample_filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "demux/per_sample_outs/S11/sample_filtered_feature_bc_matrix/matrix.mtx.gz":
+        "bef54ff86e8b07a14a248de787721c6d15d2331b13388e125cf4d5e9258daabf",
+    "demux/per_sample_outs/S11/sample_molecule_info.h5":
+        "559bfa124cf40ab9ef37ba8b999e4907f48104b20d0f5208b0181835f476c81e",
+    "demux/per_sample_outs/S12/metrics_summary.json":
+        "43645775b7eaa1cd018998a9a692d20e2988f62d3976c40d077dec3e53a37502",
+    "demux/per_sample_outs/S12/sample_filtered_feature_bc_matrix.h5":
+        "6b0aa1390db3706a7b3d2190eef0917b6a18ed1a12fadf477b303a6a1be796a5",
+    "demux/per_sample_outs/S12/sample_filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "c5938834c9bc861a8df23b24f585db95fa77f80a274a359e0e3c86a9b41781f9",
+    "demux/per_sample_outs/S12/sample_filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "demux/per_sample_outs/S12/sample_filtered_feature_bc_matrix/matrix.mtx.gz":
+        "976d1b04b7ce326e44367382fde4cb8fae6e9a64d95869b313e6fab4a3604dd3",
+    "demux/per_sample_outs/S12/sample_molecule_info.h5":
+        "2f868b58c0ec7b31dbdb24b06b0c53e231deca9e9b0f46b483d68f2f00e969e6",
+    "demux/per_sample_outs/S13/metrics_summary.json":
+        "dffb17caa218c1ca3769af325448ebc9db480d893986ac3c19630dcfbe06d411",
+    "demux/per_sample_outs/S13/sample_filtered_feature_bc_matrix.h5":
+        "779ca9617c23df5862a04cf02b6a5a00f5632f0e594a287b58d612a394510cb2",
+    "demux/per_sample_outs/S13/sample_filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "72715342008abb4fb7adb4969d594fd2097e500bc4a92e88a2bff49cd46c1362",
+    "demux/per_sample_outs/S13/sample_filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "demux/per_sample_outs/S13/sample_filtered_feature_bc_matrix/matrix.mtx.gz":
+        "345fa6a79cb71f284ace3a5ca336fd21dca06dd962a246572bb40d9022085522",
+    "demux/per_sample_outs/S13/sample_molecule_info.h5":
+        "7600cfd90efdbae37d168d028692d4187e7bf18d37dfd7ac2bcd839e38f51c3d",
+    "demux/per_sample_outs/S14/metrics_summary.json":
+        "9843d47d4a1c945be65c8c0f24784c97c80027818a7f668ccd97da048ef67e05",
+    "demux/per_sample_outs/S14/sample_filtered_feature_bc_matrix.h5":
+        "b785182e05633ef78642109a2e469a67dbe78fc650443deccbedc3265a437b29",
+    "demux/per_sample_outs/S14/sample_filtered_feature_bc_matrix/barcodes.tsv.gz":
+        "7fe0e0c9e7d66444718c70848ed6c47eb682dd7dae30d60faaa9fd2a8779dd94",
+    "demux/per_sample_outs/S14/sample_filtered_feature_bc_matrix/features.tsv.gz":
+        "4efcc2da65b1ad79e21eb5c1ee1dc61aed044cd99aab77b19bcd25705a25f2d8",
+    "demux/per_sample_outs/S14/sample_filtered_feature_bc_matrix/matrix.mtx.gz":
+        "22a9dc46ccf81a945909909f804a2d3ec826ad6d146cb0834b3cc03e3f74240d",
+    "demux/per_sample_outs/S14/sample_molecule_info.h5":
+        "075b36d40ff25d9a1e380b9b120e67aec9af4f404f87c24cbdac44cbe8268355",
+    "demux/probe_assignments.csv":
+        "b39330e28d71a41f3266521c732185a1fa02b21d243e2415f528b5218068944e",
+    "metrics_summary.json":
+        "7a7fde06a7a9348115fef57866fdb94d90b5371614c412d24f37dbba13aaa3a2",
+}
+
+
+def h5_sha256(path: str) -> str:
+    """sha256 of an h5 file's content as io/hdf5.py reads it back: every
+    group, dataset (dtype, shape, values) and attribute in name order, so
+    that h5py's file and io/hdf5.py's of equal data agree."""
+    import hashlib
+
+    import numpy as np
+    from cellranger_tpu_torch.io import hdf5
+
+    h = hashlib.sha256()
+
+    def put(x) -> None:
+        a = np.asarray(x)
+        h.update(f"{a.dtype.str}{a.shape}".encode())
+        h.update(repr(a.tolist()).encode() if a.dtype == object
+                 else a.tobytes())
+
+    def walk(node, at: str) -> None:
+        for k in sorted(node.attrs):
+            h.update(f"{at}@{k}".encode())
+            put(node.attrs[k])
+        if isinstance(node, hdf5.Dataset):
+            put(node[()])
+            return
+        for k in sorted(node.keys()):
+            h.update(f"{at}/{k}".encode())
+            walk(node[k], f"{at}/{k}")
+
+    with hdf5.File(path, "r") as f:
+        walk(f, "")
+    return h.hexdigest()
+
+
+def flex_digest(out: str) -> dict:
+    """{path: sha256} of every file a run_multi of a Flex well writes but
+    analysis/ (floats held by tolerance between devices), the web
+    summaries and _perf.json (times) and the run's own state (_checkpoint/,
+    which the JAX package keeps and the port does not): gz files decompressed (gzip headers
+    carry a time), h5 files by content (h5_sha256), metrics_summary.json
+    files read back without wall_time_s, the rest as written."""
+    got = {}
+    for d, subs, files in os.walk(out):
+        subs[:] = sorted(x for x in subs
+                         if x != "analysis" and not x.startswith("_"))
+        for name in files:
+            path = os.path.join(d, name)
+            rel = os.path.relpath(path, out)
+            if name in ("web_summary.html", "_perf.json"):
+                continue
+            if name.endswith(".h5"):
+                got[rel] = h5_sha256(path)
+                continue
+            if name.endswith(".gz"):
+                with gzip.open(path, "rb") as fh:
+                    data = fh.read()
+            else:
+                with open(path, "rb") as fh:
+                    data = fh.read()
+            if name == "metrics_summary.json":
+                m = json.loads(data)
+                m.pop("wall_time_s", None)
+                data = json.dumps(m, sort_keys=True).encode()
+            got[rel] = _sha256(data)
+    return dict(sorted(got.items()))
+
+
+def flex_truth_diffs(fx: dict, out: str) -> list[str]:
+    """A run_multi of a fixtures.build_flex_run well against the well's
+    truth: the read and molecule metrics (probe_reads_* among them),
+    every molecule and its reads in molecule_info.h5, the raw matrix's
+    barcodes (the whole product space), each sample's called cells and
+    its sample_filtered_feature_bc_matrix (the UMIs of each cell and
+    gene), no sample dir for a sample of no cell, and the sample each
+    cell has in probe_assignments.csv."""
+    import numpy as np
+    from cellranger_tpu_torch.io import hdf5
+
+    count = os.path.join(out, "count")
+    with open(os.path.join(count, "metrics_summary.json")) as f:
+        m = json.load(f)
+    diffs = [f"{k}: got {m.get(k)}, expected {v}"
+             for k, v in fx["expected"].items() if m.get(k) != v]
+    with hdf5.File(os.path.join(count, "raw_feature_bc_matrix.h5"),
+                   "r") as f:
+        n_bc = int(f["matrix/shape"][:][1])
+    if n_bc != fx["n_wl"] * fx["n_probe_bcs"]:
+        diffs.append(f"raw matrix: {n_bc} barcodes, not "
+                     f"{fx['n_wl']} x {fx['n_probe_bcs']}")
+    with hdf5.File(os.path.join(count, "molecule_info.h5"), "r") as f:
+        got = [f[k][:] for k in ("barcode_idx", "feature_idx", "umi",
+                                 "count")]
+    o = np.lexsort((got[2], got[1], got[0]))
+    if not (len(o) == len(fx["mol_bc"]) and all(
+            np.array_equal(g[o].astype(np.int64), w.astype(np.int64))
+            for g, w in zip(got, (fx["mol_bc"], fx["mol_gene"],
+                                  fx["mol_umi"], fx["mol_reads"])))):
+        diffs.append(f"molecule_info.h5: {len(o)} molecules, not the "
+                     f"fixture's {len(fx['mol_bc'])} or their reads")
+    # UMIs of each (product barcode, gene) of the truth, by cell name
+    bc, gene = fx["mol_bc"].astype(np.int64), fx["mol_gene"].astype(np.int64)
+    new = np.r_[True, (bc[1:] != bc[:-1]) | (gene[1:] != gene[:-1])]
+    first = np.flatnonzero(new)
+    umis = np.diff(np.r_[first, len(bc)])
+    demux = os.path.join(out, "demux")
+    for sid, names in fx["cells"].items():
+        sdir = os.path.join(demux, "per_sample_outs", sid, SAMPLE_MEX)
+        if not os.path.isdir(sdir):
+            diffs.append(f"{sid}: no {SAMPLE_MEX}")
+            continue
+        with gzip.open(os.path.join(sdir, "barcodes.tsv.gz"), "rt") as f:
+            called = f.read().split()
+        if sorted(called) != names:
+            diffs.append(f"{sid}: {len(called)} cells called, "
+                         f"{len(set(called) & set(names))} of its "
+                         f"{len(names)}")
+            continue
+        prod = np.asarray([fx["cell_index"][c] for c in called], np.int64)
+        feat, col, cnt = mex_entries(os.path.join(demux, "per_sample_outs",
+                                                  sid), SAMPLE_MEX)
+        o = np.lexsort((feat, prod[col]))
+        sel = np.isin(bc[first], prod)
+        if not (o.size == int(sel.sum()) and np.array_equal(
+                prod[col][o], bc[first][sel])
+                and np.array_equal(feat[o], gene[first][sel])
+                and np.array_equal(cnt[o], umis[sel])):
+            diffs.append(f"{sid}: {SAMPLE_MEX} is not the truth's UMIs")
+    extra = set(os.listdir(os.path.join(demux, "per_sample_outs"))) \
+        - set(fx["cells"])
+    if extra:
+        diffs.append(f"sample dirs of no planted cell: {sorted(extra)}")
+    with open(os.path.join(demux, "probe_assignments.csv")) as f:
+        rows = [ln.split(",") for ln in f.read().split()[1:]]
+    got_as = {r[0]: r[2] for r in rows}
+    if got_as != fx["assignments"]:
+        off = [b for b in set(got_as) | set(fx["assignments"])
+               if got_as.get(b) != fx["assignments"].get(b)]
+        diffs.append(f"probe_assignments.csv: {len(off)} cells off, "
+                     f"e.g. {sorted(off)[:3]}")
+    return diffs
+
+
+def _flex_shared_beads(fx: dict, out: str) -> int:
+    """Beads whose cells went to two or more samples' outs."""
+    seen: dict = {}
+    per = os.path.join(out, "demux", "per_sample_outs")
+    for sid in os.listdir(per):
+        with gzip.open(os.path.join(per, sid, SAMPLE_MEX, "barcodes.tsv.gz"),
+                       "rt") as f:
+            for b in f.read().split():
+                seen.setdefault(b[:16], set()).add(sid)
+    return sum(len(v) > 1 for v in seen.values())
+
+
+def flex_held(tmp: str, device: str = "cuda") -> dict:
+    """The small Flex well (FLEX_HELD: every probe-barcode kind, one
+    sample of two probe barcodes, one probe barcode of no sample, beads
+    shared between samples) through the port's run_multi on `device`:
+    the fixture's truth (flex_truth_diffs) and flex_digest equal to the
+    JAX package's CPU run (FLEX_EXPECTED, tests/flex_reference.py); no
+    K1 launch."""
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.io.multi_config import run_multi
+    from cellranger_tpu_torch.testing.fixtures import build_flex_run
+
+    root = os.path.join(tmp, "flex_held")
+    try:
+        t = time.time()
+        fx = build_flex_run(os.path.join(root, "fx"), **FLEX_HELD,
+                            workers=2)
+        t_fix = time.time() - t
+        out = os.path.join(root, "out")
+        sw.LAUNCHES = 0
+        t = time.time()
+        s = run_multi(fx["csv"], out, fx["wl"], read_len=RTL_READ_LEN,
+                      batch_size=FLEX_HELD_BATCH, device=device)
+        wall = time.time() - t
+        launches = sw.LAUNCHES
+        diffs = flex_truth_diffs(fx, out)
+        files = flex_digest(out)
+        shared = _flex_shared_beads(fx, out)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    off = sorted(k for k in set(files) | set(FLEX_EXPECTED)
+                 if files.get(k) != FLEX_EXPECTED.get(k))
+    if off:
+        diffs.append(f"files differ from the JAX package's run: {off}")
+    if launches:
+        diffs.append(f"{launches} K1 launches in a probe run")
+    if not shared:
+        diffs.append("no bead's cells in two samples' outs")
+    rep = dict(cells=fx["n_cells"], reads=fx["n_reads"],
+               molecules=fx["n_molecules"], samples=s["demux_probe"],
+               pbc_reads=fx["pbc_reads"], beads_in_two_samples=shared,
+               sw_launches=launches, fixture_s=t_fix, wall_s=wall,
+               files_equal=len(files) - len(off))
+    if diffs:
+        raise AssertionError(f"flex_held: {diffs}; got {files}; "
+                             f"measured {json.dumps(rep)}")
+    return rep
+
+
+def _flex_fixture(root: str, n_reads: int, n_cells: int, kw: dict) -> dict:
+    """build_flex_run in a child process (flex_run): the fixture with its
+    seconds and the child's peak RSS."""
+    import resource
+
+    from cellranger_tpu_torch.testing.fixtures import build_flex_run
+
+    fx = build_flex_run(root, n_reads, n_cells, **kw)
+    fx["fixture_peak_rss_bytes"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss * 1024
+    return fx
+
+
+def flex_run(tmp: str, n_reads: int = FLEX_READS, n_cells: int = FLEX_CELLS,
+             device: str = "cuda", **fixture_kw) -> dict:
+    """A multiplexed Flex well (fixtures.build_flex_run: n_cells cells,
+    1/16 of them on each of 16 probe barcodes, a sample each, on about
+    10,000 shared beads of the 737,280-barcode list; 54,000 probes;
+    n_reads read pairs) built in a child process, then through the
+    port's run_multi on `device` at batch E2E_BATCH, read length
+    RTL_READ_LEN: held to the well's truth (flex_truth_diffs).  Reports
+    the wall split (count's passes, dedup, the product barcode names,
+    matrix assembly, the raw MEX on its thread, cell calling, molecule
+    info; the demux: each sample's outs, subset_molecule_info, analysis
+    and web summary), the probe aligner's (K8's) ms a batch between CUDA
+    events around each of its calls in the run and its batches, the
+    spill's rows and bytes, the disk at its peak, peak RSS against
+    MemTotal and peak device memory; fails where the truth is missed,
+    K1 launches, peak RSS reaches FLEX_RSS_SHARE of MemTotal or the
+    device's peak FLEX_DEVICE_BYTES, or fewer than FLEX_MIN_SHARED of the
+    cells share their bead with another sample's.  The fixture and outputs are
+    deleted after.  `fixture_kw` goes to build_flex_run.  Alone on a
+    machine with one card:
+
+        python3 -c "import chip_smoke as c, json, tempfile; from
+        cellranger_tpu_torch import kernels; kernels.build();
+        print(json.dumps(c.flex_run(tempfile.mkdtemp())))"
+    """
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from cellranger_tpu_torch.align import sw
+    from cellranger_tpu_torch.analysis import run as analysis_mod
+    from cellranger_tpu_torch.io import molecule_info
+    from cellranger_tpu_torch.io.matrix_io import CountMatrix
+    from cellranger_tpu_torch.io.multi_config import run_multi
+    from cellranger_tpu_torch.pipeline import count, demux, spill, websummary
+    from cellranger_tpu_torch.testing.fixtures import FLEX_MIN_SHARED
+
+    root = os.path.join(tmp, f"flex_{n_reads}")
+    cuda = device == "cuda"
+    k8, spilled = [], {"rows": 0, "bytes": 0}
+    real_load, real_append = count._load_probe_run, spill.MoleculeSpill.append
+
+    def load_probe_run(cfg, dev):
+        pr = real_load(cfg, dev)
+        align = pr.align
+
+        def timed(*a):
+            if not cuda:
+                return align(*a)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            r = align(*a)
+            ev[1].record()
+            k8.append(ev)
+            return r
+        pr.align = timed
+        return pr
+
+    def append(self, bc, gene, umi):
+        spilled["rows"] += len(bc)
+        spilled["bytes"] += bc.nbytes + gene.nbytes + umi.nbytes
+        return real_append(self, bc, gene, umi)
+
+    try:
+        with ProcessPoolExecutor(1, multiprocessing.get_context(
+                "spawn")) as ex:
+            fx = ex.submit(_flex_fixture, os.path.join(root, "fx"), n_reads,
+                           n_cells, fixture_kw).result()
+        out = os.path.join(root, "out")
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        sw.LAUNCHES = 0
+        count._load_probe_run = load_probe_run
+        spill.MoleculeSpill.append = append
+        try:
+            with rss_peak() as rss, disk_peak(tmp) as disk, recorded(
+                    (count, "run_count"), (CountMatrix, "save_mex"),
+                    (demux, "write_sample_outs"),
+                    (molecule_info, "subset_molecule_info"),
+                    (analysis_mod, "run_secondary_analysis"),
+                    (websummary, "build_web_summary")) as rec:
+                t = time.time()
+                s = run_multi(fx["csv"], out, fx["wl"],
+                              read_len=RTL_READ_LEN, batch_size=E2E_BATCH,
+                              device=device)
+                wall = time.time() - t
+        finally:
+            count._load_probe_run = real_load
+            spill.MoleculeSpill.append = real_append
+        launches = sw.LAUNCHES
+        diffs = flex_truth_diffs(fx, out)
+        shared = _flex_shared_beads(fx, out)
+        with open(os.path.join(out, "count", "_perf.json")) as f:
+            phases: dict = {}
+            for ph in json.load(f)["phases"]:
+                phases[ph["name"]] = phases.get(ph["name"], 0.0) \
+                    + ph["wall_s"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if cuda:
+        torch.cuda.synchronize()
+    k8_ms = [a.elapsed_time(b) for a, b in k8]
+    total = mem_total()
+    run_count_s = rec["run_count"][0][0]
+    sample_s = [x for x, _ in rec["write_sample_outs"]]
+    rep = dict(
+        cells=n_cells, reads=n_reads, molecules=fx["n_molecules"],
+        samples=len(fx["cells"]), whitelist=fx["n_wl"],
+        barcode_columns=fx["n_wl"] * fx["n_probe_bcs"],
+        beads_used=fx["beads_used"],
+        shared_bead_share=fx["shared_bead_share"],
+        beads_in_two_samples=shared, ambient_barcodes=fx["n_ambient"],
+        pbc_reads=fx["pbc_reads"], wall_s=wall, run_count_s=run_count_s,
+        count_phase_s=phases,
+        raw_mex_s=rec["save_mex"][0][0] if rec["save_mex"] else None,
+        demux_s=wall - run_count_s, sample_outs_s=sum(sample_s),
+        slowest_sample_s=max(sample_s, default=0.0),
+        subset_molecule_info_s=sum(x for x, _ in
+                                   rec["subset_molecule_info"]),
+        # the first analysis is the run's, inside run_count
+        sample_analysis_s=sum(x for x, _ in
+                              rec["run_secondary_analysis"][1:]),
+        web_summaries_s=sum(x for x, _ in rec["build_web_summary"]),
+        k8_batches=len(k8_ms) if cuda else None,
+        k8_ms_per_batch=(sorted(k8_ms)[len(k8_ms) // 2] if k8_ms
+                         else None),
+        k8_ms_total=sum(k8_ms) if k8_ms else None,
+        k8_ms_is=("median of the probe aligner's calls in the run, CUDA "
+                  "events around each (host launch time included)"),
+        spill_rows=spilled["rows"], spill_bytes=spilled["bytes"],
+        disk_peak_bytes=disk["bytes"], fastq_bytes=fx["fastq_bytes"],
+        peak_rss_bytes=rss["bytes"], mem_total_bytes=total,
+        peak_rss_share=rss["bytes"] / total,
+        peak_device_bytes=(torch.cuda.max_memory_allocated() if cuda
+                           else None),
+        sw_launches=launches, fixture_s=fx["fixture_s"],
+        fixture_peak_rss_bytes=fx["fixture_peak_rss_bytes"])
+    if launches:
+        diffs.append(f"{launches} K1 launches in a probe run")
+    if fx["shared_bead_share"] < FLEX_MIN_SHARED:
+        diffs.append(f"{fx['shared_bead_share']:.3f} of the cells share "
+                     "their bead with another sample's")
+    if rep["peak_rss_share"] >= FLEX_RSS_SHARE:
+        diffs.append(f"peak RSS {rss['bytes']} bytes, "
+                     f"{rep['peak_rss_share']:.3f} of MemTotal")
+    if cuda and rep["peak_device_bytes"] >= FLEX_DEVICE_BYTES:
+        diffs.append(f"peak device memory {rep['peak_device_bytes']} bytes")
+    if diffs:
+        raise AssertionError(f"flex at {n_reads} reads: {diffs[:20]}; "
                              f"measured {json.dumps(rep)}")
     return rep
 
@@ -5545,7 +6151,11 @@ def main() -> None:
                               {"ref": fx["ref"], "wl": fx["wl"]}
                               ) as depth_small_report, phase_beside(
                                   "immune_held", tmp, IMMUNE_HELD_TIMEOUT_S,
-                                  tmp) as immune_held_report:
+                                  tmp) as immune_held_report, phase_beside(
+                                  "flex_held", tmp, FLEX_HELD_TIMEOUT_S,
+                                  tmp) as flex_held_report, phase_beside(
+                                  "analysis_both", tmp, ANALYSIS_TIMEOUT_S,
+                                  tmp) as analysis_report:
                 g = h5_pipelines(fx, tmp, e2e_out, ovf_out)
                 launches["h5_pipelines"] = g["sw_launches"]
                 phase("h5_pipelines", "aggr, GEM wells and reanalyze "
@@ -5589,17 +6199,14 @@ def main() -> None:
                 phase("multi", "cells in the samples they were built for: "
                       + json.dumps(g))
 
-                g = analysis(tmp)
-                launches["analysis"] = g["sw_launches"]
-                phase("analysis", f"{smi}: " + json.dumps(g))
-                phase("analysis_parity", "cuda against cpu, two cuda runs "
-                      "identical: " + json.dumps(analysis_parity(tmp)))
                 g = depth_small_report()
                 immune = immune_held_report()
+                flex = flex_held_report()
+                both = analysis_report()
             launches["depth_small"] = g["sw_launches"]
             phase("depth_small", f"{smi}: {g['reads']} reads of the depth "
                   "fixture in a child process beside "
-                  "h5_pipelines..analysis_parity, count-only with the state "
+                  "h5_pipelines..multi, count-only with the state "
                   "flushing and with BAM in parts of at most "
                   f"{g['bam']['bam_split']['band_records']} records: the "
                   "fixture's truth, the same MEX: " + json.dumps(g))
@@ -5607,15 +6214,36 @@ def main() -> None:
             phase("immune_held", f"{smi}: run_multi of a 5' well (GEX, "
                   "VDJ-T with two-alpha clones and VDJ-B with a two-light "
                   "clone, planted dropouts, one TR + IG reference) in a "
-                  "child process beside h5_pipelines..analysis_parity: "
+                  "child process beside h5_pipelines..multi: "
                   f"{immune['files_equal']} digests the JAX package's "
                   "and the well's truth: " + json.dumps(immune))
+            launches["flex_held"] = flex["sw_launches"]
+            phase("flex_held", f"{smi}: run_multi of a multiplexed Flex "
+                  "well (16 probe barcodes, beads shared between samples, "
+                  "one sample of two probe barcodes, one probe barcode of "
+                  "no sample) in a child process beside "
+                  f"h5_pipelines..multi: {flex['files_equal']} digests "
+                  "the JAX package's and the well's truth: "
+                  + json.dumps(flex))
+            launches["analysis"] = both["analysis"]["sw_launches"]
+            # its times share the host's cores with the phases beside it,
+            # so they do not compare with a serial run's
+            both["analysis"]["timed_beside"] = [
+                "h5_pipelines..multi", "depth_small", "immune_held",
+                "flex_held"]
+            phase("analysis", f"{smi}: in a child process beside "
+                  "h5_pipelines..multi, depth_small, immune_held and "
+                  "flex_held, its times taken under their load: "
+                  + json.dumps(both["analysis"]))
+            phase("analysis_parity", "cuda against cpu, two cuda runs "
+                  "identical, in the same child process after analysis: "
+                  + json.dumps(both["analysis_parity"]))
 
             g = cellplex_report()
             launches["cellplex"] = g["sw_launches"]
             phase("cellplex", f"{smi}: run_multi of a CellPlex GEM well, 12 "
                   "CMOs and 17 antibodies, "
-                  "in a child process beside index_build..analysis_parity, "
+                  "in a child process beside index_build..multi, "
                   "held to the JAX package's run and the planted truth: "
                   + json.dumps(g))
             g = vdj_b_report()
@@ -5623,7 +6251,7 @@ def main() -> None:
         phase("vdj_b", f"{smi}: run_vdj of {g['cells']} B cells (IGH with "
               "IGK or IGL, isotypes, somatic hypermutation, "
               f"{g['plasma_cells']} plasma cells past the 80,000-row cap) "
-              "in a child process beside index_build..analysis_parity, "
+              "in a child process beside index_build..multi, "
               "held to the fixture's truth: " + json.dumps(g))
 
         with phase_beside("analysis_68k", tmp, ANALYSIS_68K_TIMEOUT_S,

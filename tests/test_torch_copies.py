@@ -44,7 +44,7 @@ COPIED_MODULES = [
     "analysis/sgt.py", "analysis/cell_calling.py", "analysis/subsample.py",
     "analysis/multigenome.py", "analysis/aggregates.py",
     "analysis/feature_assigner.py",
-    "analysis/preprocess.py", "analysis/hclust.py", "analysis/diffexp.py",
+    "analysis/preprocess.py", "analysis/hclust.py",
     "testing/correctness.py",
     "io/probe_set.py", "io/probe_bc.py", "io/bam_filter.py",
     "analysis/jibes.py",
